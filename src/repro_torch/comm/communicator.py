@@ -1,0 +1,125 @@
+"""Modular communicator abstraction (the paper's §IV-B), for stacked ranks.
+
+The torch counterpart of ``repro.comm.communicator``.  DDF communication
+routines are written against this interface; backends plug in below it.
+
+Layout convention.  Every tensor a communicator takes or returns carries
+a leading axis over the ranks the calling process holds.  The stacked
+communicator (``comm.stacked``) holds all ``p`` ranks on one device, so
+that axis has length ``p``; a communicator with one rank per process
+would hold one.  Below, shapes are written per rank, after that axis:
+
+Block-major ``all_to_all``: rank ``i`` passes ``(p, m, ...)`` where block
+``j`` is destined to rank ``j``; output block ``j`` is the block received
+from rank ``j`` (MPI semantics).
+"""
+
+from __future__ import annotations
+
+import abc
+
+import torch
+
+
+class Communicator(abc.ABC):
+    """Abstract DDF communicator over ``parallelism`` ranks."""
+
+    def __init__(self, parallelism: int):
+        self.parallelism = parallelism
+
+    # ------------------------------------------------------------------ #
+    # Introspection
+    # ------------------------------------------------------------------ #
+    def size(self) -> int:
+        return self.parallelism
+
+    @abc.abstractmethod
+    def rank(self, device=None) -> torch.Tensor:
+        """(ranks held,) int32: each held rank's index."""
+
+    # ------------------------------------------------------------------ #
+    # Collective routines (the set identified in the paper §III-B2)
+    # ------------------------------------------------------------------ #
+    @abc.abstractmethod
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (p, m, ...) block-major per rank -> (p, m, ...);
+        out[j] = block from rank j."""
+
+    @abc.abstractmethod
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (m, ...) per rank -> (p, m, ...) stacked by rank."""
+
+    @abc.abstractmethod
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum across ranks."""
+
+    @abc.abstractmethod
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max across ranks."""
+
+    @abc.abstractmethod
+    def all_reduce_min(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise min across ranks."""
+
+    @abc.abstractmethod
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (p, m, ...) block-major per rank -> (m, ...): sum over ranks
+        of block[rank]."""
+
+    @abc.abstractmethod
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """Send rank ``src``'s value to ``dst`` for each (src, dst) pair;
+        ranks that receive nothing get zeros."""
+
+    # Non-abstract conveniences -----------------------------------------#
+    def all_to_all_chunked(self, x: torch.Tensor, chunks: int = 1
+                           ) -> torch.Tensor:
+        """All-to-all issued as ``chunks`` smaller collectives along the
+        capacity axis (per rank, axis 1), padded to a multiple of
+        ``chunks`` and sliced back.  Invalid ``chunks`` raise
+        ``ValueError`` up front."""
+        x, m, csz = self._chunk_split(x, chunks)
+        if csz is None:
+            return self.all_to_all(x)
+        outs = [self.all_to_all(x[:, :, c * csz:(c + 1) * csz])
+                for c in range(chunks)]
+        return torch.cat(outs, dim=2)[:, :, :m]
+
+    def _chunk_split(self, x: torch.Tensor, chunks: int):
+        """Pad the capacity axis to a multiple of ``chunks``; returns
+        (x, orig_m, chunk_size), chunk_size None for one collective."""
+        local = tuple(x.shape[1:])
+        if len(local) < 2:
+            raise ValueError(
+                f"all_to_all_chunked needs a (p, m, ...) block-major array "
+                f"with a capacity axis to chunk; got shape {local}")
+        m = local[1]
+        if not isinstance(chunks, int) or isinstance(chunks, bool) \
+                or chunks < 1:
+            raise ValueError(
+                f"all_to_all_chunked: chunks must be a positive int, got "
+                f"{chunks!r} (capacity axis 1 has {m} rows)")
+        if chunks > max(m, 1):
+            raise ValueError(
+                f"all_to_all_chunked: cannot split the capacity axis "
+                f"(axis 1, {m} rows) into {chunks} chunks — chunks must "
+                f"be <= rows; rows not divisible by chunks are padded")
+        if chunks <= 1:
+            return x, m, None
+        mp = -(-m // chunks) * chunks
+        if mp != m:
+            pad = torch.zeros(x.shape[:2] + (mp - m,) + x.shape[3:],
+                              dtype=x.dtype, device=x.device)
+            x = torch.cat([x, pad], dim=2)
+        return x, m, mp // chunks
+
+    def broadcast(self, x: torch.Tensor, root: int = 0) -> torch.Tensor:
+        """Rank ``root``'s value on every rank."""
+        sel = (self.rank(x.device) == root).to(x.dtype)
+        return self.all_reduce(x * sel.reshape((-1,) + (1,) * (x.dim() - 1)))
+
+    def exchange_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """All-to-all of per-destination row counts (the AllToAllv counts
+        round): counts[j] = rows this rank sends to rank j -> recv[j] =
+        rows rank j sends to this rank."""
+        return self.all_to_all(counts[..., None])[..., 0]

@@ -1,0 +1,59 @@
+"""Stacked-ranks communicator: all ``p`` ranks on one device.
+
+Rank ``r`` is slice ``r`` of a leading ``(p, ...)`` axis, so every
+collective is a tensor reshuffle on the device: ``all_to_all`` transposes
+the two rank axes, ``all_gather`` broadcasts, ``all_reduce`` sums over
+axis 0.  This is what lets an 8-rank plan run on one H100 (and on the CPU
+in the tests) with the JAX package's collective semantics.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .communicator import Communicator
+
+
+class StackedCommunicator(Communicator):
+    def rank(self, device=None) -> torch.Tensor:
+        return torch.arange(self.parallelism, dtype=torch.int32,
+                            device=device)
+
+    def _check(self, x: torch.Tensor, block_major: bool = False) -> None:
+        p = self.parallelism
+        if x.shape[0] != p or (block_major and (x.dim() < 2
+                                                or x.shape[1] != p)):
+            want = "(p, p, ...)" if block_major else "(p, ...)"
+            raise ValueError(f"stacked communicator over {p} ranks "
+                             f"needs {want}, got {tuple(x.shape)}")
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x, block_major=True)
+        return x.transpose(0, 1).contiguous()
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        return x.unsqueeze(0).expand((self.parallelism,) + tuple(x.shape))
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        return x.sum(dim=0, keepdim=True, dtype=x.dtype).expand_as(x)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        return x.amax(dim=0, keepdim=True).expand_as(x)
+
+    def all_reduce_min(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x)
+        return x.amin(dim=0, keepdim=True).expand_as(x)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        self._check(x, block_major=True)
+        return x.sum(dim=0, dtype=x.dtype)
+
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        self._check(x)
+        out = torch.zeros_like(x)
+        for src, dst in perm:
+            out[dst] = x[src]
+        return out

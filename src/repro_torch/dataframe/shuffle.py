@@ -1,0 +1,215 @@
+"""Distributed shuffle: capacity-based all-to-all (the paper's core comm op).
+
+The torch counterpart of ``repro.dataframe.shuffle``, batched over stacked
+ranks.  The MoE-capacity idiom:
+
+  1. hash keys -> destination rank (or take explicit destinations),
+  2. counts exchange (tiny all_to_all) for the receive counts,
+  3. rows are bucketed into a ``(p, bucket_capacity)`` send buffer
+     (overflow rows are dropped and *counted* —
+     ``ShuffleStats.send_dropped``),
+  4. one data all_to_all of the packed buffer (4-byte columns are bitcast
+     into one ``(p, cap, ncols)`` 32-bit buffer), optionally *chunked*
+     along the capacity axis (``a2a_chunks``),
+  5. receive-side compaction back to a fixed-capacity ``Table``.
+
+Two bucketize/compaction implementations (``impl``):
+
+* ``"radix"`` (default) — sort-free.  The ``kernels.radix_partition``
+  (rank-in-bucket, histogram) pair drives a direct scatter of the packed
+  rows; on the receive side exclusive prefix sums over ``recv_counts``
+  give every received row its output slot.  On a CUDA tensor the
+  bucketize is the hand-written Hopper kernel.
+* ``"sorted"`` — the two-sort baseline, kept as the parity oracle.
+
+Both produce the same rows in the same slots as each other and as the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..comm import Communicator
+from ..kernels import radix_partition
+from .ops_local import hash_columns
+from .table import Table, gather_rows, scatter_rows
+
+
+@dataclasses.dataclass
+class ShuffleStats:
+    """Per-rank observability for one shuffle (tensors + static tags)."""
+
+    sent_counts: torch.Tensor   # (p, p) rows sent to each rank
+    recv_counts: torch.Tensor   # (p, p) rows received from each rank
+    send_dropped: torch.Tensor  # (p,) rows dropped by send-bucket capacity
+    recv_dropped: torch.Tensor  # (p,) rows dropped by receive capacity
+    shuffle_impl: str = "radix"   # static: which bucketize path ran
+    a2a_chunks: int = 1           # static: all-to-all pipeline depth
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+#: skew headroom of the default send bucket over the balanced share
+CAPACITY_FACTOR = 2.0
+
+
+def default_bucket_capacity(capacity: int, p: int) -> int:
+    """Per-destination bucket size: balanced share × skew headroom, 8-aligned."""
+    return max(8, _round_up(int(-(-capacity // p) * CAPACITY_FACTOR), 8))
+
+
+#: column dtypes that travel in the packed 32-bit buffer
+PACKABLE = (torch.float32, torch.int32, torch.bool)
+
+
+def _pack_u32(cols: Dict[str, torch.Tensor], names) -> torch.Tensor:
+    """Bitcast 4-byte columns to 32 bits and stack: (p, cap) xN ->
+    (p, cap, N) int32 (bool masks widen to a 32-bit lane)."""
+    parts = []
+    for n in names:
+        v = cols[n]
+        if v.dtype == torch.float32:
+            v = v.view(torch.int32)
+        elif v.dtype == torch.bool:
+            v = v.to(torch.int32)
+        elif v.dtype != torch.int32:
+            raise TypeError(n)
+        parts.append(v)
+    return torch.stack(parts, dim=-1)
+
+
+def _unpack_u32(buf: torch.Tensor, names, dtypes) -> Dict[str, torch.Tensor]:
+    out = {}
+    for i, n in enumerate(names):
+        v = buf[..., i]
+        if dtypes[n] == torch.float32:
+            v = v.contiguous().view(torch.float32)
+        else:
+            v = v.to(dtypes[n])
+        out[n] = v
+    return out
+
+
+def hash_dest(table: Table, key_cols: Sequence[str], p: int) -> torch.Tensor:
+    """(p, cap) int32 destination rank ``hash(keys) % p`` of every row."""
+    return (hash_columns(table, key_cols) % p).to(torch.int32)
+
+
+def shuffle(
+    table: Table,
+    comm: Communicator,
+    key_cols: Optional[Sequence[str]] = None,
+    dest: Optional[torch.Tensor] = None,
+    bucket_capacity: Optional[int] = None,
+    out_capacity: Optional[int] = None,
+    impl: str = "radix",
+    a2a_chunks: int = 1,
+    debug_overflow: bool = False,
+    label: str = "",
+) -> Tuple[Table, ShuffleStats]:
+    """Repartition rows across ranks by key hash or explicit ``dest``.
+
+    ``impl`` selects the sort-free ``"radix"`` path or the ``"sorted"``
+    baseline; ``a2a_chunks`` splits the data collective into k pieces.
+    Dropped rows are always counted in the stats.  ``label`` only names
+    the shuffle for the caller.
+    """
+    if impl not in ("radix", "sorted"):
+        raise ValueError(f"unknown shuffle impl {impl!r}")
+    if debug_overflow:
+        raise NotImplementedError(
+            "debug_overflow waits for the observability slice of the port; "
+            "drops are counted in ShuffleStats (collect_stats=True)")
+    p = comm.size()
+    cap = table.capacity
+    dev = table.device
+    bucket_cap = bucket_capacity or default_bucket_capacity(cap, p)
+    out_cap = out_capacity or cap
+    valid = table.valid_mask()
+
+    if dest is None:
+        if not key_cols:
+            raise ValueError("need key_cols or dest")
+        dest = hash_dest(table, key_cols, p)
+    dest = torch.where(valid, dest.to(torch.int32), p)  # invalid -> bin p
+
+    # --- bucketize: per-row send-buffer slot ----------------------------- #
+    order = None
+    if impl == "radix":
+        row_rank, hist = radix_partition(dest, p + 1)
+        raw_counts = hist[:, :p]
+        row_dest = dest
+    else:
+        srt = torch.sort(dest, dim=1, stable=True)
+        order, row_dest = srt.indices, srt.values
+        pos = torch.arange(cap, device=dev)
+        row_rank = pos - torch.searchsorted(row_dest, row_dest, side="left")
+        raw_counts = torch.zeros((p, p + 1), dtype=torch.int32,
+                                 device=dev).scatter_add_(
+            1, dest.to(torch.int64), torch.ones_like(dest))[:, :p]
+
+    sent_counts = torch.clamp(raw_counts, max=bucket_cap)
+    send_dropped = (raw_counts - sent_counts).sum(dim=1, dtype=torch.int32)
+
+    in_bucket = (row_dest < p) & (row_rank < bucket_cap)
+    slot = torch.where(in_bucket, row_dest.to(torch.int64) * bucket_cap
+                       + row_rank, p * bucket_cap)
+
+    names = table.column_names
+    dtypes = {n: table.columns[n].dtype for n in names}
+    packables = [n for n in names if dtypes[n] in PACKABLE
+                 and table.columns[n].dim() == 2]
+    singles = [n for n in names if n not in packables]
+
+    def _send(col: torch.Tensor) -> torch.Tensor:
+        # radix: direct scatter by original row; sorted: rows were gathered
+        # into destination order first
+        if order is not None:
+            col = gather_rows(col, order)
+        buf = scatter_rows(p * bucket_cap, slot, col)
+        buf = buf.reshape((p, p, bucket_cap) + col.shape[2:])
+        got = comm.all_to_all_chunked(buf, chunks=a2a_chunks)
+        return got.reshape((p, p * bucket_cap) + col.shape[2:])
+
+    recv_cols: Dict[str, torch.Tensor] = {}
+    if packables:
+        recv_cols.update(_unpack_u32(
+            _send(_pack_u32(table.columns, packables)), packables, dtypes))
+    for n in singles:
+        recv_cols[n] = _send(table.columns[n])
+
+    recv_counts = comm.exchange_counts(sent_counts)
+    total_recv = recv_counts.sum(dim=1, dtype=torch.int32)
+    new_count = torch.clamp(total_recv, max=out_cap)
+
+    # --- receive-side compaction ----------------------------------------- #
+    ridx = torch.arange(p * bucket_cap, device=dev)
+    blk, q = ridx // bucket_cap, ridx % bucket_cap
+    r_valid = q[None, :] < recv_counts[:, blk]
+    out_size = min(p * bucket_cap, out_cap)
+    if impl == "radix":
+        # slot of a valid row (blk, q) is its rank in the (source-rank,
+        # slot) enumeration = exclusive prefix over recv_counts
+        offsets = torch.cumsum(recv_counts, dim=1) - recv_counts
+        out_pos = offsets[:, blk].to(torch.int64) + q[None, :]
+        out_pos = torch.where(r_valid & (out_pos < out_size), out_pos,
+                              out_size)
+        out_cols = {n: scatter_rows(out_size, out_pos, v)
+                    for n, v in recv_cols.items()}
+    else:
+        order2 = torch.sort((~r_valid).to(torch.int32), dim=1,
+                            stable=True).indices[:, :out_cap]
+        out_cols = {n: gather_rows(v, order2) for n, v in recv_cols.items()}
+
+    recv_dropped = torch.clamp(total_recv - out_cap, min=0)
+    out = Table(out_cols, new_count).mask_padding()
+    stats = ShuffleStats(sent_counts, recv_counts, send_dropped,
+                         recv_dropped, shuffle_impl=impl,
+                         a2a_chunks=a2a_chunks)
+    return out, stats

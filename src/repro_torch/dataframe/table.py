@@ -1,0 +1,117 @@
+"""Columnar table with static capacity, batched over stacked ranks.
+
+The torch counterpart of ``repro.dataframe.table``.  A partition is a set
+of fixed-capacity columns plus a ``row_count``; rows ``[0, row_count)`` are
+valid and **compacted to the front** (every operator maintains this).
+
+Where the JAX package runs ``p`` ranks as ``p`` devices under
+``shard_map`` and a ``Table`` is one rank's view, here all ranks are
+stacked on one device: every column is ``(p, capacity, ...)`` and
+``row_count`` is ``(p,)`` int32.  Every local operator is written batched
+over that leading rank axis, so one launch covers all ranks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Sequence, Tuple
+
+import torch
+
+
+def _sentinel_for(dtype: torch.dtype):
+    """Ordering value that sorts after every valid value of ``dtype``."""
+    if dtype.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dtype).max
+
+
+def gather_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-rank row gather: ``out[r, i] = v[r, idx[r, i]]`` (trailing dims
+    of ``v`` ride along)."""
+    if v.dim() > 2:
+        idx = idx.reshape(idx.shape + (1,) * (v.dim() - 2)).expand(
+            idx.shape + v.shape[2:])
+    return torch.gather(v, 1, idx)
+
+
+def scatter_rows(size: int, pos: torch.Tensor, v: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-rank scatter with JAX's ``.at[pos].set(v, mode="drop")``:
+    positions equal to ``size`` land in one extra trash slot that is
+    sliced off.  ``pos`` must lie in ``[0, size]``."""
+    out = torch.zeros((v.shape[0], size + 1) + v.shape[2:], dtype=v.dtype,
+                      device=v.device)
+    if v.dim() > 2:
+        pos = pos.reshape(pos.shape + (1,) * (v.dim() - 2)).expand(v.shape)
+    out.scatter_(1, pos, v)
+    return out[:, :size]
+
+
+def stable_partition_order(keep: torch.Tensor) -> torch.Tensor:
+    """The permutation a stable argsort of ``where(keep, 0, 1)`` gives:
+    kept rows in order, then the rest in order — computed in O(n) with
+    one prefix sum instead of a sort.  ``keep``: (p, n) bool -> (p, n)
+    int64."""
+    kept_before = torch.cumsum(keep, dim=1)            # kept rows in [0, i]
+    n_keep = kept_before[:, -1:]
+    i = torch.arange(keep.shape[1], device=keep.device)
+    pos = torch.where(keep, kept_before - 1, n_keep + i - kept_before)
+    return torch.empty_like(pos).scatter_(1, pos, i.expand_as(pos))
+
+
+@dataclasses.dataclass
+class Table:
+    """All ranks' partitions: dict of (p, capacity)-shaped columns plus a
+    (p,) int32 valid row count."""
+
+    columns: Dict[str, torch.Tensor]
+    row_count: torch.Tensor  # (p,) int32
+
+    @property
+    def parallelism(self) -> int:
+        return self.row_count.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return next(iter(self.columns.values())).shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_count.device
+
+    @property
+    def column_names(self) -> Tuple[str, ...]:
+        return tuple(sorted(self.columns))
+
+    def valid_mask(self) -> torch.Tensor:
+        """(p, capacity) bool: True on each rank's valid prefix."""
+        idx = torch.arange(self.capacity, dtype=torch.int32,
+                           device=self.device)
+        return idx[None, :] < self.row_count[:, None]
+
+    # ------------------------------------------------------------------ #
+    # structural ops (no communication)
+    # ------------------------------------------------------------------ #
+    def select(self, names: Sequence[str]) -> "Table":
+        return Table({n: self.columns[n] for n in names}, self.row_count)
+
+    def rename(self, mapping: Mapping[str, str]) -> "Table":
+        cols = {mapping.get(k, k): v for k, v in self.columns.items()}
+        return Table(cols, self.row_count)
+
+    def take(self, idx: torch.Tensor, new_count: torch.Tensor) -> "Table":
+        """Gather rows by per-rank index ``idx`` (p, m); invalid slots may
+        point anywhere in range."""
+        cols = {k: gather_rows(v, idx) for k, v in self.columns.items()}
+        return Table(cols, new_count.to(torch.int32))
+
+    def mask_padding(self) -> "Table":
+        """Zero out the padding region (canonicalises sentinel garbage)."""
+        m = self.valid_mask()
+        cols = {}
+        for k, v in self.columns.items():
+            mm = m.reshape(m.shape + (1,) * (v.dim() - 2))
+            cols[k] = torch.where(mm, v, torch.zeros((), dtype=v.dtype,
+                                                     device=v.device))
+        return Table(cols, self.row_count)

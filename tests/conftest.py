@@ -9,6 +9,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "multidevice: 8-device subprocess integration scenario")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (CUDA kernels of repro_torch)")
 
 
 @pytest.fixture
