@@ -7,19 +7,31 @@ Needs one CUDA card, the CUDA toolkit (``nvcc``) and PyTorch built for
 CUDA; imports nothing of JAX or of the JAX package.  Phases, each of which
 ends the run with a non-zero exit code if it fails:
 
-1. builds every CUDA kernel of the port from the sources in the checkout;
+1. builds every CUDA kernel of the port from the sources in the checkout
+   (one nvcc per source, all started together);
 2. kernels: each kernel's wrapper against its plain PyTorch version on
-   the card, exactly, at the main path's shapes and edge cases, timed
-   with CUDA events;
-3. main path: the paper's Fig-9 pipeline (join -> groupby(sum) -> sort ->
+   the card, at the main paths' shapes and edge cases, timed with CUDA
+   events (L2 overwritten before each launch), beside its bound and, where
+   one PyTorch call computes the same function, that call's time;
+3. Fig-9: the paper's pipeline (join -> groupby(sum) -> sort ->
    add_scalar) through ``execute`` at 2 x 2**25 rows over 8 ranks stacked
    on the card, in ``bsp``, ``bsp_staged`` and ``amt``, twice each, with
    kernel launch counts reset just before each run and read just after
    it (each shuffle of ``bsp`` and ``bsp_staged`` launches the radix
    kernel once; ``amt`` shuffles by all-gather and launches it never);
    results are held against a numpy computation on the host;
-4. parity: the same plan at 2**16 rows, optimizer on and off, on the card
-   and on the CPU (plain kernels), compared slot for slot.
+4. Fig-9 parity: the same plan at 2**16 rows, optimizer on and off, on
+   the card and on the CPU (plain kernels), compared slot for slot;
+5. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
+   a seeded generator, batch 4, prompt 4096, 32 new tokens, greedy)
+   through ``ServeEngine``, twice each; launch counts reset just before
+   each prefill and each decode step and read just after it (flash
+   attention once per qwen3-8b layer in prefill, the SSD scan once per
+   mamba2 layer, neither in decode); time to first token, decode time per
+   step, tokens per second and peak device memory;
+6. serving parity: both SMOKE configs with the same weights on the card
+   (kernels forced, prompts longer than a tile) and on the CPU (plain
+   versions): prefill logits within 1e-3, greedy tokens equal.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
@@ -38,7 +50,15 @@ FULL_ROWS = 1 << 25      # rows per input table on the main path
 PARITY_ROWS = 1 << 16
 P = 8                    # ranks stacked on the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_FLOPS = 67e12           # float32 outside the tensor cores, H100 SXM
+BF16_FLOPS = 989e12         # dense bf16 tensor cores, H100 SXM
 L2_BYTES = 50 * 1024 * 1024
+#: the serving phase's full-width cases: arch, batch, prompt, new tokens
+SERVE_CASES = (("qwen3-8b", 4, 4096, 32), ("mamba2-780m", 4, 4096, 32))
+#: the CUDA kernel each served arch's prefill must launch once per layer
+SERVE_KERNEL = {"qwen3-8b": "flash_attention", "mamba2-780m": "ssd_scan"}
+#: the impl that forces that kernel in the serving parity phase
+KERNEL_IMPL = {"qwen3-8b": "flash", "mamba2-780m": "kernel"}
 
 
 def check(cond, msg):
@@ -99,11 +119,10 @@ def time_cuda(torch, fn, iters, flush):
     return float(np.median(times))
 
 
-def kernel_phase(torch, cap):
+def radix_phase(torch, cap, flush):
     from repro_torch.kernels import radix_partition_cuda, radix_partition_ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
     # (p, n, nb): the join's shuffles (n = cap) and the sort's (n = 4 cap)
     # on the main path, then a wide case, a large bucket count and n = 0
     cases = [("main:join", P, cap, P + 1), ("main:sort", P, 4 * cap, P + 1),
@@ -130,6 +149,7 @@ def kernel_phase(torch, cap):
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         out.append(dict(case=name, p=p, n=n, nb=nb, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by="bytes", library_ms=None,
                         max_abs_err=err))
         print(f"kernel radix_partition {name:10s} p={p} n={n} nb={nb}: "
               f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
@@ -241,10 +261,7 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
 
 
 def profile_bsp(env, plan, tables, top=10):
-    """One more cached ``bsp`` run under ``torch.profiler``: device time by
-    PyTorch operator and by kernel, and the device's busy share of the
-    run's wall time (the profiler's own overhead is in that wall time)."""
-    from torch.autograd import DeviceType
+    """One more cached ``bsp`` run under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import execute
     env.synchronize()
@@ -254,6 +271,15 @@ def profile_bsp(env, plan, tables, top=10):
         execute(plan, env, tables, mode="bsp")
         env.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    report_profile(prof, wall_ms, "bsp (cached run under the profiler)",
+                   top)
+
+
+def report_profile(prof, wall_ms, title, top=10):
+    """Device time by PyTorch operator and by kernel, and the device's
+    busy share of the window's wall time (the profiler's own overhead is
+    in that wall time)."""
+    from torch.autograd import DeviceType
 
     def dev_ms(e):
         return (getattr(e, "self_device_time_total", None)
@@ -265,18 +291,45 @@ def profile_bsp(env, plan, tables, top=10):
     ops = [e for e in events if e.key.startswith("aten::")]
     busy = sum(dev_ms(e) for e in kernels)
     if not busy:
-        print("profile bsp: the profiler recorded no device time; device "
-              "busy share not measured", flush=True)
+        print(f"profile {title}: the profiler recorded no device time; "
+              f"device busy share not measured", flush=True)
         return
-    print(f"profile bsp (cached run under the profiler): wall "
-          f"{wall_ms:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%, idle "
-          f"{100 - 100 * busy / wall_ms:.1f}%)", flush=True)
-    for title, rows in (("by operator", ops), ("by kernel", kernels)):
-        print(f"profile bsp, device time {title}:")
+    print(f"profile {title}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%, idle "
+          f"{100 - 100 * busy / wall_ms:.1f}%), {sum(e.count for e in kernels)}"
+          f" kernel launches", flush=True)
+    for name, rows in (("by operator", ops), ("by kernel", kernels)):
+        print(f"profile {title}, device time {name}:")
         for e in sorted(rows, key=dev_ms, reverse=True)[:top]:
             print(f"  {dev_ms(e):9.2f} ms {100 * dev_ms(e) / busy:5.1f}% "
                   f"{e.count:5d}x  {e.key[:100]}")
+
+
+def profile_serve(torch, engine, prompts, arch, steps=8, top=8):
+    """One prefill, then ``steps`` greedy decode steps, each window under
+    ``torch.profiler``: where the device time goes and how much of the
+    wall time the device is idle."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        logits, caches = engine.prefill(tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    report_profile(prof, wall_ms, f"{arch} prefill", top)
+    s0 = tokens.shape[1]
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for step in range(steps):
+            tok = torch.argmax(logits, dim=-1)
+            pos = torch.full((tokens.shape[0],), s0 + step,
+                             dtype=torch.int32, device="cuda")
+            logits = engine.decode_step(caches, tok[:, None], pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    report_profile(prof, wall_ms, f"{arch} decode x{steps}", top)
 
 
 def parity_phase(devices=("cuda", "cpu")):
@@ -308,22 +361,298 @@ def parity_phase(devices=("cuda", "cpu")):
             print(f"{tag}: card == cpu ({int(gn.sum())} rows)", flush=True)
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+def flash_flops(sq, sk, d, bhq, causal):
+    """FLOPs the attention needs: 4 D per visible (query, key) pair (Q K^T
+    and P V); a causal query i sees keys <= i + Sk - Sq."""
+    if causal:
+        vis = np.minimum(np.arange(sq) + (sk - sq) + 1, sk).sum()
+    else:
+        vis = sq * sk
+    return 4.0 * d * bhq * float(vis)
+
+
+def flash_phase(torch, flush):
+    """Flash-attention kernel vs ``attention_ref`` on the card; returns the
+    per-case records (the first is the main path's shape, f32)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention_ref, flash_attention_cuda
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # (b, hq, hkv, sq, sk, d, causal, dtype): the qwen3-8b prefill at a
+    # 4096-token prompt in f32 and bf16, Sq != Sk, a length off the 64-row
+    # tile, non-causal over ragged keys
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("main", 4, 32, 8, 4096, 4096, 128, True, f32),
+             ("main:bf16", 4, 32, 8, 4096, 4096, 128, True, bf16),
+             ("sq<sk", 4, 32, 8, 1024, 4096, 128, True, f32),
+             ("ragged", 2, 32, 8, 4000, 4000, 128, True, f32),
+             ("noncausal", 2, 32, 8, 1000, 3001, 128, False, f32)]
+    out = []
+    for name, b, hq, hkv, sq, sk, d, causal, dt in cases:
+        q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dt)
+        k = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
+        got = flash_attention_cuda(q, k, v, causal)
+        want = attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        # tests/test_kernels.py's tolerances: 2e-3 in f32; 2e-2 in bf16,
+        # held relative to each output (plus 2e-3), since the outputs of
+        # late query rows are an order of magnitude under those of the
+        # first rows and an absolute 2e-2 would pass a dropped key tile
+        if dt == f32:
+            ok, tol = err <= 2e-3, "2e-3"
+        else:
+            ok = bool((diff <= 2e-2 * want.float().abs() + 2e-3).all())
+            tol = "2e-2 |want| + 2e-3"
+        check(ok, f"flash_attention CUDA != plain at {name}: max |err| "
+              f"{err} beyond {tol}")
+        del got, want
+        ms = time_cuda(torch, lambda: flash_attention_cuda(q, k, v, causal),
+                       10, flush)
+        plain_ms = time_cuda(torch, lambda: attention_ref(q, k, v, causal),
+                             3, flush)
+        lib_ms = None
+        if name.startswith("main"):
+            lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 10, flush)
+        flops = flash_flops(sq, sk, d, b * hq, causal)
+        nbytes = (q.numel() * 2 + 2 * k.numel()) * q.element_size()
+        peak = F32_FLOPS if dt == f32 else BF16_FLOPS
+        bound_ms = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+        out.append(dict(case=name, shape=[b, hq, hkv, sq, sk, d],
+                        causal=causal, dtype=str(dt).split(".")[-1], ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=("operations" if flops / peak
+                                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
+                        peak=("f32 67 TFLOP/s" if dt == f32
+                              else "bf16 dense 989 TFLOP/s"),
+                        library_ms=lib_ms, max_abs_err=err))
+        lib = f", sdpa {lib_ms:.3f} ms" if lib_ms is not None else ""
+        print(f"kernel flash_attention {name:9s} {out[-1]['dtype']} "
+              f"b={b} hq={hq} hkv={hkv} sq={sq} sk={sk} d={d} "
+              f"causal={causal}: {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms{lib}), max |err| {err:.2e}",
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssd_counts(bh, t, p, n, chunk):
+    """(FLOPs, bytes) the SSD scan needs: per chunk of length l, the
+    lower triangle of C B^T (l(l+1)/2 N) and of M X (l(l+1)/2 P), C h and
+    B^T X (l N P each), two FLOPs per multiply-add; each input read and
+    each output written once, float32."""
+    ch = min(chunk, -(-t // 8) * 8)
+    macs = 0
+    for t0 in range(0, t, ch):
+        ln = min(ch, t - t0)
+        macs += ln * (ln + 1) // 2 * (n + p) + 2 * ln * n * p
+    nbytes = 4 * bh * (t * p + t + 1 + 2 * t * n + t * p + n * p)
+    return 2.0 * bh * macs, nbytes
+
+
+def ssd_phase(torch, flush):
+    """SSD-scan kernel vs ``ssd_scan_chunked`` on the card; the first case
+    is the mamba2-780m prefill at a 4096-token prompt (B*nh = 4*48)."""
+    from repro_torch.kernels import ssd_scan, ssd_scan_chunked
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = [("main", 192, 4096, 64, 128, 128),
+             ("ragged", 192, 4000, 64, 128, 128),    # last chunk 32 rows
+             ("short", 48, 13, 64, 128, 128),        # T < chunk, off 8
+             ("smoke", 8, 100, 16, 16, 32)]          # the SMOKE dims
+    out = []
+    for name, bh, t, p, n, chunk in cases:
+        x = torch.randn(bh, t, p, generator=gen, device=dev)
+        dt = torch.rand(bh, t, 1, generator=gen, device=dev) * 0.1 + 0.01
+        a = -torch.rand(bh, 1, generator=gen, device=dev) - 0.05
+        b = torch.randn(bh, t, n, generator=gen, device=dev)
+        c = torch.randn(bh, t, n, generator=gen, device=dev)
+        ch = min(chunk, -(-t // 8) * 8)
+        y, h = ssd_scan(x, dt, a, b, c, chunk=chunk)
+        y_p, h_p = ssd_scan_chunked(x, dt, a, b, c, chunk=ch)
+        torch.cuda.synchronize()
+        err = max(float((y - y_p).abs().max()), float((h - h_p).abs().max()))
+        check(err <= 3e-3, f"ssd_scan CUDA != plain at {name}: {err} > 3e-3")
+        ms = time_cuda(torch, lambda: ssd_scan(x, dt, a, b, c, chunk=chunk),
+                       10, flush)
+        plain_ms = time_cuda(torch, lambda: ssd_scan_chunked(
+            x, dt, a, b, c, chunk=ch), 3, flush)
+        flops, nbytes = ssd_counts(bh, t, p, n, chunk)
+        op_ms, byte_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out.append(dict(case=name, shape=[bh, t, p, n, chunk], ms=ms,
+                        plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
+                        bound_by="operations" if op_ms >= byte_ms else "bytes",
+                        library_ms=None, max_abs_err=err))
+        print(f"kernel ssd_scan {name:6s} bh={bh} t={t} p={p} n={n} "
+              f"chunk={chunk}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
+              f"{max(op_ms, byte_ms):.3f} ms by {out[-1]['bound_by']}), "
+              f"max |err| {err:.2e}", flush=True)
+        del x, dt, a, b, c, y, h, y_p, h_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def instrument(torch, engine, rec):
+    """Wrap the engine's prefill and decode step: kernel launch counts are
+    reset just before each call and read just after it; the prefill is
+    timed to its end on the device (time to first token) and its logits
+    are checked finite."""
+    from repro_torch.kernels import CUDA_KERNELS, reset_launches
+    prefill, decode = engine.prefill, engine.decode_step
+
+    def counts():
+        return {k.name: k.launches for k in CUDA_KERNELS}
+
+    def counted_prefill(tokens):
+        reset_launches()
+        t = time.perf_counter()
+        logits, caches = prefill(tokens)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t
+        rec["prefill"] = counts()
+        check(bool(torch.isfinite(logits[:, :engine.cfg.vocab_size]).all()),
+              "prefill logits are not finite")
+        return logits, caches
+
+    def counted_decode(caches, tokens, pos):
+        reset_launches()
+        logits = decode(caches, tokens, pos)
+        rec["decode"].append(counts())
+        rec["last_logits"] = logits
+        return logits
+
+    engine.prefill, engine.decode_step = counted_prefill, counted_decode
+
+
+def serve_phase(torch, smi, seed=0):
+    """qwen3-8b and mamba2-780m at full width through ``ServeEngine``;
+    returns per-arch records of the first and the cached run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+    dev = torch.device("cuda")
+    results = {}
+    for arch, batch, prompt, new in SERVE_CASES:
+        cfg = get_config(arch)
+        t = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = transformer.init_params(cfg, gen, torch.float32, dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"serve {arch}: {n_params / 1e9:.3f} B float32 parameters "
+              f"({n_params * 4 / 2**30:.2f} GiB) made on the card in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        engine = ServeEngine(cfg, model, cache_len=prompt + new)
+        prompts = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+        kname = SERVE_KERNEL[arch]
+        runs = {}
+        for run in ("first", "cached"):
+            rec = {"decode": []}
+            instrument(torch, engine, rec)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = engine.generate(prompts, max_new_tokens=new)
+            total = time.perf_counter() - t
+            del engine.prefill, engine.decode_step   # the unwrapped methods
+            peak = torch.cuda.max_memory_allocated()
+            toks = res.tokens
+            check(res.steps == new and toks.shape == (batch, new),
+                  f"{arch}/{run}: {toks.shape} tokens in {res.steps} steps")
+            check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+                  f"{arch}/{run}: token ids outside [0, {cfg.vocab_size})")
+            check(bool(torch.isfinite(
+                rec["last_logits"][:, :cfg.vocab_size]).all()),
+                f"{arch}/{run}: decode logits are not finite")
+            pre = rec["prefill"][kname]
+            check(pre == cfg.num_layers, f"{arch}/{run}: {kname} launched "
+                  f"{pre} times in prefill, want {cfg.num_layers}")
+            dec = [c[kname] for c in rec["decode"]]
+            check(len(dec) == new and not any(dec), f"{arch}/{run}: "
+                  f"{kname} launched in decode: {dec}")
+            decode_s = total - rec["prefill_s"]
+            r = dict(ttft_s=rec["prefill_s"], total_s=total,
+                     decode_ms_per_step=decode_s / len(dec) * 1e3,
+                     tok_per_s=batch * res.steps / total,
+                     decode_tok_per_s=batch * len(dec) / decode_s,
+                     peak_gib=peak / 2**30, prefill_launches=rec["prefill"],
+                     decode_launches=sum(c[kname] for c in rec["decode"]),
+                     launches=pre + sum(dec))
+            runs[run] = r
+            print(f"serve {arch} {run:6s} batch={batch} prompt={prompt} "
+                  f"new={new}: time to first token {r['ttft_s']:.3f} s, "
+                  f"decode {r['decode_ms_per_step']:.2f} ms/step "
+                  f"({r['decode_tok_per_s']:.1f} tok/s), overall "
+                  f"{r['tok_per_s']:.1f} tok/s, peak device memory "
+                  f"{r['peak_gib']:.2f} GiB; {kname} launches: prefill "
+                  f"{pre}, decode {sum(dec)} over {len(dec)} steps [{smi}]",
+                  flush=True)
+            print(f"serve {arch} {run} first sequence: "
+                  f"{toks[0, :12].tolist()}...", flush=True)
+        results[arch] = runs
+        profile_serve(torch, engine, prompts, arch)
+        del engine, model
+        torch.cuda.empty_cache()
+    return results
+
+
+def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
+    """The SMOKE configs with the same weights on ``devices``: the card
+    forces the kernels (``flash`` / ``kernel``) at a prompt longer than
+    the flash tile (64) and the smoke chunk (32); the CPU runs the plain
+    versions.  Prefill logits within 1e-3, greedy tokens equal."""
+    import copy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import CUDA_KERNELS, reset_launches
+    from repro_torch.models import transformer
+    for arch, _, _, _ in SERVE_CASES:
+        cfg = get_smoke_config(arch)
+        base = transformer.init_params(cfg, torch.Generator().manual_seed(3),
+                                       torch.float32, "cpu")
+        prompts = np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (2, prompt)).astype(np.int32)
+        logits, tokens = {}, {}
+        for device in devices:
+            model = copy.deepcopy(base).to(device)
+            reset_launches()
+            lg, caches = transformer.prefill(
+                model, torch.as_tensor(prompts, dtype=torch.long,
+                                       device=device),
+                prompt + new, KERNEL_IMPL[arch])
+            counts = {k.name: k.launches for k in CUDA_KERNELS}
+            want = cfg.num_layers if device != "cpu" else 0
+            check(counts[SERVE_KERNEL[arch]] == want, f"parity {arch} "
+                  f"{device}: {counts} launches, want {want}")
+            logits[device] = lg.cpu()
+            # greedy decoding after the forced-kernel prefill, as
+            # ServeEngine.generate does after its own
+            out = []
+            for step in range(new):
+                tok = torch.argmax(lg, dim=-1)
+                out.append(tok)
+                pos = torch.full((tok.shape[0],), prompt + step,
+                                 dtype=torch.int32, device=device)
+                lg = transformer.decode_step(model, caches, tok[:, None],
+                                             pos)
+            tokens[device] = torch.stack(out, dim=1).cpu().numpy()
+        err = float((logits[devices[0]] - logits[devices[-1]]).abs().max())
+        check(err <= 1e-3, f"parity {arch}: prefill logits differ by {err}")
+        check(np.array_equal(tokens[devices[0]], tokens[devices[-1]]),
+              f"parity {arch}: greedy tokens differ")
+        print(f"serve parity {arch} smoke, prompt {prompt}, impl "
+              f"{KERNEL_IMPL[arch]}: card == cpu (prefill logits max |err| "
+              f"{err:.2e}, {new} greedy tokens equal)", flush=True)
+
+
+def build_all():
+    """Build every kernel, one nvcc per source, in turn."""
     from repro_torch.kernels import CUDA_KERNELS
     from repro_torch.kernels.build import build, build_log
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
-          flush=True)
     t = time.perf_counter()
     for k in CUDA_KERNELS:
         build(k.name)
@@ -332,30 +661,81 @@ def main():
     for k in CUDA_KERNELS:
         print(build_log(k.name).strip(), flush=True)
 
-    cap = capacity_for(FULL_ROWS, P)
-    cases = kernel_phase(torch, cap)
-    launches, walls = main_path_phase(torch)
-    for k in CUDA_KERNELS:
-        check(launches["bsp/first"][k.name] > 0, f"kernel {k.name} never "
-              f"launched on the main path")
-    parity_phase()
 
-    from repro_torch.kernels import radix_partition_cuda as rp
-    main_case = cases[0]
-    kernels = [{
-        "name": rp.name, "route": "cuda", "source": rp.source,
-        "replaces": rp.replaces,
-        # the main path is the first bsp run; every run's count beside it
-        "launches": launches["bsp/first"][rp.name],
-        "launches_by_run": {run: c[rp.name] for run, c in launches.items()},
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
-        "library_ms": None,
-        "shape": [main_case["p"], main_case["n"], main_case["nb"]],
-        "cases": cases,
-    }]
+def kernel_record(k, cases, launches, launches_by_run=None):
+    """The kernels-line entry of wrapper ``k``: the main-shape case's
+    numbers, the main path's launch count and every case beside them."""
+    main = cases[0]
+    rec = {"name": k.name, "route": "cuda", "source": k.source,
+           "replaces": k.replaces, "launches": launches,
+           "max_abs_err": max(c["max_abs_err"] for c in cases),
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": main["library_ms"]}
+    if launches_by_run is not None:
+        rec["launches_by_run"] = launches_by_run
+    rec["cases"] = cases
+    return rec
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import (flash_attention_cuda,
+                                     radix_partition_cuda, ssd_scan_cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    t0 = time.perf_counter()
+    build_all()
+
+    def phase_done(name):
+        torch.cuda.empty_cache()
+        print(f"phase {name} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    cap = capacity_for(FULL_ROWS, P)
+    radix_cases = radix_phase(torch, cap, flush)
+    flash_cases = flash_phase(torch, flush)
+    ssd_cases = ssd_phase(torch, flush)
+    del flush
+    phase_done("kernels")
+    launches, walls = main_path_phase(torch)
+    check(launches["bsp/first"]["radix_partition"] > 0,
+          "radix_partition never launched on the Fig-9 path")
+    phase_done("fig9")
+    parity_phase()
+    phase_done("fig9 parity")
+    served = serve_phase(torch, smi)
+    phase_done("serve")
+    serve_parity_phase(torch)
+    phase_done("serve parity")
+
+    rp = radix_partition_cuda
+    kernels = [
+        # the Fig-9 path is the first bsp run; every run's count beside it
+        kernel_record(rp, radix_cases, launches["bsp/first"][rp.name],
+                      {run: c[rp.name] for run, c in launches.items()}),
+        # the serving paths are the first run of each arch
+        kernel_record(flash_attention_cuda, flash_cases,
+                      served["qwen3-8b"]["first"]["launches"]),
+        kernel_record(ssd_scan_cuda, ssd_cases,
+                      served["mamba2-780m"]["first"]["launches"]),
+    ]
     print(json.dumps({"fig9_wall_s": walls}))
+    print(json.dumps({"serve": {arch: {run: {k: v for k, v in r.items()
+                                             if k != "prefill_launches"}
+                                       for run, r in runs.items()}
+                                for arch, runs in served.items()}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

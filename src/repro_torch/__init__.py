@@ -2,9 +2,11 @@
 
 Same module layout as the JAX package; ranks are stacked along a leading
 axis of every tensor on one device, and the shuffle's bucketize runs as a
-hand-written Hopper kernel (``kernels.radix_partition``).  Entry points run
-on ``cuda`` unless the caller asks for the CPU.  This package imports
-neither ``jax`` nor ``repro``.
+hand-written Hopper kernel (``kernels.radix_partition``).  The model stack
+serves the dense and SSM families (``models``, ``serve``,
+``launch.serve``) with hand-written flash-attention and SSD-scan kernels.
+Entry points run on ``cuda`` unless the caller asks for the CPU.  This
+package imports neither ``jax`` nor ``repro``.
 """
 
 from .core import CylonEnv, DistTable, Plan, execute

@@ -2,21 +2,27 @@
 
 Each kernel lives in ``<name>/``: the CUDA source (``<name>.cu``), its
 ``ctypes`` wrapper (``cuda.py``, which counts launches), the plain PyTorch
-version (``ref.py``) and the dispatcher (``ops.py``: the kernel for CUDA
-tensors, the plain version for CPU tensors).  ``build.py`` compiles the
-sources with nvcc on first use.
+version (``ref.py``, and ``ops.ssd_scan_chunked`` for the SSD scan) and the
+dispatcher (``ops.py``: the kernel for CUDA tensors, the plain version for
+CPU tensors).  ``build.py`` compiles the sources with nvcc on first use.
 
   radix_partition   shuffle bucketize (stable rank in bucket + histogram)
+  flash_attention   causal GQA attention forward (online softmax)
+  ssd_scan          Mamba-2 SSD chunked scan (+ final state)
 
-The JAX package's other Pallas kernels (segmented_sum, flash_attention,
-ssd_scan) are not on this port's path yet.
+The JAX package's fourth Pallas kernel, segmented_sum, is on no path of
+either package yet.
 """
 
+from .flash_attention import (attention_ref, flash_attention,
+                              flash_attention_cuda)
 from .radix_partition import (radix_partition, radix_partition_cuda,
                               radix_partition_ref)
+from .ssd_scan import (ssd_scan, ssd_scan_chunked, ssd_scan_cuda,
+                       ssd_scan_ref)
 
 #: every CUDA kernel wrapper of the port (each carries ``launches``)
-CUDA_KERNELS = (radix_partition_cuda,)
+CUDA_KERNELS = (radix_partition_cuda, flash_attention_cuda, ssd_scan_cuda)
 
 
 def reset_launches() -> None:
@@ -25,5 +31,7 @@ def reset_launches() -> None:
         k.launches = 0
 
 
-__all__ = ["CUDA_KERNELS", "radix_partition", "radix_partition_cuda",
-           "radix_partition_ref", "reset_launches"]
+__all__ = ["CUDA_KERNELS", "attention_ref", "flash_attention",
+           "flash_attention_cuda", "radix_partition", "radix_partition_cuda",
+           "radix_partition_ref", "reset_launches", "ssd_scan",
+           "ssd_scan_chunked", "ssd_scan_cuda", "ssd_scan_ref"]

@@ -24,6 +24,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 #: kernel name -> CUDA source, relative to this package
 SOURCES: Dict[str, str] = {
     "radix_partition": os.path.join("radix_partition", "radix_partition.cu"),
+    "flash_attention": os.path.join("flash_attention", "flash_attention.cu"),
+    "ssd_scan": os.path.join("ssd_scan", "ssd_scan.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,42 @@
+"""Flash-attention dispatcher: the kernel on the card, the plain version
+on the CPU.
+
+The choice follows the tensors alone: CUDA tensors go to the hand-written
+kernel (``cuda.py``), which raises if it cannot build or launch, and CPU
+tensors to the plain version (``ref.py``).  There is no silent fallback
+between them.
+
+Unlike the JAX wrapper (``repro/kernels/flash_attention/ops.py``), nothing
+is padded here: the kernel takes the true Sq and Sk and masks keys past
+Sk itself, so non-causal attention over a ragged key length runs on the
+kernel too, where the JAX wrapper falls back to ``attention_ref``.  The
+tile sizes are fixed in the kernel (64 x 64), so the reference's
+``block_q`` / ``block_k`` / ``interpret`` options have no counterpart.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .cuda import flash_attention_cuda
+from .ref import attention_ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """GQA attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) ->
+    (B, Hq, Sq, D), queries aligned to the end of the keys."""
+    if causal and q.shape[2] > k.shape[2]:
+        raise ValueError(f"causal attention needs Sq <= Sk (every query "
+                         f"sees a key), got Sq={q.shape[2]}, "
+                         f"Sk={k.shape[2]}")
+    if q.is_cuda:
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    return attention_ref(q, k, v, causal=causal, scale=scale)

@@ -1,0 +1,5 @@
+from .cuda import ssd_scan_cuda
+from .ops import ssd_scan, ssd_scan_chunked
+from .ref import ssd_scan_ref
+
+__all__ = ["ssd_scan", "ssd_scan_chunked", "ssd_scan_cuda", "ssd_scan_ref"]

@@ -1,0 +1,17 @@
+"""Model stack of the port (ports ``repro/models`` for serving).
+
+``config``      -- ModelConfig / MoEConfig / MLAConfig / SSMConfig + SHAPES
+                   (a copy of the JAX package's)
+``layers``      -- RMSNorm, RoPE, gated MLP, initializers
+``attention``   -- GQA (+qk-norm), full-sequence (dense / chunked / flash)
+                   and decode
+``mamba2``      -- SSD mixer, full-sequence (chunked / kernel) and decode
+``transformer`` -- stack assembly, prefill / decode, weights carried
+                   across from the JAX package
+"""
+
+from .config import MLAConfig, ModelConfig, MoEConfig, SHAPES, SSMConfig
+from . import transformer
+
+__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "SHAPES", "SSMConfig",
+           "transformer"]

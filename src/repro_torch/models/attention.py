@@ -1,0 +1,170 @@
+"""GQA attention (+qk-norm): full-sequence and decode paths, impl selection.
+
+Ports the GQA half of ``repro/models/attention.py``.  Three
+interchangeable implementations of full-sequence attention:
+
+  * ``dense``   -- quadratic plain version (``kernels.attention_ref``);
+  * ``chunked`` -- online softmax over key blocks in plain PyTorch,
+                   O(S * block) memory, any device;
+  * ``flash``   -- the flash-attention dispatcher: the CUDA kernel on the
+                   card, its plain version on the CPU.
+
+``auto`` keeps the reference's rule: ``dense`` up to 2048 keys, above
+that ``flash`` on ``cuda`` (the reference's ``tpu``) and ``chunked``
+elsewhere.  Decode (one query against the cache) is plain PyTorch, as in
+the reference.  MLA (DeepSeek) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import attention_ref, flash_attention
+from .config import ModelConfig
+from .layers import Params, apply_rope, dense_init, rmsnorm
+
+#: ``auto`` takes ``dense`` up to this many keys
+DENSE_MAX_KEYS = 2048
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, scale: Optional[float] = None,
+                      block_k: int = 512) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv).
+
+    As the reference: queries at positions 0..Sq-1 against keys 0..Sk-1
+    (no end alignment), masked with -1e30."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    dv = v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    group = hq // hkv
+    bk = min(block_k, sk)
+    sk_p = -(-sk // bk) * bk
+    if sk_p != sk:
+        k = F.pad(k, (0, 0, 0, sk_p - sk))
+        v = F.pad(v, (0, 0, 0, sk_p - sk))
+
+    # grouped-query layout (B, Hkv, G, Sq, D): K/V are never head-repeated
+    qf = q.reshape(b, hkv, group, sq, d).float()
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, hkv, group, sq, 1), -1e30, device=q.device)
+    l = torch.zeros((b, hkv, group, sq, 1), device=q.device)
+    acc = torch.zeros((b, hkv, group, sq, dv), device=q.device)
+    for k0 in range(0, sk_p, bk):
+        kc = k[:, :, k0:k0 + bk].float()
+        vc = v[:, :, k0:k0 + bk].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc) * scale
+        kpos = k0 + torch.arange(bk, device=q.device)
+        mask = (kpos < sk)[None, :]
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, hq, sq, dv).to(q.dtype)
+
+
+def attention_impl(q, k, v, causal: bool = True, scale=None,
+                   impl: str = "auto") -> torch.Tensor:
+    if impl == "auto":
+        if k.shape[2] <= DENSE_MAX_KEYS:
+            impl = "dense"
+        else:
+            impl = "flash" if q.is_cuda else "chunked"
+    if impl == "dense":
+        return attention_ref(q, k, v, causal=causal, scale=scale)
+    if impl == "chunked":
+        return chunked_attention(q, k, v, causal=causal, scale=scale)
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    raise ValueError(impl)
+
+
+# ---------------------------------------------------------------------- #
+# GQA block
+# ---------------------------------------------------------------------- #
+def gqa_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
+             device=None) -> dict:
+    d, hq, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(gen, (d, hq * hd), 0, dtype, device),
+        "wk": dense_init(gen, (d, hkv * hd), 0, dtype, device),
+        "wv": dense_init(gen, (d, hkv * hd), 0, dtype, device),
+        "wo": dense_init(gen, (hq * hd, d), 0, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, hd).transpose(1, 2)       # (B, H, S, hd)
+
+
+def qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
+        positions: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projected, qk-normed, rotated (q, k, v), each (B, H, S, hd);
+    ``positions`` broadcasts to (B, S)."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = _split_heads(x @ params["wq"], hq, hd)
+    k = _split_heads(x @ params["wk"], hkv, hd)
+    v = _split_heads(x @ params["wv"], hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
+    k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, impl: str = "auto",
+                  return_kv: bool = False):
+    """Full-sequence causal attention. x: (B, S, D); positions: (B, S).
+    With ``return_kv`` also returns the rotated K and the V it attended
+    to, each (B, Hkv, S, hd)."""
+    q, k, v = qkv(params, x, cfg, positions)
+    o = attention_impl(q, k, v, causal=True, impl=impl)
+    o = o.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
+    out = o @ params["wo"]
+    return (out, k, v) if return_kv else out
+
+
+def gqa_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """One-token decode. x: (B, 1, D); caches: (B, Hkv, S, hd), written
+    in place at ``pos[0]`` (the same position for every row); pos: (B,).
+    Returns the block output (B, 1, D)."""
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    b = x.shape[0]
+    q, k_new, v_new = qkv(params, x, cfg, pos[:, None])  # (B, H, 1, hd)
+    at = pos[:1].long()
+    k_cache.index_copy_(2, at, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(2, at, v_new.to(v_cache.dtype))
+
+    s_max = k_cache.shape[2]
+    group = hq // hkv
+    # grouped-query einsum: no materialised K/V head repeat
+    qg = q.reshape(b, hkv, group, hd).float()
+    scores = torch.einsum("bhgd,bhkd->bhgk", qg,
+                          k_cache.float()) / math.sqrt(hd)
+    mask = torch.arange(s_max, device=x.device) <= pos[0]
+    scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()).to(x.dtype)
+    return o.reshape(b, 1, hq * hd) @ params["wo"]

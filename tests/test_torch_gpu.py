@@ -64,3 +64,96 @@ def test_radix_partition_cuda_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         radix_partition_cuda(torch.zeros((2, 8), dtype=torch.int32,
                                          device=cuda), 0)
+
+
+# ---------------------------------------------------------------------- #
+# flash attention: kernel vs plain version (attention_ref) on the card
+# ---------------------------------------------------------------------- #
+# (b, hq, hkv, sq, sk, d, causal): square, GQA, MQA, ragged lengths,
+# Sq != Sk (queries aligned to the end of the keys), non-causal with
+# ragged keys, every head dim the kernel takes
+FLASH_CASES = [(1, 4, 4, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
+               (1, 4, 1, 128, 128, 128, True), (1, 2, 2, 100, 100, 32, True),
+               (1, 4, 2, 128, 384, 64, True), (2, 4, 2, 70, 333, 16, True),
+               (1, 2, 2, 100, 130, 128, False), (1, 2, 1, 1, 77, 32, True)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cuda_equals_plain(cuda, b, hq, hkv, sq, sk, d,
+                                           causal, dtype):
+    from repro_torch.kernels import attention_ref, flash_attention_cuda
+    # tests/test_kernels.py's tolerances: 2e-3 in f32; 2e-2 in bf16, held
+    # relative to each output (plus 2e-3), as chip_smoke.py holds it
+    atol, rtol = (2e-3, 0) if dtype == torch.float32 else (2e-3, 2e-2)
+    g = torch.Generator(device=cuda).manual_seed(sq * 1000 + sk + d)
+    q = torch.randn(b, hq, sq, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=g, device=cuda).to(dtype)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_flash_attention_cuda_rejects_bad_input(cuda):
+    from repro_torch.kernels import flash_attention_cuda
+    q = torch.zeros((1, 2, 8, 48), device=cuda)          # head dim 48
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q, q)
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3),
+                             q, q)
+
+
+# ---------------------------------------------------------------------- #
+# SSD scan: kernel vs plain chunked version on the card
+# ---------------------------------------------------------------------- #
+# (bh, t, p, n, chunk): the CPU sweep, a ragged last chunk, t shorter
+# than a chunk and off the 8-row grid, the main path's (P, N, L) at a
+# shorter T, N not a multiple of the 32-row slice
+SSD_CASES = [(2, 64, 16, 8, 32), (3, 256, 16, 8, 64), (1, 100, 8, 4, 32),
+             (4, 128, 64, 128, 128), (3, 300, 64, 128, 128),
+             (2, 13, 64, 128, 128), (8, 1024, 64, 128, 128),
+             (2, 200, 32, 48, 128)]
+
+
+@pytest.mark.parametrize("bh,t,p,n,chunk", SSD_CASES)
+def test_ssd_scan_cuda_equals_plain(cuda, bh, t, p, n, chunk):
+    from repro_torch.kernels import ssd_scan, ssd_scan_chunked, ssd_scan_cuda
+    from repro_torch.kernels.common import round_up
+    g = torch.Generator(device=cuda).manual_seed(bh * t + p + n)
+    x = torch.randn(bh, t, p, generator=g, device=cuda)
+    dt = torch.rand(bh, t, 1, generator=g, device=cuda) * 0.1 + 0.01
+    a = -torch.rand(bh, 1, generator=g, device=cuda) - 0.05
+    b = torch.randn(bh, t, n, generator=g, device=cuda)
+    c = torch.randn(bh, t, n, generator=g, device=cuda)
+    before = ssd_scan_cuda.launches
+    y, h = ssd_scan(x, dt, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 1
+    y_p, h_p = ssd_scan_chunked(x, dt, a, b, c,
+                                chunk=min(chunk, round_up(t, 8)))
+    # tests/test_kernels.py's tolerance for the SSD scan
+    torch.testing.assert_close(y, y_p, atol=3e-3, rtol=0)
+    torch.testing.assert_close(h, h_p, atol=3e-3, rtol=0)
+
+
+def test_ssd_scan_cuda_rejects_bad_input(cuda):
+    from repro_torch.kernels import ssd_scan_cuda
+    x = torch.zeros((1, 8, 128), device=cuda)            # P = 128 > 64
+    dt, a = torch.zeros((1, 8, 1), device=cuda), torch.zeros((1, 1),
+                                                             device=cuda)
+    b = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError):
+        ssd_scan_cuda(x, dt, a, b, b, chunk=8)
+    with pytest.raises(ValueError):
+        ssd_scan_cuda(x[..., :64].contiguous().double(), dt, a, b, b,
+                      chunk=8)

@@ -1,0 +1,244 @@
+"""The port's serving path (prefill -> decode) against the JAX package's.
+
+qwen3-8b (dense GQA, qk-norm, untied head) and mamba2-780m (SSD, tied
+head) at their SMOKE sizes: the JAX ``init_params`` tree goes to the port
+through ``params_from_numpy``, the same numpy prompts go through both
+``prefill`` / ``decode_step`` and both ``ServeEngine``s, on the CPU (the
+port's plain kernels; JAX's Pallas kernels in interpret mode where the
+``impl`` asks for them).  Tolerance 1e-4 (float32 throughout; the two
+frameworks sum in other orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke
+from repro.models import transformer as jt
+from repro.serve import ServeEngine as JaxEngine
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch import serve as serve_main
+from repro_torch.models import transformer as tt
+from repro_torch.serve import ServeEngine
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+ARCHS = ["qwen3-8b", "mamba2-780m"]
+#: the port's name of its kernel path for each arch (the reference uses
+#: the same names); a prompt of 160 is longer than the smoke chunk (32),
+#: the JAX kernel's 128-row block and the CUDA kernel's 64-row tile
+KERNEL_IMPL = {"qwen3-8b": "flash", "mamba2-780m": "kernel"}
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    arch = request.param
+    cfg_j = jax_smoke(arch)
+    params_j = jt.init_params(jax.random.PRNGKey(0), cfg_j, jnp.float32)
+    tree = jax.tree_util.tree_map(np.asarray, params_j)
+    cfg = get_smoke_config(arch)
+    return arch, cfg_j, params_j, cfg, tt.params_from_numpy(tree, cfg, "cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_decode(pair):
+    cfg_j, params_j = pair[1], pair[2]
+    return jax.jit(lambda c, t, pos: jt.decode_step(params_j, cfg_j, c, t,
+                                                    pos))
+
+
+def _prompts(cfg, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _close_caches(got, want_tree, cfg):
+    want = tt.unstack_layers(jax.tree_util.tree_map(np.asarray, want_tree),
+                             cfg)
+    assert len(got) == len(want) == cfg.num_layers
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for name in g:
+            assert tuple(g[name].shape) == w[name].shape, name
+            np.testing.assert_allclose(g[name].numpy(), w[name], **TOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("s0,impl", [(8, "auto"), (160, "kernel"),
+                                     (160, "chunked")])
+def test_prefill_and_teacher_forced_decode(pair, jax_decode, s0, impl):
+    arch, cfg_j, params_j, cfg, model = pair
+    impl = KERNEL_IMPL[arch] if impl == "kernel" else impl
+    b, steps = 2, 6
+    cache_len = s0 + steps
+    prompts = _prompts(cfg, b, s0)
+    logits_j, caches_j = jt.prefill(params_j, cfg_j,
+                                    {"tokens": jnp.asarray(prompts)},
+                                    cache_len, impl=impl)
+    logits, caches = tt.prefill(
+        model, torch.as_tensor(prompts, dtype=torch.long), cache_len, impl)
+    assert logits.dtype == torch.float32
+    assert logits.shape == (b, cfg.padded_vocab)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(logits_j), **TOL)
+    assert bool((logits[:, cfg.vocab_size:] == -1e30).all())
+    _close_caches(caches, caches_j, cfg)
+
+    # teacher forcing: the same tokens go into both decoders
+    forced = _prompts(cfg, b, steps, seed=1)
+    for step in range(steps):
+        pos = np.full((b,), s0 + step, np.int32)
+        logits_j, caches_j = jax_decode(
+            caches_j, jnp.asarray(forced[:, step:step + 1]), jnp.asarray(pos))
+        logits = tt.decode_step(
+            model, caches, torch.as_tensor(forced[:, step:step + 1],
+                                           dtype=torch.long),
+            torch.as_tensor(pos))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(logits_j),
+                                   **TOL, err_msg=f"decode step {step}")
+    _close_caches(caches, caches_j, cfg)
+
+
+@pytest.mark.parametrize("s0", [8, 40])
+def test_greedy_tokens_equal_reference_engine(pair, s0):
+    _, cfg_j, params_j, cfg, model = pair
+    prompts = _prompts(cfg, 2, s0, seed=2)
+    want = JaxEngine(cfg_j, params_j, cache_len=s0 + 10).generate(
+        prompts, max_new_tokens=10)
+    got = ServeEngine(cfg, model, cache_len=s0 + 10).generate(
+        prompts, max_new_tokens=10)
+    assert (got.steps, got.prefill_len) == (want.steps, want.prefill_len)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+
+
+def test_sampling_is_reproducible(pair):
+    _, _, _, cfg, model = pair
+    eng = ServeEngine(cfg, model, cache_len=24)
+    prompts = _prompts(cfg, 2, 8, seed=3)
+    # hot temperature: an untrained model's logits are sharply peaked, so
+    # mild temperatures all collapse to argmax and seeds cannot differ
+    a = eng.generate(prompts, max_new_tokens=8, temperature=20.0, seed=7)
+    b = eng.generate(prompts, max_new_tokens=8, temperature=20.0, seed=7)
+    c = eng.generate(prompts, max_new_tokens=8, temperature=20.0, seed=8)
+    np.testing.assert_array_equal(a.tokens, b.tokens)
+    assert not np.array_equal(a.tokens, c.tokens)
+    assert a.tokens.max() < cfg.vocab_size
+
+
+def test_eos_early_stop(pair):
+    _, _, _, cfg, model = pair
+    prompts = _prompts(cfg, 2, 8, seed=4)
+    res = ServeEngine(cfg, model, cache_len=24).generate(prompts, 10)
+    first = int(res.tokens[0, 0])
+    res2 = ServeEngine(cfg, model, cache_len=24, eos_id=first).generate(
+        prompts[:1], max_new_tokens=10)
+    assert res2.steps == 1  # stopped at the first (EOS) token
+    # a batch stops only once every row has produced EOS
+    eos = int(res.tokens[1, 3])
+    res3 = ServeEngine(cfg, model, cache_len=24, eos_id=eos).generate(
+        prompts, max_new_tokens=10)
+    hits = [np.nonzero(res.tokens[r] == eos)[0] for r in range(2)]
+    want = (max(int(h[0]) for h in hits) + 1 if all(len(h) for h in hits)
+            else 10)
+    assert res3.steps == want
+    np.testing.assert_array_equal(res3.tokens, res.tokens[:, :res3.steps])
+
+
+def test_engine_rejects_overlong_request(pair):
+    _, _, _, cfg, model = pair
+    with pytest.raises(ValueError, match="cache_len"):
+        ServeEngine(cfg, model, cache_len=10).generate(_prompts(cfg, 1, 8), 3)
+
+
+def test_launch_serve_smoke_on_cpu(capsys):
+    serve_main.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+                     "--batch", "2", "--prompt-len", "12", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] arch=mamba2-780m-smoke batch=2 prefill=12 decoded=4" in out
+
+
+def test_unported_archs_and_families_raise():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        get_config("olmoe-1b-7b")
+    from repro.configs import get_smoke_config as jax_cfg
+    for arch in ("olmoe-1b-7b", "deepseek-v2-lite-16b", "musicgen-large"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            tt.init_params(jax_cfg(arch), torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+
+
+def test_model_constructors_refuse_cpu_fallback(monkeypatch, pair):
+    # as the dataframe entry points: no device means cuda, and with no
+    # card that raises instead of building the model on the CPU
+    arch, _, params_j, cfg, _ = pair
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = jax.tree_util.tree_map(np.asarray, params_j)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.params_from_numpy(tree, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.init_caches(cfg, 1, 8)
+    model = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+    assert model.device.type == "cpu"
+
+
+def test_serving_modules_and_chip_smoke_import_no_jax_or_repro():
+    # the port's import boundary (tests/test_torch_pipeline.py walks the
+    # whole package) for this slice's modules by name, and chip_smoke.py's
+    # imports, module level and inside its functions
+    import ast
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mods = ["repro_torch.models.transformer", "repro_torch.serve.engine",
+            "repro_torch.launch.serve", "repro_torch.configs.qwen3_8b",
+            "repro_torch.configs.mamba2_780m",
+            "repro_torch.kernels.flash_attention.cuda",
+            "repro_torch.kernels.ssd_scan.cuda", "chip_smoke"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "print('OK')\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=root,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(root, "src"), root])))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom)]
+    assert "repro_torch.serve" in names
+    assert not [m for m in names
+                if m.split(".")[0] in ("jax", "jaxlib", "repro")], names
+
+
+def test_decode_from_init_caches_matches_reference(pair, jax_decode):
+    # a cold start: decode from zeroed caches (init_caches) on both sides
+    _, cfg_j, _, cfg, model = pair
+    b, cache_len = 2, 12
+    caches_j = jt.init_caches(cfg_j, b, cache_len, jnp.float32)
+    caches = tt.init_caches(cfg, b, cache_len, torch.float32, "cpu")
+    _close_caches(caches, caches_j, cfg)
+    toks = _prompts(cfg, b, 3, seed=5)
+    for step in range(3):
+        pos = np.full((b,), step, np.int32)
+        logits_j, caches_j = jax_decode(
+            caches_j, jnp.asarray(toks[:, step:step + 1]), jnp.asarray(pos))
+        logits = tt.decode_step(
+            model, caches, torch.as_tensor(toks[:, step:step + 1],
+                                           dtype=torch.long),
+            torch.as_tensor(pos))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(logits_j),
+                                   **TOL)
+    _close_caches(caches, caches_j, cfg)
