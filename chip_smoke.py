@@ -12,24 +12,36 @@ ends the run with a non-zero exit code if it fails:
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the main paths' shapes and edge cases, timed with CUDA
    events (L2 overwritten before each launch), beside its bound and, where
-   one PyTorch call computes the same function, that call's time;
+   one PyTorch call computes the same function, that call's time
+   (``scatter_add_`` and ``index_add_`` for the segmented sum,
+   ``scaled_dot_product_attention`` for flash attention);
 3. Fig-9: the paper's pipeline (join -> groupby(sum) -> sort ->
    add_scalar) through ``execute`` at 2 x 2**25 rows over 8 ranks stacked
    on the card, in ``bsp``, ``bsp_staged`` and ``amt``, twice each, with
    kernel launch counts reset just before each run and read just after
-   it (each shuffle of ``bsp`` and ``bsp_staged`` launches the radix
-   kernel once; ``amt`` shuffles by all-gather and launches it never);
-   results are held against a numpy computation on the host;
-4. Fig-9 parity: the same plan at 2**16 rows, optimizer on and off, on
-   the card and on the CPU (plain kernels), compared slot for slot;
-5. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
+   it: each shuffle of ``bsp`` and ``bsp_staged`` launches the radix
+   kernel once (``amt`` shuffles by all-gather and launches it never), and
+   every sum, count and size of every local groupby launches the
+   segmented-sum kernel once, in every mode (the count is read off the
+   lowered plan); results are held against a numpy computation on the
+   host, and one cached ``bsp`` run is profiled;
+4. frontend: the same pipeline with a mean, written against
+   ``repro_torch.df`` on the same data, in every mode, twice each, with
+   the same launch checks; held to the host reference and to the
+   ``Plan``-built pipeline (equal EXPLAIN, equal result, no stage built
+   anew); then a string-keyed run (2 x 2**22 ``<U12`` keys from 2**18
+   words, two dictionaries, so EXPLAIN shows ``recode[...]``) held to
+   numpy on the host, one cached run of it profiled;
+5. Fig-9 parity: the plan at 2**16 rows, optimizer on and off, on the
+   card and on the CPU (plain kernels), compared slot for slot;
+6. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
    a seeded generator, batch 4, prompt 4096, 32 new tokens, greedy)
    through ``ServeEngine``, twice each; launch counts reset just before
    each prefill and each decode step and read just after it (flash
    attention once per qwen3-8b layer in prefill, the SSD scan once per
    mamba2 layer, neither in decode); time to first token, decode time per
    step, tokens per second and peak device memory;
-6. serving parity: both SMOKE configs with the same weights on the card
+7. serving parity: both SMOKE configs with the same weights on the card
    (kernels forced, prompts longer than a tile) and on the CPU (plain
    versions): prefill logits within 1e-3, greedy tokens equal.
 
@@ -157,6 +169,171 @@ def radix_phase(torch, cap, flush):
     return out
 
 
+def fig9_join_ids(torch, rows, p, cap, gen, dev):
+    """Segment ids and values of the Fig-9 groupby's own ``segmented_sum``
+    call, made on the card: per rank, the join output of ``rows / p`` left
+    and right rows over ``0.9 rows / p`` keys (each key repeated
+    ``cnt_l * cnt_r`` times, sorted), then padding rows at ``cap - 1``
+    with value 0, as ``groupby_local`` hands them to the kernel."""
+    per, keys = rows // p, int(0.9 * rows) // p
+    seg = torch.full((p, cap), cap - 1, dtype=torch.int32, device=dev)
+    vals = torch.zeros((p, cap), dtype=torch.float32, device=dev)
+    for r in range(p):
+        cl, cr = (torch.bincount(torch.randint(0, keys, (per,), generator=gen,
+                                               device=dev), minlength=keys)
+                  for _ in range(2))
+        mult = cl * cr
+        hit = torch.nonzero(mult).flatten()
+        ids = torch.repeat_interleave(
+            torch.arange(hit.numel(), dtype=torch.int32, device=dev),
+            mult[hit])
+        seg[r, :ids.numel()] = ids
+        vals[r, :ids.numel()] = torch.rand(ids.numel(), generator=gen,
+                                           device=dev)
+    return seg, vals
+
+
+def segsum_phase(torch, cap, flush):
+    """Segmented-sum kernel vs ``segmented_sum_ref`` on the card; the first
+    case is the Fig-9 groupby's call (n = S = the join's out_capacity),
+    timed beside ``scatter_add_`` and ``index_add_`` at that shape."""
+    from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def sorted_ids(p, n, s):
+        return torch.sort(torch.randint(0, s, (p, n), generator=gen,
+                                        device=dev, dtype=torch.int32),
+                          dim=1).values
+
+    def floats(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    main_seg, main_vals = fig9_join_ids(torch, FULL_ROWS, P, 4 * cap, gen,
+                                        dev)
+    # (name, ids, values, S): the main path's call, then unsorted ids, C=4,
+    # int32 (exact), a row count off the 8192-row tile, n = 0, ids outside
+    # [0, S), and the small sweep of tests/test_kernels.py:17-37
+    cases = [("main", main_seg, main_vals, 4 * cap),
+             ("unsorted", torch.randint(0, 1 << 20, (P, 1 << 22),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32),
+              floats(P, 1 << 22), 1 << 20),
+             ("c4", sorted_ids(P, 1 << 20, 1 << 18), floats(P, 1 << 20, 4),
+              1 << 18),
+             ("int32", main_seg, torch.randint(
+                 -50, 50, main_seg.shape, generator=gen, device=dev,
+                 dtype=torch.int32) * (main_seg < 4 * cap - 1), 4 * cap),
+             ("ragged", sorted_ids(3, 1_000_003, 50_000),
+              floats(3, 1_000_003), 50_000),
+             ("empty", torch.zeros((P, 0), dtype=torch.int32, device=dev),
+              floats(P, 0), 16),
+             ("oob", torch.randint(-5, 1005, (2, 1 << 20), generator=gen,
+                                   device=dev, dtype=torch.int32),
+              floats(2, 1 << 20), 1000)]
+    for n, segs, cols in ((64, 5, 1), (500, 37, 3), (1024, 512, 2),
+                          (300, 1, 4)):
+        ids = sorted_ids(1, n, segs)
+        cases.append((f"sweep{n}f", ids, floats(1, n, cols), segs))
+        cases.append((f"sweep{n}i", ids, torch.randint(
+            -50, 50, (1, n, cols), generator=gen, device=dev,
+            dtype=torch.int32), segs))
+    out = []
+    for name, seg, vals, s in cases:
+        got = segmented_sum_cuda(seg, vals, s)
+        want = segmented_sum_ref(seg, vals, s)
+        torch.cuda.synchronize()
+        if vals.dtype == torch.int32:
+            ok, tol = torch.equal(got, want), "exact"
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+        else:
+            # tests/test_kernels.py's tolerance: float sums in another order
+            diff = (got - want).abs()
+            ok = bool((diff <= 1e-5 * want.abs() + 1e-5).all())
+            tol, err = "1e-5 |want| + 1e-5", (float(diff.max())
+                                               if got.numel() else 0.0)
+        check(ok, f"segmented_sum CUDA != plain at {name}: max |err| {err} "
+              f"beyond {tol}")
+        main = name in ("main", "unsorted", "int32")
+        ms = time_cuda(torch, lambda: segmented_sum_cuda(seg, vals, s),
+                       20 if main else 5, flush)
+        plain_ms = time_cuda(torch, lambda: segmented_sum_ref(seg, vals, s),
+                             3 if main else 2, flush)
+        lib = None
+        if name == "main":
+            # one PyTorch call each over the same inputs (zero-filled
+            # output included, as the kernel's launcher zero-fills)
+            idx = seg.to(torch.int64)
+            flat = (idx + torch.arange(seg.shape[0], device=dev)[:, None]
+                    * s).flatten()
+            lib = {"scatter_add_": time_cuda(
+                       torch, lambda: torch.zeros_like(vals).scatter_add_(
+                           1, idx, vals), 5, flush),
+                   "index_add_": time_cuda(
+                       torch, lambda: torch.zeros(
+                           seg.shape[0] * s, device=dev).index_add_(
+                           0, flat, vals.flatten()), 5, flush)}
+            del idx, flat
+        p, n = seg.shape
+        c = vals.shape[2] if vals.dim() == 3 else 1
+        # bytes the function must move: ids and values read once, the sums
+        # written once; one addition per value is far below the f32 peak
+        nbytes = 4 * p * n + vals.element_size() * c * (p * n + p * s)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        valid = int((seg < s - 1).sum()) if name == "main" else None
+        out.append(dict(case=name, p=p, n=n, segments=s, cols=c,
+                        dtype=str(vals.dtype).split(".")[-1], ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by="bytes",
+                        library_ms=lib["scatter_add_"] if lib else None,
+                        library=lib, max_abs_err=err))
+        extra = (f", scatter_add_ {lib['scatter_add_']:.3f} ms, index_add_ "
+                 f"{lib['index_add_']:.3f} ms, {valid} valid rows of "
+                 f"{p * n}" if lib else "")
+        print(f"kernel segmented_sum {name:10s} p={p} n={n} S={s} C={c} "
+              f"{out[-1]['dtype']}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms{extra}), max |err| {err:.2e} "
+              f"({tol})", flush=True)
+        del got, want
+    del cases, main_seg, main_vals
+    torch.cuda.empty_cache()
+    return out
+
+
+def segsum_launches_expected(pplan, mode):
+    """``segmented_sum`` launches one run of ``pplan`` makes on the card:
+    one per sum, count and size aggregate of every ``groupby_local`` call.
+    A groupby calls it once, or twice when it shuffles with
+    pre-aggregation (``bsp`` / ``bsp_staged`` only; ``amt`` ships raw
+    rows)."""
+    from repro_torch.dataframe.groupby import _normalize
+    total = 0
+    for n in pplan.order:
+        if n.op != "groupby":
+            continue
+        physical, _ = _normalize(n.params["aggs"])
+        sums = sum(a in ("sum", "count", "size")
+                   for names in physical.values() for a in names)
+        two = (mode != "amt" and not n.params.get("elide_shuffle")
+               and n.params.get("pre_aggregate", False))
+        total += sums * (2 if two else 1)
+    return total
+
+
+def check_launches(counts, pplan, mode, st, on_card, label):
+    """One radix launch per direct shuffle (none on ``amt``'s all-gather)
+    and one segmented_sum launch per sum / count / size aggregate of every
+    ``groupby_local`` call (``amt`` included), on the card; none on the CPU
+    (plain versions)."""
+    want = st.num_shuffles if on_card and mode != "amt" else 0
+    check(counts["radix_partition"] == want, f"{label}: radix_partition "
+          f"launched {counts['radix_partition']} times, want {want}")
+    want = segsum_launches_expected(pplan, mode) if on_card else 0
+    check(counts["segmented_sum"] == want and (want or not on_card),
+          f"{label}: segmented_sum launched {counts['segmented_sum']} "
+          f"times, want {want} > 0")
+
+
 def host_reference(ld, rd):
     """What the Fig-9 result must be, from numpy on the host."""
     n_keys = int(max(ld["k"].max(), rd["k"].max())) + 1
@@ -198,6 +375,7 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
     ``device=None`` is the card, as a user calling the port gets it."""
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
     from repro_torch.kernels import CUDA_KERNELS, reset_launches
+    from repro_torch.planner import compile_plan
     t0 = time.perf_counter()
     ld, rd = make_table_data(rows, 0), make_table_data(rows, 1)
     cap = capacity_for(rows, P)
@@ -212,6 +390,7 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
           f"expect {ref[0]} join rows, {len(ref[1])} groups", flush=True)
     plan = fig9_plan(Plan, cap)
     print(plan.explain(tables), flush=True)
+    pplan = compile_plan(plan, tables)
     walls, launches = {}, {}
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -227,12 +406,7 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
             counts = {k.name: k.launches for k in CUDA_KERNELS}
             walls[f"{mode}/{run}"] = wall
             launches[f"{mode}/{run}"] = counts
-            # one radix launch per direct shuffle on the card; none on
-            # amt's all-gather, nor on the CPU (plain version)
-            want = st.num_shuffles if on_card and mode != "amt" else 0
-            check(counts["radix_partition"] == want,
-                  f"{mode}/{run}: radix_partition launched "
-                  f"{counts['radix_partition']} times, want {want}")
+            check_launches(counts, pplan, mode, st, on_card, f"{mode}/{run}")
             if run == "cached":
                 check(st.cache_misses == 0, f"{mode}: {st.cache_misses} "
                       f"cache misses on the repeat run")
@@ -256,23 +430,207 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
             if on_card else "not measured")
     print(f"peak device memory {peak}", flush=True)
     if on_card:
-        profile_bsp(env, plan, tables)
+        profile_run(env, lambda: execute(plan, env, tables, mode="bsp"),
+                    "bsp (cached run under the profiler)")
     return launches, walls
 
 
-def profile_bsp(env, plan, tables, top=10):
-    """One more cached ``bsp`` run under ``torch.profiler``."""
+def fig9_frontend(l_df, r_df, cap):
+    """The Fig-9 pipeline written against ``repro_torch.df`` (the shape of
+    ``tests/test_df_frontend.py::fig9_frontend``, without its filter)."""
+    from repro_torch.expr import col
+    return (l_df.merge(r_df, on="k", out_capacity=4 * cap)
+            .groupby("k").agg({"v0": ["sum", "mean"]})
+            .sort_values("k")
+            .assign(v0_sum=col("v0_sum") + 1.0))
+
+
+def fig9_with_plan(Plan, cap):
+    """The same pipeline built with ``Plan``."""
+    from repro_torch.expr import col
+    return (Plan.scan("l").join(Plan.scan("r"), on="k", out_capacity=4 * cap)
+            .groupby(["k"], {"v0": ["sum", "mean"]}).sort(["k"])
+            .with_columns({"v0_sum": col("v0_sum") + 1.0}))
+
+
+def frontend_phase(torch, rows=FULL_ROWS, device=None):
+    """Fig-9 through ``repro_torch.df`` at ``rows`` per table over ``P``
+    stacked ranks, with the main path's data and capacities, in every mode,
+    first and cached; held to the host reference, and to the same
+    pipeline built with ``Plan`` and run through ``execute`` (equal
+    EXPLAIN, equal result, and no stage built anew).  Returns (launches,
+    wall times) by ``"<mode>/<run>"``."""
+    import repro_torch.df as rdf
+    from repro_torch.core import Plan, execute
+    from repro_torch.kernels import CUDA_KERNELS, reset_launches
+    from repro_torch.planner import compile_plan
+    t0 = time.perf_counter()
+    ld, rd = make_table_data(rows, 0), make_table_data(rows, 1)
+    cap = capacity_for(rows, P)
+    ref = host_reference(ld, rd)
+    cnt_l = np.bincount(ld["k"])[ref[1]]
+    means = np.bincount(ld["k"], weights=ld["v0"].astype(np.float64)
+                        )[ref[1]] / cnt_l
+    walls, launches = {}, {}
+    with rdf.session(parallelism=P, device=device) as env:
+        front = fig9_frontend(rdf.read_numpy(ld, capacity=cap, name="l"),
+                              rdf.read_numpy(rd, capacity=cap, name="r"), cap)
+        env.synchronize()
+        on_card = env.device.type == "cuda"
+        print(f"frontend: 2 x {rows} rows over {P} stacked ranks through "
+              f"repro_torch.df; set-up {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        text = front.explain()
+        print(text, flush=True)
+        plan = fig9_with_plan(Plan, cap)
+        check(plan.explain(front.sources) == text,
+              "frontend EXPLAIN differs from the Plan-built pipeline's")
+        pplan = compile_plan(front.plan, front.sources)
+        for mode in ("bsp", "bsp_staged", "amt"):
+            for run in ("first", "cached"):
+                env.synchronize()
+                reset_launches()
+                t = time.perf_counter()
+                res, st = front.collect(mode=mode, collect_stats=True)
+                env.synchronize()
+                wall = time.perf_counter() - t
+                counts = {k.name: k.launches for k in CUDA_KERNELS}
+                label = f"frontend {mode}/{run}"
+                walls[f"{mode}/{run}"], launches[f"{mode}/{run}"] = \
+                    wall, counts
+                check_launches(counts, pplan, mode, st, on_card, label)
+                if run == "cached":
+                    check(st.cache_misses == 0, f"{label}: "
+                          f"{st.cache_misses} cache misses")
+                print(f"fig9 frontend {mode:10s} {run:6s} wall "
+                      f"{wall * 1e3:9.2f} ms  dispatches={st.dispatches} "
+                      f"cache_hits={st.cache_hits} "
+                      f"cache_misses={st.cache_misses} launches={counts}",
+                      flush=True)
+                check_fig9(res, st, ref, label)
+                got = res.to_numpy()
+                rel = (np.abs(got["v0_mean"] - means)
+                       / np.maximum(np.abs(means), 1.0))
+                check(float(rel.max()) <= 1e-3, f"{label}: v0_mean off by "
+                      f"{rel.max()}")
+                del res
+            # the Plan-built pipeline reuses the frontend's stages
+            built, st = execute(plan, env, front.sources, mode=mode,
+                                collect_stats=True)
+            check(st.cache_misses == 0, f"Plan-built {mode}: "
+                  f"{st.cache_misses} stages built anew")
+            want = built.to_numpy()
+            check(sorted(want) == sorted(got) and all(
+                np.array_equal(got[c], want[c]) for c in got),
+                f"frontend {mode}: result differs from the Plan-built one")
+            print(f"fig9 frontend {mode}: equal to the Plan-built pipeline "
+                  f"({len(got['k'])} groups)", flush=True)
+            del built, want, got
+    return launches, walls
+
+
+def strings_phase(torch, rows=1 << 22, vocab=1 << 18, device=None):
+    """A string-keyed run through ``repro_torch.df``: two tables of
+    ``rows`` fixed-width ``<U12`` keys drawn from ``vocab`` words, whose
+    dictionaries differ (left from the first 3/4 of the words, right from
+    the last 3/4), merged (EXPLAIN shows ``recode[...]``), grouped with
+    sum and count, sorted, and held to numpy on the host.  Returns
+    (launches, wall times) by run."""
+    import repro_torch.df as rdf
+    from repro_torch.kernels import CUDA_KERNELS, reset_launches
+    from repro_torch.planner import compile_plan
+    rng = np.random.default_rng(5)
+    words = np.array([f"w{i:011d}" for i in range(vocab)])
+    li = rng.integers(0, 3 * vocab // 4, rows)
+    ri = rng.integers(vocab // 4, vocab, rows)
+    ld = {"s": words[li], "v": rng.random(rows).astype(np.float32)}
+    rd = {"s": words[ri], "w": rng.random(rows).astype(np.float32)}
+    # the host reference works on the word indices, not on the encoder's
+    # codes: the words sort as their indices do
+    cnt_l = np.bincount(li, minlength=vocab)
+    cnt_r = np.bincount(ri, minlength=vocab)
+    pairs = cnt_l * cnt_r
+    both = pairs > 0
+    keys, sizes = words[both], pairs[both]
+    sums = (np.bincount(li, weights=ld["v"].astype(np.float64),
+                        minlength=vocab) * cnt_r)[both]
+    cap, out_cap = capacity_for(rows, P), capacity_for(int(pairs.sum()), P)
+    walls, launches = {}, {}
+    with rdf.session(parallelism=P, device=device) as env:
+        t = time.perf_counter()
+        l_df = rdf.read_numpy(ld, capacity=cap, name="ls")
+        r_df = rdf.read_numpy(rd, capacity=cap, name="rs")
+        env.synchronize()
+        print(f"strings: 2 x {rows} {ld['s'].dtype} keys from {vocab} words "
+              f"over {P} stacked ranks; host encode + copy "
+              f"{time.perf_counter() - t:.2f} s; expect {int(pairs.sum())} "
+              f"join rows, {len(keys)} groups", flush=True)
+        on_card = env.device.type == "cuda"
+        q = (l_df.merge(r_df, on="s", out_capacity=out_cap)
+             .groupby("s").agg({"v": ["sum", "count"]}).sort_values("s"))
+        text = q.explain()
+        print(text, flush=True)
+        check("recode[s:|D|=" in text and "recode: join(s)" in text,
+              "strings: EXPLAIN shows no recode")
+        pplan = compile_plan(q.plan, q.sources)
+        for run in ("first", "cached"):
+            env.synchronize()
+            reset_launches()
+            t = time.perf_counter()
+            res, st = q.collect(collect_stats=True)
+            env.synchronize()
+            wall = time.perf_counter() - t
+            counts = {k.name: k.launches for k in CUDA_KERNELS}
+            walls[run], launches[run] = wall, counts
+            label = f"strings bsp/{run}"
+            check_launches(counts, pplan, "bsp", st, on_card, label)
+            check(st.rows_dropped == 0, f"{label}: {st.rows_dropped} rows "
+                  f"dropped")
+            if run == "cached":
+                check(st.cache_misses == 0, f"{label}: {st.cache_misses} "
+                      f"cache misses")
+            t = time.perf_counter()
+            out = res.to_numpy()
+            decode = time.perf_counter() - t
+            check(res.dictionaries["s"] == tuple(
+                words[(cnt_l + cnt_r) > 0]), f"{label}: the result's "
+                f"dictionary is not the merged one")
+            check(np.array_equal(out["s"], keys), f"{label}: group keys "
+                  f"differ")
+            check(np.array_equal(out["v_count"], sizes), f"{label}: "
+                  f"counts differ")
+            rel = np.abs(out["v_sum"] - sums) / np.maximum(np.abs(sums), 1.0)
+            check(float(rel.max()) <= 1e-3, f"{label}: v_sum off by "
+                  f"{rel.max()}")
+            print(f"strings {run:6s} wall {wall * 1e3:9.2f} ms "
+                  f"(decode {decode * 1e3:.1f} ms) dispatches="
+                  f"{st.dispatches} cache_misses={st.cache_misses} "
+                  f"launches={counts}: {len(keys)} groups equal to numpy",
+                  flush=True)
+            del res, out
+        # the host's share of a run: planning alone (every collect
+        # compiles the plan, dictionaries and recode tables included)
+        t = time.perf_counter()
+        compile_plan(q.plan, q.sources)
+        print(f"strings: compile_plan (host) {time.perf_counter() - t:.3f} s "
+              f"of the cached run's {walls['cached']:.3f} s", flush=True)
+        if on_card:
+            profile_run(env, q.collect,
+                        "strings bsp (cached run under the profiler)")
+    return launches, walls
+
+
+def profile_run(env, run, title, top=10):
+    """One more cached run, ``run()``, under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import execute
     env.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        execute(plan, env, tables, mode="bsp")
+        run()
         env.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    report_profile(prof, wall_ms, "bsp (cached run under the profiler)",
-                   top)
+    report_profile(prof, wall_ms, title, top)
 
 
 def report_profile(prof, wall_ms, title, top=10):
@@ -650,12 +1008,14 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
 
 
 def build_all():
-    """Build every kernel, one nvcc per source, in turn."""
+    """Build every kernel: one nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import CUDA_KERNELS
     from repro_torch.kernels.build import build, build_log
     t = time.perf_counter()
-    for k in CUDA_KERNELS:
-        build(k.name)
+    with ThreadPoolExecutor(len(CUDA_KERNELS)) as pool:
+        for done in [pool.submit(build, k.name) for k in CUDA_KERNELS]:
+            done.result()
     print(f"built {[k.name for k in CUDA_KERNELS]} in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for k in CUDA_KERNELS:
@@ -685,7 +1045,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import (flash_attention_cuda,
-                                     radix_partition_cuda, ssd_scan_cuda)
+                                     radix_partition_cuda,
+                                     segmented_sum_cuda, ssd_scan_cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -705,14 +1066,20 @@ def main():
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     cap = capacity_for(FULL_ROWS, P)
     radix_cases = radix_phase(torch, cap, flush)
+    segsum_cases = segsum_phase(torch, cap, flush)
     flash_cases = flash_phase(torch, flush)
     ssd_cases = ssd_phase(torch, flush)
     del flush
     phase_done("kernels")
     launches, walls = main_path_phase(torch)
-    check(launches["bsp/first"]["radix_partition"] > 0,
-          "radix_partition never launched on the Fig-9 path")
+    for k in ("radix_partition", "segmented_sum"):
+        check(launches["bsp/first"][k] > 0, f"{k} never launched on the "
+              f"Fig-9 path")
     phase_done("fig9")
+    front_launches, front_walls = frontend_phase(torch)
+    phase_done("frontend")
+    str_launches, str_walls = strings_phase(torch)
+    phase_done("strings")
     parity_phase()
     phase_done("fig9 parity")
     served = serve_phase(torch, smi)
@@ -720,11 +1087,13 @@ def main():
     serve_parity_phase(torch)
     phase_done("serve parity")
 
-    rp = radix_partition_cuda
+    rp, ss = radix_partition_cuda, segmented_sum_cuda
     kernels = [
         # the Fig-9 path is the first bsp run; every run's count beside it
         kernel_record(rp, radix_cases, launches["bsp/first"][rp.name],
                       {run: c[rp.name] for run, c in launches.items()}),
+        kernel_record(ss, segsum_cases, launches["bsp/first"][ss.name],
+                      {run: c[ss.name] for run, c in launches.items()}),
         # the serving paths are the first run of each arch
         kernel_record(flash_attention_cuda, flash_cases,
                       served["qwen3-8b"]["first"]["launches"]),
@@ -732,6 +1101,10 @@ def main():
                       served["mamba2-780m"]["first"]["launches"]),
     ]
     print(json.dumps({"fig9_wall_s": walls}))
+    print(json.dumps({"frontend_wall_s": front_walls,
+                      "frontend_launches": front_launches,
+                      "strings_wall_s": str_walls,
+                      "strings_launches": str_launches}))
     print(json.dumps({"serve": {arch: {run: {k: v for k, v in r.items()
                                              if k != "prefill_launches"}
                                        for run, r in runs.items()}

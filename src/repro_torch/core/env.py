@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..comm import Communicator, StackedCommunicator
+from ..dataframe.schema import decode_columns, encode_columns
 from ..dataframe.table import Table
 from ..nulls import apply_null_columns, extract_null_columns
 
@@ -50,8 +51,9 @@ class DistTable:
     columns: Dict[str, torch.Tensor]
     row_counts: torch.Tensor  # (p,) int32
     capacity: int             # per-rank capacity
-    #: always empty in this slice (dictionary-encoded strings come later);
-    #: kept so the planner's dictionary checks read the same attribute
+    #: each dictionary-encoded string column's sorted dictionary
+    #: (``dataframe.schema``); those columns hold int32 codes.  Host-side
+    #: metadata only: stage callables never see it.
     dictionaries: Dict[str, Tuple[str, ...]] = \
         dataclasses.field(default_factory=dict)
 
@@ -80,19 +82,17 @@ class DistTable:
                    device=None) -> "DistTable":
         """Block-distribute host rows over ``parallelism`` ranks.
 
-        NaN / ``None`` values (or explicit ``__m_*`` companions) become
-        validity-mask columns with canonical-zero data slots.  String
-        columns are not supported yet.  An explicit ``capacity`` —
-        including ``0`` — is honored and validated against the per-rank
-        row count."""
+        String columns (object / unicode numpy arrays) are dictionary-
+        encoded on the host: the device gets int32 codes, the sorted
+        dictionary lands in ``dictionaries``.  NaN / ``None`` values (or
+        explicit ``__m_*`` companions) become validity-mask columns with
+        canonical-zero data slots.  An explicit ``capacity`` — including
+        ``0`` — is honored and validated against the per-rank row
+        count."""
         dev = resolve_device(device)
-        for k, v in data.items():
-            if np.asarray(v).dtype.kind in ("O", "U", "S"):
-                raise TypeError(
-                    f"column {k!r} holds strings; dictionary-encoded string "
-                    f"columns are not ported yet")
         data = extract_null_columns({k: np.asarray(v)
                                      for k, v in data.items()})
+        data, dicts = encode_columns(data)
         n = len(next(iter(data.values())))
         per = -(-n // parallelism)
         if capacity is None:
@@ -108,7 +108,7 @@ class DistTable:
                 chunk = arr[r * per:(r + 1) * per]
                 buf[r, :len(chunk)] = chunk
             cols[name] = torch.from_numpy(buf).to(dev)
-        return cls(cols, torch.from_numpy(counts).to(dev), capacity)
+        return cls(cols, torch.from_numpy(counts).to(dev), capacity, dicts)
 
     @classmethod
     def from_reference(cls, columns: Dict[str, np.ndarray],
@@ -133,9 +133,12 @@ class DistTable:
                 for n, v in self.columns.items()}
         return cols, self.row_counts.cpu().numpy()
 
-    def to_numpy(self, nulls: str = "pandas") -> Dict[str, np.ndarray]:
+    def to_numpy(self, decode: bool = True, nulls: str = "pandas"
+                 ) -> Dict[str, np.ndarray]:
         """Gather valid rows from every rank (host side).
 
+        ``decode=True`` maps dictionary-encoded columns back to numpy
+        string arrays; ``decode=False`` returns the raw int32 codes.
         ``nulls="pandas"`` re-materializes validity masks as NaN / ``None``;
         ``nulls="mask"`` returns the raw physical layout."""
         if nulls not in ("pandas", "mask"):
@@ -146,6 +149,8 @@ class DistTable:
             a = v.cpu().numpy()
             out[name] = np.concatenate(
                 [a[r, :counts[r]] for r in range(self.parallelism)], axis=0)
+        if decode and self.dictionaries:
+            out = decode_columns(out, self.dictionaries)
         if nulls == "pandas":
             out = apply_null_columns(out)
         return out

@@ -11,6 +11,7 @@ from .ops_local import (
     hash_columns_np,
     join_local,
     join_overflow,
+    recode,
     sort_local,
     with_columns,
 )
@@ -23,7 +24,7 @@ __all__ = [
     "Table",
     "add_scalar", "drop_null_keys", "filter_expr", "groupby_local",
     "hash_columns", "hash_columns_np", "join_local", "join_overflow",
-    "sort_local", "with_columns",
+    "recode", "sort_local", "with_columns",
     "ShuffleStats", "default_bucket_capacity", "shuffle",
     "finalize_groupby", "groupby", "join", "sort",
 ]

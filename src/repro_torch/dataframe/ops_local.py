@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..expr import as_tensor
+from ..kernels.segmented_reduce import segmented_sum
 from ..nulls import mask_name
 from .table import Table, _sentinel_for, gather_rows, stable_partition_order
 
@@ -190,6 +191,22 @@ def with_columns(table: Table, exprs: Mapping[str, "object"]) -> Table:
     return Table(out, table.row_count)
 
 
+def recode(table: Table, mappings: Mapping[str, "object"]) -> Table:
+    """Remap dictionary codes: ``new = mapping[old]`` per recoded column.
+
+    ``mappings`` maps column name -> int32 gather table
+    (``dataframe.schema.recode_mapping``; a numpy array or a tensor, which
+    the planner moves to the device once per built stage).  Codes are
+    clipped into the table, as ``jnp.take(mode="clip")``: padding rows
+    gather garbage, like every other operator here."""
+    out = dict(table.columns)
+    for name, mapping in mappings.items():
+        m = torch.as_tensor(mapping, dtype=torch.int32, device=table.device)
+        codes = table.columns[name].to(torch.int64).clamp(0, m.shape[0] - 1)
+        out[name] = m[codes]
+    return Table(out, table.row_count)
+
+
 def add_scalar(table: Table, value, cols: Optional[Sequence[str]] = None
                ) -> Table:
     """The paper's pipeline terminal op: add a scalar to value columns."""
@@ -212,11 +229,10 @@ def _max_identity(dtype: torch.dtype):
 
 def _segment_reduce(vals: torch.Tensor, seg: torch.Tensor, how: str,
                     identity) -> torch.Tensor:
-    """Per-rank ``jax.ops.segment_{sum,min,max}`` over ``capacity``
-    segments; empty segments hold ``identity``."""
+    """Per-rank ``jax.ops.segment_{min,max}`` (``how`` = ``amin`` /
+    ``amax``) over ``capacity`` segments; empty segments hold
+    ``identity``.  Sums go to ``kernels.segmented_sum`` instead."""
     out = torch.full_like(vals, identity)
-    if how == "sum":
-        return out.scatter_add_(1, seg, vals)
     return out.scatter_reduce_(1, seg, vals, reduce=how, include_self=True)
 
 
@@ -229,6 +245,11 @@ def groupby_local(table: Table, keys: Sequence[str],
     (``count`` counts non-null, ``size`` counts rows); min/max over an
     all-null group are null, so those outputs carry a ``__m_`` mask when
     their input does.
+
+    Sum, count and size reduce with ``kernels.segmented_sum`` (the CUDA
+    kernel on the card, its plain version on the CPU) over int32 segment
+    ids that are sorted within each rank; min and max stay
+    ``scatter_reduce_``, as JAX's ``segment_min/max`` are no Pallas kernel.
     """
     table = drop_null_keys(table, keys)
     sorted_t = sort_local(table, keys)
@@ -241,8 +262,9 @@ def groupby_local(table: Table, keys: Sequence[str],
         change[:, 0] = True
         change[:, 1:] |= v[:, 1:] != v[:, :-1]
     change &= valid
-    seg = torch.cumsum(change.to(torch.int64), dim=1) - 1
-    seg = torch.where(valid, seg, cap - 1)
+    seg32 = torch.cumsum(change, dim=1, dtype=torch.int32) - 1
+    seg32 = torch.where(valid, seg32, cap - 1)
+    seg = seg32.to(torch.int64)          # the index type of scatter_
     num_groups = change.sum(dim=1, dtype=torch.int32)
 
     out_cols: Dict[str, torch.Tensor] = {}
@@ -259,12 +281,12 @@ def groupby_local(table: Table, keys: Sequence[str],
         for agg in agg_names:
             out_mask = None
             if agg == "sum":
-                r = _segment_reduce(torch.where(eff, v, torch.zeros_like(v)),
-                                    seg, "sum", 0)
+                r = segmented_sum(
+                    seg32, torch.where(eff, v, torch.zeros_like(v)), cap)
             elif agg == "count":
-                r = _segment_reduce(eff.to(torch.int32), seg, "sum", 0)
+                r = segmented_sum(seg32, eff.to(torch.int32), cap)
             elif agg == "size":
-                r = _segment_reduce(valid.to(torch.int32), seg, "sum", 0)
+                r = segmented_sum(seg32, valid.to(torch.int32), cap)
             elif agg in ("min", "max"):
                 ident = (_sentinel_for(v.dtype) if agg == "min"
                          else _max_identity(v.dtype))

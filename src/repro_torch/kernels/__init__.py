@@ -7,22 +7,23 @@ dispatcher (``ops.py``: the kernel for CUDA tensors, the plain version for
 CPU tensors).  ``build.py`` compiles the sources with nvcc on first use.
 
   radix_partition   shuffle bucketize (stable rank in bucket + histogram)
+  segmented_reduce  groupby sum / count / size (segmented sum over runs)
   flash_attention   causal GQA attention forward (online softmax)
   ssd_scan          Mamba-2 SSD chunked scan (+ final state)
-
-The JAX package's fourth Pallas kernel, segmented_sum, is on no path of
-either package yet.
 """
 
 from .flash_attention import (attention_ref, flash_attention,
                               flash_attention_cuda)
 from .radix_partition import (radix_partition, radix_partition_cuda,
                               radix_partition_ref)
+from .segmented_reduce import (segmented_sum, segmented_sum_cuda,
+                               segmented_sum_ref)
 from .ssd_scan import (ssd_scan, ssd_scan_chunked, ssd_scan_cuda,
                        ssd_scan_ref)
 
 #: every CUDA kernel wrapper of the port (each carries ``launches``)
-CUDA_KERNELS = (radix_partition_cuda, flash_attention_cuda, ssd_scan_cuda)
+CUDA_KERNELS = (radix_partition_cuda, segmented_sum_cuda,
+                flash_attention_cuda, ssd_scan_cuda)
 
 
 def reset_launches() -> None:
@@ -33,5 +34,6 @@ def reset_launches() -> None:
 
 __all__ = ["CUDA_KERNELS", "attention_ref", "flash_attention",
            "flash_attention_cuda", "radix_partition", "radix_partition_cuda",
-           "radix_partition_ref", "reset_launches", "ssd_scan",
+           "radix_partition_ref", "reset_launches", "segmented_sum",
+           "segmented_sum_cuda", "segmented_sum_ref", "ssd_scan",
            "ssd_scan_chunked", "ssd_scan_cuda", "ssd_scan_ref"]

@@ -24,6 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 #: kernel name -> CUDA source, relative to this package
 SOURCES: Dict[str, str] = {
     "radix_partition": os.path.join("radix_partition", "radix_partition.cu"),
+    "segmented_sum": os.path.join("segmented_reduce", "segmented_reduce.cu"),
     "flash_attention": os.path.join("flash_attention", "flash_attention.cu"),
     "ssd_scan": os.path.join("ssd_scan", "ssd_scan.cu"),
 }

@@ -16,38 +16,39 @@ The torch counterpart of ``repro.planner``:
 from .logical import (COMM_OPS, LOCAL_OPS, LogicalNode, Partitioning,
                       annotate, build_catalog, copy_dag, from_plan, topo)
 from .rules import optimize
-from .physical import (ExecStats, PhysicalPlan, eval_node, fingerprint,
-                       lower, run_physical, shuffle_allgather)
+from .dictionary import DictTypeError, apply_dictionaries
+from .physical import (ExecStats, PhysicalPlan, attach_dictionaries,
+                       eval_node, fingerprint, lower, run_physical,
+                       shuffle_allgather)
 from .explain import explain, render
 
 
 def compile_plan(plan, tables=None, optimize_plan: bool = True) -> PhysicalPlan:
     """Plan tree (or LogicalNode) -> optimized, lowered PhysicalPlan.
 
-    Tables that carry string dictionaries are refused: dictionary
-    resolution (``repro.planner.dictionary``) comes with the strings slice
-    of the port."""
+    Dictionary resolution (``planner.dictionary``: recode insertion for
+    mismatched join dictionaries, string-literal lowering, validation) runs
+    unconditionally — it is a correctness pass, not an optimization.
+    """
     catalog = build_catalog(tables)
-    with_dicts = sorted(name for name, entry in catalog.items() if entry[2])
-    if with_dicts:
-        raise NotImplementedError(
-            f"tables {with_dicts} carry string dictionaries; dictionary-"
-            f"encoded string columns wait for the strings slice of the port")
     node = getattr(plan, "node", plan)
     if isinstance(node, LogicalNode):
-        # copy: the rewrite passes below mutate in place
+        # copy: the rewrite passes below mutate in place, and the caller's
+        # DAG may be recompiled against different tables/dictionaries
         root = annotate(copy_dag(node), catalog or None)
     else:
         root = from_plan(node, catalog)
-    fired = []
+    fired = apply_dictionaries(root)
     if optimize_plan:
-        root, fired = optimize(root, catalog)
+        root, opt_fired = optimize(root, catalog)
+        fired = fired + opt_fired
     return lower(root, fired)
 
 
 __all__ = [
-    "COMM_OPS", "LOCAL_OPS", "ExecStats", "LogicalNode", "Partitioning",
-    "PhysicalPlan", "annotate", "build_catalog", "compile_plan", "copy_dag",
+    "COMM_OPS", "LOCAL_OPS", "DictTypeError", "ExecStats", "LogicalNode",
+    "Partitioning", "PhysicalPlan", "annotate", "apply_dictionaries",
+    "attach_dictionaries", "build_catalog", "compile_plan", "copy_dag",
     "eval_node", "explain", "fingerprint", "from_plan", "lower", "optimize",
     "render", "run_physical", "shuffle_allgather", "topo",
 ]

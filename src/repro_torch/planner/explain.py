@@ -35,6 +35,10 @@ def _label(n: LogicalNode) -> str:
     if n.op == "add_scalar":
         cols = p.get("cols")
         return f"add_scalar[{','.join(cols) if cols else '*'}]"
+    if n.op == "recode":
+        parts = ",".join(f"{c}:|D|={len(p['targets'][c])}"
+                         for c in sorted(p["targets"]))
+        return f"recode[{parts}]"
     if n.op == "shuffle":
         extra = "".join(f"; {k}={p[k]}" for k in ("impl", "a2a_chunks")
                         if k in p)

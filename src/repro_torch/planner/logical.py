@@ -35,13 +35,12 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..expr import Col
-
 #: ops that may execute a shuffle (communication boundaries)
 COMM_OPS = ("shuffle", "join", "groupby", "sort")
-#: purely local ops (the JAX package's ``recode`` comes with strings)
+#: purely local ops (``recode`` remaps dictionary codes via a gather
+#: table — inserted by ``planner.dictionary``, never by users)
 LOCAL_OPS = ("scan", "project", "filter", "with_columns", "add_scalar",
-             "noop")
+             "recode", "noop")
 
 #: paper §V data recipe: ~90% key cardinality (drives groupby estimates)
 DEFAULT_GROUP_RATIO = 0.9
@@ -243,11 +242,14 @@ def _annotate_node(n: LogicalNode, catalog) -> None:
                           if assigned & set(i0.partitioning.cols)
                           else i0.partitioning)
         n.est_rows = i0.est_rows
+        from ..dataframe.schema import expr_dictionary
         dicts = {c: d for c, d in i0.dicts.items() if c not in assigned}
-        # ``col(c)`` passthroughs keep ``c``'s dictionary (string columns,
-        # and so dictionaries, come with a later slice of the port)
+        # already-lowered string-literal assignments record their output
+        # dictionary in ``assign_dicts`` (planner.dictionary)
+        assign_dicts = p.get("assign_dicts", {})
         for name, e in p["exprs"].items():
-            d = (i0.dicts.get(e.name) if isinstance(e, Col) else None)
+            d = (assign_dicts.get(name)
+                 or expr_dictionary(e, i0.dicts))
             if d is not None:
                 dicts[name] = d
         n.dicts = dicts
@@ -266,6 +268,16 @@ def _annotate_node(n: LogicalNode, catalog) -> None:
                           else i0.partitioning)
         n.est_rows = i0.est_rows
         n.dicts = dict(i0.dicts)
+        n.nulls = i0.nulls
+    elif n.op == "recode":
+        # per-column code remap onto the target dictionaries; the recoded
+        # columns' hash placement no longer holds (codes changed)
+        n.schema = i0.schema
+        n.partitioning = (Partitioning.none()
+                          if set(p["cols"]) & set(i0.partitioning.cols)
+                          else i0.partitioning)
+        n.est_rows = i0.est_rows
+        n.dicts = {**i0.dicts, **p["targets"]}
         n.nulls = i0.nulls
     elif n.op == "shuffle":
         n.schema = i0.schema
@@ -386,9 +398,9 @@ def build_catalog(tables: Optional[Mapping[str, Any]]
     or plain column sequences; dictionaries default to none (all-numeric)
     and nullability to none.  ``__m_*`` validity-mask columns are physical
     companions, not logical schema: they are stripped from the column list
-    and recorded as their base column's nullability instead.  String
-    columns (which need dictionaries) are not ported yet and raise.
+    and recorded as their base column's nullability instead.
     """
+    from ..dataframe.schema import dictionary_of, is_string_array
     from ..nulls import _valid_of, data_columns, nullable_columns
     cat: Dict[str, Tuple[Tuple[str, ...], float,
                          Dict[str, Tuple[str, ...]], frozenset]] = {}
@@ -400,22 +412,29 @@ def build_catalog(tables: Optional[Mapping[str, Any]]
             cat[name] = (tuple(data_columns(names)), rows, dicts,
                          frozenset(nullable_columns(names)))
         elif isinstance(t, Mapping):
-            cols, rows = [], 1024.0
+            # raw numpy column dict: string columns will be dictionary-
+            # encoded at ingest — mirror the dictionary here (codes not
+            # needed) so the plan agrees.  NaN/None slots (or an explicit
+            # __m_* companion) make the column nullable, as
+            # ``extract_null_columns`` will normalize it at ingest; its
+            # smallest-valid-value fill keeps the dictionary null-free.
+            cols, dicts, rows = [], {}, 1024.0
             nulls = set(nullable_columns(t.keys()))
             for cname, arr in t.items():
                 if cname.startswith("__m_"):
                     continue
                 arr = np.asarray(arr)
-                if arr.dtype.kind in ("O", "U", "S"):
-                    raise TypeError(
-                        f"scan {name!r} column {cname!r} holds strings; "
-                        f"dictionary-encoded string columns are not ported "
-                        f"yet")
                 cols.append(cname)
                 rows = float(len(arr))
-                if not _valid_of(arr).all():
+                valid = _valid_of(arr)
+                if not valid.all():
                     nulls.add(cname)
-            cat[name] = (tuple(cols), rows, {}, frozenset(nulls))
+                if is_string_array(arr):
+                    vals = arr[valid] if not valid.all() else arr
+                    # all-null columns ingest as the "" fill value
+                    dicts[cname] = (dictionary_of(vals) if len(vals)
+                                    else ("",))
+            cat[name] = (tuple(cols), rows, dicts, frozenset(nulls))
         elif (isinstance(t, tuple) and len(t) in (2, 3, 4)
               and not isinstance(t[0], str)):
             dicts = dict(t[2]) if len(t) > 2 else {}

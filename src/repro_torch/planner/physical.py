@@ -259,11 +259,29 @@ def _shuffle_kw(node: LogicalNode) -> Dict[str, Any]:
             if k not in keep and k not in ("elided", "note", "expr", "exprs")}
 
 
+def _recode_tables(node: LogicalNode, device: torch.device,
+                   consts: Optional[Dict[int, Dict[str, torch.Tensor]]]
+                   ) -> Dict[str, torch.Tensor]:
+    """A ``recode`` node's gather tables on ``device``.  ``consts`` lives
+    as long as the built stage callable, so each table moves to the device
+    once per stage, not once per call."""
+    if consts is None:
+        consts = {}
+    if node.nid not in consts:
+        consts[node.nid] = {
+            c: torch.as_tensor(np.asarray(m), dtype=torch.int32,
+                               device=device)
+            for c, m in node.params["cols"].items()}
+    return consts[node.nid]
+
+
 def eval_node(node: LogicalNode, comm: Communicator,
               values: Dict[int, Table], tables: Dict[str, Table],
               shuffle_mode: str,
               stats_out: Optional[List[Tuple[str, torch.Tensor]]] = None,
-              shuffle_impl: str = "radix", a2a_chunks: int = 1) -> Table:
+              shuffle_impl: str = "radix", a2a_chunks: int = 1,
+              consts: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
+              ) -> Table:
     p = node.params
     ins = [values[i.nid] for i in node.inputs]
     shuffle_fn = df_shuffle if shuffle_mode == "direct" else shuffle_allgather
@@ -290,6 +308,9 @@ def eval_node(node: LogicalNode, comm: Communicator,
         return ops_local.with_columns(ins[0], p["exprs"])
     if node.op == "add_scalar":
         return ops_local.add_scalar(ins[0], p["value"], p.get("cols"))
+    if node.op == "recode":
+        return ops_local.recode(
+            ins[0], _recode_tables(node, ins[0].device, consts))
 
     kw = _shuffle_kw(node)
     if shuffle_mode == "direct":
@@ -416,6 +437,48 @@ class ExecStats:
         dataclasses.field(default_factory=list)
 
 
+def check_scan_dictionaries(order: Sequence[LogicalNode],
+                            tables: Dict[str, Any]) -> None:
+    """Reject runtime tables whose dictionaries differ from compile time.
+
+    Recode gather tables and lowered string literals are baked into the
+    lowered plan from the *compile-time* catalog; running that plan
+    against a table with a different dictionary would silently decode
+    fabricated strings.
+    """
+    for n in order:
+        if n.op != "scan":
+            continue
+        t = tables.get(n.params["name"])
+        got = getattr(t, "dictionaries", None)
+        if got is None:
+            continue
+        want = {c: d for c, d in n.dicts.items() if c in n.schema}
+        if dict(got) != want:
+            diff = sorted(set(got) ^ set(want)
+                          | {c for c in set(got) & set(want)
+                             if tuple(got[c]) != want[c]})
+            raise ValueError(
+                f"scan {n.params['name']!r}: table dictionaries for "
+                f"{diff} differ from the ones this plan was compiled "
+                f"against — re-run compile_plan/execute with the current "
+                f"tables (recode tables and lowered string literals are "
+                f"baked in at compile time)")
+
+
+def attach_dictionaries(out, root: LogicalNode):
+    """Re-attach host-side dictionaries to an execution result.
+
+    Stages move int32 codes only; the annotated root knows which output
+    columns are dictionary-encoded and by what dictionary
+    (``LogicalNode.dicts``), so the host restores the metadata here.
+    """
+    if root.dicts and hasattr(out, "dictionaries"):
+        live = set(getattr(out, "column_names", ()) or root.dicts)
+        out.dictionaries = {c: d for c, d in root.dicts.items() if c in live}
+    return out
+
+
 def _sum_stats(collected) -> Tuple[int, int, int]:
     """``collected``: (p, 3) tensors -> (rows sent, bytes sent, dropped)."""
     tot = np.zeros((3,), np.int64)
@@ -443,11 +506,16 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     missing = [n for n in names if n not in tables]
     if missing:
         raise KeyError(f"plan scans missing from tables: {missing}")
+    check_scan_dictionaries(pplan.order, tables)
     root = pplan.root
     order = pplan.order
     fp = pplan.fingerprint
     shuffle_mode = "allgather" if mode == "amt" else "direct"
-    eval_kw = dict(shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks)
+    # recode tables on the device, filled by the first call of each built
+    # stage callable and kept with it
+    consts: Dict[int, Dict[str, torch.Tensor]] = {}
+    eval_kw = dict(shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
+                   consts=consts)
     hits0, misses0 = env.cache_hits, env.cache_misses
     stage_times: List[Tuple[str, float]] = []
     t_query0 = time.perf_counter()
@@ -510,11 +578,11 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                       key=("bsp", fp, collect_stats, shuffle_impl,
                            a2a_chunks))
         if not collect_stats:
-            return res
+            return attach_dictionaries(res, root)
         env.synchronize()
         stage_times.append(("program", time.perf_counter() - t0))
         pairs = pair_stat_labels(plan_stat_labels(order), res[1])
-        return finish(res[0], mk_stats(1, pairs))
+        return finish(attach_dictionaries(res[0], root), mk_stats(1, pairs))
 
     if mode not in ("bsp_staged", "amt"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -577,7 +645,7 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         env.synchronize()  # completion barrier: the host round-trip
         stage_times.append((unit_names[uidx], time.perf_counter() - t0))
 
-    result = values[root.nid]
+    result = attach_dictionaries(values[root.nid], root)
     if collect_stats:
         return finish(result, mk_stats(len(units), collected))
     return result

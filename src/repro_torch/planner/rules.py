@@ -312,6 +312,9 @@ def _required_from(node: LogicalNode, required: Set[str], i: int) -> Set[str]:
     if node.op == "add_scalar":
         cols = p.get("cols")
         return set(required) | (set(cols) if cols else set())
+    if node.op == "recode":
+        # the remapped columns stay live (the gather table references them)
+        return set(required) | set(p["cols"])
     if node.op == "shuffle":
         return set(required) | set(p["key_cols"])
     if node.op == "sort":

@@ -157,3 +157,79 @@ def test_ssd_scan_cuda_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         ssd_scan_cuda(x[..., :64].contiguous().double(), dt, a, b, b,
                       chunk=8)
+
+
+# (p, n, S, C, dtype, order): sorted and unsorted ids, ragged n, n = 0,
+# C > 1, every dtype the kernel takes, ids outside [0, S), one segment
+SEGSUM_CASES = [(8, 100_003, 5_000, 1, "float32", "sorted"),
+                (2, 1_000_003, 70_000, 1, "float32", "random"),
+                (3, 8192 * 3 + 5, 400, 4, "float64", "sorted"),
+                (4, 50_001, 1_000, 1, "int32", "random"),
+                (1, 20_000, 33, 2, "int64", "sorted"),
+                (8, 0, 16, 1, "float32", "sorted"),
+                (2, 40_000, 1_000, 1, "int32", "out-of-range"),
+                (1, 9_000, 1, 3, "float32", "sorted")]
+
+
+@pytest.mark.parametrize("p,n,s,c,dtype,order", SEGSUM_CASES)
+def test_segmented_sum_cuda_equals_plain(cuda, p, n, s, c, dtype, order):
+    # integers exact; floats to 1e-5 (tests/test_kernels.py): the kernel
+    # adds in scan order within a run and in atomic order across warps
+    from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
+    rng = np.random.default_rng(p * 7919 + n + s + c)
+    lo, hi = (-3, s + 3) if order == "out-of-range" else (0, s)
+    ids = rng.integers(lo, hi, (p, n)).astype(np.int32)
+    if order == "sorted":
+        ids = np.sort(ids, axis=1)
+    shape = (p, n) if c == 1 else (p, n, c)
+    vals = (rng.integers(-50, 50, shape) if dtype.startswith("int")
+            else rng.random(shape)).astype(dtype)
+    seg = torch.as_tensor(ids, device=cuda)
+    v = torch.as_tensor(vals, device=cuda)
+    before = segmented_sum_cuda.launches
+    got = segmented_sum_cuda(seg, v, s)
+    torch.cuda.synchronize()
+    assert segmented_sum_cuda.launches == before + (1 if n else 0)
+    want = segmented_sum_ref(seg, v, s)
+    assert got.shape == want.shape == (p, s) + shape[2:]
+    if dtype.startswith("int"):
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_segmented_sum_cuda_rejects_bad_input(cuda):
+    from repro_torch.kernels import segmented_sum_cuda
+    ids = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        segmented_sum_cuda(ids.long(), torch.zeros((2, 8), device=cuda), 4)
+    with pytest.raises(ValueError):   # no atomicAdd overload for int16
+        segmented_sum_cuda(ids, torch.zeros((2, 8), dtype=torch.int16,
+                                            device=cuda), 4)
+    with pytest.raises(ValueError):
+        segmented_sum_cuda(ids, torch.zeros((2, 9), device=cuda), 4)
+    with pytest.raises(ValueError):
+        segmented_sum_cuda(ids.cpu(), torch.zeros((2, 8)), 4)
+
+
+def test_groupby_local_sums_go_through_the_kernel(cuda):
+    # on the card, sum / count / size take the kernel, never scatter_add_
+    from repro_torch.dataframe import Table, groupby_local
+    from repro_torch.kernels import segmented_sum_cuda
+    rng = np.random.default_rng(11)
+    k = torch.as_tensor(rng.integers(0, 50, (4, 300)).astype(np.int32),
+                        device=cuda)
+    v = torch.as_tensor(rng.random((4, 300)).astype(np.float32),
+                        device=cuda)
+    t = Table({"k": k, "v": v},
+              torch.tensor([300, 250, 0, 17], dtype=torch.int32, device=cuda))
+    before = segmented_sum_cuda.launches
+    out = groupby_local(t, ["k"], {"v": ["sum", "count", "size", "max"]})
+    assert segmented_sum_cuda.launches == before + 3
+    cpu = groupby_local(Table({n: c.cpu() for n, c in t.columns.items()},
+                              t.row_count.cpu()),
+                        ["k"], {"v": ["sum", "count", "size", "max"]})
+    for name in ("k", "v_count", "v_size", "v_max"):
+        assert torch.equal(out.columns[name].cpu(), cpu.columns[name]), name
+    torch.testing.assert_close(out.columns["v_sum"].cpu(),
+                               cpu.columns["v_sum"], rtol=1e-5, atol=1e-6)

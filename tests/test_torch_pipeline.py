@@ -238,14 +238,22 @@ def test_overflow_policies():
 
 
 def test_compile_plan_refuses_dictionaries():
+    # string dictionaries compile (planner.dictionary is ported); what
+    # compile_plan refuses is what no dictionary supports, with the JAX
+    # package's DictTypeError: a sum over a string column, and a string
+    # key joined to a numeric one
     from repro_torch.core import Plan
-    from repro_torch.planner import compile_plan
+    from repro_torch.planner import DictTypeError, compile_plan
+    cat = {"t": (("s", "v"), 10, {"s": ("a", "b")})}
     plan = Plan.scan("t").groupby(["s"], {"v": ["sum"]})
-    with pytest.raises(NotImplementedError, match="strings slice"):
-        compile_plan(plan, {"t": (("s", "v"), 10, {"s": ("a", "b")})})
-    with pytest.raises(TypeError, match="strings"):
-        compile_plan(plan, {"t": {"s": np.array(["a", "b"]),
-                                  "v": np.ones(2)}})
+    assert compile_plan(plan, cat).root.dicts == {"s": ("a", "b")}
+    raw = {"t": {"s": np.array(["b", "a"]), "v": np.ones(2)}}
+    assert compile_plan(plan, raw).root.dicts == {"s": ("a", "b")}
+    with pytest.raises(DictTypeError, match="not defined on the"):
+        compile_plan(Plan.scan("t").groupby(["v"], {"s": ["sum"]}), cat)
+    with pytest.raises(DictTypeError, match="numeric key"):
+        compile_plan(Plan.scan("t").join(Plan.scan("u"), on="s"),
+                     {**cat, "u": (("s", "w"), 10)})
 
 
 if __name__ == "__main__":
