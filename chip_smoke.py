@@ -8,7 +8,8 @@ CUDA; imports nothing of JAX or of the JAX package.  Phases, each of which
 ends the run with a non-zero exit code if it fails:
 
 1. builds every CUDA kernel of the port from the sources in the checkout
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together) and prints the compiler's
+   register and spill report, one line per flash-attention kernel;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the main paths' shapes and edge cases, timed with CUDA
    events (L2 overwritten before each launch), beside its bound and, where
@@ -41,6 +42,10 @@ ends the run with a non-zero exit code if it fails:
    attention once per qwen3-8b layer in prefill, the SSD scan once per
    mamba2 layer, neither in decode); time to first token, decode time per
    step, tokens per second and peak device memory;
+   then a qwen3-8b prefill at the same width with bfloat16 weights,
+   twice: finite logits, first tokens in the vocab, 36 flash launches,
+   all on the kernel's bf16 tensor-core (wgmma) route; time to first
+   token;
 7. serving parity: both SMOKE configs with the same weights on the card
    (kernels forced, prompts longer than a tile) and on the CPU (plain
    versions): prefill logits within 1e-3, greedy tokens equal.
@@ -734,23 +739,32 @@ def flash_phase(torch, flush):
     per-case records (the first is the main path's shape, f32)."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ref, flash_attention_cuda
+    from repro_torch.kernels.flash_attention.cuda import route_for
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     # (b, hq, hkv, sq, sk, d, causal, dtype): the qwen3-8b prefill at a
-    # 4096-token prompt in f32 and bf16, Sq != Sk, a length off the 64-row
-    # tile, non-causal over ragged keys
+    # 4096-token prompt in f32 and bf16, Sq != Sk, a length off the 64-
+    # and 128-row tiles, non-causal over ragged keys, each in both dtypes
+    # (f32 takes the simt route, bf16 at D = 128 the wgmma route)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("main", 4, 32, 8, 4096, 4096, 128, True, f32),
              ("main:bf16", 4, 32, 8, 4096, 4096, 128, True, bf16),
              ("sq<sk", 4, 32, 8, 1024, 4096, 128, True, f32),
+             ("sq<sk:bf16", 4, 32, 8, 1024, 4096, 128, True, bf16),
              ("ragged", 2, 32, 8, 4000, 4000, 128, True, f32),
-             ("noncausal", 2, 32, 8, 1000, 3001, 128, False, f32)]
+             ("ragged:bf16", 2, 32, 8, 4000, 4000, 128, True, bf16),
+             ("noncausal", 2, 32, 8, 1000, 3001, 128, False, f32),
+             ("noncausal:bf16", 2, 32, 8, 1000, 3001, 128, False, bf16)]
     out = []
     for name, b, hq, hkv, sq, sk, d, causal, dt in cases:
         q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dt)
         k = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
         v = torch.randn(b, hkv, sk, d, generator=gen, device=dev).to(dt)
+        route = route_for(dt, d)
+        before = flash_attention_cuda.route_launches[route]
         got = flash_attention_cuda(q, k, v, causal)
+        check(flash_attention_cuda.route_launches[route] == before + 1,
+              f"flash_attention {name}: the {route} route did not launch")
         want = attention_ref(q, k, v, causal)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -780,7 +794,8 @@ def flash_phase(torch, flush):
         peak = F32_FLOPS if dt == f32 else BF16_FLOPS
         bound_ms = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
         out.append(dict(case=name, shape=[b, hq, hkv, sq, sk, d],
-                        causal=causal, dtype=str(dt).split(".")[-1], ms=ms,
+                        causal=causal, dtype=str(dt).split(".")[-1],
+                        kernel_route=route, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=("operations" if flops / peak
                                   >= nbytes / HBM_BYTES_PER_S else "bytes"),
@@ -788,7 +803,8 @@ def flash_phase(torch, flush):
                               else "bf16 dense 989 TFLOP/s"),
                         library_ms=lib_ms, max_abs_err=err))
         lib = f", sdpa {lib_ms:.3f} ms" if lib_ms is not None else ""
-        print(f"kernel flash_attention {name:9s} {out[-1]['dtype']} "
+        print(f"kernel flash_attention {name:14s} {out[-1]['dtype']} "
+              f"route={route} "
               f"b={b} hq={hq} hkv={hkv} sq={sq} sk={sk} d={d} "
               f"causal={causal}: {ms:.3f} ms (plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.3f} ms{lib}), max |err| {err:.2e}",
@@ -959,6 +975,51 @@ def serve_phase(torch, smi, seed=0):
     return results
 
 
+def serve_bf16_phase(torch, smi, seed=0, arch="qwen3-8b", batch=4,
+                     prompt=4096):
+    """qwen3-8b prefill at full width with bfloat16 weights (the JAX
+    package's ``init_params`` default) through ``ServeEngine``, twice:
+    finite logits, first tokens inside the vocab, one flash-attention
+    launch per layer, every one on the bf16 tensor-core (wgmma) route;
+    returns each run's time to first token."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention_cuda
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = transformer.init_params(cfg, gen, torch.bfloat16, dev)
+    engine = ServeEngine(cfg, model, cache_len=prompt + 1)
+    tokens = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt)), dtype=torch.long, device=dev)
+    runs = {}
+    for run in ("first", "cached"):
+        rec = {"decode": []}
+        instrument(torch, engine, rec)
+        wgmma = flash_attention_cuda.route_launches["wgmma"]
+        logits, caches = engine.prefill(tokens)
+        wgmma = flash_attention_cuda.route_launches["wgmma"] - wgmma
+        del engine.prefill, engine.decode_step   # the unwrapped methods
+        first = torch.argmax(logits, dim=-1)
+        check(int(first.min()) >= 0 and int(first.max()) < cfg.vocab_size,
+              f"{arch} bf16/{run}: first tokens outside the vocab")
+        n = rec["prefill"]["flash_attention"]
+        check(n == cfg.num_layers and wgmma == n, f"{arch} bf16/{run}: "
+              f"{n} flash launches ({wgmma} on the wgmma route), want "
+              f"{cfg.num_layers}")
+        runs[run] = dict(ttft_s=rec["prefill_s"], flash_launches=n,
+                         wgmma_launches=wgmma)
+        print(f"serve {arch} bf16 {run:6s} batch={batch} prompt={prompt}: "
+              f"time to first token {rec['prefill_s']:.3f} s; flash "
+              f"launches {n}, all wgmma; first tokens {first.tolist()} "
+              f"[{smi}]", flush=True)
+        del logits, caches
+    del engine, model
+    torch.cuda.empty_cache()
+    return runs
+
+
 def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
     """The SMOKE configs with the same weights on ``devices``: the card
     forces the kernels (``flash`` / ``kernel``) at a prompt longer than
@@ -1011,7 +1072,7 @@ def build_all():
     """Build every kernel: one nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import CUDA_KERNELS
-    from repro_torch.kernels.build import build, build_log
+    from repro_torch.kernels.build import build, build_log, ptxas_report
     t = time.perf_counter()
     with ThreadPoolExecutor(len(CUDA_KERNELS)) as pool:
         for done in [pool.submit(build, k.name) for k in CUDA_KERNELS]:
@@ -1020,6 +1081,9 @@ def build_all():
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for k in CUDA_KERNELS:
         print(build_log(k.name).strip(), flush=True)
+    for fn, regs, st, ld in ptxas_report("flash_attention"):
+        print(f"ptxas flash_attention {fn}: {regs} registers, spill stores "
+              f"{st} B, spill loads {ld} B", flush=True)
 
 
 def kernel_record(k, cases, launches, launches_by_run=None):
@@ -1084,6 +1148,8 @@ def main():
     phase_done("fig9 parity")
     served = serve_phase(torch, smi)
     phase_done("serve")
+    served_bf16 = serve_bf16_phase(torch, smi)
+    phase_done("serve bf16")
     serve_parity_phase(torch)
     phase_done("serve parity")
 
@@ -1108,7 +1174,8 @@ def main():
     print(json.dumps({"serve": {arch: {run: {k: v for k, v in r.items()
                                              if k != "prefill_launches"}
                                        for run, r in runs.items()}
-                                for arch, runs in served.items()}}))
+                                for arch, runs in served.items()},
+                      "serve_bf16_prefill": {"qwen3-8b": served_bf16}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

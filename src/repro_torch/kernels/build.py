@@ -14,9 +14,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, List, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -83,6 +84,30 @@ def build_log(name: str) -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def ptxas_report(name: str) -> List[Tuple[str, int, int, int]]:
+    """(kernel function, registers, spill-store bytes, spill-load bytes)
+    of each function in the last build's ``-Xptxas -v`` report; names
+    are the mangled ones cut to the template arguments (for example
+    ``flash_wgmmaILi128`` for ``flash_wgmma<128>``)."""
+    out, fn, spills = [], None, (0, 0)
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d+", "",
+                        m.group(1)).split("EEEv")[0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out.append((fn, int(m.group(1)), *spills))
+            fn, spills = None, (0, 0)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

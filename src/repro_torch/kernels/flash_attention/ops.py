@@ -10,8 +10,10 @@ Unlike the JAX wrapper (``repro/kernels/flash_attention/ops.py``), nothing
 is padded here: the kernel takes the true Sq and Sk and masks keys past
 Sk itself, so non-causal attention over a ragged key length runs on the
 kernel too, where the JAX wrapper falls back to ``attention_ref``.  The
-tile sizes are fixed in the kernel (64 x 64), so the reference's
-``block_q`` / ``block_k`` / ``interpret`` options have no counterpart.
+tile sizes are fixed by the kernel's route (``cuda.route_for``: 128 x 128
+on the bf16 tensor-core route, 64 x 64 on the f32 route), so the
+reference's ``block_q`` / ``block_k`` / ``interpret`` options have no
+counterpart.
 """
 
 from __future__ import annotations

@@ -90,3 +90,81 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v)
     assert flash_attention_cuda.launches == before
+
+
+# ---------------------------------------------------------------------- #
+# what surrounds the CUDA kernel: route, launch geometry, shared memory
+# (the kernel mirrors these; tests/test_torch_gpu.py holds them equal to
+# the kernel's own on the card)
+# ---------------------------------------------------------------------- #
+SM_SHARED_BYTES = 233_472     # an H100 SM's shared memory (228 KB)
+BLOCK_RESERVED_BYTES = 1_024  # reserved by the system for each block
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_by_dtype_and_head_dim(d, dtype):
+    from repro_torch.kernels.flash_attention.cuda import route_for
+    want = "wgmma" if dtype == "bfloat16" and d >= 64 else "simt"
+    assert route_for(getattr(torch, dtype), d) == want
+
+
+@pytest.mark.parametrize("route,d", [("simt", 16), ("simt", 32),
+                                     ("simt", 64), ("simt", 128),
+                                     ("wgmma", 64), ("wgmma", 128)])
+def test_shared_memory_fits(route, d):
+    from repro_torch.kernels.flash_attention.cuda import (SMEM_LIMIT,
+                                                          smem_bytes)
+    smem = smem_bytes(route, d)
+    assert 0 < smem <= SMEM_LIMIT == 232_448
+    if route == "simt":
+        # two blocks of 8 warps (16 warps) fit on an SM at every head dim
+        assert 2 * (smem + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+
+
+def test_shared_memory_of_the_main_shapes():
+    # Q + 3 stages of K and V (bf16, 128 rows) + 10 mbarriers + alignment;
+    # Q, K, V (64 rows) + P (64 x 64), float32
+    from repro_torch.kernels.flash_attention.cuda import smem_bytes
+    assert smem_bytes("wgmma", 128) == 1024 + 32_768 + 196_608 + 80
+    assert smem_bytes("wgmma", 64) == 1024 + 16_384 + 98_304 + 80
+    assert smem_bytes("simt", 128) == 3 * 32_768 + 16_384
+
+
+@pytest.mark.parametrize("sq,dtype,d,want_tiles", [
+    (4096, "bfloat16", 128, 32), (4000, "bfloat16", 128, 32),
+    (4000, "float32", 128, 63), (70, "bfloat16", 64, 1),
+    (70, "float32", 64, 2), (1, "bfloat16", 128, 1), (1, "float32", 16, 1),
+    (129, "bfloat16", 128, 2)])
+def test_grid_covers_ragged_queries(sq, dtype, d, want_tiles):
+    from repro_torch.kernels.flash_attention.cuda import launch_geometry
+    geo = launch_geometry(4, 32, sq, d, getattr(torch, dtype))
+    assert geo.q_tiles == want_tiles
+    assert (geo.q_tiles - 1) * geo.block_q < sq <= geo.q_tiles * geo.block_q
+    assert geo.grid == want_tiles * 4 * 32
+    assert geo.threads == (384 if geo.route == "wgmma" else 256)
+
+
+@pytest.mark.parametrize("b,hq,sq,dtype", [(2, 3, 300, "float32"),
+                                           (1, 4, 1000, "bfloat16"),
+                                           (3, 2, 64, "float32")])
+def test_blocks_go_heaviest_first_and_cover_every_tile(b, hq, sq, dtype):
+    from repro_torch.kernels.flash_attention.cuda import (block_work,
+                                                          launch_geometry)
+    geo = launch_geometry(b, hq, sq, 64, getattr(torch, dtype))
+    work = [block_work(i, geo, b * hq) for i in range(geo.grid)]
+    assert sorted(work) == [(bh, t) for bh in range(b * hq)
+                            for t in range(geo.q_tiles)]
+    tiles = [t for _, t in work]
+    # causal work grows with the query tile: the last tile comes first
+    assert tiles == sorted(tiles, reverse=True)
+    assert tiles[0] == geo.q_tiles - 1
+
+
+def test_grid_takes_more_than_65535_heads():
+    # the flattened grid has no B*Hq <= 65535 limit (a grid's y dimension)
+    from repro_torch.kernels.flash_attention.cuda import launch_geometry
+    for dtype in (torch.float32, torch.bfloat16):
+        geo = launch_geometry(1100, 64, 4, 64, dtype)
+        assert geo.grid == 1100 * 64 > 65_535
+        assert geo.grid <= 2**31 - 1

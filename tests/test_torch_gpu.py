@@ -71,11 +71,22 @@ def test_radix_partition_cuda_rejects_bad_input(cuda):
 # ---------------------------------------------------------------------- #
 # (b, hq, hkv, sq, sk, d, causal): square, GQA, MQA, ragged lengths,
 # Sq != Sk (queries aligned to the end of the keys), non-causal with
-# ragged keys, every head dim the kernel takes
+# ragged keys, every head dim the kernel takes; then Sk off the 64- and
+# 128-key tiles with three or more tiles (the K/V ring wraps), Sq = 1 and
+# Sq < Sk at D = 128, GQA group 4 and MQA at D = 64 and 128, non-causal at
+# D = 64, and B*Hq = 70,400 blocks' worth of heads at a tiny S (more than
+# the 65,535 a grid's y dimension takes)
 FLASH_CASES = [(1, 4, 4, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
                (1, 4, 1, 128, 128, 128, True), (1, 2, 2, 100, 100, 32, True),
                (1, 4, 2, 128, 384, 64, True), (2, 4, 2, 70, 333, 16, True),
-               (1, 2, 2, 100, 130, 128, False), (1, 2, 1, 1, 77, 32, True)]
+               (1, 2, 2, 100, 130, 128, False), (1, 2, 1, 1, 77, 32, True),
+               (1, 8, 2, 4000, 4000, 128, True),
+               (2, 4, 2, 333, 333, 64, True),
+               (2, 8, 2, 1, 1000, 128, True), (1, 4, 1, 70, 1000, 128, True),
+               (1, 16, 4, 256, 256, 128, True), (1, 8, 2, 260, 600, 64, True),
+               (1, 8, 1, 200, 520, 64, True), (1, 8, 1, 300, 700, 128, True),
+               (1, 4, 2, 190, 700, 64, False),
+               (1100, 64, 8, 4, 4, 64, True)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", FLASH_CASES)
@@ -83,6 +94,7 @@ FLASH_CASES = [(1, 4, 4, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
 def test_flash_attention_cuda_equals_plain(cuda, b, hq, hkv, sq, sk, d,
                                            causal, dtype):
     from repro_torch.kernels import attention_ref, flash_attention_cuda
+    from repro_torch.kernels.flash_attention.cuda import route_for
     # tests/test_kernels.py's tolerances: 2e-3 in f32; 2e-2 in bf16, held
     # relative to each output (plus 2e-3), as chip_smoke.py holds it
     atol, rtol = (2e-3, 0) if dtype == torch.float32 else (2e-3, 2e-2)
@@ -90,14 +102,33 @@ def test_flash_attention_cuda_equals_plain(cuda, b, hq, hkv, sq, sk, d,
     q = torch.randn(b, hq, sq, d, generator=g, device=cuda).to(dtype)
     k = torch.randn(b, hkv, sk, d, generator=g, device=cuda).to(dtype)
     v = torch.randn(b, hkv, sk, d, generator=g, device=cuda).to(dtype)
+    route = route_for(dtype, d)
     before = flash_attention_cuda.launches
+    before_route = flash_attention_cuda.route_launches[route]
     got = flash_attention_cuda(q, k, v, causal)
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
+    assert flash_attention_cuda.route_launches[route] == before_route + 1
+    assert route == ("wgmma" if dtype == torch.bfloat16 and d >= 64
+                     else "simt")
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_ref(q, k, v, causal)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.parametrize("route,d", [("simt", 16), ("simt", 32),
+                                     ("simt", 64), ("simt", 128),
+                                     ("wgmma", 64), ("wgmma", 128)])
+def test_flash_attention_geometry_matches_kernel(cuda, route, d):
+    # the wrapper's mirror of the launch geometry is the kernel's own
+    from repro_torch.kernels import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.cuda import launch_geometry
+    dtype = torch.bfloat16 if route == "wgmma" else torch.float32
+    geo = launch_geometry(1, 1, 1, d, dtype)
+    assert geo.route == route
+    assert flash_attention_cuda.kernel_geometry(route, d) == (
+        geo.block_q, geo.threads, geo.smem_bytes)
 
 
 def test_flash_attention_cuda_rejects_bad_input(cuda):
