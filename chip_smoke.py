@@ -9,13 +9,17 @@ ends the run with a non-zero exit code if it fails:
 
 1. builds every CUDA kernel of the port from the sources in the checkout
    (one nvcc per source, all started together) and prints the compiler's
-   register and spill report, one line per flash-attention kernel;
+   register and spill report, one line per flash-attention and SSD-scan
+   kernel;
 2. kernels: each kernel's wrapper against its plain PyTorch version on
    the card, at the main paths' shapes and edge cases, timed with CUDA
    events (L2 overwritten before each launch), beside its bound and, where
    one PyTorch call computes the same function, that call's time
    (``scatter_add_`` and ``index_add_`` for the segmented sum,
-   ``scaled_dot_product_attention`` for flash attention);
+   ``scaled_dot_product_attention`` for flash attention); the SSD scan's
+   three kernels (chunk state, state pass, chunk scan) are also timed one
+   by one under ``torch.profiler`` at the mamba2-780m prefill's shape,
+   and its strong-decay case is also held to the float64 recurrence;
 3. Fig-9: the paper's pipeline (join -> groupby(sum) -> sort ->
    add_scalar) through ``execute`` at 2 x 2**25 rows over 8 ranks stacked
    on the card, in ``bsp``, ``bsp_staged`` and ``amt``, twice each, with
@@ -828,29 +832,100 @@ def ssd_counts(bh, t, p, n, chunk):
     return 2.0 * bh * macs, nbytes
 
 
+def profile_ssd(torch, args, chunk, reps=3):
+    """Device time of each of the SSD scan's three kernels in one call,
+    the median over ``reps`` calls under ``torch.profiler``; None for a
+    kernel the profiler did not see."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ssd_scan, ssd_scan_cuda
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    times = {k: [] for k in ssd_scan_cuda.kernels}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in times:
+            if f"{k}(" in e.name:
+                times[k].append(e.time_range.elapsed_us() / 1e3)
+    return {k: float(np.median(v)) if v else None for k, v in times.items()}
+
+
+def ssd_recurrence_f64(torch, x, dt, a, b, c):
+    """The SSD recurrence one step at a time in float64 (the exact answer
+    to within float64 rounding): y (BH, T, P) and h (BH, N, P)."""
+    x, dt, a, b, c = (v.double() for v in (x, dt, a, b, c))
+    bh, t, p = x.shape
+    h = torch.zeros((bh, b.shape[-1], p), dtype=torch.float64,
+                    device=x.device)
+    decay = torch.exp(a[:, None, :] * dt.transpose(1, 2))   # (BH, 1, T)
+    bdt = b * dt
+    ys = []
+    for i in range(t):
+        h.mul_(decay[:, :, i:i + 1])
+        h.baddbmm_(bdt[:, i, :, None], x[:, i, None, :])
+        ys.append(torch.bmm(c[:, i, None, :], h))
+    return torch.cat(ys, dim=1), h
+
+
 def ssd_phase(torch, flush):
     """SSD-scan kernel vs ``ssd_scan_chunked`` on the card; the first case
-    is the mamba2-780m prefill at a 4096-token prompt (B*nh = 4*48)."""
+    is the mamba2-780m prefill at a 4096-token prompt (B*nh = 4*48), whose
+    three kernels are then timed one by one under the profiler."""
     from repro_torch.kernels import ssd_scan, ssd_scan_chunked
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    cases = [("main", 192, 4096, 64, 128, 128),
-             ("ragged", 192, 4000, 64, 128, 128),    # last chunk 32 rows
-             ("short", 48, 13, 64, 128, 128),        # T < chunk, off 8
-             ("smoke", 8, 100, 16, 16, 32)]          # the SMOKE dims
+    # (name, bh, t, p, n, chunk, a): a None draws a in (-1.05, -0.05] and
+    # dt in [0.01, 0.11); a number fixes a there and draws dt in [0.01, 1)
+    cases = [("main", 192, 4096, 64, 128, 128, None),
+             ("ragged", 192, 4000, 64, 128, 128, None),  # last chunk 32 rows
+             ("short", 48, 13, 64, 128, 128, None),      # T < chunk, off 8
+             ("smoke", 8, 100, 16, 16, 32, None),        # the SMOKE dims
+             ("chunk32", 192, 4096, 64, 128, 32, None),  # 128 chunks deep
+             ("decay", 192, 4096, 64, 128, 128, -8.0)]   # exp(total) -> 0
     out = []
-    for name, bh, t, p, n, chunk in cases:
+    for name, bh, t, p, n, chunk, a_fix in cases:
         x = torch.randn(bh, t, p, generator=gen, device=dev)
-        dt = torch.rand(bh, t, 1, generator=gen, device=dev) * 0.1 + 0.01
-        a = -torch.rand(bh, 1, generator=gen, device=dev) - 0.05
+        if a_fix is None:
+            dt = torch.rand(bh, t, 1, generator=gen, device=dev) * 0.1 + 0.01
+            a = -torch.rand(bh, 1, generator=gen, device=dev) - 0.05
+        else:
+            dt = torch.rand(bh, t, 1, generator=gen, device=dev) * 0.99 + 0.01
+            a = torch.full((bh, 1), a_fix, device=dev)
         b = torch.randn(bh, t, n, generator=gen, device=dev)
         c = torch.randn(bh, t, n, generator=gen, device=dev)
         ch = min(chunk, -(-t // 8) * 8)
         y, h = ssd_scan(x, dt, a, b, c, chunk=chunk)
         y_p, h_p = ssd_scan_chunked(x, dt, a, b, c, chunk=ch)
         torch.cuda.synchronize()
-        err = max(float((y - y_p).abs().max()), float((h - h_p).abs().max()))
+        check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+              f"ssd_scan CUDA at {name}: output not finite")
+
+        def max_err(want_y, want_h):
+            return max(float((y - want_y).abs().max()),
+                       float((h - want_h).abs().max()))
+        err = max_err(y_p, h_p)
         check(err <= 3e-3, f"ssd_scan CUDA != plain at {name}: {err} > 3e-3")
+        if a_fix is not None:
+            # under strong decay the float32 plain version's own error is
+            # of the order of the tolerance (its cum differences round at
+            # |cum| ~ 500): also hold the kernel to the float64 recurrence
+            y_e, h_e = ssd_recurrence_f64(torch, x, dt, a, b, c)
+            plain_err = max(float((y_p - y_e).abs().max()),
+                            float((h_p - h_e).abs().max()))
+            exact_err = max_err(y_e, h_e)
+            print(f"kernel ssd_scan {name}: CUDA vs ssd_scan_chunked "
+                  f"{err:.2e}; vs the float64 recurrence: CUDA "
+                  f"{exact_err:.2e}, ssd_scan_chunked {plain_err:.2e}",
+                  flush=True)
+            check(exact_err <= 3e-3, f"ssd_scan CUDA != the float64 "
+                  f"recurrence at {name}: {exact_err} > 3e-3")
+            del y_e, h_e
+        del y, h, y_p, h_p
         ms = time_cuda(torch, lambda: ssd_scan(x, dt, a, b, c, chunk=chunk),
                        10, flush)
         plain_ms = time_cuda(torch, lambda: ssd_scan_chunked(
@@ -861,11 +936,19 @@ def ssd_phase(torch, flush):
                         plain_ms=plain_ms, bound_ms=max(op_ms, byte_ms),
                         bound_by="operations" if op_ms >= byte_ms else "bytes",
                         library_ms=None, max_abs_err=err))
-        print(f"kernel ssd_scan {name:6s} bh={bh} t={t} p={p} n={n} "
+        print(f"kernel ssd_scan {name:7s} bh={bh} t={t} p={p} n={n} "
               f"chunk={chunk}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
               f"{max(op_ms, byte_ms):.3f} ms by {out[-1]['bound_by']}), "
               f"max |err| {err:.2e}", flush=True)
-        del x, dt, a, b, c, y, h, y_p, h_p
+        if name == "main":
+            per = profile_ssd(torch, (x, dt, a, b, c), chunk)
+            out[-1]["kernel_ms"] = per
+            print("kernel ssd_scan main, device time per kernel (profiler, "
+                  "L2 warm): " + ", ".join(
+                      f"{k} {v:.3f} ms" if v is not None
+                      else f"{k} not measured" for k, v in per.items()),
+                  flush=True)
+        del x, dt, a, b, c
         torch.cuda.empty_cache()
     return out
 
@@ -1081,9 +1164,10 @@ def build_all():
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for k in CUDA_KERNELS:
         print(build_log(k.name).strip(), flush=True)
-    for fn, regs, st, ld in ptxas_report("flash_attention"):
-        print(f"ptxas flash_attention {fn}: {regs} registers, spill stores "
-              f"{st} B, spill loads {ld} B", flush=True)
+    for name in ("flash_attention", "ssd_scan"):
+        for fn, regs, st, ld in ptxas_report(name):
+            print(f"ptxas {name} {fn}: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B", flush=True)
 
 
 def kernel_record(k, cases, launches, launches_by_run=None):

@@ -90,13 +90,16 @@ def ptxas_report(name: str) -> List[Tuple[str, int, int, int]]:
     """(kernel function, registers, spill-store bytes, spill-load bytes)
     of each function in the last build's ``-Xptxas -v`` report; names
     are the mangled ones cut to the template arguments (for example
-    ``flash_wgmmaILi128`` for ``flash_wgmma<128>``)."""
+    ``flash_wgmmaILi128`` for ``flash_wgmma<128>``), or to the bare name
+    of a function that is not a template (``ssd_chunk_scan``)."""
     out, fn, spills = [], None, (0, 0)
     for line in build_log(name).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             fn = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d+", "",
-                        m.group(1)).split("EEEv")[0]
+                        m.group(1))
+            fn = (fn.split("EEEv")[0] if "EEEv" in fn
+                  else re.match(r"[a-z0-9_]*", fn).group(0) or fn)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)

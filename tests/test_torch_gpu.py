@@ -149,32 +149,84 @@ def test_flash_attention_cuda_rejects_bad_input(cuda):
 # ---------------------------------------------------------------------- #
 # (bh, t, p, n, chunk): the CPU sweep, a ragged last chunk, t shorter
 # than a chunk and off the 8-row grid, the main path's (P, N, L) at a
-# shorter T, N not a multiple of the 32-row slice
+# shorter T, N not a multiple of the 32-column slice; then 64 chunks of
+# 32, chunk 100 with T off the chunk and the 8-row grids, chunk 64 and 8
+# with ragged T, P and N off the 4-float grid (scalar copies), T = 1, and
+# BH x NC = 1,048,576 blocks at tiny P and N (more than 65,535)
 SSD_CASES = [(2, 64, 16, 8, 32), (3, 256, 16, 8, 64), (1, 100, 8, 4, 32),
              (4, 128, 64, 128, 128), (3, 300, 64, 128, 128),
              (2, 13, 64, 128, 128), (8, 1024, 64, 128, 128),
-             (2, 200, 32, 48, 128)]
+             (2, 200, 32, 48, 128),
+             (4, 2048, 64, 128, 32), (3, 1013, 64, 128, 100),
+             (2, 300, 64, 128, 64), (2, 77, 16, 16, 8),
+             (2, 150, 7, 5, 64), (2, 333, 61, 127, 100),
+             (3, 1, 64, 128, 128), (16384, 512, 4, 4, 8)]
 
 
-@pytest.mark.parametrize("bh,t,p,n,chunk", SSD_CASES)
-def test_ssd_scan_cuda_equals_plain(cuda, bh, t, p, n, chunk):
-    from repro_torch.kernels import ssd_scan, ssd_scan_chunked, ssd_scan_cuda
-    from repro_torch.kernels.common import round_up
+def _ssd_inputs(cuda, bh, t, p, n, a_top=-0.05, a_span=1.0, dt_span=0.1):
+    # dt in [0.01, 0.01 + dt_span), a in (a_top - a_span, a_top]
     g = torch.Generator(device=cuda).manual_seed(bh * t + p + n)
     x = torch.randn(bh, t, p, generator=g, device=cuda)
-    dt = torch.rand(bh, t, 1, generator=g, device=cuda) * 0.1 + 0.01
-    a = -torch.rand(bh, 1, generator=g, device=cuda) - 0.05
+    dt = torch.rand(bh, t, 1, generator=g, device=cuda) * dt_span + 0.01
+    a = -torch.rand(bh, 1, generator=g, device=cuda) * a_span + a_top
     b = torch.randn(bh, t, n, generator=g, device=cuda)
     c = torch.randn(bh, t, n, generator=g, device=cuda)
+    return x, dt, a, b, c
+
+
+def _check_ssd(x, dt, a, b, c, chunk):
+    from repro_torch.kernels import ssd_scan, ssd_scan_chunked, ssd_scan_cuda
+    from repro_torch.kernels.common import round_up
+    t = x.shape[1]
     before = ssd_scan_cuda.launches
     y, h = ssd_scan(x, dt, a, b, c, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_scan_cuda.launches == before + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
     y_p, h_p = ssd_scan_chunked(x, dt, a, b, c,
                                 chunk=min(chunk, round_up(t, 8)))
     # tests/test_kernels.py's tolerance for the SSD scan
     torch.testing.assert_close(y, y_p, atol=3e-3, rtol=0)
     torch.testing.assert_close(h, h_p, atol=3e-3, rtol=0)
+
+
+@pytest.mark.parametrize("bh,t,p,n,chunk", SSD_CASES)
+def test_ssd_scan_cuda_equals_plain(cuda, bh, t, p, n, chunk):
+    _check_ssd(*_ssd_inputs(cuda, bh, t, p, n), chunk)
+
+
+@pytest.mark.parametrize("bh,t,p,n,chunk", [(4, 1024, 64, 128, 128),
+                                            (3, 1013, 64, 128, 100),
+                                            (2, 300, 16, 16, 8)])
+def test_ssd_scan_cuda_strong_decay(cuda, bh, t, p, n, chunk):
+    # a = -8, dt up to 1: exp(total) underflows to 0 and the masked
+    # exponentials above the diagonal would overflow; y stays finite.
+    # Also within 3e-3 of the recurrence in float64 (the exact answer)
+    from repro_torch.kernels import ssd_scan
+    args = _ssd_inputs(cuda, bh, t, p, n, a_top=-8.0, a_span=0.0,
+                       dt_span=0.99)
+    _check_ssd(*args, chunk)
+    y, h = ssd_scan(*args, chunk=chunk)
+    x, dt, a, b, c = (v.double() for v in args)
+    h_e = torch.zeros((bh, n, p), dtype=torch.float64, device=cuda)
+    ys = []
+    for i in range(t):
+        h_e = torch.exp(a * dt[:, i])[:, :, None] * h_e + (
+            (b[:, i] * dt[:, i])[:, :, None] * x[:, i, None, :])
+        ys.append(torch.einsum("zn,znp->zp", c[:, i], h_e))
+    torch.testing.assert_close(y.double(), torch.stack(ys, dim=1),
+                               atol=3e-3, rtol=0)
+    torch.testing.assert_close(h.double(), h_e, atol=3e-3, rtol=0)
+
+
+def test_ssd_scan_geometry_matches_kernel(cuda):
+    # the wrapper's mirror of the launch constants is the kernel's own
+    from repro_torch.kernels import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.cuda import launch_geometry
+    geo = launch_geometry(192, 4096, 64, 128, 128)
+    assert ssd_scan_cuda.kernel_geometry() == (
+        geo.state_threads, geo.threads, 64, 1024, geo.state_smem,
+        geo.scan_smem)
 
 
 def test_ssd_scan_cuda_rejects_bad_input(cuda):
