@@ -16,20 +16,29 @@ ends the run with a non-zero exit code if it fails:
    events (L2 overwritten before each launch), beside its bound and, where
    one PyTorch call computes the same function, that call's time
    (``scatter_add_`` and ``index_add_`` for the segmented sum,
-   ``scaled_dot_product_attention`` for flash attention); the SSD scan's
-   three kernels (chunk state, state pass, chunk scan) are also timed one
-   by one under ``torch.profiler`` at the mamba2-780m prefill's shape,
+   ``scaled_dot_product_attention`` for flash attention); each radix case
+   names its route (``onepass`` up to 256 buckets, ``threepass`` above),
+   and the radix kernel's main shapes are also timed through the shuffle's
+   sorted bucketize (stable sort, ``searchsorted``, ``scatter_add_``); the
+   SSD scan's three kernels (chunk state, state pass, chunk scan) are also
+   timed one by one under ``torch.profiler`` at the mamba2-780m prefill's
+   shape,
    and its strong-decay case is also held to the float64 recurrence;
 3. Fig-9: the paper's pipeline (join -> groupby(sum) -> sort ->
    add_scalar) through ``execute`` at 2 x 2**25 rows over 8 ranks stacked
    on the card, in ``bsp``, ``bsp_staged`` and ``amt``, twice each, with
    kernel launch counts reset just before each run and read just after
    it: each shuffle of ``bsp`` and ``bsp_staged`` launches the radix
-   kernel once (``amt`` shuffles by all-gather and launches it never), and
+   kernel once, 3 a run, all on its onepass route (``amt`` shuffles by
+   all-gather and launches it never), and
    every sum, count and size of every local groupby launches the
    segmented-sum kernel once, in every mode (the count is read off the
    lowered plan); results are held against a numpy computation on the
-   host, and one cached ``bsp`` run is profiled;
+   host, and one cached ``bsp`` run is profiled; one more ``bsp`` run
+   records the valid rows per rank of the radix kernel's calls, and the
+   kernel is then held to its plain version and timed at those layouts
+   (``main:join-layout``, ``main:sort-layout``: a uniform prefix of valid
+   rows, the rest in the pad bucket p);
 4. frontend: the same pipeline with a mean, written against
    ``repro_torch.df`` on the same data, in every mode, twice each, with
    the same launch checks; held to the host reference and to the
@@ -140,42 +149,120 @@ def time_cuda(torch, fn, iters, flush):
     return float(np.median(times))
 
 
-def radix_phase(torch, cap, flush):
+def sorted_bucketize(torch, dest, nb):
+    """The shuffle's ``impl="sorted"`` bucketize (``dataframe/shuffle.py``):
+    a stable sort of ``dest``, each row's rank from ``searchsorted``, the
+    counts from ``scatter_add_``; the radix kernel's comparator."""
+    srt = torch.sort(dest, dim=1, stable=True)
+    pos = torch.arange(dest.shape[1], device=dest.device)
+    row_rank = pos - torch.searchsorted(srt.values, srt.values, side="left")
+    counts = torch.zeros((dest.shape[0], nb), dtype=torch.int32,
+                         device=dest.device).scatter_add_(
+        1, dest.to(torch.int64), torch.ones_like(dest))
+    return srt.indices, row_rank, counts
+
+
+def radix_phase(torch, cap, flush, layouts=None):
+    """Radix kernel vs ``radix_partition_ref`` on the card, each case
+    labelled with its route.  Without ``layouts``: the main path's shapes
+    with uniform buckets, a wide case, a large bucket count (the threepass
+    route) and n = 0.  With ``layouts`` ({case: (n, valid rows per rank)},
+    read off a Fig-9 run): the shuffle's own layout, a uniform hashed
+    prefix of the valid rows and a tail of padding in bucket p.  The main
+    shapes are also timed through the shuffle's sorted bucketize."""
     from repro_torch.kernels import radix_partition_cuda, radix_partition_ref
+    from repro_torch.kernels.radix_partition.cuda import route_for
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    # (p, n, nb): the join's shuffles (n = cap) and the sort's (n = 4 cap)
-    # on the main path, then a wide case, a large bucket count and n = 0
-    cases = [("main:join", P, cap, P + 1), ("main:sort", P, 4 * cap, P + 1),
-             ("p8", P, 4_194_304, P + 1), ("nb4096", 1, 1_000_003, 4096),
-             ("empty", P, 0, P + 1)]
+    if layouts is None:
+        # (p, n, nb): the join's shuffles (n = cap) and the sort's (n = 4
+        # cap) on the main path, then a wide case, a large bucket count and
+        # n = 0
+        cases = [("main:join", P, cap, P + 1, None),
+                 ("main:sort", P, 4 * cap, P + 1, None),
+                 ("p8", P, 4_194_304, P + 1, None),
+                 ("nb4096", 1, 1_000_003, 4096, None),
+                 ("empty", P, 0, P + 1, None)]
+    else:
+        cases = [(name, P, n, P + 1, valid)
+                 for name, (n, valid) in layouts.items()]
     out = []
-    for name, p, n, nb in cases:
-        dest = torch.randint(0, nb, (p, n), generator=gen, device=dev,
-                             dtype=torch.int32)
+    for name, p, n, nb, valid in cases:
+        if valid is None:
+            dest = torch.randint(0, nb, (p, n), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        else:
+            dest = torch.randint(0, p, (p, n), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            pad = torch.arange(n, device=dev)[None, :] >= torch.as_tensor(
+                valid, device=dev)[:, None]
+            dest[pad] = p
+        route = route_for(nb)
+        before = radix_partition_cuda.route_launches[route]
         ranks, hist = radix_partition_cuda(dest, nb)
         want_r, want_h = radix_partition_ref(dest, nb)
         torch.cuda.synchronize()
+        check(radix_partition_cuda.route_launches[route] == before + 1,
+              f"radix_partition {name}: not launched on its {route} route")
         check(torch.equal(ranks, want_r) and torch.equal(hist, want_h),
               f"radix_partition CUDA != plain at {name} {(p, n, nb)}")
         err = max(int((ranks - want_r).abs().max()) if n else 0,
                   int((hist - want_h).abs().max()))
+        del ranks, hist, want_r, want_h
         ms = time_cuda(torch, lambda: radix_partition_cuda(dest, nb), 20,
                        flush)
         plain_ms = time_cuda(torch, lambda: radix_partition_ref(dest, nb),
                              3, flush)
+        sorted_ms = (time_cuda(torch, lambda: sorted_bucketize(torch, dest,
+                                                               nb), 5, flush)
+                     if name.startswith("main:") else None)
         # bytes the function must move: dest read once, ranks and the
         # histogram written once; it does no arithmetic worth counting
         nbytes = 4 * p * n * 2 + 4 * p * nb
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out.append(dict(case=name, p=p, n=n, nb=nb, ms=ms,
+        out.append(dict(case=name, route=route, p=p, n=n, nb=nb, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by="bytes", library_ms=None,
+                        sorted_ms=sorted_ms, valid_rows=valid,
                         max_abs_err=err))
-        print(f"kernel radix_partition {name:10s} p={p} n={n} nb={nb}: "
-              f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
-              f"ms), exact", flush=True)
+        print(f"kernel radix_partition {name:16s} [{route}] p={p} n={n} "
+              f"nb={nb}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms), exact"
+              + (f"; valid rows per rank {valid}" if valid else ""),
+              flush=True)
+        if sorted_ms is not None:
+            print(f"comparator radix_partition {name:16s} sorted bucketize "
+                  f"(stable sort, searchsorted, scatter_add_): "
+                  f"{sorted_ms:.4f} ms", flush=True)
+        del dest
+    torch.cuda.empty_cache()
     return out
+
+
+def radix_layouts(env, run):
+    """{case: (n, valid rows per rank)} of the radix kernel's calls in one
+    run: the first call at the join's shape and the first at the sort's
+    (the valid rows are those below the pad bucket p)."""
+    import importlib
+    # the module, not the ``shuffle`` function the package exports
+    shuffle_mod = importlib.import_module("repro_torch.dataframe.shuffle")
+    real, seen = shuffle_mod.radix_partition, []
+
+    def recording(dest, nb):
+        seen.append((dest.shape[1], (dest < nb - 1).sum(dim=1).tolist()))
+        return real(dest, nb)
+
+    shuffle_mod.radix_partition = recording
+    try:
+        run()
+        env.synchronize()
+    finally:
+        shuffle_mod.radix_partition = real
+    ns = sorted({n for n, _ in seen})
+    check(len(ns) == 2, f"radix calls at shapes {ns}, want the join's and "
+          f"the sort's")
+    return {f"main:{name}-layout": next((n, v) for n, v in seen if n == want)
+            for name, want in zip(("join", "sort"), ns)}
 
 
 def fig9_join_ids(torch, rows, p, cap, gen, dev):
@@ -329,14 +416,18 @@ def segsum_launches_expected(pplan, mode):
     return total
 
 
-def check_launches(counts, pplan, mode, st, on_card, label):
-    """One radix launch per direct shuffle (none on ``amt``'s all-gather)
-    and one segmented_sum launch per sum / count / size aggregate of every
-    ``groupby_local`` call (``amt`` included), on the card; none on the CPU
-    (plain versions)."""
+def check_launches(counts, pplan, mode, st, on_card, label, routes=None):
+    """One radix launch per direct shuffle (none on ``amt``'s all-gather),
+    every one on the onepass route when ``routes`` (launches per route in
+    the run) is given, and one segmented_sum launch per sum / count / size
+    aggregate of every ``groupby_local`` call (``amt`` included), on the
+    card; none on the CPU (plain versions)."""
     want = st.num_shuffles if on_card and mode != "amt" else 0
     check(counts["radix_partition"] == want, f"{label}: radix_partition "
           f"launched {counts['radix_partition']} times, want {want}")
+    if routes is not None:
+        check(routes == {"onepass": want, "threepass": 0}, f"{label}: "
+              f"radix_partition routes {routes}, want {want} onepass")
     want = segsum_launches_expected(pplan, mode) if on_card else 0
     check(counts["segmented_sum"] == want and (want or not on_card),
           f"{label}: segmented_sum launched {counts['segmented_sum']} "
@@ -379,11 +470,14 @@ def check_fig9(res, stats, ref, label):
 
 
 def main_path_phase(torch, rows=FULL_ROWS, device=None):
-    """Fig-9 at ``rows`` per table; returns (kernel launches per run,
-    wall times), both keyed by ``"<mode>/<first|cached>"``.
-    ``device=None`` is the card, as a user calling the port gets it."""
+    """Fig-9 at ``rows`` per table; returns (kernel launches per run, radix
+    launches per route per run, wall times), each keyed by
+    ``"<mode>/<first|cached>"``, and the radix kernel's call layouts of one
+    more ``bsp`` run (``radix_layouts``).  ``device=None`` is the card, as
+    a user calling the port gets it."""
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
-    from repro_torch.kernels import CUDA_KERNELS, reset_launches
+    from repro_torch.kernels import (CUDA_KERNELS, radix_partition_cuda,
+                                     reset_launches)
     from repro_torch.planner import compile_plan
     t0 = time.perf_counter()
     ld, rd = make_table_data(rows, 0), make_table_data(rows, 1)
@@ -400,22 +494,30 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
     plan = fig9_plan(Plan, cap)
     print(plan.explain(tables), flush=True)
     pplan = compile_plan(plan, tables)
-    walls, launches = {}, {}
+    walls, launches, route_launches = {}, {}, {}
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     for mode in ("bsp", "bsp_staged", "amt"):
         for run in ("first", "cached"):
             env.synchronize()
             reset_launches()
+            routes0 = dict(radix_partition_cuda.route_launches)
             t = time.perf_counter()
             res, st = execute(plan, env, tables, mode=mode,
                               collect_stats=True)
             env.synchronize()
             wall = time.perf_counter() - t
             counts = {k.name: k.launches for k in CUDA_KERNELS}
+            routes = {r: radix_partition_cuda.route_launches[r] - routes0[r]
+                      for r in routes0}
             walls[f"{mode}/{run}"] = wall
             launches[f"{mode}/{run}"] = counts
-            check_launches(counts, pplan, mode, st, on_card, f"{mode}/{run}")
+            route_launches[f"{mode}/{run}"] = routes
+            check_launches(counts, pplan, mode, st, on_card, f"{mode}/{run}",
+                           routes if on_card else None)
+            if on_card and mode != "amt":
+                check(counts["radix_partition"] == 3, f"{mode}/{run}: "
+                      f"{counts['radix_partition']} radix launches, want 3")
             if run == "cached":
                 check(st.cache_misses == 0, f"{mode}: {st.cache_misses} "
                       f"cache misses on the repeat run")
@@ -426,7 +528,7 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
                   f"rows_shuffled={st.rows_shuffled} "
                   f"cache_hits={st.cache_hits} "
                   f"cache_misses={st.cache_misses} launches={counts} "
-                  f"[{stages}]", flush=True)
+                  f"radix routes={routes} [{stages}]", flush=True)
             check_fig9(res, st, ref, f"{mode}/{run}")
             del res
     # the join's row count, from the join alone (after the counts are read)
@@ -438,10 +540,14 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
             if on_card else "not measured")
     print(f"peak device memory {peak}", flush=True)
+    layouts = radix_layouts(env, lambda: execute(plan, env, tables,
+                                                 mode="bsp"))
+    print(f"radix call layouts of a bsp run (n, valid rows per rank): "
+          f"{layouts}", flush=True)
     if on_card:
         profile_run(env, lambda: execute(plan, env, tables, mode="bsp"),
                     "bsp (cached run under the profiler)")
-    return launches, walls
+    return launches, route_launches, walls, layouts
 
 
 def fig9_frontend(l_df, r_df, cap):
@@ -1170,9 +1276,11 @@ def build_all():
                   f"{st} B, spill loads {ld} B", flush=True)
 
 
-def kernel_record(k, cases, launches, launches_by_run=None):
+def kernel_record(k, cases, launches, launches_by_run=None,
+                  route_launches=None):
     """The kernels-line entry of wrapper ``k``: the main-shape case's
-    numbers, the main path's launch count and every case beside them."""
+    numbers, the main path's launch count (and its launches per route)
+    and every case beside them."""
     main = cases[0]
     rec = {"name": k.name, "route": "cuda", "source": k.source,
            "replaces": k.replaces, "launches": launches,
@@ -1182,6 +1290,8 @@ def kernel_record(k, cases, launches, launches_by_run=None):
            "library_ms": main["library_ms"]}
     if launches_by_run is not None:
         rec["launches_by_run"] = launches_by_run
+    if route_launches is not None:
+        rec["route_launches"] = route_launches
     rec["cases"] = cases
     return rec
 
@@ -1219,11 +1329,15 @@ def main():
     ssd_cases = ssd_phase(torch, flush)
     del flush
     phase_done("kernels")
-    launches, walls = main_path_phase(torch)
+    launches, route_launches, walls, layouts = main_path_phase(torch)
     for k in ("radix_partition", "segmented_sum"):
         check(launches["bsp/first"][k] > 0, f"{k} never launched on the "
               f"Fig-9 path")
     phase_done("fig9")
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    radix_cases += radix_phase(torch, cap, flush, layouts)
+    del flush
+    phase_done("radix layouts")
     front_launches, front_walls = frontend_phase(torch)
     phase_done("frontend")
     str_launches, str_walls = strings_phase(torch)
@@ -1241,7 +1355,8 @@ def main():
     kernels = [
         # the Fig-9 path is the first bsp run; every run's count beside it
         kernel_record(rp, radix_cases, launches["bsp/first"][rp.name],
-                      {run: c[rp.name] for run, c in launches.items()}),
+                      {run: c[rp.name] for run, c in launches.items()},
+                      route_launches["bsp/first"]),
         kernel_record(ss, segsum_cases, launches["bsp/first"][ss.name],
                       {run: c[ss.name] for run, c in launches.items()}),
         # the serving paths are the first run of each arch

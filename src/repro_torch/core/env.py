@@ -24,6 +24,7 @@ import torch
 from ..comm import Communicator, StackedCommunicator
 from ..dataframe.schema import decode_columns, encode_columns
 from ..dataframe.table import Table
+from ..dtypes import to_x32
 from ..nulls import apply_null_columns, extract_null_columns
 
 
@@ -86,13 +87,16 @@ class DistTable:
         encoded on the host: the device gets int32 codes, the sorted
         dictionary lands in ``dictionaries``.  NaN / ``None`` values (or
         explicit ``__m_*`` companions) become validity-mask columns with
-        canonical-zero data slots.  An explicit ``capacity`` — including
-        ``0`` — is honored and validated against the per-rank row
-        count."""
+        canonical-zero data slots.  64-bit columns then narrow to 32 bits
+        as the JAX package's ``jnp.asarray`` narrows them with x64 off
+        (``dtypes.to_x32``: int64 wraps to int32, float64 rounds to
+        float32).  An explicit ``capacity`` — including ``0`` — is
+        honored and validated against the per-rank row count."""
         dev = resolve_device(device)
         data = extract_null_columns({k: np.asarray(v)
                                      for k, v in data.items()})
         data, dicts = encode_columns(data)
+        data = {k: to_x32(v) for k, v in data.items()}
         n = len(next(iter(data.values())))
         per = -(-n // parallelism)
         if capacity is None:

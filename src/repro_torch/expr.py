@@ -43,6 +43,7 @@ from typing import Any, Callable, FrozenSet, Optional, Sequence
 import numpy as np
 import torch
 
+from .dtypes import to_x32
 from .nulls import mask_name
 
 __all__ = ["Expr", "Col", "Lit", "BinOp", "UnaryOp", "OpaqueExpr", "IsNull",
@@ -156,13 +157,8 @@ def as_tensor(v, device=None) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.int32, device=device)
     if isinstance(v, float):
         return torch.tensor(v, dtype=torch.float32, device=device)
-    a = np.asarray(v)
-    # JAX runs with 64-bit types disabled: numpy 64-bit scalars are 32-bit
-    if a.dtype == np.float64:
-        a = a.astype(np.float32)
-    elif a.dtype == np.int64:
-        a = a.astype(np.int32)
-    return torch.as_tensor(a, device=device)
+    # JAX runs with 64-bit types disabled: numpy 64-bit values are 32-bit
+    return torch.as_tensor(to_x32(v), device=device)
 
 
 def _canon(value, valid):

@@ -1,30 +1,58 @@
-"""Python wrapper of the CUDA radix-partition kernel (``radix_partition.cu``).
+"""Python wrapper of the CUDA radix-partition kernels (``radix_partition.cu``).
 
-Checks its input, allocates the outputs and scratch with ``torch.empty``,
-launches the kernel on PyTorch's current stream through ``ctypes`` and
-raises if the launch fails.  It never falls back to the plain version.
+Checks its input, picks the route by the bucket count alone, allocates the
+outputs and scratch with ``torch.empty``, launches on PyTorch's current
+stream through ``ctypes`` and raises if the launch fails.  It never falls
+back to the other route or to the plain version.
+
+Routes (``route_for``): ``onepass``, one launch with decoupled look-back,
+for nb up to ``ONEPASS_MAX_BUCKETS`` (every shuffle of p <= 255 ranks,
+nb = p + 1); ``threepass`` (count, scan, rank) above it, up to
+``MAX_BUCKETS``.  The constants mirror the kernel's; ``kernel_constants``
+reads the kernel's own, and the card's tests hold the two equal.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from ..build import load
 
-#: rows per tile, as ``kTileRows`` in the source
+#: rows per tile of the threepass route, as ``kTileRows`` in the source
 TILE_ROWS = 8192
+#: rows per tile of the onepass route (256 threads x 32 rows), ``kOneTile``
+ONEPASS_TILE_ROWS = 8192
+#: largest bucket count of the onepass route (one look-back thread per
+#: bucket), ``kMaxOneBuckets``
+ONEPASS_MAX_BUCKETS = 256
 #: largest bucket count: one warp's (nb,) int32 counters must fit in
 #: shared memory
 MAX_BUCKETS = 32768
+ROUTES = ("onepass", "threepass")
 #: shared memory the per-warp counter table may take in one block
 _SMEM_BUDGET = 64 * 1024
 
 
+def route_for(num_buckets: int) -> str:
+    """``onepass`` up to ``ONEPASS_MAX_BUCKETS`` buckets, ``threepass``
+    above: there a look-back over nb status words per tile would cost more
+    than the two extra launches."""
+    return "onepass" if num_buckets <= ONEPASS_MAX_BUCKETS else "threepass"
+
+
+def onepass_scratch_bytes(p: int, n: int, num_buckets: int) -> int:
+    """Scratch of one onepass call: a 64-bit status word per (rank,
+    bucket, tile) and the tile ticket."""
+    tiles = -(-n // ONEPASS_TILE_ROWS)
+    return 8 * (p * num_buckets * tiles + 1)
+
+
 def warps_for(num_buckets: int) -> int:
-    """Warps per block: 8, halved until the (warps x nb) table fits."""
+    """Warps per threepass block: 8, halved until the (warps x nb) table
+    fits."""
     warps = 8
     while warps > 1 and warps * num_buckets * 4 > _SMEM_BUDGET:
         warps //= 2
@@ -33,7 +61,8 @@ def warps_for(num_buckets: int) -> int:
 
 class RadixPartitionCuda:
     """Callable wrapper; ``launches`` counts the calls that launched the
-    kernel (nothing else adds to it)."""
+    kernel (nothing else adds to it), and ``route_launches`` the same calls
+    by route."""
 
     name = "radix_partition"
     source = "src/repro_torch/kernels/radix_partition/radix_partition.cu"
@@ -42,21 +71,38 @@ class RadixPartitionCuda:
 
     def __init__(self):
         self.launches = 0
-        self._fn = None
-        self._err = None
+        self.route_launches: Dict[str, int] = {r: 0 for r in ROUTES}
+        self._lib = None
 
     def _load(self):
-        if self._fn is None:
+        if self._lib is None:
             lib = load(self.name)
-            fn = lib.radix_partition_launch
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            err = lib.radix_partition_error
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
-        return self._fn
+            for fn in (lib.radix_partition_onepass,
+                       lib.radix_partition_launch):
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                    ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            lib.radix_partition_onepass_scratch.argtypes = [ctypes.c_int] * 3
+            lib.radix_partition_onepass_scratch.restype = ctypes.c_longlong
+            lib.radix_partition_constants.argtypes = [
+                ctypes.POINTER(ctypes.c_int)]
+            lib.radix_partition_constants.restype = None
+            lib.radix_partition_error.argtypes = [ctypes.c_int]
+            lib.radix_partition_error.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def kernel_constants(self) -> Tuple[int, int, int]:
+        """(onepass tile rows, onepass largest nb, threepass tile rows) as
+        the built kernel has them."""
+        out = (ctypes.c_int * 3)()
+        self._load().radix_partition_constants(out)
+        return tuple(out)
+
+    def kernel_scratch_bytes(self, p: int, n: int, num_buckets: int) -> int:
+        """The onepass scratch size as the built kernel computes it."""
+        return int(self._load().radix_partition_onepass_scratch(
+            p, n, num_buckets))
 
     def __call__(self, dest: torch.Tensor, num_buckets: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,20 +127,34 @@ class RadixPartitionCuda:
                            device=dest.device)
         if p == 0:
             return ranks, hist
-        tiles = -(-n // TILE_ROWS)
-        scratch = torch.empty((max(1, 2 * p * num_buckets * tiles),),
-                              dtype=torch.int32, device=dest.device)
-        fn = self._load()
+        route = route_for(num_buckets)
+        if route == "onepass":
+            if p * -(-n // ONEPASS_TILE_ROWS) >= 2 ** 31:
+                raise ValueError(f"radix_partition onepass route takes "
+                                 f"fewer than 2**31 tiles, got "
+                                 f"{tuple(dest.shape)}")
+            scratch = torch.empty((onepass_scratch_bytes(p, n, num_buckets),),
+                                  dtype=torch.uint8, device=dest.device)
+            vec = (n % 4 == 0 and dest.data_ptr() % 16 == 0
+                   and ranks.data_ptr() % 16 == 0)
+            fn, last = self._load().radix_partition_onepass, int(vec)
+        else:
+            tiles = -(-n // TILE_ROWS)
+            scratch = torch.empty((max(1, 2 * p * num_buckets * tiles),),
+                                  dtype=torch.int32, device=dest.device)
+            fn, last = (self._load().radix_partition_launch,
+                        warps_for(num_buckets))
         with torch.cuda.device(dest.device):
             stream = torch.cuda.current_stream(dest.device).cuda_stream
             code = fn(dest.data_ptr(), ranks.data_ptr(), hist.data_ptr(),
-                      scratch.data_ptr(), p, n, num_buckets,
-                      warps_for(num_buckets), stream)
+                      scratch.data_ptr(), p, n, num_buckets, last, stream)
         if code != 0:
             raise RuntimeError(
-                f"radix_partition CUDA launch failed: "
-                f"{self._err(code).decode()} (code {code})")
+                f"radix_partition CUDA launch ({route}) failed: "
+                f"{self._lib.radix_partition_error(code).decode()} "
+                f"(code {code})")
         self.launches += 1
+        self.route_launches[route] += 1
         return ranks, hist
 
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import radix_partition_cuda, radix_partition_ref
+from repro_torch.kernels.radix_partition.cuda import route_for
 
 pytestmark = pytest.mark.gpu
 
@@ -23,25 +24,35 @@ def cuda():
     return torch.device("cuda")
 
 
+def _radix_check(dest, nb, route):
+    # exact: ranks and histograms are integers; one launch, on ``route``
+    assert route_for(nb) == route
+    before = radix_partition_cuda.launches
+    before_route = radix_partition_cuda.route_launches[route]
+    ranks, hist = radix_partition_cuda(dest, nb)
+    torch.cuda.synchronize()
+    assert radix_partition_cuda.launches == before + 1
+    assert radix_partition_cuda.route_launches[route] == before_route + 1
+    want_r, want_h = radix_partition_ref(dest, nb)
+    assert torch.equal(ranks, want_r)
+    assert torch.equal(hist, want_h)
+
+
 # (p, n, nb): the shuffle's nb = p + 1; a large nb that forces fewer warps
-# per block; ragged n; n = 0; one rank
+# per block; ragged n; n = 0; one rank.  Each case is labelled with the
+# route its nb takes (onepass up to 256 buckets, threepass above).
 CASES = [(8, 100_003, 9), (1, 1_000_003, 4096), (3, 0, 9), (1, 1, 1),
          (2, 8192, 1024), (4, 20_000, 32768), (5, 70_001, 2)]
 
 
-@pytest.mark.parametrize("p,n,nb", CASES)
-def test_radix_partition_cuda_equals_plain(cuda, p, n, nb):
-    # exact: ranks and histograms are integers
+@pytest.mark.parametrize("p,n,nb,route", [
+    pytest.param(p, n, nb, route_for(nb), id=f"{route_for(nb)}-{p}-{n}-{nb}")
+    for p, n, nb in CASES])
+def test_radix_partition_cuda_equals_plain(cuda, p, n, nb, route):
     rng = np.random.default_rng(p * 1_000_003 + n + nb)
     dest = torch.as_tensor(rng.integers(0, nb, (p, n), dtype=np.int32),
                            device=cuda)
-    before = radix_partition_cuda.launches
-    ranks, hist = radix_partition_cuda(dest, nb)
-    torch.cuda.synchronize()
-    assert radix_partition_cuda.launches == before + 1
-    want_r, want_h = radix_partition_ref(dest, nb)
-    assert torch.equal(ranks, want_r)
-    assert torch.equal(hist, want_h)
+    _radix_check(dest, nb, route)
 
 
 def test_radix_partition_cuda_skewed(cuda):
@@ -50,9 +61,59 @@ def test_radix_partition_cuda_skewed(cuda):
     d = np.where(rng.random((8, 300_000)) < 0.99, 4,
                  rng.integers(0, 9, (8, 300_000))).astype(np.int32)
     dest = torch.as_tensor(d, device=cuda)
-    ranks, hist = radix_partition_cuda(dest, 9)
-    want_r, want_h = radix_partition_ref(dest, 9)
-    assert torch.equal(ranks, want_r) and torch.equal(hist, want_h)
+    _radix_check(dest, 9, "onepass")
+
+
+# onepass edge cases: the route boundary; n = 1, 3, 4, 5 (16-byte loads
+# only when n is a multiple of 4); one row past an 8192-row tile; p = 8
+# with a ragged last tile on every rank, with and without 16-byte loads
+@pytest.mark.parametrize("p,n,nb,route", [
+    (2, 50_000, 256, "onepass"), (2, 50_000, 257, "threepass"),
+    (3, 1, 9, "onepass"), (3, 3, 9, "onepass"), (3, 4, 9, "onepass"),
+    (3, 5, 9, "onepass"), (2, 8193, 3, "onepass"),
+    (8, 5 * 8192 + 124, 9, "onepass"), (8, 5 * 8192 + 123, 9, "onepass")])
+def test_radix_partition_cuda_edges(cuda, p, n, nb, route):
+    rng = np.random.default_rng(p * 7 + n + nb)
+    dest = torch.as_tensor(rng.integers(0, nb, (p, n), dtype=np.int32),
+                           device=cuda)
+    _radix_check(dest, nb, route)
+
+
+def test_radix_partition_cuda_padding_tiles(cuda):
+    # the shuffle's layout: per rank a uniform prefix of valid rows, then
+    # a tail in the pad bucket p (= nb - 1), several whole tiles of it;
+    # one rank all padding, one with no padding
+    p, n = 8, 70_000
+    rng = np.random.default_rng(5)
+    d = rng.integers(0, p, (p, n)).astype(np.int32)
+    for r, valid in enumerate([n, 0, 1, 8191, 8192, 12_345, 50_001, 7]):
+        d[r, valid:] = p
+    _radix_check(torch.as_tensor(d, device=cuda), p + 1, "onepass")
+
+
+def test_radix_partition_cuda_back_to_back(cuda):
+    # two calls in a row on one stream, no sync between: the second must
+    # not see the first's status words (its scratch is the same size and
+    # the caching allocator hands back the same block)
+    rng = np.random.default_rng(9)
+    a, b = (torch.as_tensor(rng.integers(0, 9, (8, 70_000), dtype=np.int32),
+                            device=cuda) for _ in range(2))
+    b[3, 10_000:] = 8
+    ra, ha = radix_partition_cuda(a, 9)
+    rb, hb = radix_partition_cuda(b, 9)
+    torch.cuda.synchronize()
+    for dest, r, h in ((a, ra, ha), (b, rb, hb)):
+        want_r, want_h = radix_partition_ref(dest, 9)
+        assert torch.equal(r, want_r) and torch.equal(h, want_h)
+
+
+def test_radix_partition_constants_match_kernel(cuda):
+    from repro_torch.kernels.radix_partition import cuda as rp
+    assert radix_partition_cuda.kernel_constants() == (
+        rp.ONEPASS_TILE_ROWS, rp.ONEPASS_MAX_BUCKETS, rp.TILE_ROWS)
+    for p, n, nb in [(8, 4_718_592, 9), (1, 1, 1), (3, 8193, 256)]:
+        assert radix_partition_cuda.kernel_scratch_bytes(p, n, nb) == \
+            rp.onepass_scratch_bytes(p, n, nb)
 
 
 def test_radix_partition_cuda_rejects_bad_input(cuda):
@@ -316,3 +377,78 @@ def test_groupby_local_sums_go_through_the_kernel(cuda):
         assert torch.equal(out.columns[name].cpu(), cpu.columns[name]), name
     torch.testing.assert_close(out.columns["v_sum"].cpu(),
                                cpu.columns["v_sum"], rtol=1e-5, atol=1e-6)
+
+
+# narrow value dtypes: the dispatcher sums them wider on the card (int32,
+# int64 for uint32, float32 for halves) and casts back; integer sums wrap
+# as the CPU path's do, bit for bit; half sums are within 1e-2 relative of
+# the CPU path, which accumulates in the half type (a rounding per row:
+# segments of 4 rows keep that within 0.6% for bfloat16)
+NARROW_TOP = {"int8": 100, "int16": 1_000, "uint8": 200, "uint16": 3_000,
+              "uint32": 2 ** 31}
+
+
+def _narrow_inputs(cuda, dtype, rows_per_seg, segs=500, p=4):
+    rng = np.random.default_rng(rows_per_seg * 13 + len(dtype))
+    n = rows_per_seg * segs
+    ids = np.sort(rng.integers(0, segs, (p, n)), axis=1).astype(np.int32)
+    if dtype in NARROW_TOP:
+        vals = torch.as_tensor(rng.integers(0, NARROW_TOP[dtype], (p, n))
+                               .astype(dtype))
+    else:
+        vals = torch.as_tensor(rng.integers(32, 64, (p, n)) / 64.0).to(
+            getattr(torch, dtype))
+    return torch.as_tensor(ids), vals
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "uint8", "uint16",
+                                   "uint32", "float16", "bfloat16"])
+def test_segmented_sum_narrow_dtypes_card_equals_cpu(cuda, dtype):
+    from repro_torch.kernels import segmented_sum, segmented_sum_cuda
+    ids, vals = _narrow_inputs(cuda, dtype,
+                               50 if dtype in NARROW_TOP else 4)
+    before = segmented_sum_cuda.launches
+    got = segmented_sum(ids.to(cuda), vals.to(cuda), 500)
+    torch.cuda.synchronize()
+    assert segmented_sum_cuda.launches == before + 1
+    want = segmented_sum(ids, vals, 500)
+    assert got.dtype == want.dtype == vals.dtype
+    if dtype in NARROW_TOP:
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=1e-2, atol=1e-2)
+
+
+def test_segmented_sum_bool_still_raises(cuda):
+    # the JAX package raises for a bool sum too
+    from repro_torch.kernels import segmented_sum
+    with pytest.raises(ValueError):
+        segmented_sum(torch.zeros((1, 8), dtype=torch.int32, device=cuda),
+                      torch.ones((1, 8), dtype=torch.bool, device=cuda), 2)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "uint8", "float16",
+                                   "bfloat16"])
+def test_groupby_sum_narrow_dtypes_card_equals_cpu(cuda, dtype):
+    # the user's path: a groupby sum over a narrow column on the card
+    # returns the CPU path's result instead of raising
+    from repro_torch.dataframe import Table, groupby_local
+    rng = np.random.default_rng(17)
+    rows_per_key = 50 if dtype in NARROW_TOP else 4
+    k = torch.as_tensor(rng.integers(0, 300, (4, 300 * rows_per_key))
+                        .astype(np.int32))
+    _, v = _narrow_inputs(cuda, dtype, rows_per_key, segs=300)
+    counts = torch.tensor([k.shape[1], 1000, 0, 17], dtype=torch.int32)
+    cpu = groupby_local(Table({"k": k, "v": v}, counts), ["k"],
+                        {"v": ["sum"]})
+    out = groupby_local(Table({"k": k.to(cuda), "v": v.to(cuda)},
+                              counts.to(cuda)), ["k"], {"v": ["sum"]})
+    assert torch.equal(out.columns["k"].cpu(), cpu.columns["k"])
+    got, want = out.columns["v_sum"].cpu(), cpu.columns["v_sum"]
+    assert got.dtype == want.dtype == v.dtype
+    if dtype in NARROW_TOP:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)

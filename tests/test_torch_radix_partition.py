@@ -76,3 +76,23 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     ranks, hist = radix_partition(d, 3)
     assert radix_partition_cuda.launches == before
     assert hist.tolist() == [[16, 0, 0], [16, 0, 0]]
+
+
+@pytest.mark.parametrize("nb,route", [(1, "onepass"), (9, "onepass"),
+                                      (256, "onepass"), (257, "threepass"),
+                                      (32768, "threepass")])
+def test_route_follows_the_bucket_count(nb, route):
+    # onepass (one launch, decoupled look-back) covers every shuffle of up
+    # to 255 ranks (nb = p + 1); larger nb take the three-kernel route
+    from repro_torch.kernels.radix_partition.cuda import route_for
+    assert route_for(nb) == route
+
+
+def test_onepass_scratch_holds_a_word_per_rank_bucket_and_tile():
+    # 64-bit status words per (rank, bucket, 8192-row tile) plus the ticket
+    from repro_torch.kernels.radix_partition.cuda import (
+        ONEPASS_TILE_ROWS, onepass_scratch_bytes)
+    assert ONEPASS_TILE_ROWS == 8192
+    assert onepass_scratch_bytes(8, 4_718_592, 9) == 8 * (8 * 9 * 576 + 1)
+    assert onepass_scratch_bytes(3, 8193, 256) == 8 * (3 * 256 * 2 + 1)
+    assert onepass_scratch_bytes(8, 0, 9) == 8

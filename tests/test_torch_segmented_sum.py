@@ -135,6 +135,83 @@ def test_dispatch_follows_the_tensor():
 
 
 # ---------------------------------------------------------------------- #
+# narrow value dtypes: the card sums them wider and casts back (widened_sum)
+# ---------------------------------------------------------------------- #
+def _narrow_case(dtype, rows_per_seg, segs=40, p=1, seed=0):
+    rng = np.random.default_rng(seed + rows_per_seg)
+    n = rows_per_seg * segs
+    seg = np.sort(rng.integers(0, segs, (p, n)), axis=1).astype(np.int32)
+    # the largest value times the rows of a segment passes the dtype's
+    # range, so the integer sums wrap
+    top = {"int8": 100, "int16": 1_000, "uint8": 200, "uint16": 3_000,
+           "uint32": 2 ** 31}
+    if dtype in top:
+        vals = rng.integers(0, top[dtype], (p, n)).astype(dtype)
+    else:
+        # multiples of 1/64 in [0.5, 1): exact in float16 and bfloat16
+        vals = (rng.integers(32, 64, (p, n)) / 64.0).astype(np.float32)
+    return seg, vals
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16", "uint8", "uint16",
+                                   "uint32"])
+def test_widened_sum_is_jax_narrow_sum(dtype):
+    # bit-equal to jax.ops.segment_sum in the column's own dtype, whose
+    # sums wrap: an int32 (int64 for uint32) sum cast back is the same
+    # modular sum
+    import jax
+    from repro_torch.kernels.segmented_reduce.ops import WIDEN, widened_sum
+    seg, vals = _narrow_case(dtype, rows_per_seg=50)
+    wide = np.zeros(40, np.int64)
+    np.add.at(wide, seg[0], vals[0].astype(np.int64))
+    assert wide.max() > np.iinfo(dtype).max          # the case wraps
+    t_vals = torch.as_tensor(vals)
+    got = widened_sum(segmented_sum_ref, torch.as_tensor(seg), t_vals, 40)
+    assert t_vals.dtype in WIDEN and got.dtype == t_vals.dtype
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(vals[0]),
+                                          jnp.asarray(seg[0]), 40))
+    assert want.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_widened_half_sum_near_jax(dtype):
+    # within 1e-2 relative of jax.ops.segment_sum: the widened sum adds in
+    # float32 and rounds once to the half type, where the reference
+    # accumulates in the half type itself (a rounding per addition: with
+    # bfloat16's 8-bit significand, 2**-9 of the partial sum per row, so 4
+    # rows per segment keep the reference within 0.6% of the exact sum)
+    import jax
+    from repro_torch.kernels.segmented_reduce.ops import widened_sum
+    seg, vals = _narrow_case(dtype, rows_per_seg=4)
+    t_vals = torch.as_tensor(vals).to(getattr(torch, dtype))
+    got = widened_sum(segmented_sum_ref, torch.as_tensor(seg), t_vals, 40)
+    assert got.dtype == t_vals.dtype
+    want = np.asarray(jax.ops.segment_sum(
+        jnp.asarray(vals[0]).astype(getattr(jnp, dtype)),
+        jnp.asarray(seg[0]), 40)).astype(np.float32)
+    np.testing.assert_allclose(got[0].float().numpy(), want, rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_widening_is_only_for_the_card():
+    # on the CPU the plain version sums 8/16-bit ints and halves in their
+    # own dtype (torch has CPU kernels for them) and widens only the
+    # unsigned types torch's CPU scatter lacks
+    from repro_torch.kernels.segmented_reduce.ops import WIDEN
+    assert set(WIDEN) == {torch.int8, torch.int16, torch.uint8,
+                          torch.uint16, torch.uint32, torch.float16,
+                          torch.bfloat16}
+    seg, vals = _narrow_case("uint16", rows_per_seg=50)
+    got = segmented_sum(torch.as_tensor(seg), torch.as_tensor(vals), 40)
+    want = np.zeros(40, np.int64)
+    np.add.at(want, seg[0], vals[0].astype(np.int64))
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  (want % 2 ** 16).astype(np.uint16))
+
+
+# ---------------------------------------------------------------------- #
 # groupby_local's sums go through the dispatcher, once per aggregate
 # ---------------------------------------------------------------------- #
 def _chip_smoke():
