@@ -46,9 +46,25 @@ ends the run with a non-zero exit code if it fails:
    anew); then a string-keyed run (2 x 2**22 ``<U12`` keys from 2**18
    words, two dictionaries, so EXPLAIN shows ``recode[...]``) held to
    numpy on the host, one cached run of it profiled;
-5. Fig-9 parity: the plan at 2**16 rows, optimizer on and off, on the
-   card and on the CPU (plain kernels), compared slot for slot;
-6. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
+5. out-of-core: Fig-9 (optimized, ``bsp``) through ``execute(
+   morsel_rows=...)`` at 2 x 2**25 rows, 8x oversubscribed, the left input
+   a host dict (the JAX package's out-of-core parity recipe: integer-valued
+   float32 payloads), first and cached: bit-identical to the in-core run,
+   no rows dropped, no degrade, at least 16 morsels, the same rows
+   shuffled, no stage built anew on the repeat, the radix and
+   segmented-sum launches equal to the counts derived from the plan and
+   the stats (radix all onepass), and peak device memory below the
+   in-core run's; transfer volumes, per-segment times and a profile of a
+   cached run (copy rates from its memcpy events); then the radix and
+   segmented-sum kernels held to their plain versions and timed on the
+   inputs one out-of-core run handed them (first call at each shape:
+   ``ooc:n=...``);
+6. Fig-9 parity: the plan at 2**16 rows, optimizer on and off, on the
+   card and on the CPU (plain kernels), compared slot for slot; the
+   default ``degrade`` policy on an under-capacitated join (every row
+   recovered, card == CPU); groupbys, a join and a sort over uint16 and
+   uint32 columns, card == CPU slot for slot;
+7. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
    a seeded generator, batch 4, prompt 4096, 32 new tokens, greedy)
    through ``ServeEngine``, twice each; launch counts reset just before
    each prefill and each decode step and read just after it (flash
@@ -59,7 +75,7 @@ ends the run with a non-zero exit code if it fails:
    twice: finite logits, first tokens in the vocab, 36 flash launches,
    all on the kernel's bf16 tensor-core (wgmma) route; time to first
    token;
-7. serving parity: both SMOKE configs with the same weights on the card
+8. serving parity: both SMOKE configs with the same weights on the card
    (kernels forced, prompts longer than a tile) and on the CPU (plain
    versions): prefill logits within 1e-3, greedy tokens equal.
 
@@ -239,25 +255,38 @@ def radix_phase(torch, cap, flush, layouts=None):
     return out
 
 
-def radix_layouts(env, run):
-    """{case: (n, valid rows per rank)} of the radix kernel's calls in one
-    run: the first call at the join's shape and the first at the sort's
-    (the valid rows are those below the pad bucket p)."""
+def recording(env, run, notes):
+    """Run ``run()`` with each ``(module, function, note)`` of ``notes``
+    wrapped so that ``note`` sees the arguments of every call (the
+    module's own name for the function, as its callers there use it)."""
     import importlib
-    # the module, not the ``shuffle`` function the package exports
-    shuffle_mod = importlib.import_module("repro_torch.dataframe.shuffle")
-    real, seen = shuffle_mod.radix_partition, []
+    patched = []
+    for mod_name, attr, note in notes:
+        mod = importlib.import_module(mod_name)
+        real = getattr(mod, attr)
 
-    def recording(dest, nb):
-        seen.append((dest.shape[1], (dest < nb - 1).sum(dim=1).tolist()))
-        return real(dest, nb)
-
-    shuffle_mod.radix_partition = recording
+        def wrapped(*args, _real=real, _note=note):
+            _note(*args)
+            return _real(*args)
+        setattr(mod, attr, wrapped)
+        patched.append((mod, attr, real))
     try:
         run()
         env.synchronize()
     finally:
-        shuffle_mod.radix_partition = real
+        for mod, attr, real in patched:
+            setattr(mod, attr, real)
+
+
+def radix_layouts(env, run):
+    """{case: (n, valid rows per rank)} of the radix kernel's calls in one
+    run: the first call at the join's shape and the first at the sort's
+    (the valid rows are those below the pad bucket p)."""
+    seen = []
+    recording(env, run, [(
+        "repro_torch.dataframe.shuffle", "radix_partition",
+        lambda dest, nb: seen.append(
+            (dest.shape[1], (dest < nb - 1).sum(dim=1).tolist())))])
     ns = sorted({n for n, _ in seen})
     check(len(ns) == 2, f"radix calls at shapes {ns}, want the join's and "
           f"the sort's")
@@ -289,11 +318,14 @@ def fig9_join_ids(torch, rows, p, cap, gen, dev):
     return seg, vals
 
 
-def segsum_phase(torch, cap, flush):
+def segsum_phase(torch, cap, flush, recorded=None):
     """Segmented-sum kernel vs ``segmented_sum_ref`` on the card; the first
     case is the Fig-9 groupby's call (n = S = the join's out_capacity),
-    timed beside ``scatter_add_`` and ``index_add_`` at that shape."""
-    from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
+    timed beside ``scatter_add_`` and ``index_add_`` at that shape.  With
+    ``recorded`` ([(case, ids, values, S)], the inputs a run handed the
+    kernel), those cases alone."""
+    if recorded is not None:
+        return segsum_cases(torch, recorded, flush)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
 
@@ -334,6 +366,18 @@ def segsum_phase(torch, cap, flush):
         cases.append((f"sweep{n}i", ids, torch.randint(
             -50, 50, (1, n, cols), generator=gen, device=dev,
             dtype=torch.int32), segs))
+    out = segsum_cases(torch, cases, flush)
+    del cases, main_seg, main_vals
+    torch.cuda.empty_cache()
+    return out
+
+
+def segsum_cases(torch, cases, flush):
+    """Each ``(case, ids, values, S)``: the kernel held to its plain
+    version and timed beside it (the ``main`` case also beside one
+    ``scatter_add_`` and one ``index_add_`` call)."""
+    from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
+    dev = torch.device("cuda")
     out = []
     for name, seg, vals, s in cases:
         got = segmented_sum_cuda(seg, vals, s)
@@ -391,7 +435,6 @@ def segsum_phase(torch, cap, flush):
               f"bound {bound_ms:.4f} ms{extra}), max |err| {err:.2e} "
               f"({tol})", flush=True)
         del got, want
-    del cases, main_seg, main_vals
     torch.cuda.empty_cache()
     return out
 
@@ -832,6 +875,343 @@ def parity_phase(devices=("cuda", "cpu")):
             check(np.allclose(gc["v0_sum"], cc["v0_sum"], rtol=1e-5,
                               atol=0), f"{tag}: v0_sum differs beyond 1e-5")
             print(f"{tag}: card == cpu ({int(gn.sum())} rows)", flush=True)
+
+
+def make_exact_data(rows, seed, payload):
+    """The JAX package's out-of-core parity recipe
+    (``tests/md_scripts/out_of_core_parity.py:24-29``): uniform int32 keys
+    at 90% cardinality and an integer-valued float32 ``payload`` in
+    [0, 100), so sums are exact in any order and a morsel run can be held
+    to an in-core run bit for bit."""
+    rng = np.random.default_rng(seed)
+    return {"k": rng.integers(0, int(rows * 0.9), rows).astype(np.int32),
+            payload: rng.integers(0, 100, rows).astype(np.float32)}
+
+
+def ooc_launches_expected(pplan, ld, keys, out_widest, morsel, p):
+    """Kernel launches, morsels and dispatches of one out-of-core Fig-9
+    run, derived from the plan and the data, not from the run's stats.
+
+    ``ld`` is the streamed left input (block-distributed over ``p``
+    ranks), ``keys`` the result's sorted group keys (``host_reference``),
+    ``out_widest`` the result's fullest rank.  A key lives on rank
+    ``hash(k) % p`` (``hash_columns_np`` mirrors the card's hash).  The
+    segment shape is the optimized Fig-9's: groupby (join + groupby),
+    sort, stream (add_scalar).  Morsels per segment are its input's
+    fullest rank over ``morsel``: the left input's share, the groupby
+    result's rank (one row per key), the result's.  Morsel ``m`` leaves
+    on rank ``r`` one partial row per key of its left rows that has a
+    partner and hashes to ``r``; the combiner splits the partials into
+    their fullest rank over ``morsel`` sub-buckets, as ``_combine_groupby``
+    does.  The radix kernel runs once per direct shuffle of every morsel
+    and once per resident join build; ``segmented_sum`` once per sum /
+    count / size aggregate of every ``groupby_local`` call (each morsel's
+    partial, each combine sub-bucket).  One dispatch per morsel, resident
+    build and sub-bucket."""
+    from repro_torch.dataframe.groupby import _normalize
+    from repro_torch.dataframe.ops_local import hash_columns_np
+    from repro_torch.planner.morsel import _seg_stat_labels, segments, spine
+    chain = spine(pplan)
+    segs = segments(chain[1:])
+    check([t for _, t in segs] == ["groupby", "sort", "stream"],
+          f"out-of-core segments {[t for _, t in segs]}")
+
+    def ceil_m(rows):
+        return max(1, -(-int(rows) // morsel))
+
+    def widest_rank(k):
+        h = hash_columns_np({"k": k}, ["k"]) % np.uint32(p)
+        return int(np.bincount(h, minlength=p).max())
+
+    k = ld["k"]
+    per = -(-len(k) // p)
+    n_keys = int(max(k.max(), keys.max())) + 1 if len(keys) else 1
+    partner = np.zeros(n_keys, bool)
+    partner[keys] = True
+    has = partner[k]
+    m_of = (np.arange(len(k)) % per) // morsel
+    seen = np.zeros(ceil_m(per) * n_keys, bool)   # (morsel, key) pairs
+    seen[m_of[has] * n_keys + k[has]] = True
+    partials = widest_rank((np.flatnonzero(seen) % n_keys).astype(np.int32))
+    combines = ceil_m(partials)
+    morsels = (ceil_m(per), ceil_m(widest_rank(keys)), ceil_m(out_widest))
+    joins = [n for n in chain if n.op == "join"]
+    radix = sum(not n.params.get("elide_right") for n in joins)
+    for (nodes, term), m in zip(segs, morsels):
+        if term == "sort":
+            radix += m * (not nodes[0].params.get("elide_shuffle"))
+        else:
+            radix += m * sum(not lbl.endswith(":overflow")
+                             for lbl in _seg_stat_labels(nodes))
+    g = segs[0][0][-1]
+    physical, _ = _normalize(g.params["aggs"])
+    sums = sum(a in ("sum", "count", "size")
+               for names in physical.values() for a in names)
+    calls = (1 if g.params.get("elide_shuffle")
+             else 1 + bool(g.params.get("pre_aggregate")))
+    launches = {"radix_partition": radix,
+                "segmented_sum": sums * (calls * morsels[0] + combines)}
+    return launches, morsels, sum(morsels) + len(joins) + combines
+
+
+def memcpy_ms(prof):
+    """Device time of the copies between host and device in a
+    ``torch.profiler`` window, in ms, by the profiler's name for each kind
+    (e.g. ``Memcpy HtoD (Pinned -> Device)``)."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith(("Memcpy HtoD", "Memcpy DtoH")):
+            out[e.key] = out.get(e.key, 0.0) + (
+                getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0)) / 1e3
+    return out
+
+
+def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
+    """Fig-9 (``fig9_plan``, optimized, ``bsp``) streamed out-of-core at
+    ``rows`` per table over ``P`` stacked ranks, 8x oversubscribed
+    (``morsel_rows`` = the per-rank share / 8, ``capacity_factor`` 4): the
+    left input is a host column dict, the right a ``DistTable``.  Held to
+    the in-core ``bsp`` run of the same plan on the same data bit for bit,
+    and to the host reference; first and cached run, with the launch
+    counts derived from the plan and the stats, the transfer volumes and
+    the peak device memory beside the in-core run's; one cached run is
+    profiled.  Returns the numbers for the JSON lines."""
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    from repro_torch.kernels import (CUDA_KERNELS, radix_partition_cuda,
+                                     reset_launches)
+    from repro_torch.planner import compile_plan
+    t_phase = time.perf_counter()
+    ld, rd = make_exact_data(rows, 0, "v0"), make_exact_data(rows, 1, "w")
+    cap = capacity_for(rows, P)
+    per = -(-rows // P)
+    morsel = -(-(-(-per // 8)) // 8) * 8
+    env = CylonEnv(P, device=device)
+    on_card = env.device.type == "cuda"
+    rt = DistTable.from_numpy(rd, P, capacity=cap, device=device)
+    lt = DistTable.from_numpy(ld, P, capacity=cap, device=device)
+    plan = fig9_plan(Plan, cap)
+    ref = host_reference(ld, rd)
+
+    def reset_peak():
+        env.synchronize()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        env.synchronize()
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    reset_peak()
+    res, st_in = execute(plan, env, {"l": lt, "r": rt}, mode="bsp",
+                         collect_stats=True)
+    peak_in = peak()
+    check_fig9(res, st_in, ref, "out-of-core: in-core bsp")
+    want = res.to_numpy()
+    del res, lt
+    tables = {"l": ld, "r": rt}
+    pplan = compile_plan(plan, tables)
+    print(f"out-of-core: 2 x {rows} rows over {P} stacked ranks, left "
+          f"input a host dict, morsel_rows {morsel} ({per} rows per rank, "
+          f"8x oversubscribed), capacity_factor 4.0", flush=True)
+    walls, launches, peaks = {}, {}, {"in-core": peak_in}
+    for run in ("first", "cached"):
+        reset_peak()
+        reset_launches()
+        routes0 = dict(radix_partition_cuda.route_launches)
+        t = time.perf_counter()
+        out, st = execute(plan, env, tables, mode="bsp", collect_stats=True,
+                          morsel_rows=morsel, capacity_factor=4.0)
+        env.synchronize()
+        wall = time.perf_counter() - t
+        peaks[run] = peak()
+        counts = {k.name: k.launches for k in CUDA_KERNELS}
+        routes = {r: radix_partition_cuda.route_launches[r] - routes0[r]
+                  for r in routes0}
+        walls[run], launches[run] = wall, counts
+        label = f"out-of-core {run}"
+        got = out.to_numpy()
+        check(sorted(got) == sorted(want) and all(
+            np.array_equal(got[c], want[c]) for c in want),
+            f"{label}: result differs from the in-core run")
+        check_fig9(out, st, ref, label)
+        check(st.rows_dropped == 0 and st.degraded == 0,
+              f"{label}: {st.rows_dropped} rows dropped, {st.degraded} "
+              f"degrade replays")
+        check(st.morsels >= 16, f"{label}: {st.morsels} morsels, want >= 16")
+        check(min(st.spill_bytes, st.h2d_bytes, st.d2h_bytes) > 0,
+              f"{label}: spill/h2d/d2h bytes {st.spill_bytes}/"
+              f"{st.h2d_bytes}/{st.d2h_bytes}")
+        check(st.rows_shuffled == st_in.rows_shuffled, f"{label}: "
+              f"{st.rows_shuffled} rows shuffled, in-core "
+              f"{st_in.rows_shuffled}")
+        if run == "cached":
+            check(st.cache_misses == 0, f"{label}: {st.cache_misses} "
+                  f"cache misses on the repeat run")
+        want_launches, seg_morsels, want_dispatches = ooc_launches_expected(
+            pplan, ld, ref[1], max(out.rank_rows(r) for r in range(P)),
+            morsel, P)
+        check((st.morsels, st.dispatches) == (sum(seg_morsels),
+                                              want_dispatches),
+              f"{label}: {st.morsels} morsels, {st.dispatches} dispatches; "
+              f"derived {sum(seg_morsels)} ({seg_morsels}), "
+              f"{want_dispatches}")
+        if on_card:
+            for name, n in want_launches.items():
+                check(counts[name] == n and n > 0, f"{label}: {name} "
+                      f"launched {counts[name]} times, want {n} > 0")
+            check(routes == {"onepass": want_launches["radix_partition"],
+                             "threepass": 0},
+                  f"{label}: radix routes {routes}, want all onepass")
+        else:
+            check(not any(counts.values()), f"{label}: kernels launched "
+                  f"on the CPU: {counts}")
+        stages = ", ".join(f"{n}={s * 1e3:.1f}ms" for n, s in st.stage_times)
+        print(f"fig9 out-of-core {run:6s} wall {wall * 1e3:9.2f} ms  "
+              f"morsels={st.morsels} (by segment {seg_morsels}) "
+              f"dispatches={st.dispatches} rows_shuffled={st.rows_shuffled} "
+              f"cache_hits={st.cache_hits} cache_misses={st.cache_misses} "
+              f"spill_bytes={st.spill_bytes} h2d_bytes={st.h2d_bytes} "
+              f"d2h_bytes={st.d2h_bytes} "
+              f"d2h_copied_bytes={st.d2h_copied_bytes} launches={counts} "
+              f"(derived {want_launches}) radix routes={routes} [{stages}]",
+              flush=True)
+        del out, got
+    gib = {k: (f"{v / 2**30:.2f} GiB" if v is not None else "not measured")
+           for k, v in peaks.items()}
+    print(f"out-of-core peak device memory: first {gib['first']}, cached "
+          f"{gib['cached']}; in-core bsp {gib['in-core']}", flush=True)
+    if on_card:
+        check(max(peaks["first"], peaks["cached"]) < peak_in,
+              f"out-of-core peak {peaks} not below the in-core run's")
+        from torch.profiler import ProfilerActivity, profile
+        env.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            _, stp = execute(plan, env, tables, mode="bsp",
+                             collect_stats=True, morsel_rows=morsel,
+                             capacity_factor=4.0)
+            env.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        report_profile(prof, wall_ms, "out-of-core bsp (cached run under "
+                       "the profiler)")
+        copies = memcpy_ms(prof)
+        h2d_ms = sum(v for k, v in copies.items() if "HtoD" in k)
+        d2h_ms = sum(v for k, v in copies.items() if "DtoH" in k)
+        print(f"out-of-core copies under the profiler: h2d "
+              f"{stp.h2d_bytes} B in {h2d_ms:.2f} ms of device time "
+              f"({stp.h2d_bytes / max(h2d_ms, 1e-9) / 1e6:.2f} GB/s), d2h "
+              f"{stp.d2h_copied_bytes} B copied in {d2h_ms:.2f} ms "
+              f"({stp.d2h_copied_bytes / max(d2h_ms, 1e-9) / 1e6:.2f} "
+              f"GB/s; d2h_bytes counted as the JAX package counts them "
+              f"{stp.d2h_bytes} B); by kind (ms): {copies}", flush=True)
+    recorded = None
+    if on_card:
+        # the kernels' inputs at this path's shapes, first call at each
+        layouts, sums = {}, {}
+
+        def note_radix(dest, nb):
+            layouts.setdefault(f"ooc:n={dest.shape[1]}-layout", (
+                dest.shape[1], (dest < nb - 1).sum(dim=1).tolist()))
+
+        def note_sum(ids, vals, s):
+            sums.setdefault(f"ooc:n={ids.shape[1]},S={s}",
+                            (ids.clone(), vals.clone(), s))
+        recording(env, lambda: execute(
+            plan, env, tables, mode="bsp", morsel_rows=morsel,
+            capacity_factor=4.0), [
+            ("repro_torch.dataframe.shuffle", "radix_partition", note_radix),
+            ("repro_torch.dataframe.ops_local", "segmented_sum", note_sum)])
+        recorded = (layouts, [(k, i, v, s) for k, (i, v, s) in sums.items()])
+    print(f"phase out-of-core took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"wall_s": walls, "launches": launches, "peak_bytes": peaks,
+            "morsel_rows": morsel, "h2d_bytes": st.h2d_bytes,
+            "d2h_bytes": st.d2h_bytes,
+            "d2h_copied_bytes": st.d2h_copied_bytes,
+            "spill_bytes": st.spill_bytes,
+            "morsels": st.morsels}, recorded
+
+
+def degrade_phase(devices=("cuda", "cpu")):
+    """The default overflow policy in-core on an under-capacitated join
+    (``tests/test_out_of_core.py::
+    test_in_core_degrade_recovers_join_overflow``, over ``P`` ranks): the
+    run replays out-of-core and returns every row; the card's rows equal
+    the CPU's."""
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    ld = {"k": np.zeros(32, np.int32), "v0": np.arange(32, dtype=np.float32)}
+    rd = {"k": np.zeros(32, np.int32), "w": np.arange(32, dtype=np.float32)}
+    plan = Plan.scan("l").join(Plan.scan("r"), on="k", out_capacity=64)
+    got = {}
+    for device in devices:
+        env = CylonEnv(P, device=device)
+        out, st = execute(plan, env, {
+            n: DistTable.from_numpy(d, P, capacity=8, device=device)
+            for n, d in (("l", ld), ("r", rd))},
+            optimize=False, collect_stats=True)
+        check(isinstance(out, DistTable) and out.device == env.device,
+              f"degrade {device}: result is not a DistTable on the env")
+        check(st.rows_dropped == 0 and st.degraded > 0, f"degrade {device}: "
+              f"{st.rows_dropped} dropped, {st.degraded} degrade replays")
+        check(out.total_rows() == 32 * 32, f"degrade {device}: "
+              f"{out.total_rows()} rows, want {32 * 32}")
+        got[device] = out.to_reference()
+    (gc, gn), (cc, cn) = got[devices[0]], got[devices[-1]]
+    check(np.array_equal(gn, cn) and all(np.array_equal(gc[c], cc[c])
+                                         for c in cc),
+          "degrade: card and CPU results differ")
+    print(f"degrade: under-capacitated join recovered all {32 * 32} rows "
+          f"({st.degraded} degrade replays); card == cpu", flush=True)
+
+
+def unsigned_phase(devices=("cuda", "cpu")):
+    """Groupbys, a join and a sort over uint16 and uint32 columns (values
+    past 2**31 for uint32) on the card and on the CPU, slot for slot and
+    dtype for dtype."""
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    rng = np.random.default_rng(5)
+    n = 4096
+    for dt in (np.uint16, np.uint32):
+        top = np.iinfo(dt).max
+        data = {"k": rng.integers(0, 64, n).astype(np.int32),
+                "u": rng.integers(top - 3000, top, n, endpoint=True,
+                                  dtype=np.uint64).astype(dt),
+                "v0": rng.integers(0, 100, n).astype(np.float32)}
+        right = {"k": rng.integers(0, 64, n).astype(np.int32),
+                 "w": rng.integers(0, top, n, endpoint=True,
+                                   dtype=np.uint64).astype(dt)}
+        plans = {
+            "groupby(k).u": Plan.scan("l").groupby(
+                ["k"], {"u": ["sum", "min", "max"]}),
+            "groupby(u).v0": Plan.scan("l").groupby(["u"], {"v0": ["sum"]}),
+            "sort(u)": Plan.scan("l").sort(["u"]),
+            "join carrying u": Plan.scan("l").join(
+                Plan.scan("r"), on="k", out_capacity=1 << 17)}
+        got = {}
+        for device in devices:
+            env = CylonEnv(P, device=device)
+            tables = {"l": DistTable.from_numpy(data, P, capacity=1024,
+                                                device=device),
+                      "r": DistTable.from_numpy(right, P, capacity=1024,
+                                                device=device)}
+            for name, plan in plans.items():
+                res, st = execute(plan, env, tables, collect_stats=True)
+                check(st.rows_dropped == 0, f"{dt.__name__} {name} "
+                      f"{device}: drops")
+                got[(device, name)] = res.to_reference()
+        for name in plans:
+            (gc, gn), (cc, cn) = (got[(devices[0], name)],
+                                  got[(devices[-1], name)])
+            check(np.array_equal(gn, cn) and sorted(gc) == sorted(cc)
+                  and all(gc[c].dtype == cc[c].dtype
+                          and np.array_equal(gc[c], cc[c]) for c in cc),
+                  f"{dt.__name__} {name}: card and CPU differ")
+            check(cc.get("u", cc.get("u_sum", cc.get("w"))).dtype == dt,
+                  f"{dt.__name__} {name}: unsigned column lost its dtype")
+            print(f"unsigned {dt.__name__} {name}: card == cpu "
+                  f"({int(gn.sum())} rows)", flush=True)
 
 
 def flash_flops(sq, sk, d, bhq, causal):
@@ -1277,10 +1657,10 @@ def build_all():
 
 
 def kernel_record(k, cases, launches, launches_by_run=None,
-                  route_launches=None):
+                  route_launches=None, launches_out_of_core=None):
     """The kernels-line entry of wrapper ``k``: the main-shape case's
-    numbers, the main path's launch count (and its launches per route)
-    and every case beside them."""
+    numbers, the main path's launch count (and its launches per route,
+    and per run of the out-of-core Fig-9) and every case beside them."""
     main = cases[0]
     rec = {"name": k.name, "route": "cuda", "source": k.source,
            "replaces": k.replaces, "launches": launches,
@@ -1292,6 +1672,8 @@ def kernel_record(k, cases, launches, launches_by_run=None,
         rec["launches_by_run"] = launches_by_run
     if route_launches is not None:
         rec["route_launches"] = route_launches
+    if launches_out_of_core is not None:
+        rec["launches_out_of_core"] = launches_out_of_core
     rec["cases"] = cases
     return rec
 
@@ -1342,8 +1724,19 @@ def main():
     phase_done("frontend")
     str_launches, str_walls = strings_phase(torch)
     phase_done("strings")
+    ooc, (ooc_layouts, ooc_sums) = out_of_core_phase(torch)
+    for k in ("radix_partition", "segmented_sum"):
+        check(ooc["launches"]["first"][k] > 0, f"{k} never launched on the "
+              f"out-of-core path")
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    radix_cases += radix_phase(torch, cap, flush, ooc_layouts)
+    segsum_cases += segsum_phase(torch, cap, flush, ooc_sums)
+    del flush, ooc_sums
+    phase_done("out-of-core")
     parity_phase()
-    phase_done("fig9 parity")
+    degrade_phase()
+    unsigned_phase()
+    phase_done("fig9 parity, degrade, unsigned")
     served = serve_phase(torch, smi)
     phase_done("serve")
     served_bf16 = serve_bf16_phase(torch, smi)
@@ -1356,9 +1749,14 @@ def main():
         # the Fig-9 path is the first bsp run; every run's count beside it
         kernel_record(rp, radix_cases, launches["bsp/first"][rp.name],
                       {run: c[rp.name] for run, c in launches.items()},
-                      route_launches["bsp/first"]),
+                      route_launches["bsp/first"],
+                      {run: c[rp.name]
+                       for run, c in ooc["launches"].items()}),
         kernel_record(ss, segsum_cases, launches["bsp/first"][ss.name],
-                      {run: c[ss.name] for run, c in launches.items()}),
+                      {run: c[ss.name] for run, c in launches.items()},
+                      launches_out_of_core={
+                          run: c[ss.name]
+                          for run, c in ooc["launches"].items()}),
         # the serving paths are the first run of each arch
         kernel_record(flash_attention_cuda, flash_cases,
                       served["qwen3-8b"]["first"]["launches"]),
@@ -1366,6 +1764,7 @@ def main():
                       served["mamba2-780m"]["first"]["launches"]),
     ]
     print(json.dumps({"fig9_wall_s": walls}))
+    print(json.dumps({"out_of_core": ooc}))
     print(json.dumps({"frontend_wall_s": front_walls,
                       "frontend_launches": front_launches,
                       "strings_wall_s": str_walls,

@@ -16,7 +16,7 @@ fall back.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +24,7 @@ import torch
 from ..comm import Communicator, StackedCommunicator
 from ..dataframe.schema import decode_columns, encode_columns
 from ..dataframe.table import Table
-from ..dtypes import to_x32
+from ..dtypes import to_x32, torch_dtype, x32_dtype
 from ..nulls import apply_null_columns, extract_null_columns
 
 
@@ -161,6 +161,134 @@ class DistTable:
 
     def total_rows(self) -> int:
         return int(self.row_counts.sum())
+
+
+# ---------------------------------------------------------------------- #
+# Morsel streaming: host spill -> fixed-capacity device batches
+# ---------------------------------------------------------------------- #
+class MorselSource:
+    """Streams a host-resident table as fixed-capacity ``DistTable``
+    morsels on the env's device (the out-of-core input path).
+
+    ``source`` may be a ``core.store.SpillTable``, a ``DistTable`` (spilled
+    first), or a dict of host numpy columns (block-distributed over
+    ``parallelism`` ranks).  Every yielded morsel has the same per-rank
+    capacity (``morsel_rows`` rounded up to 8), so one built stage — a
+    single cache entry — processes every morsel.  64-bit columns narrow
+    on the way up (``dtypes.to_x32``).
+
+    On a card the transfers are **double-buffered**: two sets of pinned
+    host staging buffers, and a copy stream that uploads them with
+    asynchronous copies.  Morsel ``m+1``'s upload is enqueued before
+    morsel ``m`` is handed to the consumer, and the consumer's stream
+    waits on an event recorded after the copy, so the upload of one
+    morsel overlaps the compute of the one before it.  A staging set is
+    refilled only after the event of the copy that last read it.
+    ``h2d_bytes`` accumulates the bytes shipped to the device.
+    """
+
+    def __init__(self, source, morsel_rows: int,
+                 env: Optional["CylonEnv"] = None,
+                 parallelism: Optional[int] = None, device=None):
+        from .store import SpillTable  # deferred: store imports env
+        if isinstance(source, DistTable):
+            source = SpillTable.from_dist(source)
+        elif isinstance(source, dict):
+            p = parallelism or (env.parallelism if env is not None else 1)
+            source = SpillTable.from_numpy(source, p)
+        self.spill = source
+        self.parallelism = source.parallelism
+        if morsel_rows < 1:
+            raise ValueError(f"morsel_rows must be >= 1, got {morsel_rows}")
+        self.capacity = max(8, -(-int(morsel_rows) // 8) * 8)
+        self.num_morsels = source.num_morsels(self.capacity)
+        self.device = env.device if env is not None else resolve_device(device)
+        self.h2d_bytes = 0
+        # one host-contiguous view per rank
+        self._rank_cols = [source.rank_concat(r)
+                           for r in range(self.parallelism)]
+        #: column -> (device dtype, trailing shape)
+        self._layout = {n: (x32_dtype(d), s)
+                        for n, (d, s) in sorted(source.schema.items())}
+
+    def _host_buffers(self, pin: bool) -> Tuple[Dict[str, torch.Tensor],
+                                                torch.Tensor]:
+        """One set of host buffers for a morsel (pinned memory when
+        ``pin``) and its counts buffer."""
+        p, cap = self.parallelism, self.capacity
+        return ({n: torch.empty((p, cap) + s, dtype=torch_dtype(d),
+                                pin_memory=pin)
+                 for n, (d, s) in self._layout.items()},
+                torch.empty((p,), dtype=torch.int32, pin_memory=pin))
+
+    def _fill(self, m: int, bufs: Dict[str, torch.Tensor],
+              counts: torch.Tensor) -> None:
+        """Write morsel ``m``'s rows into ``bufs`` (padding zeroed)."""
+        lo, hi = m * self.capacity, (m + 1) * self.capacity
+        cnt = counts.numpy()
+        for name, t in bufs.items():
+            buf = t.numpy()
+            for r in range(self.parallelism):
+                piece = to_x32(self._rank_cols[r][name][lo:hi])
+                buf[r, :len(piece)] = piece
+                buf[r, len(piece):] = 0
+                cnt[r] = len(piece)
+            self.h2d_bytes += buf.nbytes
+        self.h2d_bytes += cnt.nbytes
+
+    def _table(self, cols, counts) -> DistTable:
+        return DistTable(cols, counts, self.capacity,
+                         dict(self.spill.dictionaries))
+
+    def __iter__(self):
+        if self.device.type != "cuda":
+            for m in range(self.num_morsels):
+                bufs, counts = self._host_buffers(pin=False)
+                self._fill(m, bufs, counts)
+                yield self._table(bufs, counts)
+            return
+        yield from self._iter_card()
+
+    def _iter_card(self):
+        dev = self.device
+        compute = torch.cuda.current_stream(dev)
+        copy = torch.cuda.Stream(dev)
+        staging = [self._host_buffers(pin=True) for _ in range(2)]
+        last_read: List[Optional[torch.cuda.Event]] = [None, None]
+
+        def enqueue(m: int):
+            s = m % 2
+            if last_read[s] is not None:
+                last_read[s].synchronize()   # copy m-2 has read set s
+            bufs, counts = staging[s]
+            self._fill(m, bufs, counts)
+            # allocated on the compute stream: the copy stream first waits
+            # for the work queued there, which may still use reused blocks
+            cols = {n: torch.empty(b.shape, dtype=b.dtype, device=dev)
+                    for n, b in bufs.items()}
+            cnt = torch.empty(counts.shape, dtype=counts.dtype, device=dev)
+            copy.wait_stream(compute)
+            with torch.cuda.stream(copy):
+                for n, b in bufs.items():
+                    cols[n].copy_(b, non_blocking=True)
+                cnt.copy_(counts, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(copy)
+            last_read[s] = ev
+            return self._table(cols, cnt), ev
+
+        nxt = enqueue(0)
+        try:
+            for m in range(1, self.num_morsels + 1):
+                cur, ev = nxt
+                # prefetch: morsel m's upload goes out before m-1 is used
+                nxt = enqueue(m) if m < self.num_morsels else None
+                compute.wait_event(ev)
+                yield cur
+        finally:
+            # a consumer that stops early must not free blocks a copy is
+            # still writing
+            compute.wait_stream(copy)
 
 
 # ---------------------------------------------------------------------- #

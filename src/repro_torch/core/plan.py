@@ -170,20 +170,24 @@ class Plan:
 
 
 #: ``execute`` options of the JAX package that later slices of the port add
+#: (the slice and its ROADMAP queue-1 item)
 _NOT_YET = {
-    "morsel_rows": "out-of-core execution",
-    "trace": "observability",
-    "retries": "fault handling",
-    "timeout": "fault handling",
-    "faults": "fault handling",
-    "adaptive": "adaptive skew handling",
+    "trace": ("observability", 9),
+    "debug_overflow": ("observability", 9),
+    "retries": ("fault handling", 10),
+    "timeout": ("fault handling", 10),
+    "faults": ("fault handling", 10),
+    "adaptive": ("adaptive skew handling", 10),
 }
+#: options passed through to the out-of-core executor
+_MORSEL_KW = ("capacity_factor", "samples")
 
 
 def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
             optimize: bool = True, collect_stats: bool = False,
             shuffle_impl: str = "radix", a2a_chunks: int = 1,
-            overflow: Optional[str] = None, **later):
+            morsel_rows: Optional[int] = None,
+            overflow: Optional[str] = None, **kw):
     """Execute a plan against DistTables.  Returns a DistTable, or
     ``(DistTable, planner.ExecStats)`` with ``collect_stats=True``.
 
@@ -191,27 +195,39 @@ def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
     "amt"}.  ``optimize=False`` runs the plan exactly as written.
     ``shuffle_impl`` ("radix" sort-free | "sorted" baseline) and
     ``a2a_chunks`` (all-to-all pipeline depth) are the plan-wide shuffle
-    defaults; per-node params override.  ``overflow`` (``raise | warn |
-    degrade``, default ``degrade``) decides what rows dropped by capacity
-    pressure do, which is observable with ``collect_stats=True``; this
-    slice has no out-of-core executor to degrade to, so ``degrade`` raises
-    ``CapacityOverflow``.
+    defaults; per-node params override.
 
-    The JAX package's ``morsel_rows``, ``trace``, ``retries``,
+    ``morsel_rows`` selects out-of-core morsel execution: ``tables`` may then
+    hold host-resident data (``core.SpillTable`` / numpy dicts) larger than
+    device capacity, streamed through the stage DAG in ``morsel_rows``-row
+    morsels; the result is a ``SpillTable``.  Extra keywords
+    (``capacity_factor``, ``samples``) are forwarded to the morsel
+    executor.  ``overflow`` (``raise | warn | degrade``,
+    default ``degrade``) decides what rows dropped by capacity pressure
+    do: ``degrade`` replays an in-core plan out-of-core until every row
+    fits.
+
+    The JAX package's ``trace``, ``debug_overflow``, ``retries``,
     ``timeout``, ``faults`` and ``adaptive`` come with later slices of the
-    port; passing one raises ``NotImplementedError`` naming the slice.
+    port; passing one raises ``NotImplementedError`` naming the slice and
+    its ROADMAP item.
     """
     from ..planner import compile_plan, run_physical
-    for name in later:
-        if name not in _NOT_YET:
+    morsel_kw = {}
+    for name, value in kw.items():
+        if name in _MORSEL_KW:
+            morsel_kw[name] = value
+        elif name not in _NOT_YET:
             raise TypeError(f"execute() got an unexpected keyword argument "
                             f"{name!r}")
-        if later[name] is not None:
+        elif value is not None and value is not False:
+            what, item = _NOT_YET[name]
             raise NotImplementedError(
-                f"execute({name}=...) waits for the {_NOT_YET[name]} slice "
-                f"of the port")
+                f"execute({name}=...) waits for the {what} slice of the "
+                f"port (ROADMAP queue 1, item {item})")
     pplan = compile_plan(plan, tables, optimize_plan=optimize)
     return run_physical(pplan, env, tables, mode,
                         collect_stats=collect_stats,
                         shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
-                        overflow=overflow)
+                        morsel_rows=morsel_rows, overflow=overflow,
+                        **morsel_kw)

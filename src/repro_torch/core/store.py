@@ -1,0 +1,484 @@
+"""CylonStore + host-resident spill tables (paper §IV-C, extended for
+out-of-core execution).
+
+The torch counterpart of ``repro.core.store``.  Two pieces live here:
+
+* ``SpillTable`` — the host-resident representation of a distributed table:
+  per-rank lists of contiguous numpy chunks (the spill format of the morsel
+  executor).  Shuffle output rows accumulate into these per-destination
+  buckets as morsels stream through a plan; the same structure backs
+  ``repartition`` as a *bucketed rescatter* (no full-table host gather).
+* ``CylonStore`` — keyed store of distributed tables shared with downstream
+  applications.  ``get`` with a different target parallelism (or capacity)
+  triggers the repartition routine the paper calls out.
+
+Host chunks keep their host dtypes, as in the JAX package; 64-bit columns
+narrow (``dtypes.to_x32``) only where rows go up to the device, which is
+where ``jnp.asarray`` narrows them there.  Rows that come down from a card
+land in reusable pinned staging buffers and are copied out into pageable
+chunks (``fetch_valid``).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..dataframe.schema import decode_columns, encode_columns
+from ..dtypes import to_x32, x32_dtype
+from ..nulls import apply_null_columns, extract_null_columns
+from .env import DistTable, resolve_device
+
+
+def _round8(x: int) -> int:
+    return max(8, -(-int(x) // 8) * 8)
+
+
+class D2HStaging:
+    """Reusable page-locked landing buffers for device-to-host copies.
+
+    One buffer per column name, grown when a copy needs more rows.  Rows
+    are copied out of a buffer into pageable numpy arrays before the
+    buffer is reused, so no spilled chunk keeps page-locked memory alive
+    and the pinned footprint stays one morsel output wide."""
+
+    def __init__(self):
+        self._bufs: Dict[str, torch.Tensor] = {}
+
+    def land(self, name: str, src: torch.Tensor) -> torch.Tensor:
+        """Enqueue an asynchronous copy of ``src`` into ``name``'s buffer
+        and return the landing view (valid once the stream is synced)."""
+        buf = self._bufs.get(name)
+        if (buf is None or buf.dtype != src.dtype
+                or buf.numel() < src.numel()):
+            buf = torch.empty(src.numel(), dtype=src.dtype, pin_memory=True)
+            self._bufs[name] = buf
+        dst = buf[:src.numel()].view(src.shape)
+        dst.copy_(src, non_blocking=True)
+        return dst
+
+    def buffers(self) -> List[torch.Tensor]:
+        return list(self._bufs.values())
+
+
+def fetch_valid(table: DistTable, staging: Optional[D2HStaging] = None
+                ) -> Tuple[np.ndarray, List[Dict[str, np.ndarray]], int]:
+    """Copy a ``DistTable``'s valid rows to the host.
+
+    The row counts come first (one synchronization), then every column's
+    rows up to the fullest rank's count; on a card they land in
+    ``staging``'s pinned buffers with asynchronous copies (one more
+    synchronization for all of them).  Each rank's valid rows are then
+    copied into pageable numpy arrays of their own, which share memory
+    with neither the staging buffers nor the table's tensors.  Returns
+    ``(counts, [per-rank {name: rows}], bytes copied off the device)``."""
+    counts = table.row_counts.cpu().numpy()
+    widest = int(counts.max()) if len(counts) else 0
+    on_card = table.device.type == "cuda"
+    if on_card and staging is None:
+        staging = D2HStaging()
+    copied = counts.nbytes
+    host: Dict[str, torch.Tensor] = {}
+    for name, v in table.columns.items():
+        src = v[:, :widest]
+        host[name] = staging.land(name, src) if on_card else src
+        copied += src.numel() * src.element_size()
+    if on_card:
+        torch.cuda.current_stream(table.device).synchronize()
+    arrays = {n: t.numpy() for n, t in host.items()}
+    rows = [{n: np.array(a[r, :int(c)]) for n, a in arrays.items()}
+            for r, c in enumerate(counts)]
+    return counts, rows, copied
+
+
+# ---------------------------------------------------------------------- #
+# Host-resident spill table
+# ---------------------------------------------------------------------- #
+class SpillTable:
+    """Host-resident spill of a distributed table: per-rank chunk lists.
+
+    Each chunk is a dict of equal-length contiguous numpy arrays (one
+    morsel's worth of rows for that rank).  Rank placement is semantic —
+    chunk rows belong to that rank exactly as a ``DistTable`` rank's rows
+    do — so a ``SpillTable`` is the out-of-core twin of ``DistTable`` and
+    can hold arbitrarily many rows per rank at zero device memory.
+
+    ``schema`` (name -> (dtype, trailing shape)) is fixed at construction or
+    by the first ``append``, so empty ranks and zero-row tables keep their
+    columns and dtypes.  ``dictionaries`` carries the sorted per-column
+    dictionaries of string columns (chunks hold int32 codes), exactly like
+    ``DistTable.dictionaries``; spill/respill/rescatter preserve it.
+    """
+
+    def __init__(self, parallelism: int,
+                 schema: Optional[Mapping[str, Tuple[np.dtype, Tuple[int, ...]]]]
+                 = None,
+                 dictionaries: Optional[Mapping[str, Tuple[str, ...]]] = None):
+        if parallelism < 1:
+            raise ValueError(f"parallelism must be >= 1, got {parallelism}")
+        self.parallelism = parallelism
+        self.dictionaries: Dict[str, Tuple[str, ...]] = \
+            dict(dictionaries or {})
+        self._chunks: List[List[Dict[str, np.ndarray]]] = \
+            [[] for _ in range(parallelism)]
+        self._schema: Optional[Dict[str, Tuple[np.dtype, Tuple[int, ...]]]] = (
+            {k: (np.dtype(d), tuple(s)) for k, (d, s) in schema.items()}
+            if schema is not None else None)
+
+    # -- schema --------------------------------------------------------- #
+    @property
+    def column_names(self) -> Tuple[str, ...]:
+        return tuple(sorted(self._schema)) if self._schema else ()
+
+    @property
+    def schema(self):
+        return dict(self._schema) if self._schema else {}
+
+    def _check_schema(self, columns: Dict[str, np.ndarray]) -> None:
+        got = {k: (v.dtype, v.shape[1:]) for k, v in columns.items()}
+        if self._schema is None:
+            self._schema = got
+            return
+        if got != self._schema:
+            raise ValueError(
+                f"chunk schema {got} != spill schema {self._schema}")
+
+    # -- writing -------------------------------------------------------- #
+    def append(self, rank: int, columns: Mapping[str, np.ndarray]) -> int:
+        """Append one chunk of rows to ``rank``'s bucket; returns its bytes."""
+        cols = {k: np.ascontiguousarray(v) for k, v in columns.items()}
+        if not cols:
+            raise ValueError("cannot append a chunk with no columns")
+        n = len(next(iter(cols.values())))
+        for k, v in cols.items():
+            if len(v) != n:
+                raise ValueError(f"column {k!r} length {len(v)} != {n}")
+        self._check_schema(cols)
+        if n == 0:
+            return 0
+        self._chunks[rank].append(cols)
+        return sum(v.nbytes for v in cols.values())
+
+    # -- reading -------------------------------------------------------- #
+    def rank_chunks(self, rank: int) -> Tuple[Dict[str, np.ndarray], ...]:
+        return tuple(self._chunks[rank])
+
+    def rank_rows(self, rank: int) -> int:
+        return sum(len(next(iter(c.values()))) for c in self._chunks[rank])
+
+    def total_rows(self) -> int:
+        return sum(self.rank_rows(r) for r in range(self.parallelism))
+
+    def nbytes(self) -> int:
+        return sum(v.nbytes for chunks in self._chunks
+                   for c in chunks for v in c.values())
+
+    def _empty_cols(self) -> Dict[str, np.ndarray]:
+        return {k: np.zeros((0,) + s, d)
+                for k, (d, s) in (self._schema or {}).items()}
+
+    def rank_concat(self, rank: int) -> Dict[str, np.ndarray]:
+        chunks = self._chunks[rank]
+        if not chunks:
+            return self._empty_cols()
+        return {k: np.concatenate([c[k] for c in chunks], axis=0)
+                for k in chunks[0]}
+
+    def to_numpy(self, decode: bool = True, nulls: str = "pandas"
+                 ) -> Dict[str, np.ndarray]:
+        """Gather valid rows from every rank in rank order (host side).
+
+        ``decode=True`` (default) maps dictionary-encoded columns back to
+        numpy string arrays; ``decode=False`` returns the raw codes.
+        ``nulls="pandas"`` (default) re-materializes ``__m_*`` validity
+        masks as NaN / ``None``; ``nulls="mask"`` returns the raw physical
+        layout (canonical-zero data + bool masks) for bit-identity checks."""
+        if nulls not in ("pandas", "mask"):
+            raise ValueError(f"nulls must be 'pandas' or 'mask', got {nulls!r}")
+        parts = [self.rank_concat(r) for r in range(self.parallelism)]
+        names = self.column_names
+        if not names:
+            return {}
+        out = {k: np.concatenate([p[k] for p in parts], axis=0)
+               for k in names}
+        if decode and self.dictionaries:
+            out = decode_columns(out, self.dictionaries)
+        if nulls == "pandas":
+            out = apply_null_columns(out)
+        return out
+
+    def num_morsels(self, morsel_rows: int) -> int:
+        """Morsels needed to stream the widest rank at ``morsel_rows`` each."""
+        widest = max(self.rank_rows(r) for r in range(self.parallelism))
+        return max(1, -(-widest // max(1, morsel_rows)))
+
+    # -- constructors ---------------------------------------------------- #
+    @classmethod
+    def from_numpy(cls, data: Mapping[str, np.ndarray], parallelism: int,
+                   chunk_rows: Optional[int] = None) -> "SpillTable":
+        """Block-distribute host rows over ``parallelism`` rank buckets,
+        optionally pre-chunked into ``chunk_rows``-row pieces.  String
+        columns are dictionary-encoded (chunks hold int32 codes); every
+        other column keeps its host dtype."""
+        data = {k: np.asarray(v) for k, v in data.items()}
+        if not data:
+            raise ValueError("need at least one column")
+        data = extract_null_columns(data)
+        data, dicts = encode_columns(data)
+        n = len(next(iter(data.values())))
+        per = -(-n // parallelism) if n else 0
+        out = cls(parallelism,
+                  schema={k: (v.dtype, v.shape[1:]) for k, v in data.items()},
+                  dictionaries=dicts)
+        for r in range(parallelism):
+            block = {k: v[r * per:(r + 1) * per] for k, v in data.items()}
+            rows = len(next(iter(block.values())))
+            step = chunk_rows or max(rows, 1)
+            for s in range(0, rows, step):
+                out.append(r, {k: v[s:s + step] for k, v in block.items()})
+        return out
+
+    @classmethod
+    def from_dist(cls, table: DistTable) -> "SpillTable":
+        """Spill a device-resident DistTable: one host chunk per rank."""
+        counts, rows, _ = fetch_valid(table)
+        out = cls(table.parallelism,
+                  schema={k: (v.dtype, v.shape[1:])
+                          for k, v in rows[0].items()},
+                  dictionaries=table.dictionaries)
+        for r, chunk in enumerate(rows):
+            if counts[r]:
+                out.append(r, chunk)
+        return out
+
+
+# ---------------------------------------------------------------------- #
+# Checkpoints: spill buckets as durable replay points
+# ---------------------------------------------------------------------- #
+class Checkpoint:
+    """A schema-stamped, reference-counted guard over a ``SpillTable``.
+
+    Comm-boundary spills are the natural checkpoints of the morsel executor:
+    a segment's input spill is read-only while the segment streams, so a
+    failed segment attempt can replay from it verbatim.  The checkpoint
+    makes that contract explicit:
+
+    * ``stamp`` — a cheap content stamp (schema, dictionaries, per-rank
+      row counts, total bytes) taken at creation; ``validate()`` recomputes
+      it before every replay and refuses a mutated or truncated spill.
+    * reference counting — ``retain``/``release`` keep the checkpoint (and
+      the spill it guards) alive across failed attempts; it is only
+      considered consumed when the owning segment commits.  ``released``
+      checkpoints refuse further validation, so a stale replay is an error
+      rather than silent corruption.
+    """
+
+    def __init__(self, spill: SpillTable):
+        self.spill = spill
+        self._refs = 1
+        self.stamp = self._stamp(spill)
+
+    @staticmethod
+    def _stamp(spill: SpillTable) -> Tuple:
+        return (
+            tuple(sorted((k, str(d), tuple(s))
+                         for k, (d, s) in spill.schema.items())),
+            tuple(sorted((k, tuple(v))
+                         for k, v in spill.dictionaries.items())),
+            tuple(spill.rank_rows(r) for r in range(spill.parallelism)),
+            spill.nbytes(),
+        )
+
+    @property
+    def refs(self) -> int:
+        return self._refs
+
+    @property
+    def released(self) -> bool:
+        return self._refs <= 0
+
+    def retain(self) -> "Checkpoint":
+        if self.released:
+            raise RuntimeError("cannot retain a released checkpoint")
+        self._refs += 1
+        return self
+
+    def release(self) -> None:
+        """Drop one reference; at zero the checkpoint is consumed (the
+        spill itself is NOT freed — it may be the caller's input data)."""
+        if self._refs > 0:
+            self._refs -= 1
+
+    def validate(self) -> SpillTable:
+        """Re-stamp the spill and return it for replay; raises on drift."""
+        if self.released:
+            raise RuntimeError(
+                "checkpoint was released (segment already committed); "
+                "replaying from it would read consumed state")
+        now = self._stamp(self.spill)
+        if now != self.stamp:
+            raise RuntimeError(
+                f"checkpoint validation failed: spill changed since the "
+                f"checkpoint was taken (rows {self.stamp[2]} -> {now[2]}, "
+                f"bytes {self.stamp[3]} -> {now[3]})")
+        return self.spill
+
+
+def _route_chunks(spill: SpillTable, parallelism: int
+                  ) -> List[List[Dict[str, np.ndarray]]]:
+    """Block-route every chunk's rows to per-destination bucket lists by
+    global offset (each chunk slices across at most a few destinations).
+    The single routing loop behind both ``respill`` and ``rescatter``."""
+    n = spill.total_rows()
+    per = -(-max(n, 1) // parallelism)
+    buckets: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(parallelism)]
+    g = 0
+    for r in range(spill.parallelism):
+        for chunk in spill.rank_chunks(r):
+            m = len(next(iter(chunk.values())))
+            start = 0
+            while start < m:
+                dest = min((g + start) // per, parallelism - 1)
+                take = min(m - start, (dest + 1) * per - (g + start))
+                buckets[dest].append(
+                    {k: v[start:start + take] for k, v in chunk.items()})
+                start += take
+            g += m
+    return buckets
+
+
+def respill(spill: SpillTable, parallelism: int) -> SpillTable:
+    """Re-bucket a SpillTable to a different gang size, chunk by chunk.
+
+    Host-only (no device materialization — the spill may not fit a
+    ``DistTable``)."""
+    if parallelism == spill.parallelism:
+        return spill
+    out = SpillTable(parallelism, schema=spill.schema or None,
+                     dictionaries=spill.dictionaries)
+    for dest, pieces in enumerate(_route_chunks(spill, parallelism)):
+        for piece in pieces:
+            out.append(dest, piece)
+    return out
+
+
+def respill_routed(spill: SpillTable, dest_of) -> SpillTable:
+    """Re-route a SpillTable's rows by an arbitrary per-row rule.
+
+    ``dest_of(cols: Dict[str, np.ndarray]) -> np.ndarray[int]`` maps one
+    chunk's columns to destination ranks; the routing itself stays a
+    host-only chunk-by-chunk pass like ``respill`` (peak extra memory is
+    one chunk)."""
+    out = SpillTable(spill.parallelism, schema=spill.schema or None,
+                     dictionaries=spill.dictionaries)
+    for r in range(spill.parallelism):
+        for chunk in spill.rank_chunks(r):
+            dest = np.asarray(dest_of(chunk))
+            if dest.ndim != 1 or len(dest) != len(next(iter(chunk.values()))):
+                raise ValueError("dest_of must return one rank per row")
+            for d in np.unique(dest):
+                sel = dest == d
+                out.append(int(d), {k: v[sel] for k, v in chunk.items()})
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# Bucketed rescatter (replaces the host-gather repartition)
+# ---------------------------------------------------------------------- #
+def rescatter(spill: SpillTable, parallelism: int,
+              capacity: Optional[int] = None, device=None) -> DistTable:
+    """SpillTable -> DistTable over a (possibly different) gang size, on
+    ``device`` (``None``: the card).
+
+    Rows are routed chunk-by-chunk into per-destination host buckets by
+    their global block index — no rank's data is ever concatenated into a
+    single full-table host array, so peak extra host memory is one
+    destination rank, not the whole table.  64-bit columns narrow on the
+    way up (``dtypes.to_x32``).
+    """
+    dev = resolve_device(device)
+    n = spill.total_rows()
+    per = -(-max(n, 1) // parallelism)
+    cap = capacity if capacity is not None else _round8(per)
+    if per > cap and n > 0:
+        raise ValueError(f"rows/shard {per} exceeds capacity {cap}")
+    buckets = _route_chunks(spill, parallelism)
+    cols: Dict[str, torch.Tensor] = {}
+    counts = np.zeros((parallelism,), np.int32)
+    for name, (dtype, trail) in spill.schema.items():
+        buf = np.zeros((parallelism, cap) + trail, x32_dtype(dtype))
+        for d in range(parallelism):
+            pos = 0
+            for piece in buckets[d]:
+                v = to_x32(piece[name])
+                buf[d, pos:pos + len(v)] = v
+                pos += len(v)
+            counts[d] = pos
+        cols[name] = torch.from_numpy(buf).to(dev)
+    return DistTable(cols, torch.from_numpy(counts).to(dev), cap,
+                     dict(spill.dictionaries))
+
+
+def repartition(table: Union[DistTable, SpillTable], parallelism: int,
+                capacity: Optional[int] = None, device=None) -> DistTable:
+    """Re-split a distributed table across a different gang size.
+
+    Host-staged via the per-destination spill buckets (``rescatter``), used
+    at application boundaries where the paper stages through NFS / the
+    object store anyway.  An explicit ``capacity`` — including ``0`` — is
+    honored verbatim (and validated), never silently replaced.  The result
+    lands on ``device``, by default a ``DistTable``'s own device and the
+    card for a ``SpillTable``.
+    """
+    if isinstance(table, DistTable):
+        device = table.device if device is None else device
+        table = SpillTable.from_dist(table)
+    return rescatter(table, parallelism, capacity, device)
+
+
+class CylonStore:
+    def __init__(self):
+        self._data: Dict[str, Union[DistTable, SpillTable]] = {}
+        self._cv = threading.Condition()
+
+    def put(self, key: str, table: Union[DistTable, SpillTable]) -> None:
+        with self._cv:
+            self._data[key] = table
+            self._cv.notify_all()
+
+    def get(self, key: str, target_parallelism: Optional[int] = None,
+            capacity: Optional[int] = None, timeout: Optional[float] = None,
+            device=None) -> Union[DistTable, SpillTable]:
+        """Fetch (blocking, like the paper's example) + repartition if
+        needed (onto ``device``, as ``repartition`` places it)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while key not in self._data:
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    raise TimeoutError(f"CylonStore.get({key!r}) timed out")
+                self._cv.wait(timeout=remaining)
+            table = self._data[key]
+        same_p = (target_parallelism is None
+                  or target_parallelism == table.parallelism)
+        same_cap = (capacity is None
+                    or (isinstance(table, DistTable)
+                        and capacity == table.capacity))
+        if same_p and same_cap:
+            return table
+        return repartition(
+            table,
+            table.parallelism if target_parallelism is None
+            else target_parallelism,
+            capacity, device)
+
+    def keys(self):
+        return sorted(self._data)
+
+    def delete(self, key: str) -> None:
+        with self._cv:
+            self._data.pop(key, None)

@@ -1,7 +1,7 @@
 """Distributed dataframe engine (the paper's HP-DDF), batched over stacked
 ranks in PyTorch."""
 
-from .table import Table
+from .table import Table, concat_tables
 from .ops_local import (
     add_scalar,
     drop_null_keys,
@@ -16,15 +16,17 @@ from .ops_local import (
     with_columns,
 )
 from .shuffle import ShuffleStats, default_bucket_capacity, shuffle
-from .groupby import finalize_groupby, groupby
+from .groupby import (combine_groupby_partials, finalize_groupby, groupby,
+                      groupby_partial)
 from .join import join
 from .sort import sort
 
 __all__ = [
-    "Table",
+    "Table", "concat_tables",
     "add_scalar", "drop_null_keys", "filter_expr", "groupby_local",
     "hash_columns", "hash_columns_np", "join_local", "join_overflow",
     "recode", "sort_local", "with_columns",
     "ShuffleStats", "default_bucket_capacity", "shuffle",
-    "finalize_groupby", "groupby", "join", "sort",
+    "combine_groupby_partials", "finalize_groupby", "groupby",
+    "groupby_partial", "join", "sort",
 ]

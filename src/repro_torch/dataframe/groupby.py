@@ -1,7 +1,8 @@
 """Distributed groupby: optional local pre-aggregation + shuffle + final agg.
 
-The torch counterpart of ``repro.dataframe.groupby`` (the salted and
-out-of-core partial/combine functions come with later slices of the port).
+The torch counterpart of ``repro.dataframe.groupby``, with the out-of-core
+partial/combine pair (the salted functions come with a later slice of the
+port).
 
 The paper's groupby is shuffle-then-aggregate (map-reduce style).  We add a
 *partial-aggregation pushdown* (classic distributed-DB optimization, and the
@@ -13,7 +14,7 @@ low cardinality it slashes the collective term.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -135,3 +136,59 @@ def groupby(
         final = groupby_local(shuffled, keys, physical)
 
     return finalize_groupby(final, keys, post, nullable), stats
+
+
+# ---------------------------------------------------------------------- #
+# Out-of-core: per-morsel partials + rank-local cross-morsel combine
+# ---------------------------------------------------------------------- #
+def groupby_partial(
+    table: Table,
+    comm: Communicator,
+    keys: Sequence[str],
+    physical: Mapping[str, Sequence[str]],
+    pre_aggregate: bool = False,
+    elide_shuffle: bool = False,
+    **shuffle_kw,
+) -> Tuple[Table, Optional[ShuffleStats]]:
+    """One morsel's contribution to a distributed groupby.
+
+    Rows are placed on their final rank (``hash(keys) % p``) and aggregated
+    into *mergeable* partial columns ``{col}_{agg}`` (mean stays sum+count;
+    no finalization).  Because the hash placement is row-wise, partials for
+    the same key land on the same rank in **every** morsel, so the
+    cross-morsel combine (``combine_groupby_partials``) is rank-local — no
+    further communication.
+    """
+    stage2, rename = _stage2_spec(physical)
+    table = drop_null_keys(table, keys)
+    if elide_shuffle:
+        # input already co-partitioned on the keys: local partial only
+        return groupby_local(table, keys, physical), None
+    if pre_aggregate:
+        partial = groupby_local(table, keys, physical)
+        shuffled, stats = shuffle(partial, comm, key_cols=list(keys),
+                                  **shuffle_kw)
+        return groupby_local(shuffled, keys, stage2).rename(rename), stats
+    shuffled, stats = shuffle(table, comm, key_cols=list(keys), **shuffle_kw)
+    return groupby_local(shuffled, keys, physical), stats
+
+
+def combine_groupby_partials(
+    partials: Table,
+    keys: Sequence[str],
+    physical: Mapping[str, Sequence[str]],
+    post: Sequence[Tuple[str, str, str]],
+    nullable_cols: Sequence[str] = (),
+) -> Table:
+    """Cross-morsel combiner: re-aggregate mergeable partials + finalize.
+
+    Purely local (runs per rank): the morsel layer guarantees every key's
+    partials are co-resident.  Partial aggs compose under their stage-2
+    combiner (sum of sums, min of mins, sum of counts), so this is exact
+    for any morsel split of the input.  ``nullable_cols`` (the *input*
+    columns that carried masks — the caller knows, the partials don't)
+    restores null mean/min/max for all-null groups at finalize.
+    """
+    stage2, rename = _stage2_spec(physical)
+    final = groupby_local(partials, keys, stage2).rename(rename)
+    return finalize_groupby(final, keys, post, nullable_cols)

@@ -22,6 +22,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..dtypes import order_view, signed_view
 from ..expr import as_tensor
 from ..kernels.segmented_reduce import segmented_sum
 from ..nulls import mask_name
@@ -108,7 +109,7 @@ def _order_keys(table: Table, by: Sequence[str]) -> Tuple[torch.Tensor, ...]:
     valid = table.valid_mask()
     keys = []
     for name in reversed(by):
-        v = table.columns[name]
+        v = order_view(table.columns[name])
         keys.append(torch.where(valid, v, _sentinel_for(v.dtype)))
         m = table.columns.get(mask_name(name))
         if m is not None:
@@ -258,7 +259,7 @@ def groupby_local(table: Table, keys: Sequence[str],
     # segment ids: new segment where any key changes (within valid prefix)
     change = torch.zeros_like(valid)
     for name in keys:
-        v = sorted_t.columns[name]
+        v = order_view(sorted_t.columns[name])
         change[:, 0] = True
         change[:, 1:] |= v[:, 1:] != v[:, :-1]
     change &= valid
@@ -269,11 +270,12 @@ def groupby_local(table: Table, keys: Sequence[str],
 
     out_cols: Dict[str, torch.Tensor] = {}
     for name in keys:
-        v = sorted_t.columns[name]
+        v = signed_view(sorted_t.columns[name])
         # first row of each segment carries the key (padding writes 0 to
         # slot cap-1, which is padding itself unless the table is full)
         out_cols[name] = torch.zeros_like(v).scatter_(
-            1, seg, torch.where(valid, v, torch.zeros_like(v)))
+            1, seg, torch.where(valid, v, torch.zeros_like(v))).view(
+                sorted_t.columns[name].dtype)
     for col, agg_names in aggs.items():
         v = sorted_t.columns[col]
         cmask = sorted_t.columns.get(mask_name(col))
@@ -281,18 +283,23 @@ def groupby_local(table: Table, keys: Sequence[str],
         for agg in agg_names:
             out_mask = None
             if agg == "sum":
+                # zeroed as bits: CUDA has no torch.where for uint16/32
+                sv = signed_view(v)
                 r = segmented_sum(
-                    seg32, torch.where(eff, v, torch.zeros_like(v)), cap)
+                    seg32, torch.where(eff, sv, torch.zeros_like(sv)).view(
+                        v.dtype), cap)
             elif agg == "count":
                 r = segmented_sum(seg32, eff.to(torch.int32), cap)
             elif agg == "size":
                 r = segmented_sum(seg32, valid.to(torch.int32), cap)
             elif agg in ("min", "max"):
+                # unsigned values reduce widened (identities of their own
+                # dtype, so empty segments match jax.ops.segment_min/max)
                 ident = (_sentinel_for(v.dtype) if agg == "min"
                          else _max_identity(v.dtype))
-                r = _segment_reduce(torch.where(eff, v, ident), seg,
-                                    "amin" if agg == "min" else "amax",
-                                    ident)
+                r = _segment_reduce(torch.where(eff, order_view(v), ident),
+                                    seg, "amin" if agg == "min" else "amax",
+                                    ident).to(v.dtype)
                 if cmask is not None:
                     out_mask = _segment_reduce(
                         eff.to(torch.int32), seg, "amax",
@@ -314,10 +321,10 @@ def _merge_ranges(ls: Table, rs: Table, on: str):
     """Per left row: [lo, hi) of its matches in the sorted right side, and
     the match count (0 for padding rows)."""
     lvalid = ls.valid_mask()
-    lkey = torch.where(lvalid, ls.columns[on],
-                       _sentinel_for(ls.columns[on].dtype)).contiguous()
-    rkey = torch.where(rs.valid_mask(), rs.columns[on],
-                       _sentinel_for(rs.columns[on].dtype)).contiguous()
+    lk, rk = order_view(ls.columns[on]), order_view(rs.columns[on])
+    lkey = torch.where(lvalid, lk, _sentinel_for(lk.dtype)).contiguous()
+    rkey = torch.where(rs.valid_mask(), rk,
+                       _sentinel_for(rk.dtype)).contiguous()
     lo = torch.searchsorted(rkey, lkey, side="left")
     hi = torch.searchsorted(rkey, lkey, side="right")
     hi = torch.minimum(hi, rs.row_count[:, None].to(hi.dtype))

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..comm import Communicator
+from ..dtypes import signed_view
 from ..kernels import radix_partition
 from .ops_local import hash_columns
 from .table import Table, gather_rows, scatter_rows
@@ -131,6 +132,13 @@ def shuffle(
     dev = table.device
     bucket_cap = bucket_capacity or default_bucket_capacity(cap, p)
     out_cap = out_capacity or cap
+    # the output keeps the capacity the requested buckets give it
+    out_size = min(p * bucket_cap, out_cap)
+    if impl == "radix":
+        # a rank never sends more rows than it holds, so a bucket past
+        # ``cap`` rows only pads the send and receive buffers (p*p*bucket
+        # slots on one device): the same rows land in the same slots
+        bucket_cap = min(bucket_cap, cap)
     valid = table.valid_mask()
 
     if dest is None:
@@ -182,7 +190,8 @@ def shuffle(
         recv_cols.update(_unpack_u32(
             _send(_pack_u32(table.columns, packables)), packables, dtypes))
     for n in singles:
-        recv_cols[n] = _send(table.columns[n])
+        # unsigned columns travel as bits (dtypes.signed_view)
+        recv_cols[n] = _send(signed_view(table.columns[n])).view(dtypes[n])
 
     recv_counts = comm.exchange_counts(sent_counts)
     total_recv = recv_counts.sum(dim=1, dtype=torch.int32)
@@ -192,7 +201,6 @@ def shuffle(
     ridx = torch.arange(p * bucket_cap, device=dev)
     blk, q = ridx // bucket_cap, ridx % bucket_cap
     r_valid = q[None, :] < recv_counts[:, blk]
-    out_size = min(p * bucket_cap, out_cap)
     if impl == "radix":
         # slot of a valid row (blk, q) is its rank in the (source-rank,
         # slot) enumeration = exclusive prefix over recv_counts

@@ -15,6 +15,7 @@ from ..comm import Communicator
 from ..nulls import mask_name
 from .ops_local import sort_local
 from .shuffle import ShuffleStats, shuffle
+from ..dtypes import order_view
 from .table import Table, _sentinel_for
 
 
@@ -25,7 +26,7 @@ def _range_dest(table: Table, key_col: str, comm: Communicator,
     Nulls-last: null keys are left out of the splitter sample and routed
     to the last rank, where the local sort puts them at the tail."""
     p = comm.size()
-    key = table.columns[key_col]
+    key = order_view(table.columns[key_col])
     m = table.columns.get(mask_name(key_col))
     valid = table.valid_mask()
     part = valid if m is None else (valid & m)

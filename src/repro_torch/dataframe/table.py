@@ -14,9 +14,11 @@ over that leading rank axis, so one launch covers all ranks.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
+
+from ..dtypes import signed_view
 
 
 def _sentinel_for(dtype: torch.dtype):
@@ -29,6 +31,9 @@ def _sentinel_for(dtype: torch.dtype):
 def gather_rows(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Per-rank row gather: ``out[r, i] = v[r, idx[r, i]]`` (trailing dims
     of ``v`` ride along)."""
+    s = signed_view(v)
+    if s is not v:
+        return gather_rows(s, idx).view(v.dtype)
     if v.dim() > 2:
         idx = idx.reshape(idx.shape + (1,) * (v.dim() - 2)).expand(
             idx.shape + v.shape[2:])
@@ -40,6 +45,9 @@ def scatter_rows(size: int, pos: torch.Tensor, v: torch.Tensor
     """Per-rank scatter with JAX's ``.at[pos].set(v, mode="drop")``:
     positions equal to ``size`` land in one extra trash slot that is
     sliced off.  ``pos`` must lie in ``[0, size]``."""
+    s = signed_view(v)
+    if s is not v:
+        return scatter_rows(size, pos, s).view(v.dtype)
     out = torch.zeros((v.shape[0], size + 1) + v.shape[2:], dtype=v.dtype,
                       device=v.device)
     if v.dim() > 2:
@@ -112,6 +120,31 @@ class Table:
         cols = {}
         for k, v in self.columns.items():
             mm = m.reshape(m.shape + (1,) * (v.dim() - 2))
-            cols[k] = torch.where(mm, v, torch.zeros((), dtype=v.dtype,
-                                                     device=v.device))
+            # as bits: CUDA has no torch.where for uint16/32
+            sv = signed_view(v)
+            cols[k] = torch.where(mm, sv, torch.zeros((), dtype=sv.dtype,
+                                                      device=v.device)
+                                  ).view(v.dtype)
         return Table(cols, self.row_count)
+
+
+def concat_tables(tables: Sequence[Table], capacity: Optional[int] = None
+                  ) -> Table:
+    """Concatenate tables rank by rank (compacted), padding to
+    ``capacity`` (default: the sum of the capacities).  Rows past
+    ``capacity`` are dropped; the row count is the full total, as in the
+    JAX package."""
+    names = tables[0].column_names
+    capacity = capacity or sum(t.capacity for t in tables)
+    counts = torch.stack([t.row_count for t in tables], dim=1)   # (p, T)
+    offsets = (torch.cumsum(counts, dim=1) - counts).to(torch.int64)
+    pos = []
+    for i, t in enumerate(tables):
+        at = offsets[:, i:i + 1] + torch.arange(t.capacity, device=t.device)
+        pos.append(torch.where(t.valid_mask() & (at < capacity), at,
+                               capacity))
+    pos = torch.cat(pos, dim=1)
+    cols = {n: scatter_rows(capacity, pos, torch.cat(
+                [signed_view(t.columns[n]) for t in tables], dim=1)
+            ).view(tables[0].columns[n].dtype) for n in names}
+    return Table(cols, counts.sum(dim=1, dtype=torch.int32))

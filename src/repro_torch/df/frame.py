@@ -15,12 +15,15 @@ Column references are typed expressions (``repro_torch.expr``): ``df.v``
 declarative predicate the optimizer can split, push past joins, and prune
 columns through.
 
+Out-of-core runs take host-resident sources (``read_numpy(spill=True)``,
+``from_table`` of a ``SpillTable`` or a host column dict) through
+``collect(morsel_rows=...)``.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue-1 item: out-of-core sources and runs (``read_numpy(spill=True)``,
-``from_table`` of a host column dict, ``collect(morsel_rows=)``; item 7),
-``read_parquet`` / ``read_csv`` (item 8), ``collect(analyze=, trace=)``
-and ``explain_analyze`` (item 9), and the fault-tolerance and adaptive
-options of ``collect`` (item 10).
+queue-1 item: ``read_parquet`` / ``read_csv`` (item 8),
+``collect(analyze=, trace=)`` and ``explain_analyze`` (item 9), and the
+fault-tolerance and adaptive options of ``collect`` other than
+``overflow`` (item 10).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 
 from ..core.env import CylonEnv, DistTable
 from ..core.plan import Plan, execute
+from ..core.store import SpillTable
 from ..expr import Col, Expr, ensure_expr
 from ..nulls import data_columns
 from ..planner.logical import groupby_schema, join_schema
@@ -245,38 +249,42 @@ class DataFrame:
                 trace: Any = None, timeout: Any = None, retries: Any = None,
                 overflow: Any = None, faults: Any = None,
                 adaptive: Any = None, **kw):
-        """Run the accumulated plan; returns a ``DistTable`` (and a
+        """Run the accumulated plan; returns a ``DistTable`` (or a
+        host-resident ``SpillTable`` with ``morsel_rows=``, and a
         ``(result, ExecStats)`` pair with ``collect_stats=True``).
 
         ``env`` resolution: explicit argument > the env the data was
         ingested for (``read_numpy(env=...)``) > the active session env
         (``repro_torch.df.session``).  Extra ``kw`` (``shuffle_impl``,
-        ``a2a_chunks``) pass through to ``core.plan.execute``.
+        ``a2a_chunks``, ``capacity_factor``, ...) pass through to
+        ``core.plan.execute``, as does ``overflow`` (``raise | warn |
+        degrade``).
 
-        ``morsel_rows`` (ROADMAP item 7), ``analyze`` / ``trace`` (item 9)
-        and ``timeout`` / ``retries`` / ``overflow`` / ``faults`` /
-        ``adaptive`` (item 10) are not ported yet and raise
-        ``NotImplementedError``.
+        ``analyze`` / ``trace`` (ROADMAP item 9) and ``timeout`` /
+        ``retries`` / ``faults`` / ``adaptive`` (item 10) are not ported
+        yet and raise ``NotImplementedError``.
         """
-        if morsel_rows is not None:
-            raise not_ported("collect(morsel_rows=...)", 7)
         if analyze or trace is not None:
             raise not_ported("collect(analyze=..., trace=...)", 9)
         refuse_deferred("collect", timeout=timeout, retries=retries,
-                        overflow=overflow, faults=faults, adaptive=adaptive)
+                        faults=faults, adaptive=adaptive)
         if env is None:
             env = self._env if self._env is not None else get_env()
-        # catch gang mismatches here with a clear message instead of a
-        # shape error deep inside a stage
-        for sname, t in self.sources.items():
-            if isinstance(t, DistTable) and t.parallelism != env.parallelism:
-                raise ValueError(
-                    f"source {sname!r} is partitioned for "
-                    f"{t.parallelism} ranks but the resolved env has "
-                    f"{env.parallelism}; pass collect(env=<ingest "
-                    f"env>) or re-ingest under this session")
+        if morsel_rows is None:
+            # catch gang mismatches here with a clear message instead of a
+            # shape error deep inside a stage (the morsel path re-buckets
+            # host spills, so it is exempt)
+            for sname, t in self.sources.items():
+                if (isinstance(t, DistTable)
+                        and t.parallelism != env.parallelism):
+                    raise ValueError(
+                        f"source {sname!r} is partitioned for "
+                        f"{t.parallelism} ranks but the resolved env has "
+                        f"{env.parallelism}; pass collect(env=<ingest "
+                        f"env>) or re-ingest under this session")
         return execute(self.plan, env, self.sources, mode=mode,
-                       optimize=optimize, collect_stats=collect_stats, **kw)
+                       optimize=optimize, collect_stats=collect_stats,
+                       morsel_rows=morsel_rows, overflow=overflow, **kw)
 
     def to_numpy(self, nulls: str = "pandas", **kw) -> Dict[str, np.ndarray]:
         """``collect`` + gather valid rows to host numpy columns (string
@@ -347,20 +355,25 @@ class GroupBy:
 # ---------------------------------------------------------------------- #
 # Constructors
 # ---------------------------------------------------------------------- #
-def from_table(table: DistTable, name: Optional[str] = None,
+def from_table(table: Union[DistTable, SpillTable, Mapping[str, np.ndarray]],
+               name: Optional[str] = None,
                env: Optional[CylonEnv] = None) -> DataFrame:
-    """Wrap an existing ``DistTable`` as a scan.  ``env`` pins the gang
-    the frame executes on (see ``DataFrame.collect``).  Host-resident
-    sources (a ``SpillTable`` or a host column dict) run out-of-core,
-    which is not ported yet (ROADMAP item 7)."""
-    if not isinstance(table, DistTable):
-        raise not_ported(f"from_table({type(table).__name__}) (out-of-core "
-                          f"sources)", 7)
+    """Wrap an existing ``DistTable`` / ``SpillTable`` / host column dict
+    as a scan.  ``SpillTable`` sources run out-of-core under
+    ``collect(morsel_rows=...)`` or are scattered onto the env's ranks for
+    in-core modes; raw column dicts require the morsel path.  ``env`` pins
+    the gang the frame executes on (see ``DataFrame.collect``)."""
+    if hasattr(table, "column_names"):
+        names = table.column_names
+    elif isinstance(table, Mapping):
+        names = tuple(table)
+    else:
+        raise TypeError(f"cannot infer a schema from {type(table).__name__}")
     name = name or f"t{next(_src_ids)}"
     # validity masks (__m_*) are physical companions, not logical schema:
     # they ride along implicitly and never appear in df.columns
-    return DataFrame(Plan.scan(name), {name: table},
-                     data_columns(table.column_names), env)
+    return DataFrame(Plan.scan(name), {name: table}, data_columns(names),
+                     env)
 
 
 def read_numpy(data: Mapping[str, np.ndarray], *,
@@ -370,22 +383,27 @@ def read_numpy(data: Mapping[str, np.ndarray], *,
                name: Optional[str] = None) -> DataFrame:
     """Ingest host numpy columns as a distributed scan.
 
-    Block-distributes onto the env's ranks and device (a ``DistTable``;
-    ``capacity`` sets per-rank slots): an explicit ``env``, else the
-    active session's.  String columns are dictionary-encoded at ingest
-    (the device holds int32 codes over a sorted dictionary).  An explicit
-    ``env`` both partitions the data for that gang and pins later
-    ``collect()`` calls to it.  ``spill=True`` / ``chunk_rows`` (host-
-    resident out-of-core sources) are not ported yet (ROADMAP item 7).
+    Default: block-distribute onto the env's ranks and device (a
+    ``DistTable``; ``capacity`` sets per-rank slots): an explicit ``env``,
+    else the active session's.  String columns are dictionary-encoded at
+    ingest (the device holds int32 codes over a sorted dictionary).  An
+    explicit ``env`` both partitions the data for that gang and pins later
+    ``collect()`` calls to it.  ``spill=True`` keeps the data host-resident
+    as a ``SpillTable`` (in ``chunk_rows``-row chunks) for out-of-core
+    ``collect(morsel_rows=...)`` runs.
     """
-    if spill or chunk_rows is not None:
-        if spill and capacity is not None:
+    target = env if env is not None else get_env()
+    if spill:
+        if capacity is not None:
             raise TypeError("capacity only applies to device tables "
                             "(spill=False); use chunk_rows for spills")
-        raise not_ported("read_numpy(spill=True, chunk_rows=...)", 7)
-    target = env if env is not None else get_env()
-    table = DistTable.from_numpy(dict(data), target.parallelism, capacity,
-                                 device=target.device)
+        table: Any = SpillTable.from_numpy(data, target.parallelism,
+                                           chunk_rows=chunk_rows)
+    else:
+        if chunk_rows is not None:
+            raise TypeError("chunk_rows only applies with spill=True")
+        table = DistTable.from_numpy(dict(data), target.parallelism,
+                                     capacity, device=target.device)
     return from_table(table, name, env)
 
 

@@ -43,7 +43,7 @@ from typing import Any, Callable, FrozenSet, Optional, Sequence
 import numpy as np
 import torch
 
-from .dtypes import to_x32
+from .dtypes import order_view, to_x32
 from .nulls import mask_name
 
 __all__ = ["Expr", "Col", "Lit", "BinOp", "UnaryOp", "OpaqueExpr", "IsNull",
@@ -462,16 +462,23 @@ class BinOp(Expr):
             return self.left.is_boolean() and self.right.is_boolean()
         return False
 
+    def _apply(self, va, vb):
+        if self.op in _COMPARE:
+            # unsigned columns compare widened (dtypes.order_view)
+            va, vb = (order_view(v) if isinstance(v, torch.Tensor) else v
+                      for v in (va, vb))
+        return _BINOPS[self.op](va, vb)
+
     def evaluate(self, table):
-        return _BINOPS[self.op](self.left.evaluate(table),
-                                self.right.evaluate(table))
+        return self._apply(self.left.evaluate(table),
+                           self.right.evaluate(table))
 
     def evaluate_masked(self, table):
         va, ma = self.left.evaluate_masked(table)
         vb, mb = self.right.evaluate_masked(table)
         if ma is None and mb is None:
-            return _BINOPS[self.op](va, vb), None
-        value = _BINOPS[self.op](va, vb)
+            return self._apply(va, vb), None
+        value = self._apply(va, vb)
         if self.op in ("&", "|") and _is_bool(va) and _is_bool(vb):
             # Kleene: a known false (&) / true (|) side decides the result
             # even when the other side is null.  Canonical zero means null

@@ -8,6 +8,7 @@ The torch counterpart of ``repro.planner``:
                  predicate & projection pushdown, pre-aggregation,
 * ``physical`` — lowering to a stage DAG executed through ``CylonEnv.run``
                  with a structural-fingerprint stage cache,
+* ``morsel``   — out-of-core execution of the same plans over host spills,
 * ``explain``  — EXPLAIN rendering of stages, properties, and fired rules.
 
 ``core.plan.execute`` lowers every plan through here.
@@ -20,6 +21,7 @@ from .dictionary import DictTypeError, apply_dictionaries
 from .physical import (ExecStats, PhysicalPlan, attach_dictionaries,
                        eval_node, fingerprint, lower, run_physical,
                        shuffle_allgather)
+from .morsel import run_morsel
 from .explain import explain, render
 
 
@@ -50,5 +52,5 @@ __all__ = [
     "Partitioning", "PhysicalPlan", "annotate", "apply_dictionaries",
     "attach_dictionaries", "build_catalog", "compile_plan", "copy_dag",
     "eval_node", "explain", "fingerprint", "from_plan", "lower", "optimize",
-    "render", "run_physical", "shuffle_allgather", "topo",
+    "render", "run_morsel", "run_physical", "shuffle_allgather", "topo",
 ]

@@ -1,0 +1,762 @@
+"""Out-of-core morsel execution: stream datasets larger than device
+capacity through the stage DAG.
+
+The torch counterpart of ``repro.planner.morsel``.  The in-core executor
+(``run_physical``) requires every partition to fit a fixed per-rank device
+capacity.  ``run_morsel`` removes that bound: the streamed input lives in a
+host-resident ``core.store.SpillTable`` and is driven through the plan in
+fixed-capacity *morsels* — one built stage per plan segment, a cache hit
+for every morsel after the first — with double-buffered host->device
+transfer (``core.env.MorselSource``: pinned staging buffers and a copy
+stream on a card) and device->host spill of each morsel's output.
+
+Communication boundaries become external state transitions:
+
+* **shuffle** — hash placement is row-wise, so each morsel's shuffle lands
+  rows on their *final* rank; the host appends every rank's received rows
+  to that rank's spill bucket.  No cross-morsel fixup is needed.
+* **groupby** — each morsel emits mergeable partials (``{col}_{agg}``; mean
+  stays sum+count) that are hash-placed like the rows they summarize, so
+  all partials of a key share a rank.  The cross-morsel combiner
+  sub-buckets each rank's spilled partials by key hash (the host numpy
+  mirror of the device hash) so every key's partials meet exactly once on
+  the device, then re-aggregates + finalizes per sub-bucket.
+* **sort** — splitters are sampled ONCE from the segment's input spill and
+  broadcast to every morsel, so all morsels agree on the rank->key-range
+  map; morsels only *route* rows, and the host runs one stable vectorized
+  sort per rank over the spilled range partition.  Cross-rank tie order
+  follows the ``by`` columns only, exactly like the in-core sample sort.
+* **join** — the build (right) side is evaluated once, shuffled to its
+  final placement, and kept device-resident; the probe (left) side streams
+  against it morsel by morsel.
+
+Supported plan shape: a streamed operator chain from one scan to the root
+(``inputs[0]`` edges), with tree-shaped build sides hanging off joins.
+Explicit-``dest`` shuffles are row-aligned with the full table and cannot
+stream.
+
+Device memory is bounded by the *working capacity* ``W = capacity_factor x
+morsel_rows`` (shuffle receive / join output headroom), the resident build
+sides, and the groupby combine sub-bucket size — never by the streamed
+input.  Capacity pressure drops are ALWAYS counted and what happens next is
+the ``overflow=`` policy (``faults.OverflowPolicy``): the default
+``degrade`` re-executes the overflowing segment with halved morsel size
+(then grown working capacity) until every row fits; ``warn`` keeps the
+truncated result and raises one ``RuntimeWarning`` attributing the drops;
+``raise`` fails the query with ``CapacityOverflow``.
+
+The JAX package's tracing, retries, timeouts, fault injection and
+adaptive skew handling (hot-key salting, splitter refresh, morsel
+autotuning) come with later slices of the port (ROADMAP queue 1, items 9
+and 10); ``run_morsel`` runs as the JAX package's does with
+``adaptive=False`` and none of them armed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.env import DistTable, MorselSource
+from ..core.store import (Checkpoint, D2HStaging, SpillTable, _round8,
+                          fetch_valid, rescatter, respill)
+from ..dataframe import ops_local
+from ..dataframe.groupby import (_normalize, combine_groupby_partials,
+                                 groupby_partial)
+from ..dataframe.ops_local import hash_columns_np
+from ..dataframe.shuffle import shuffle as df_shuffle
+from ..dataframe.table import Table
+from ..dtypes import numpy_dtype, order_view, to_x32
+from ..expr import token as _token
+from ..faults import (CapacityOverflow, OverflowPolicy, default_degrade_step,
+                      resolve_overflow)
+from ..nulls import mask_name
+from .logical import LogicalNode, topo
+from .physical import (ExecStats, PhysicalPlan, _recode_tables, _row_bytes,
+                       _shuffle_kw, _stat_vec, _sum_stats,
+                       attach_dictionaries, build_shuffle_records,
+                       check_scan_dictionaries, describe_drops, eval_node,
+                       fingerprint, pair_stat_labels, plan_stat_labels,
+                       scan_rows_read)
+
+
+@dataclasses.dataclass
+class _Acc:
+    """Host-side transfer/dispatch accounting for one morsel run."""
+
+    morsels: int = 0
+    dispatches: int = 0
+    spill_bytes: int = 0
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    d2h_copied_bytes: int = 0
+    #: pinned landing buffers reused by every morsel output's D2H copy
+    staging: D2HStaging = dataclasses.field(default_factory=D2HStaging)
+
+
+# ---------------------------------------------------------------------- #
+# Plan-shape analysis
+# ---------------------------------------------------------------------- #
+def spine(pplan: PhysicalPlan) -> List[LogicalNode]:
+    """The streamed operator chain: scan -> ... -> root along inputs[0]."""
+    chain: List[LogicalNode] = []
+    n = pplan.root
+    while True:
+        chain.append(n)
+        if not n.inputs:
+            break
+        n = n.inputs[0]
+    chain.reverse()
+    if chain[0].op != "scan":
+        raise ValueError(
+            "out-of-core execution streams along inputs[0] edges and needs "
+            f"a scan at the head; found {chain[0].op!r}")
+    spine_ids = {c.nid for c in chain}
+    covered = set(spine_ids)
+    for c in chain:
+        if c.op == "shuffle" and "dest" in c.params:
+            raise ValueError(
+                "explicit-dest shuffles are row-aligned with the full table "
+                "and cannot stream; use key_cols")
+        if c.op == "join":
+            sub_ids = {s.nid for s in topo(c.inputs[1])}
+            if sub_ids & spine_ids:
+                raise ValueError(
+                    "out-of-core execution needs tree-shaped build sides "
+                    "(the join build side shares nodes with the streamed "
+                    "chain)")
+            covered |= sub_ids
+    extra = sorted(n.op for n in pplan.order if n.nid not in covered)
+    if extra:
+        raise ValueError(
+            f"nodes unreachable from the streamed chain: {extra}")
+    return chain
+
+
+def segments(chain_tail: Sequence[LogicalNode]
+             ) -> List[Tuple[List[LogicalNode], str]]:
+    """Split the post-scan chain into morsel-program segments.
+
+    A segment runs per-morsel with no cross-morsel interaction except its
+    terminal combiner: ``groupby`` ends its segment (partials -> combine),
+    ``sort`` forms its own segment (its input spill must be materialized so
+    splitters can be sampled once; outputs are merged).  Everything else
+    streams straight through (``stream`` terminal).
+    """
+    segs: List[Tuple[List[LogicalNode], str]] = []
+    cur: List[LogicalNode] = []
+    for n in chain_tail:
+        if n.op == "sort":
+            if cur:
+                segs.append((cur, "stream"))
+                cur = []
+            segs.append(([n], "sort"))
+        elif n.op == "groupby":
+            cur.append(n)
+            segs.append((cur, "groupby"))
+            cur = []
+        else:
+            cur.append(n)
+    if cur:
+        segs.append((cur, "stream"))
+    return segs
+
+
+# ---------------------------------------------------------------------- #
+# Host-side helpers
+# ---------------------------------------------------------------------- #
+def _as_spill(source: Any, parallelism: int) -> SpillTable:
+    if isinstance(source, DistTable):
+        source = SpillTable.from_dist(source)
+    elif isinstance(source, dict):
+        source = SpillTable.from_numpy(source, parallelism)
+    elif not isinstance(source, SpillTable):
+        raise TypeError(f"cannot stream a {type(source).__name__}")
+    # a spill bucketed for a different gang would silently lose every rank
+    # beyond this env's ranks — re-bucket on the host
+    return respill(source, parallelism)
+
+
+def _to_dist(source: Any, env) -> DistTable:
+    """Build-side inputs must be device-resident (they are assumed to fit)."""
+    if isinstance(source, DistTable):
+        return source
+    if isinstance(source, dict):
+        source = SpillTable.from_numpy(source, env.parallelism)
+    # handles any spill gang size
+    return rescatter(source, env.parallelism, device=env.device)
+
+
+def _schema_of(dist: DistTable) -> Dict[str, Tuple[np.dtype, Tuple[int, ...]]]:
+    return {k: (numpy_dtype(v.dtype), tuple(v.shape[2:]))
+            for k, v in dist.columns.items()}
+
+
+def _append_out(out_spill: SpillTable, dist: DistTable, acc: _Acc) -> None:
+    """Spill one morsel-output DistTable to per-rank host buckets (D2H):
+    the row counts first, then the valid prefixes (``fetch_valid``)."""
+    counts, rows, copied = fetch_valid(dist, acc.staging)
+    # counted as the JAX package counts it: the counts and whole columns
+    acc.d2h_bytes += counts.nbytes + sum(
+        v.numel() * v.element_size() for v in dist.columns.values())
+    acc.d2h_copied_bytes += copied
+    for r, chunk in enumerate(rows):
+        if counts[r]:
+            acc.spill_bytes += out_spill.append(r, chunk)
+
+
+def _host_splitters(spill: SpillTable, col: str, p: int,
+                    samples: int) -> np.ndarray:
+    """Fixed global splitters for an out-of-core sample sort: per-rank
+    evenly-spaced samples pooled into p-1 global quantiles (the host twin
+    of ``dataframe.sort._sample_splitters``)."""
+    pool = []
+    for r in range(spill.parallelism):
+        cols_r = spill.rank_concat(r)
+        keys = cols_r[col]
+        m = cols_r.get(mask_name(col))
+        if m is not None:
+            # null keys are routed straight to the last rank (nulls-last);
+            # their canonical-zero values must not skew the quantiles
+            keys = keys[np.asarray(m).astype(bool)]
+        n = len(keys)
+        if n:
+            k = np.sort(keys)
+            take = min(samples, n)
+            idx = (np.arange(take) * n) // take
+            pool.append(k[idx])
+    if not pool:
+        dtype, _ = spill.schema[col]
+        return np.zeros((max(p - 1, 0),), dtype)
+    pooled = np.sort(np.concatenate(pool))
+    qpos = (np.arange(1, p) * len(pooled)) // p
+    return pooled[qpos]
+
+
+def _host_sort_ranks(spill: SpillTable, by: Sequence[str]) -> SpillTable:
+    """Cross-morsel sort combiner: one stable vectorized host sort per rank
+    over the range-partitioned rows.  The morsel stages only *route* rows
+    (a vectorized lexsort over the concatenation beats a per-row k-way
+    merge, and stability preserves arrival order for ties)."""
+    out = SpillTable(spill.parallelism, schema=spill.schema,
+                     dictionaries=spill.dictionaries)
+    for r in range(spill.parallelism):
+        cols = spill.rank_concat(r)
+        n = len(next(iter(cols.values()))) if cols else 0
+        if n:
+            # minor -> major; per column the null flag outranks the value
+            # (nulls-last, matching ops_local._order_keys)
+            lex: List[np.ndarray] = []
+            for b in reversed(tuple(by)):
+                lex.append(cols[b])
+                m = cols.get(mask_name(b))
+                if m is not None:
+                    lex.append((~np.asarray(m).astype(bool)).astype(np.int8))
+            order = np.lexsort(tuple(lex))
+            out.append(r, {k: v[order] for k, v in cols.items()})
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# Morsel-stage node evaluation (batched over ranks)
+# ---------------------------------------------------------------------- #
+def _morsel_shuffle_kw(node: LogicalNode, W: int, shuffle_impl: str,
+                       a2a_chunks: int) -> Dict[str, Any]:
+    """Shuffle kwargs for a morsel stage: plan-level capacities (sized for
+    in-core tables) are replaced by the working capacity ``W``."""
+    kw = _shuffle_kw(node)
+    for k in ("bucket_capacity", "out_capacity", "samples"):
+        kw.pop(k, None)
+    kw["bucket_capacity"] = W
+    kw.setdefault("impl", shuffle_impl)
+    kw.setdefault("a2a_chunks", a2a_chunks)
+    return kw
+
+
+def _groupby_wire_width(table: Table, keys, physical, pre: bool) -> int:
+    if not pre:
+        return _row_bytes(table)
+    width = sum(table.columns[k].element_size() for k in keys)
+    for col, names in physical.items():
+        width += sum(4 if a == "count" else table.columns[col].element_size()
+                     for a in names)
+    return width
+
+
+def _eval_stream_node(node: LogicalNode, ctx, cur: Table,
+                      residents: Dict[int, Table], W: int,
+                      shuffle_impl: str, a2a_chunks: int,
+                      stats_out, consts) -> Table:
+    p_ = node.params
+    if node.op == "noop":
+        return cur
+    if node.op == "project":
+        # masks ride along with their base columns (never named explicitly)
+        cols = list(p_["cols"])
+        cols += [mask_name(c) for c in p_["cols"]
+                 if mask_name(c) in cur.columns]
+        return cur.select(cols)
+    if node.op == "filter":
+        return ops_local.filter_expr(cur, p_["expr"])
+    if node.op == "with_columns":
+        return ops_local.with_columns(cur, p_["exprs"])
+    if node.op == "add_scalar":
+        return ops_local.add_scalar(cur, p_["value"], p_.get("cols"))
+    if node.op == "recode":
+        return ops_local.recode(cur, _recode_tables(node, ctx.device, consts))
+
+    # communication ops: capacities are re-derived from the morsel working
+    # capacity W — plan-level bucket/out capacities describe in-core tables.
+    # bucket_capacity = W lets a single destination absorb a whole morsel
+    # (already-placed inputs route every row to the self bucket).
+    kw = _morsel_shuffle_kw(node, W, shuffle_impl, a2a_chunks)
+
+    if node.op == "shuffle":
+        lbl = f"shuffle({','.join(p_['key_cols'])})"
+        out, st = df_shuffle(cur, ctx.comm, key_cols=p_["key_cols"],
+                             out_capacity=W, label=lbl, **kw)
+        stats_out.append((lbl, _stat_vec(st, _row_bytes(cur))))
+        return out
+
+    if node.op == "join":
+        on = p_["on"]
+        l, r = cur, residents[node.nid]
+        if not p_.get("elide_left"):
+            l, st = df_shuffle(l, ctx.comm, key_cols=[on], out_capacity=W,
+                               label=f"join({on}):left", **kw)
+            stats_out.append((f"join({on}):left",
+                              _stat_vec(st, _row_bytes(cur))))
+        out_cap = p_.get("morsel_out_capacity") or W
+        out, ov = ops_local.join_local(l, r, on, out_capacity=out_cap,
+                                       with_overflow=True)
+        ov = ov.to(torch.int64)
+        z = torch.zeros_like(ov)
+        stats_out.append((f"join({on}):overflow",
+                          torch.stack([z, z, ov], dim=1)))
+        return out
+
+    if node.op == "groupby":
+        keys = list(p_["keys"])
+        physical, _post = _normalize(p_["aggs"])
+        pre = bool(p_.get("pre_aggregate", False))
+        out, st = groupby_partial(cur, ctx.comm, keys, physical,
+                                  pre_aggregate=pre,
+                                  elide_shuffle=bool(p_.get("elide_shuffle")),
+                                  out_capacity=W,
+                                  label=f"groupby({','.join(keys)})", **kw)
+        if st is not None:
+            stats_out.append(
+                (f"groupby({','.join(keys)})",
+                 _stat_vec(st, _groupby_wire_width(cur, keys, physical, pre))))
+        return out
+
+    raise ValueError(f"op {node.op!r} cannot run in a morsel segment")
+
+
+def _seg_stat_labels(seg_nodes: Sequence[LogicalNode]) -> List[str]:
+    """Host-side stat labels for one stream segment, in the exact order
+    ``_eval_stream_node`` appends them (the stage returns bare tensors;
+    attribution is reconstructed from the static plan)."""
+    labels: List[str] = []
+    for n in seg_nodes:
+        p_ = n.params
+        if n.op == "shuffle":
+            labels.append(f"shuffle({','.join(p_['key_cols'])})")
+        elif n.op == "join":
+            if not p_.get("elide_left"):
+                labels.append(f"join({p_['on']}):left")
+            labels.append(f"join({p_['on']}):overflow")
+        elif n.op == "groupby" and not p_.get("elide_shuffle"):
+            labels.append(f"groupby({','.join(p_['keys'])})")
+    return labels
+
+
+# ---------------------------------------------------------------------- #
+# Morsel stages (each built once per segment, reused per morsel).
+# Every stage returns (table, stat triples) — overflow accounting is
+# unconditional so capacity-pressure drops are never silent.
+# ---------------------------------------------------------------------- #
+def _make_stream_prog(seg_nodes, join_nids, W, shuffle_impl, a2a_chunks):
+    # recode tables go to the device once per built stage
+    consts: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def prog(ctx, morsel, *extras):
+        residents = dict(zip(join_nids, extras))
+        stats: List[Tuple[str, Any]] = []
+        cur = morsel
+        for node in seg_nodes:
+            cur = _eval_stream_node(node, ctx, cur, residents, W,
+                                    shuffle_impl, a2a_chunks, stats,
+                                    consts)
+        return cur, tuple(a for _, a in stats)
+    return prog
+
+
+def _make_sort_prog(node, W, shuffle_impl, a2a_chunks):
+    """Range-route one morsel by the broadcast splitters.  No device-side
+    sort: the host combiner (``_host_sort_ranks``) orders each rank."""
+    by = tuple(node.params["by"])
+    kw = _morsel_shuffle_kw(node, W, shuffle_impl, a2a_chunks)
+
+    def prog(ctx, morsel, splitters):
+        # unsigned keys compare widened (dtypes.order_view)
+        key = order_view(morsel.columns[by[0]]).contiguous()
+        dest = torch.searchsorted(order_view(splitters), key,
+                                  side="right").to(torch.int32)
+        m = morsel.columns.get(mask_name(by[0]))
+        if m is not None:  # nulls-last: null keys land on the final rank
+            dest = torch.where(m, dest, ctx.comm.size() - 1)
+        shuffled, st = df_shuffle(morsel, ctx.comm, dest=dest,
+                                  out_capacity=W,
+                                  label=f"sort({','.join(by)})", **kw)
+        return shuffled, (_stat_vec(st, _row_bytes(morsel)),)
+    return prog
+
+
+# ---------------------------------------------------------------------- #
+# Resident build sides (join right inputs; assumed to fit on the device)
+# ---------------------------------------------------------------------- #
+def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
+                    a2a_chunks, collected, acc: _Acc,
+                    capacity_factor: float) -> DistTable:
+    rroot = jnode.inputs[1]
+    sub_order = topo(rroot)
+    scan_names = [s.params["name"] for s in sub_order if s.op == "scan"]
+    on = jnode.params["on"]
+    elide = bool(jnode.params.get("elide_right"))
+    jkw = {k: v for k, v in _shuffle_kw(jnode).items()
+           if k != "out_capacity"}
+    jkw.setdefault("impl", shuffle_impl)
+    jkw.setdefault("a2a_chunks", a2a_chunks)
+    if "shuffle_out_capacity" in jnode.params:
+        jkw["out_capacity"] = jnode.params["shuffle_out_capacity"]
+    consts: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def prog(ctx, *local_tables):
+        tmap = dict(zip(scan_names, local_tables))
+        values: Dict[int, Table] = {}
+        stats: List[Tuple[str, Any]] = []
+        for node in sub_order:
+            values[node.nid] = eval_node(
+                node, ctx.comm, values, tmap, "direct", stats,
+                shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
+                consts=consts)
+        r = values[rroot.nid]
+        if not elide:
+            width = _row_bytes(r)
+            # receive headroom: hash placement is only balanced in
+            # expectation, so a capacity-tight build table would drop rows
+            kw = dict(jkw)
+            kw.setdefault("out_capacity",
+                          _round8(int(r.capacity * capacity_factor)))
+            kw.setdefault("bucket_capacity",
+                          _round8(int(r.capacity * capacity_factor)))
+            r, st = df_shuffle(r, ctx.comm, key_cols=[on],
+                               label=f"join({on}):right", **kw)
+            stats.append((f"join({on}):right", _stat_vec(st, width)))
+        return r, tuple(a for _, a in stats)
+
+    args = [_to_dist(tables[n], env) for n in scan_names]
+    labels = plan_stat_labels(sub_order)
+    if not elide:
+        labels.append(f"join({on}):right")
+    resident, stats = env.run(
+        prog, *args,
+        key=("morsel-resident", fingerprint(rroot),
+             # the subtree fingerprint does not cover the join node's own
+             # params (shuffle kwargs, capacities)
+             _token(dict(jnode.params)),
+             shuffle_impl, a2a_chunks, capacity_factor,
+             tuple(env._arg_sig(a) for a in args)))
+    acc.dispatches += 1
+    collected.extend(pair_stat_labels(labels, stats))
+    return resident
+
+
+# ---------------------------------------------------------------------- #
+# Cross-morsel groupby combine (hash sub-buckets, rank-local)
+# ---------------------------------------------------------------------- #
+def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
+                     M: int, acc: _Acc, fp: str, si: int) -> SpillTable:
+    keys = list(gnode.params["keys"])
+    physical, post = _normalize(gnode.params["aggs"])
+    # the partials carry no mask for sum/count, so mean nullability is not
+    # recoverable from them — the planner's annotation of the groupby
+    # *input* supplies it (conservative in the nullable direction)
+    nullable = tuple(sorted(set(gnode.inputs[0].nulls) & set(physical)))
+    p = part_spill.parallelism
+    widest = max(part_spill.rank_rows(r) for r in range(p))
+    B = max(1, -(-widest // M))
+
+    # host sub-bucketing: (hash // p) decorrelates from the rank placement
+    # (hash % p), so buckets stay balanced on hash-placed ranks.  One
+    # stable argsort groups each rank's rows by bucket; bucket ids narrow
+    # to 16 bits where they fit, which numpy sorts stably by radix in one
+    # linear pass (the same order as a stable sort of the wide ids)
+    narrow = np.uint16 if B <= 1 << 16 else np.int64
+    rank_sorted: List[Dict[str, np.ndarray]] = []
+    rank_offsets: List[np.ndarray] = []
+    max_bucket = 1
+    for r in range(p):
+        cols_r = part_spill.rank_concat(r)
+        n = len(next(iter(cols_r.values())))
+        if n:
+            h = hash_columns_np(cols_r, keys)
+            sub = ((h // np.uint32(p)) % np.uint32(B)).astype(np.int64)
+            counts_r = np.bincount(sub, minlength=B)
+            order = np.argsort(sub.astype(narrow), kind="stable")
+            cols_r = {k: v[order] for k, v in cols_r.items()}
+        else:
+            counts_r = np.zeros((B,), np.int64)
+        max_bucket = max(max_bucket, int(counts_r.max()))
+        rank_sorted.append(cols_r)
+        rank_offsets.append(np.concatenate([[0], np.cumsum(counts_r)]))
+    cap_b = _round8(max_bucket)
+
+    def prog(ctx, partials):
+        return combine_groupby_partials(partials, keys, physical, post,
+                                        nullable_cols=nullable)
+
+    out_spill: Optional[SpillTable] = None
+    for b in range(B):
+        counts = np.zeros((p,), np.int32)
+        cols: Dict[str, torch.Tensor] = {}
+        for name, (dtype, trail) in part_spill.schema.items():
+            buf = np.zeros((p, cap_b) + trail, dtype)
+            for r in range(p):
+                lo, hi = rank_offsets[r][b], rank_offsets[r][b + 1]
+                sel = rank_sorted[r][name][lo:hi]
+                buf[r, :len(sel)] = sel
+                counts[r] = len(sel)
+            buf = to_x32(buf)
+            acc.h2d_bytes += buf.nbytes
+            cols[name] = torch.from_numpy(buf).to(env.device)
+        acc.h2d_bytes += counts.nbytes
+        dist = DistTable(cols, torch.from_numpy(counts).to(env.device),
+                         cap_b)
+        out = env.run(prog, dist,
+                      key=("morsel-combine", fp, si, cap_b, nullable,
+                           env._arg_sig(dist)))
+        acc.dispatches += 1
+        if out_spill is None:
+            out_spill = SpillTable(p, schema=_schema_of(out))
+        _append_out(out_spill, out, acc)
+    return out_spill
+
+
+# ---------------------------------------------------------------------- #
+# Entry point
+# ---------------------------------------------------------------------- #
+#: bound on capacity-degrade re-executions: halving morsel_rows from any
+#: sane starting point down to 8 plus a few working-capacity doublings
+#: fits comfortably; past this the overflow is not capacity-shaped.
+_MAX_DEGRADE_BUILD = 8
+_MAX_DEGRADE_SEG = 24
+
+
+def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
+               morsel_rows: int, mode: str = "bsp",
+               collect_stats: bool = False, shuffle_impl: str = "radix",
+               a2a_chunks: int = 1, capacity_factor: float = 2.0,
+               samples: int = 64, overflow: Optional[str] = None):
+    """Stream a plan over morsels of ``morsel_rows`` rows per rank.
+
+    Returns a host-resident ``SpillTable`` (or ``(SpillTable, ExecStats)``
+    with ``collect_stats=True``).  Device memory is bounded by the working
+    capacity ``W = capacity_factor * morsel_rows`` plus resident build
+    sides, independent of the streamed input size.  Every device stage
+    runs on the env's device.
+
+    Each segment's input spill is a schema-stamped
+    ``core.store.Checkpoint``, validated before every attempt.
+    ``overflow`` (default ``degrade``) re-executes an overflowing segment
+    with halved ``morsel_rows`` (then grown working capacity) until no row
+    is dropped, and an overflowing build side with a doubled
+    ``capacity_factor``.
+    """
+    if mode == "amt":
+        raise ValueError(
+            "out-of-core morsel execution requires direct shuffles; the "
+            "amt allgather baseline is inherently in-core")
+    ovf = resolve_overflow(overflow)
+    degraded = 0
+    p = env.parallelism
+    chain = spine(pplan)
+    src_name = chain[0].params["name"]
+    if src_name not in tables:
+        raise KeyError(f"plan scans missing from tables: [{src_name!r}]")
+    check_scan_dictionaries(pplan.order, tables)
+    M = _round8(morsel_rows)
+    W = max(M, _round8(int(M * capacity_factor)))
+    fp = pplan.fingerprint
+    acc = _Acc()
+    collected: List[Tuple[Any, ...]] = []
+    hits0, misses0 = env.cache_hits, env.cache_misses
+    stage_times: List[Tuple[str, float]] = []
+    t_query0 = time.perf_counter()
+
+    residents: Dict[int, DistTable] = {}
+    for node in chain:
+        if node.op != "join":
+            continue
+        t0 = time.perf_counter()
+        jname = f"build:join({node.params['on']})"
+        cf = capacity_factor
+        for _ in range(_MAX_DEGRADE_BUILD):
+            pairs: List[Tuple[str, Any]] = []
+            dist = _build_resident(env, node, tables, shuffle_impl,
+                                   a2a_chunks, pairs, acc, cf)
+            _, _, b_drop = _sum_stats([a for _, a in pairs])
+            if b_drop and ovf == OverflowPolicy.DEGRADE:
+                degraded += 1
+                cf *= 2.0
+                continue
+            if b_drop and ovf == OverflowPolicy.RAISE:
+                raise CapacityOverflow(
+                    f"{jname} dropped {b_drop} rows at "
+                    f"capacity_factor={cf} (overflow='raise')")
+            break
+        else:
+            raise CapacityOverflow(
+                f"{jname} still dropping rows after "
+                f"{_MAX_DEGRADE_BUILD} capacity doublings "
+                f"(capacity_factor={cf})")
+        residents[node.nid] = dist
+        collected.extend(pairs)
+        if collect_stats:
+            env.synchronize()
+            stage_times.append((jname, time.perf_counter() - t0))
+
+    spill = _as_spill(tables[src_name], p)
+
+    live_ckpts: List[Checkpoint] = []
+    try:
+        for si, (nodes, terminal) in enumerate(segments(chain[1:])):
+            t0 = time.perf_counter()
+            seg_name = f"segment:{si}:{terminal}"
+            if terminal == "sort" and nodes[0].params.get("elide_shuffle"):
+                # range-partitioned already: no device work, just order
+                spill = _host_sort_ranks(spill, nodes[0].params["by"])
+                if collect_stats:
+                    stage_times.append((seg_name, time.perf_counter() - t0))
+                continue
+
+            # the segment's input spill is its replay checkpoint:
+            # validated before every attempt, released only on commit
+            ckpt = Checkpoint(spill)
+            live_ckpts.append(ckpt)
+            M_seg, W_seg = M, W
+
+            def _segment_attempt(_nodes=nodes, _terminal=terminal,
+                                 _si=si):
+                seg_in = ckpt.validate()
+                if _terminal == "sort":
+                    node = _nodes[0]
+                    by = node.params["by"]
+                    n_samp = node.params.get("samples", samples)
+                    spl = to_x32(_host_splitters(seg_in, by[0], p, n_samp))
+                    extras: Tuple[Any, ...] = (
+                        torch.from_numpy(spl).to(env.device),)
+                    acc.h2d_bytes += spl.nbytes
+                    prog = _make_sort_prog(node, W_seg, shuffle_impl,
+                                           a2a_chunks)
+                    seg_labels = [f"sort({','.join(by)})"]
+                else:
+                    join_nodes = [n for n in _nodes if n.op == "join"]
+                    extras = tuple(residents[n.nid] for n in join_nodes)
+                    prog = _make_stream_prog(
+                        _nodes, [n.nid for n in join_nodes], W_seg,
+                        shuffle_impl, a2a_chunks)
+                    seg_labels = _seg_stat_labels(_nodes)
+                key = ("morsel-seg", fp, _si, M_seg, W_seg, shuffle_impl,
+                       a2a_chunks, tuple(env._arg_sig(e) for e in extras))
+                source = MorselSource(seg_in, M_seg, env)
+                out_spill: Optional[SpillTable] = None
+                pairs: List[Tuple[str, Any]] = []
+                for morsel in source:
+                    out, unit_stats = env.run(prog, morsel, *extras, key=key)
+                    acc.dispatches += 1
+                    acc.morsels += 1
+                    pairs.extend(pair_stat_labels(seg_labels, unit_stats))
+                    if out_spill is None:
+                        out_spill = SpillTable(p, schema=_schema_of(out))
+                    _append_out(out_spill, out, acc)
+                acc.h2d_bytes += source.h2d_bytes
+                res = out_spill
+                if _terminal == "groupby":
+                    # the combiner runs inside the attempt: a degrade
+                    # replays the whole segment from its input checkpoint
+                    res = _combine_groupby(env, res, _nodes[-1], M_seg, acc,
+                                           fp, _si)
+                elif _terminal == "sort":
+                    res = _host_sort_ranks(res, by)
+                return res, pairs
+
+            for _ in range(_MAX_DEGRADE_SEG):
+                out_spill, attempt_pairs = _segment_attempt()
+                _, _, seg_drop = _sum_stats([a for _, a in attempt_pairs])
+                if seg_drop and ovf == OverflowPolicy.DEGRADE:
+                    # never drop a row: replay with a morsel size that fits
+                    degraded += 1
+                    M_seg, W_seg = default_degrade_step(M_seg, W_seg)
+                    continue
+                if seg_drop and ovf == OverflowPolicy.RAISE:
+                    raise CapacityOverflow(
+                        f"{seg_name} dropped {seg_drop} rows "
+                        f"(overflow='raise'); raise capacity_factor "
+                        f"or use overflow='degrade'")
+                break
+            else:
+                raise CapacityOverflow(
+                    f"{seg_name} still dropping rows after "
+                    f"{_MAX_DEGRADE_SEG} degrade steps "
+                    f"(morsel_rows={M_seg}, working_capacity={W_seg})")
+
+            # commit: only the successful attempt's stats are recorded,
+            # keyed by (label, segment) so per-label histograms never mix
+            # morsel counts from different segments
+            collected.extend((lbl, arr, si) for lbl, arr in attempt_pairs)
+            ckpt.release()
+            spill = out_spill
+            if collect_stats:
+                stage_times.append((seg_name, time.perf_counter() - t0))
+    finally:
+        # a failed query releases its checkpoints (the spills they guard
+        # belong to the run and are dropped with it)
+        for c in live_ckpts:
+            if not c.released:
+                c.release()
+
+    spill = attach_dictionaries(spill, pplan.root)
+    rows, byts, dropped = _sum_stats([pr[1] for pr in collected])
+    records = build_shuffle_records(collected)
+    if dropped and ovf == OverflowPolicy.WARN:
+        where = describe_drops(records)
+        warnings.warn(
+            f"out-of-core execution dropped {dropped} rows to capacity "
+            f"pressure ({where or 'unattributed'}) — raise capacity_factor "
+            f"(currently {capacity_factor}) or morsel_rows, or use "
+            f"overflow='degrade' to trade speed for completeness",
+            RuntimeWarning, stacklevel=2)
+    if not collect_stats:
+        return spill
+    stats = ExecStats(
+        "morsel", pplan.num_stages, pplan.num_shuffles, acc.dispatches,
+        rows, byts, pplan.shuffle_labels(), pplan.fired,
+        shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
+        rows_dropped=dropped,
+        cache_hits=env.cache_hits - hits0,
+        cache_misses=env.cache_misses - misses0,
+        rows_read=scan_rows_read(pplan.scan_names, tables),
+        morsel_rows=M, morsels=acc.morsels, spill_bytes=acc.spill_bytes,
+        h2d_bytes=acc.h2d_bytes, d2h_bytes=acc.d2h_bytes,
+        d2h_copied_bytes=acc.d2h_copied_bytes,
+        wall_time_s=time.perf_counter() - t_query0,
+        stage_times=stage_times, shuffle_records=records,
+        degraded=degraded)
+    return spill, stats

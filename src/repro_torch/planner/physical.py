@@ -223,19 +223,24 @@ class ShuffleRecord:
     dropped: int
     per_rank_rows: Tuple[int, ...]
     per_rank_dropped: Tuple[int, ...]
+    #: morsel-executor segment index (None for in-core executions)
+    segment: Optional[int] = None
 
 
-def build_shuffle_records(pairs: Sequence[Tuple[str, Any]]
-                          ) -> List[ShuffleRecord]:
-    """Aggregate labeled (p, 3) stat arrays by label."""
-    agg: Dict[str, np.ndarray] = {}
-    for label, a in pairs:
-        a = np.asarray(a.cpu()).reshape(-1, 3).astype(np.int64)
-        agg[label] = agg[label] + a if label in agg else a.copy()
+def build_shuffle_records(pairs: Sequence[Tuple]) -> List[ShuffleRecord]:
+    """Aggregate labeled (p, 3) stat tensors by (label, segment) — summing
+    across repeated executions of the same plan node, e.g. one per morsel.
+    ``pairs`` entries are ``(label, tensor)`` (in-core; segment None) or
+    ``(label, tensor, segment)`` (morsel executor)."""
+    agg: Dict[Tuple[str, Optional[int]], np.ndarray] = {}
+    for pair in pairs:
+        key = (pair[0], pair[2] if len(pair) > 2 else None)
+        a = np.asarray(pair[1].cpu()).reshape(-1, 3).astype(np.int64)
+        agg[key] = agg[key] + a if key in agg else a.copy()
     return [ShuffleRecord(label, int(a[:, 0].sum()), int(a[:, 1].sum()),
                           int(a[:, 2].sum()), tuple(int(x) for x in a[:, 0]),
-                          tuple(int(x) for x in a[:, 2]))
-            for label, a in agg.items()]
+                          tuple(int(x) for x in a[:, 2]), segment=seg)
+            for (label, seg), a in agg.items()]
 
 
 def describe_drops(records: Sequence[ShuffleRecord], limit: int = 6) -> str:
@@ -426,15 +431,28 @@ class ExecStats:
     cache_hits: int = 0
     cache_misses: int = 0
     rows_read: int = 0        # rows entering the plan through its scans
+    # -- out-of-core morsel execution only -------------------------------- #
+    morsel_rows: Optional[int] = None  # per-rank morsel capacity, None=in-core
+    morsels: int = 0                   # morsel stage dispatches
+    spill_bytes: int = 0               # valid rows written to host spill
+    h2d_bytes: int = 0                 # host->device transfer bytes
+    d2h_bytes: int = 0                 # device->host spill transfer bytes
+    #: the bytes the port's D2H copies move: counts plus each rank's rows up
+    #: to the fullest rank (``d2h_bytes`` counts whole columns, as the JAX
+    #: package does)
+    d2h_copied_bytes: int = 0
     #: end-to-end wall time, the device synchronized at the end
     wall_time_s: float = 0.0
     #: per-dispatch-unit wall times: (unit label, seconds) — one per stage
-    #: in bsp_staged, per operator in amt, one "program" entry in bsp
+    #: in bsp_staged, per operator in amt, one "program" entry in bsp, per
+    #: segment (plus resident builds) out-of-core
     stage_times: List[Tuple[str, float]] = \
         dataclasses.field(default_factory=list)
-    #: per-shuffle-label accounting with per-rank attribution
+    #: per-shuffle-label accounting with per-rank attribution (summed over
+    #: morsels)
     shuffle_records: List[ShuffleRecord] = \
         dataclasses.field(default_factory=list)
+    degraded: int = 0          # capacity-degrade re-executions (overflow)
 
 
 def check_scan_dictionaries(order: Sequence[LogicalNode],
@@ -479,6 +497,14 @@ def attach_dictionaries(out, root: LogicalNode):
     return out
 
 
+def scan_rows_read(names: Sequence[str], tables: Dict[str, Any]) -> int:
+    """Rows entering a plan through its scans: each holder's
+    ``total_rows`` (host column dicts count none, as in the JAX
+    package)."""
+    return sum(int(t.total_rows()) for t in (tables.get(n) for n in names)
+               if callable(getattr(t, "total_rows", None)))
+
+
 def _sum_stats(collected) -> Tuple[int, int, int]:
     """``collected``: (p, 3) tensors -> (rows sent, bytes sent, dropped)."""
     tot = np.zeros((3,), np.int64)
@@ -490,23 +516,53 @@ def _sum_stats(collected) -> Tuple[int, int, int]:
 def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                  mode: str = "bsp", collect_stats: bool = False,
                  shuffle_impl: str = "radix", a2a_chunks: int = 1,
-                 overflow: Optional[str] = None):
+                 morsel_rows: Optional[int] = None,
+                 overflow: Optional[str] = None, **morsel_kw):
     """Execute a lowered plan against DistTables on a ``CylonEnv``.
 
     Returns a DistTable, or ``(DistTable, ExecStats)`` with
     ``collect_stats=True``.  ``shuffle_impl`` / ``a2a_chunks`` set the
     plan-wide shuffle defaults (per-node params override); both are part
-    of the stage-cache key.  ``overflow`` (``raise | warn | degrade``)
-    applies when stats show dropped rows; ``degrade`` needs the
-    out-of-core executor, not ported yet, so it raises
-    ``CapacityOverflow``.
+    of the stage-cache key.
+
+    ``morsel_rows`` switches to the out-of-core morsel executor
+    (``planner.morsel.run_morsel``): the input is streamed through the
+    stage DAG in fixed-capacity morsels and the result is returned as a
+    host-resident ``core.store.SpillTable``.  Extra ``morsel_kw``
+    (``capacity_factor``, ``samples``) are forwarded.
+    In-core, ``SpillTable`` scans are scattered onto the env's ranks with
+    2x headroom over a balanced split.
+
+    ``overflow`` (``raise | warn | degrade``, default ``degrade``) decides
+    what to do when capacity pressure drops rows (observable in-core with
+    ``collect_stats=True``; the morsel executor always counts):
+    ``degrade`` replays the plan out-of-core until every row fits and
+    re-scatters the result to a ``DistTable``.
     """
+    if morsel_rows is not None:
+        from .morsel import run_morsel
+        return run_morsel(pplan, env, tables, morsel_rows, mode=mode,
+                          collect_stats=collect_stats,
+                          shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
+                          overflow=overflow, **morsel_kw)
+    if morsel_kw:
+        raise TypeError(f"unexpected kwargs without morsel_rows: "
+                        f"{sorted(morsel_kw)}")
     ovf = resolve_overflow(overflow)
     names = pplan.scan_names
     missing = [n for n in names if n not in tables]
     if missing:
         raise KeyError(f"plan scans missing from tables: {missing}")
     check_scan_dictionaries(pplan.order, tables)
+    from ..core.store import SpillTable, _round8, rescatter
+    spills = {n: tables[n] for n in names
+              if isinstance(tables[n], SpillTable)}
+    if spills:
+        tables = {**tables, **{
+            n: rescatter(s, env.parallelism, device=env.device,
+                         capacity=_round8(2 * -(-max(s.total_rows(), 1)
+                                                // env.parallelism)))
+            for n, s in spills.items()}}
     root = pplan.root
     order = pplan.order
     fp = pplan.fingerprint
@@ -532,32 +588,52 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                          a2a_chunks=a2a_chunks, rows_dropped=dropped,
                          cache_hits=env.cache_hits - hits0,
                          cache_misses=env.cache_misses - misses0,
-                         rows_read=sum(tables[n].total_rows()
-                                       for n in names),
+                         rows_read=scan_rows_read(names, tables),
                          wall_time_s=wall, stage_times=stage_times,
                          shuffle_records=build_shuffle_records(pairs))
 
     def finish(result, stats: ExecStats):
-        """Apply the overflow policy to a finished stats run."""
+        """Apply the overflow policy to a finished stats run: raise, warn
+        once (attributed), or degrade — replay the whole plan out-of-core
+        (drops are counted unconditionally there, and the morsel executor's
+        own degrade loop shrinks morsels until everything fits), then
+        re-scatter the spill back to a ``DistTable``."""
         if not stats.rows_dropped:
             return result, stats
         where = describe_drops(stats.shuffle_records)
         if ovf == OverflowPolicy.WARN:
             warnings.warn(
                 f"capacity pressure dropped {stats.rows_dropped} rows "
-                f"({where}) — raise capacities", RuntimeWarning,
-                stacklevel=3)
+                f"({where}) — raise capacities or use overflow='degrade'",
+                RuntimeWarning, stacklevel=3)
             return result, stats
         if ovf == OverflowPolicy.RAISE:
             raise CapacityOverflow(
                 f"capacity pressure dropped {stats.rows_dropped} rows "
-                f"({where}); raise bucket/out capacities")
-        raise CapacityOverflow(
-            f"capacity pressure dropped {stats.rows_dropped} rows ({where}); "
-            f"overflow='degrade' re-executes out-of-core, and the "
-            f"out-of-core executor is not ported yet — raise bucket/out "
-            f"capacities, or pass overflow='warn' to keep the truncated "
-            f"result")
+                f"({where}); raise bucket/out capacities or use "
+                f"overflow='degrade'")
+        # degrade: the in-core capacities were wrong, so in-core replay
+        # cannot help — stream the plan out-of-core instead, starting at
+        # the scan tables' own per-rank capacity
+        from .morsel import run_morsel
+        caps = [t.capacity for t in (tables[n] for n in names)
+                if hasattr(t, "capacity")]
+        try:
+            spill, d_stats = run_morsel(
+                pplan, env, tables, max(caps) if caps else 128, mode="bsp",
+                collect_stats=True, shuffle_impl=shuffle_impl,
+                a2a_chunks=a2a_chunks, overflow=OverflowPolicy.DEGRADE)
+        except ValueError as e:
+            raise CapacityOverflow(
+                f"capacity pressure dropped {stats.rows_dropped} rows "
+                f"({where}) and the plan cannot degrade to out-of-core "
+                f"execution ({e}); raise capacities or handle "
+                f"overflow='raise'") from e
+        out = attach_dictionaries(
+            rescatter(spill, env.parallelism, device=env.device), root)
+        d_stats.degraded += 1
+        d_stats.dispatches += stats.dispatches
+        return out, d_stats
 
     if mode == "bsp":
         def prog(ctx, *local_tables):

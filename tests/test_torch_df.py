@@ -358,13 +358,11 @@ def test_default_env_is_the_card(monkeypatch):
 
 
 DEFERRED = [
-    ("read_numpy(spill=True)", 7), ("read_numpy(chunk_rows=)", 7),
-    ("from_table(dict)", 7), ("collect(morsel_rows=)", 7),
     ("read_parquet", 8), ("read_csv", 8),
     ("collect(analyze=True)", 9), ("collect(trace=True)", 9),
     ("explain_analyze", 9),
     ("collect(timeout=)", 10), ("collect(retries=)", 10),
-    ("collect(overflow=)", 10), ("collect(faults=)", 10),
+    ("collect(faults=)", 10),
     ("collect(adaptive=)", 10), ("session(timeout=)", 10),
     ("session(adaptive=)", 10), ("session(scheduler=)", 11),
 ]
@@ -376,11 +374,6 @@ def test_deferred_options_name_their_roadmap_item(envs, rng, what, item):
     data = _data(rng, n=16)
     df = tdf.read_numpy(data)
     calls = {
-        "read_numpy(spill=True)": lambda: tdf.read_numpy(data, spill=True),
-        "read_numpy(chunk_rows=)": lambda: tdf.read_numpy(data,
-                                                          chunk_rows=8),
-        "from_table(dict)": lambda: tdf.from_table(data),
-        "collect(morsel_rows=)": lambda: df.collect(morsel_rows=8),
         "read_parquet": lambda: tdf.read_parquet("x.parquet"),
         "read_csv": lambda: tdf.read_csv("x.csv"),
         "collect(analyze=True)": lambda: df.collect(analyze=True),
@@ -388,7 +381,6 @@ def test_deferred_options_name_their_roadmap_item(envs, rng, what, item):
         "explain_analyze": lambda: df.explain_analyze(),
         "collect(timeout=)": lambda: df.collect(timeout=1.0),
         "collect(retries=)": lambda: df.collect(retries=2),
-        "collect(overflow=)": lambda: df.collect(overflow="warn"),
         "collect(faults=)": lambda: df.collect(faults="stage=raise"),
         "collect(adaptive=)": lambda: df.collect(adaptive=False),
         "session(timeout=)": lambda: tdf.session(timeout=1.0).__enter__(),

@@ -452,3 +452,209 @@ def test_groupby_sum_narrow_dtypes_card_equals_cpu(cuda, dtype):
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                    atol=1e-2)
+
+
+# ---------------------------------------------------------------------- #
+# Out-of-core morsel execution and unsigned columns on the card
+# ---------------------------------------------------------------------- #
+def _ooc_fig9(rows=4000, p=8, seed=7):
+    """``tests/md_scripts/out_of_core_parity.py``'s recipe: int32 keys at
+    90% cardinality, integer-valued float32 payloads (exact sums)."""
+    from repro_torch.core import Plan
+    rng = np.random.default_rng(seed)
+    ld = {"k": rng.integers(0, int(rows * 0.9), rows).astype(np.int32),
+          "v0": rng.integers(0, 100, rows).astype(np.float32)}
+    rd = {"k": rng.integers(0, int(rows * 0.9), rows).astype(np.int32),
+          "w": rng.integers(0, 100, rows).astype(np.float32)}
+    cap = -(-(-(-rows // p) + rows // p // 8) // 8) * 8
+    plan = (Plan.scan("l").join(Plan.scan("r"), on="k", out_capacity=4 * cap)
+            .groupby(["k"], {"v0": ["sum", "mean"]}).sort(["k"])
+            .add_scalar(1.0, cols=["v0_sum"]))
+    morsel = -(-(-(-rows // p) // 8) // 8) * 8
+    return ld, rd, plan, morsel
+
+
+def _ooc_run(device, env=None, p=8):
+    from repro_torch.core import CylonEnv, execute
+    ld, rd, plan, morsel = _ooc_fig9(p=p)
+    env = env if env is not None else CylonEnv(p, device=device)
+    return execute(plan, env, {"l": ld, "r": rd}, collect_stats=True,
+                   morsel_rows=morsel, capacity_factor=4.0)
+
+
+def _same_spill(got, want):
+    g, w = got.to_numpy(), want.to_numpy()
+    assert sorted(g) == sorted(w)
+    for c in w:
+        assert g[c].dtype == w[c].dtype and np.array_equal(g[c], w[c]), c
+    assert [got.rank_rows(r) for r in range(got.parallelism)] == \
+        [want.rank_rows(r) for r in range(want.parallelism)]
+
+
+def test_morsel_fig9_card_equals_cpu(cuda):
+    # bit for bit (integer-valued payloads), with the kernels launched
+    from repro_torch.kernels import reset_launches, segmented_sum_cuda
+    reset_launches()
+    got, gst = _ooc_run(cuda)
+    torch.cuda.synchronize()
+    assert radix_partition_cuda.launches > 0
+    assert segmented_sum_cuda.launches > 0
+    want, wst = _ooc_run("cpu")
+    _same_spill(got, want)
+    assert gst.rows_dropped == wst.rows_dropped == 0
+    for k in ("morsels", "rows_shuffled", "spill_bytes", "h2d_bytes",
+              "d2h_bytes", "d2h_copied_bytes", "dispatches", "cache_misses"):
+        assert getattr(gst, k) == getattr(wst, k), k
+
+
+def test_morsel_runs_back_to_back_reuse_staging(cuda):
+    # two morsel runs on one env: the second reuses every stage and the
+    # staging buffers' copy events order each refill after its last read
+    from repro_torch.core import CylonEnv
+    env = CylonEnv(8, device=cuda)
+    first, st1 = _ooc_run(cuda, env)
+    second, st2 = _ooc_run(cuda, env)
+    _same_spill(second, first)
+    assert st2.cache_misses == 0 and st2.cache_hits == st1.cache_hits + \
+        st1.cache_misses
+
+
+def test_spilled_chunks_leave_the_pinned_staging(cuda):
+    # D2H copies land in one reused pinned buffer per column; the spilled
+    # chunks are pageable copies that share no memory with it
+    from repro_torch.core import DistTable, SpillTable
+    from repro_torch.planner.morsel import _Acc, _append_out, _schema_of
+    rng = np.random.default_rng(5)
+    data = {"k": rng.integers(0, 100, 300).astype(np.int32),
+            "v": rng.integers(0, 100, 300).astype(np.float32)}
+    t = DistTable.from_numpy(data, 4, capacity=128, device=cuda)
+    out, acc = SpillTable(4, schema=_schema_of(t)), _Acc()
+    _append_out(out, t, acc)
+    bufs = acc.staging.buffers()
+    ptrs = [b.data_ptr() for b in bufs]
+    assert len(bufs) == 2 and all(b.is_pinned() for b in bufs)
+    _append_out(out, t, acc)
+    assert [b.data_ptr() for b in acc.staging.buffers()] == ptrs
+    for r in range(4):
+        for c in out._chunks[r]:
+            for k, a in c.items():
+                assert a.flags.owndata, k
+                assert not torch.from_numpy(a).is_pinned(), k
+                assert not any(np.shares_memory(a, b.numpy()) for b in bufs)
+    want = SpillTable.from_dist(DistTable.from_numpy(data, 4, capacity=128,
+                                                     device="cpu"))
+    for r in range(4):
+        w = want.rank_concat(r)
+        g = out.rank_concat(r)
+        for k in w:
+            assert np.array_equal(g[k], np.concatenate([w[k], w[k]])), k
+
+
+def test_morsel_source_double_buffers_on_the_card(cuda):
+    # every morsel is on the card, in order, with the rows the CPU source
+    # yields; the source's copy events have all completed once iteration
+    # ends (no copy left writing into freed blocks)
+    from repro_torch.core import MorselSource, SpillTable
+    rng = np.random.default_rng(11)
+    data = {"k": rng.integers(0, 1000, 10_000).astype(np.int32),
+            "v": rng.random(10_000),        # float64: narrows on upload
+            "u": rng.integers(0, 2**32, 10_000, dtype=np.uint64).astype(
+                np.uint32)}
+    spill = SpillTable.from_numpy(data, 4, chunk_rows=999)
+    card = list(MorselSource(spill, 256, device=cuda))
+    host = list(MorselSource(spill, 256, device="cpu"))
+    assert len(card) == len(host) == spill.num_morsels(256) == 10
+    for c, h in zip(card, host):
+        assert c.device.type == "cuda"
+        for n in h.columns:
+            assert c.columns[n].dtype == h.columns[n].dtype
+            assert torch.equal(c.columns[n].cpu(), h.columns[n]), n
+        assert torch.equal(c.row_counts.cpu(), h.row_counts)
+
+
+def test_in_core_degrade_on_the_card(cuda):
+    # the default policy recovers every row of an under-capacitated join
+    # on the card, and the rows equal the CPU's
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    ld = {"k": np.zeros(32, np.int32), "v0": np.arange(32, dtype=np.float32)}
+    rd = {"k": np.zeros(32, np.int32), "w": np.arange(32, dtype=np.float32)}
+    plan = Plan.scan("l").join(Plan.scan("r"), on="k", out_capacity=64)
+    out = {}
+    for device in (cuda, "cpu"):
+        env = CylonEnv(4, device=device)
+        res, st = execute(plan, env, {
+            n: DistTable.from_numpy(d, 4, device=device)
+            for n, d in (("l", ld), ("r", rd))},
+            optimize=False, collect_stats=True)
+        assert isinstance(res, DistTable) and res.device == env.device
+        assert st.rows_dropped == 0 and st.degraded > 0
+        assert res.total_rows() == 32 * 32
+        out[str(device)] = res.to_reference()
+    (gc, gn), (cc, cn) = out[str(cuda)], out["cpu"]
+    assert np.array_equal(gn, cn)
+    for c in cc:
+        assert np.array_equal(gc[c], cc[c]), c
+
+
+@pytest.mark.parametrize("plan_name", ["groupby_key", "groupby_sum", "sort",
+                                       "join", "minmax", "filter"])
+@pytest.mark.parametrize("dt", [np.uint16, np.uint32],
+                         ids=lambda d: d.__name__)
+def test_unsigned_columns_card_equals_cpu(cuda, dt, plan_name):
+    # CUDA has no torch.where, sort or comparison for uint16/uint32 in
+    # every build; the port moves them as bits and compares them widened
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    from repro_torch.expr import col
+    rng = np.random.default_rng(5)
+    top = int(np.iinfo(dt).max)
+    n = 3000
+    left = {"k": rng.integers(0, 64, n).astype(np.int32),
+            "u": rng.integers(top - 2000, top, n, endpoint=True,
+                              dtype=np.uint64).astype(dt),
+            "v0": rng.integers(0, 100, n).astype(np.float32)}
+    right = {"k": rng.integers(0, 64, n).astype(np.int32),
+             "w": rng.integers(0, top, n, endpoint=True,
+                               dtype=np.uint64).astype(dt)}
+    plan = {"groupby_key": Plan.scan("l").groupby(["u"], {"v0": ["sum"]}),
+            "groupby_sum": Plan.scan("l").groupby(["k"], {"u": ["sum"]}),
+            "sort": Plan.scan("l").sort(["u"]),
+            "join": Plan.scan("l").join(Plan.scan("r"), on="k",
+                                        out_capacity=1 << 17),
+            "minmax": Plan.scan("l").groupby(["k"], {"u": ["min", "max"]}),
+            "filter": Plan.scan("l").filter(col("u") > top // 2)}[plan_name]
+    out = {}
+    for device in (cuda, "cpu"):
+        tables = {nm: DistTable.from_numpy(d, 8, capacity=1024,
+                                           device=device)
+                  for nm, d in (("l", left), ("r", right))}
+        res, st = execute(plan, CylonEnv(8, device=device), tables,
+                          collect_stats=True)
+        assert st.rows_dropped == 0
+        out[str(device)] = res.to_reference()
+    (gc, gn), (cc, cn) = out[str(cuda)], out["cpu"]
+    assert np.array_equal(gn, cn)
+    assert sorted(gc) == sorted(cc)
+    for c in cc:
+        assert gc[c].dtype == cc[c].dtype and np.array_equal(gc[c], cc[c]), c
+    assert any(cc[c].dtype == dt for c in cc)
+
+
+@pytest.mark.parametrize("keys", [["k"], ["k", "f"], ["u", "k", "f"],
+                                  ["h", "u"]])
+def test_hash_columns_np_matches_card_hash(cuda, keys):
+    # the host mirror the combiner sub-buckets with equals the card's hash
+    from repro_torch.dataframe import Table
+    from repro_torch.dataframe.ops_local import hash_columns, hash_columns_np
+    rng = np.random.default_rng(13)
+    cols = {"k": rng.integers(-1000, 1000, 4096).astype(np.int32),
+            "f": rng.random(4096).astype(np.float32),
+            "u": rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(
+                np.uint32),
+            "h": rng.integers(0, 2**16, 4096).astype(np.uint16)}
+    t = Table({k: torch.as_tensor(v[None]).to(cuda)
+               for k, v in cols.items()},
+              torch.tensor([4096], dtype=torch.int32, device=cuda))
+    dev = hash_columns(t, keys)
+    assert dev.is_cuda
+    np.testing.assert_array_equal(dev[0].cpu().numpy().astype(np.uint32),
+                                  hash_columns_np(cols, keys))

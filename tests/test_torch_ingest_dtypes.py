@@ -144,7 +144,9 @@ def test_fig9_on_64bit_inputs_matches_jax(envs):
     rd = {"k": rk, "w": rng.random(n)}
     out = []
     for rdf, c in ((tdf, col), (jdf, jcol)):
-        l, r = rdf.read_numpy(ld), rdf.read_numpy(rd)
+        # named sources: EXPLAIN prints the scans' names, and the default
+        # names count frames per process, which other tests advance
+        l, r = rdf.read_numpy(ld, name="l"), rdf.read_numpy(rd, name="r")
         out.append(l.merge(r, on="k", out_capacity=8192)
                    .groupby("k").agg({"v0": ["sum", "mean"], "w": "max"})
                    .sort_values("k")

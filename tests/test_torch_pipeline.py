@@ -208,19 +208,30 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert CylonEnv(P, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(morsel_rows=64), dict(trace=True),
+@pytest.mark.parametrize("kw", [dict(trace=True), dict(debug_overflow=True),
                                 dict(retries=2), dict(timeout=1.0),
                                 dict(faults="stage:launch=raise"),
-                                dict(adaptive=True)])
-def test_execute_refuses_later_slices(kw):
+                                dict(adaptive=True)],
+                         ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("morsel_rows", [None, 8])
+def test_execute_refuses_later_slices(kw, morsel_rows):
+    # refused at entry, in-core and out-of-core alike, naming the slice
+    # and its ROADMAP item
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
     env = CylonEnv(2, device="cpu")
     t = DistTable.from_numpy(make_table_data(32, 0), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        execute(fig9_plan(Plan, 32), env, {"l": t, "r": t}, **kw)
+    item = 9 if {"trace", "debug_overflow"} & set(kw) else 10
+    with pytest.raises(NotImplementedError,
+                       match=rf"slice of the port \(ROADMAP queue 1, "
+                             rf"item {item}\)"):
+        execute(fig9_plan(Plan, 32), env, {"l": t, "r": t},
+                morsel_rows=morsel_rows, **kw)
 
 
 def test_overflow_policies():
+    # "raise" fails, "warn" keeps the truncated result, and the default
+    # ("degrade") replays the plan out-of-core and returns every row of
+    # an amply capacitated run
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
     from repro_torch.faults import CapacityOverflow
     env = CylonEnv(4, device="cpu")
@@ -228,13 +239,25 @@ def test_overflow_policies():
                              device="cpu")
     plan = Plan.scan("l").join(Plan.scan("r"), on="k", out_capacity=16)
     tables = {"l": t, "r": t}
-    for overflow in (None, "raise"):
-        with pytest.raises(CapacityOverflow, match="dropped"):
-            execute(plan, env, tables, collect_stats=True, overflow=overflow)
+    with pytest.raises(CapacityOverflow, match="dropped"):
+        execute(plan, env, tables, collect_stats=True, overflow="raise")
     with pytest.warns(RuntimeWarning, match="dropped .* join\\(k\\)"):
         _, st = execute(plan, env, tables, collect_stats=True,
                         overflow="warn")
     assert st.rows_dropped > 0
+    full, fst = execute(Plan.scan("l").join(
+        Plan.scan("r"), on="k", out_capacity=16384, bucket_capacity=256,
+        shuffle_out_capacity=256), env, tables, collect_stats=True)
+    assert fst.rows_dropped == 0 and fst.degraded == 0
+    out, st = execute(plan, env, tables, collect_stats=True)
+    assert isinstance(out, DistTable)
+    assert st.rows_dropped == 0 and st.degraded > 0
+    got, want = out.to_numpy(), full.to_numpy()
+    assert out.total_rows() == full.total_rows()
+    order_g = np.lexsort((got["v0_r"], got["v0"], got["k"]))
+    order_w = np.lexsort((want["v0_r"], want["v0"], want["k"]))
+    for c in want:
+        np.testing.assert_array_equal(got[c][order_g], want[c][order_w])
 
 
 def test_compile_plan_refuses_dictionaries():
