@@ -59,12 +59,30 @@ ends the run with a non-zero exit code if it fails:
    segmented-sum kernels held to their plain versions and timed on the
    inputs one out-of-core run handed them (first call at each shape:
    ``ooc:n=...``);
-6. Fig-9 parity: the plan at 2**16 rows, optimizer on and off, on the
+6. ingest and analyze: the out-of-core phase's data written as 8
+   Parquet files a side (row groups of 2**20 rows; CSV if pyarrow does not
+   import, the lane printed) and read back with ``repro_torch.df.
+   read_parquet``: host ingest time and rate, ``IngestInfo`` held to what
+   was written, a second read recode-free; Fig-9 from the files in-core
+   (``bsp``, default scan capacity and the Fig-9 phase's) and out-of-core
+   8x oversubscribed, first and cached, each bit-identical to the same
+   pipeline over the columns in memory and equal to the host reference,
+   with the kernels' launches held to their derivation (the files'
+   round-robin batches placed as the ingest places them); EXPLAIN ANALYZE
+   in ``bsp_staged`` with the card's roofline (fractions at most 1.05),
+   the Chrome trace and the metrics record checked; the cached run with
+   tracing off and on (same result, launches and stages: the difference
+   of the walls is what tracing costs); ``debug_overflow`` warning once
+   per rank; string keys with 10% nulls at 2**22 rows over 4 Parquet
+   files (recodes on the first read, a cache hit with none on the
+   second, a merge, filter, groupby and sort equal to numpy), and the
+   same at 2**18 rows through both CSV lanes;
+7. Fig-9 parity: the plan at 2**16 rows, optimizer on and off, on the
    card and on the CPU (plain kernels), compared slot for slot; the
    default ``degrade`` policy on an under-capacitated join (every row
    recovered, card == CPU); groupbys, a join and a sort over uint16 and
    uint32 columns, card == CPU slot for slot;
-7. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
+8. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
    a seeded generator, batch 4, prompt 4096, 32 new tokens, greedy)
    through ``ServeEngine``, twice each; launch counts reset just before
    each prefill and each decode step and read just after it (flash
@@ -75,7 +93,7 @@ ends the run with a non-zero exit code if it fails:
    twice: finite logits, first tokens in the vocab, 36 flash launches,
    all on the kernel's bf16 tensor-core (wgmma) route; time to first
    token;
-8. serving parity: both SMOKE configs with the same weights on the card
+9. serving parity: both SMOKE configs with the same weights on the card
    (kernels forced, prompts longer than a tile) and on the CPU (plain
    versions): prefill logits within 1e-3, greedy tokens equal.
 
@@ -888,12 +906,15 @@ def make_exact_data(rows, seed, payload):
             payload: rng.integers(0, 100, rows).astype(np.float32)}
 
 
-def ooc_launches_expected(pplan, ld, keys, out_widest, morsel, p):
+def ooc_launches_expected(pplan, ld, keys, out_widest, morsel, p,
+                          pos=None):
     """Kernel launches, morsels and dispatches of one out-of-core Fig-9
     run, derived from the plan and the data, not from the run's stats.
 
-    ``ld`` is the streamed left input (block-distributed over ``p``
-    ranks), ``keys`` the result's sorted group keys (``host_reference``),
+    ``ld`` is the streamed left input, ``pos`` each of its rows' position
+    on its rank (default: block-distributed over ``p`` ranks; an ingested
+    file's batches go round-robin, ``round_robin_pos``), ``keys`` the
+    result's sorted group keys (``host_reference``),
     ``out_widest`` the result's fullest rank.  A key lives on rank
     ``hash(k) % p`` (``hash_columns_np`` mirrors the card's hash).  The
     segment shape is the optimized Fig-9's: groupby (join + groupby),
@@ -924,12 +945,14 @@ def ooc_launches_expected(pplan, ld, keys, out_widest, morsel, p):
         return int(np.bincount(h, minlength=p).max())
 
     k = ld["k"]
-    per = -(-len(k) // p)
+    if pos is None:
+        pos = np.arange(len(k)) % -(-len(k) // p)
+    per = int(pos.max()) + 1                       # the fullest rank's rows
     n_keys = int(max(k.max(), keys.max())) + 1 if len(keys) else 1
     partner = np.zeros(n_keys, bool)
     partner[keys] = True
     has = partner[k]
-    m_of = (np.arange(len(k)) % per) // morsel
+    m_of = pos // morsel
     seen = np.zeros(ceil_m(per) * n_keys, bool)   # (morsel, key) pairs
     seen[m_of[has] * n_keys + k[has]] = True
     partials = widest_rank((np.flatnonzero(seen) % n_keys).astype(np.int32))
@@ -1132,6 +1155,569 @@ def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
             "d2h_copied_bytes": st.d2h_copied_bytes,
             "spill_bytes": st.spill_bytes,
             "morsels": st.morsels}, recorded
+
+
+def round_robin_pos(file_rows, batch_rows, p):
+    """Position on its rank of every row read back from files of
+    ``file_rows`` rows each, in ``batch_rows``-row batches: batch ``b``
+    (counted across files) lands on rank ``b % p`` after that rank's
+    earlier batches (``repro_torch.io.TableBuilder``)."""
+    sizes = np.array([min(batch_rows, n - j) for n in file_rows
+                      for j in range(0, n, batch_rows)], np.int64)
+    rank = np.arange(len(sizes)) % p
+    start = np.zeros(len(sizes), np.int64)
+    for r in range(p):
+        idx = np.flatnonzero(rank == r)
+        start[idx] = np.cumsum(sizes[idx]) - sizes[idx]
+    batch = np.repeat(np.arange(len(sizes)), sizes)
+    offset = np.arange(int(sizes.sum())) - np.repeat(
+        np.cumsum(sizes) - sizes, sizes)
+    return start[batch] + offset
+
+
+def write_parquet_files(d, side, data, nfiles, group_rows):
+    """``data`` split into ``nfiles`` uncompressed Parquet files of row
+    groups of ``group_rows`` rows, written with pyarrow; returns the
+    paths."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    n = len(next(iter(data.values())))
+    paths = []
+    for f in range(nfiles):
+        sl = slice(f * n // nfiles, (f + 1) * n // nfiles)
+        path = os.path.join(d, f"{side}{f}.parquet")
+        pq.write_table(pa.table({c: v[sl] for c, v in data.items()}), path,
+                       row_group_size=group_rows, compression="none")
+        paths.append(path)
+    return paths
+
+
+def write_csv_files(d, side, data, nfiles):
+    """``data`` split into ``nfiles`` CSV files with a header row; ``None``
+    and NaN become empty fields; returns the paths."""
+    n = len(next(iter(data.values())))
+    names = list(data)
+    paths = []
+    for f in range(nfiles):
+        lo, hi = f * n // nfiles, (f + 1) * n // nfiles
+        cols = []
+        for c in names:
+            v = data[c][lo:hi]
+            if v.dtype.kind == "f":
+                txt = np.where(np.isnan(v), "",
+                               np.nan_to_num(v).astype(np.int64).astype(str)
+                               + ".0")
+            else:
+                txt = np.array(["" if x is None else str(x) for x in v])
+            cols.append(txt)
+        path = os.path.join(d, f"{side}{f}.csv")
+        with open(path, "w") as fh:
+            fh.write(",".join(names) + "\n")
+            fh.write("\n".join(",".join(row) for row in zip(*cols)) + "\n")
+        paths.append(path)
+    return paths
+
+
+def fig9_sum_frontend(l_df, r_df, cap):
+    """``fig9_plan`` written against ``repro_torch.df``."""
+    from repro_torch.expr import col
+    return (l_df.merge(r_df, on="k", out_capacity=4 * cap)
+            .groupby("k").agg({"v0": "sum"}).sort_values("k")
+            .assign(v0_sum=col("v0_sum") + 1.0))
+
+
+def same_columns(got, want):
+    """Equal names, dtypes and values (NaN, a null, equal to NaN)."""
+    return sorted(got) == sorted(want) and all(
+        got[c].dtype == want[c].dtype and np.array_equal(
+            got[c], want[c], equal_nan=got[c].dtype.kind == "f")
+        for c in want)
+
+
+def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
+                 group_rows=1 << 20, peaks=None):
+    """Fig-9 from files: the out-of-core phase's data (``make_exact_data``)
+    written as ``nfiles`` Parquet files a side (row groups of
+    ``group_rows``; CSV when pyarrow does not import) and read back with
+    ``repro_torch.df.read_parquet`` at its default batch size; then, first
+    and cached, in-core ``bsp`` at the default scan capacity and at the
+    Fig-9 phase's, and out-of-core 8x oversubscribed, each bit-identical
+    to the same pipeline over the same columns in memory and equal to the
+    host reference, with the kernels' launches held to their derivation;
+    EXPLAIN ANALYZE in ``bsp_staged`` (card roofline, Chrome trace,
+    metrics), tracing on and off, and ``debug_overflow``.  The roofline
+    uses the card's own peaks, or ``peaks`` (a rehearsal on the CPU has
+    none).  Returns the numbers for the JSON line and the launches by
+    run."""
+    import tempfile
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv
+    from repro_torch.io import DictionaryCache, have_pyarrow
+    from repro_torch.io.parquet import DEFAULT_BATCH_ROWS
+    from repro_torch.kernels import (CUDA_KERNELS, radix_partition_cuda,
+                                     reset_launches)
+    from repro_torch.obs import METRICS
+    from repro_torch.planner import compile_plan
+    t_phase = time.perf_counter()
+    lane = "parquet" if have_pyarrow() else "csv"
+    ld, rd = make_exact_data(rows, 0, "v0"), make_exact_data(rows, 1, "w")
+    ref = host_reference(ld, rd)
+    cap = capacity_for(rows, P)
+    per = -(-rows // P)
+    morsel = -(-(-(-per // 8)) // 8) * 8
+    env = CylonEnv(P, device=device)
+    on_card = env.device.type == "cuda"
+    out = {"lane": lane, "rows": rows, "files": nfiles}
+    walls, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as d:
+        t = time.perf_counter()
+        if lane == "parquet":
+            paths = {s: write_parquet_files(d, s, data, nfiles, group_rows)
+                     for s, data in (("l", ld), ("r", rd))}
+        else:
+            paths = {s: write_csv_files(d, s, data, nfiles)
+                     for s, data in (("l", ld), ("r", rd))}
+        nbytes = {s: sum(os.path.getsize(f) for f in ps)
+                  for s, ps in paths.items()}
+        print(f"ingest: lane {lane}; wrote {nfiles} files a side of "
+              f"{rows} rows in {time.perf_counter() - t:.2f} s ({nbytes} B)",
+              flush=True)
+        reader = rdf.read_parquet if lane == "parquet" else rdf.read_csv
+        cache = DictionaryCache()
+        frames, host = {}, {}
+        for side in ("l", "r"):
+            t = time.perf_counter()
+            frames[side] = reader(paths[side], env=env, dict_cache=cache,
+                                  name=side)
+            secs = time.perf_counter() - t
+            info = frames[side].sources[side].provenance
+            batches = nfiles * -(-(rows // nfiles) // DEFAULT_BATCH_ROWS)
+            check(info.rows == rows and len(info.files) == nfiles
+                  and info.bytes_read == nbytes[side]
+                  and (lane != "parquet" or info.batches == batches),
+                  f"ingest {side}: {info} ({info.batches} batches, "
+                  f"{info.bytes_read} B), want {rows} rows, {nfiles} files, "
+                  f"{batches} batches, {nbytes[side]} B")
+            host[side] = {"seconds": secs, "file_MB_per_s":
+                          nbytes[side] / secs / 1e6,
+                          "rows_per_s": rows / secs,
+                          "info": {"format": info.format,
+                                   "files": len(info.files),
+                                   "rows": info.rows,
+                                   "bytes_read": info.bytes_read,
+                                   "batches": info.batches,
+                                   "recodes": info.recodes,
+                                   "dict_cache_hit": info.dict_cache_hit}}
+            print(f"ingest {side}: {secs:.3f} s on the host, "
+                  f"{nbytes[side] / secs / 1e6:.1f} file MB/s, "
+                  f"{rows / secs / 1e6:.2f} M rows/s; {info} "
+                  f"({info.batches} batches)", flush=True)
+        # a second read: numeric-only sources leave nothing in the cache,
+        # so it misses and recodes nothing, with the same chunks
+        again = reader(paths["l"], env=env, dict_cache=cache, name="l2")
+        info2 = again.sources["l2"].provenance
+        first = frames["l"].sources["l"]
+        check(not info2.dict_cache_hit and info2.recodes == 0
+              and len(cache) == 0 and cache.hits == 0,
+              f"second read: {info2}, cache {len(cache)} entries, "
+              f"{cache.hits} hits")
+        check(all(same_columns(first.rank_concat(r),
+                               again.sources["l2"].rank_concat(r))
+                  for r in range(P)), "second read: chunks differ")
+        out["host_ingest"] = host
+        out["second_read"] = {"dict_cache_hit": info2.dict_cache_hit,
+                              "recodes": info2.recodes,
+                              "cache_misses": cache.misses}
+        del again
+        # the same pipeline over the same columns in memory
+        mem = fig9_sum_frontend(rdf.read_numpy(ld, env=env, capacity=cap,
+                                               name="l"),
+                                rdf.read_numpy(rd, env=env, capacity=cap,
+                                               name="r"), cap)
+        res, st = mem.collect(collect_stats=True)
+        want = res.to_numpy()
+        check_fig9(res, st, ref, "ingest: in memory")
+        check(np.array_equal(want["v0_sum"],
+                             ref[2].astype(np.float32)),
+              "ingest: in-memory sums not the exact host sums")
+        del res, mem
+        files_q = fig9_sum_frontend(frames["l"], frames["r"], cap)
+        pplan = compile_plan(files_q.plan, files_q.sources)
+        text = files_q.explain()
+        print(text, flush=True)
+        check(f"scan[{lane}: {nfiles} files, ~{rows} rows]" in text,
+              "ingest: EXPLAIN does not name the source files")
+        pos = round_robin_pos([(f + 1) * rows // nfiles - f * rows // nfiles
+                               for f in range(nfiles)],
+                              DEFAULT_BATCH_ROWS, P)
+        runs = (("in-core", {}), ("in-core/scan_capacity",
+                                  {"scan_capacity": cap}),
+                ("out-of-core", {"morsel_rows": morsel,
+                                 "capacity_factor": 4.0}))
+        for name, kw in runs:
+            for run in ("first", "cached"):
+                env.synchronize()
+                reset_launches()
+                routes0 = dict(radix_partition_cuda.route_launches)
+                t = time.perf_counter()
+                res, st = files_q.collect(collect_stats=True, **kw)
+                env.synchronize()
+                wall = time.perf_counter() - t
+                counts = {k.name: k.launches for k in CUDA_KERNELS}
+                routes = {r: radix_partition_cuda.route_launches[r]
+                          - routes0[r] for r in routes0}
+                label = f"ingest {name}/{run}"
+                walls[f"{name}/{run}"] = wall
+                launches[f"{name}/{run}"] = counts
+                got = res.to_numpy()
+                check(same_columns(got, want), f"{label}: result differs "
+                      f"from the same pipeline in memory")
+                check_fig9(res, st, ref, label)
+                check(st.rows_read == 2 * rows and
+                      st.bytes_read == nbytes["l"] + nbytes["r"],
+                      f"{label}: rows_read {st.rows_read}, bytes_read "
+                      f"{st.bytes_read}")
+                if run == "cached":
+                    check(st.cache_misses == 0, f"{label}: "
+                          f"{st.cache_misses} cache misses")
+                if "morsel_rows" in kw:
+                    check(st.degraded == 0, f"{label}: degraded")
+                    want_l, seg_morsels, want_d = ooc_launches_expected(
+                        pplan, ld, ref[1],
+                        max(res.rank_rows(r) for r in range(P)), morsel, P,
+                        pos)
+                    check((st.morsels, st.dispatches) ==
+                          (sum(seg_morsels), want_d), f"{label}: "
+                          f"{st.morsels} morsels, {st.dispatches} "
+                          f"dispatches; derived {seg_morsels}, {want_d}")
+                    if on_card:
+                        for k, n in want_l.items():
+                            check(counts[k] == n and n > 0, f"{label}: {k} "
+                                  f"launched {counts[k]} times, want {n}")
+                        check(routes == {"onepass":
+                                         want_l["radix_partition"],
+                                         "threepass": 0},
+                              f"{label}: radix routes {routes}")
+                    else:
+                        check(not any(counts.values()), f"{label}: "
+                              f"kernels launched on the CPU")
+                else:
+                    check_launches(counts, pplan, "bsp", st, on_card, label,
+                                   routes if on_card else None)
+                stages = ", ".join(f"{n}={s * 1e3:.1f}ms"
+                                   for n, s in st.stage_times)
+                print(f"fig9 from files {name:22s} {run:6s} wall "
+                      f"{wall * 1e3:9.2f} ms  rows_read={st.rows_read} "
+                      f"bytes_read={st.bytes_read} "
+                      f"rows_shuffled={st.rows_shuffled} "
+                      f"cache_misses={st.cache_misses} launches={counts} "
+                      f"[{stages}]", flush=True)
+                del res, got
+        out["wall_s"] = walls
+        out["launches"] = launches
+        out["analyze"] = analyze_phase(env, files_q, cap, nbytes, want,
+                                       peaks)
+        out["debug_overflow"] = debug_overflow_check(rdf, env, paths,
+                                                     reader, morsel)
+    print(f"phase ingest took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
+def analyze_phase(env, files_q, cap, nbytes, want, peaks=None):
+    """EXPLAIN ANALYZE of Fig-9 from files in ``bsp_staged`` (at the
+    Fig-9 phase's scan capacity), against the card's peaks; then the
+    cached run with tracing off and on, three times each, alternating
+    (host wall around the collect, and ``ExecStats.wall_time_s``, which
+    leaves out the host scatter of the spills)."""
+    from repro_torch.kernels import CUDA_KERNELS, reset_launches
+    from repro_torch.obs import METRICS
+    kw = dict(mode="bsp_staged", scan_capacity=cap)
+    files_q.collect(collect_stats=True, **kw)   # builds the stages
+    env.synchronize()
+    t = time.perf_counter()
+    res, report = files_q.collect(analyze=True, peaks=peaks, **kw)
+    env.synchronize()
+    wall = time.perf_counter() - t
+    st = report.stats
+    check(same_columns(res.to_numpy(), want),
+          "analyze: result differs from the pipeline in memory")
+    del res
+    print(report.explain_analyze(), flush=True)
+    print(report.roofline_table(), flush=True)
+    stages = [s for n, s in st.stage_times]
+    check(all(s > 0 for s in stages) and sum(stages) <= st.wall_time_s,
+          f"analyze: stage times {st.stage_times}, wall {st.wall_time_s}")
+    d = report.to_dict()
+    check(d["rows_shuffled"] == st.rows_shuffled
+          and d["bytes_shuffled"] == st.bytes_shuffled,
+          "analyze: report totals differ from ExecStats")
+    rows = report.stage_table()
+    fracs = [r["roofline_fraction"] for r in rows]
+    check(all(f <= 1.05 for f in fracs), f"analyze: roofline fractions "
+          f"{fracs} above 1.05: the bound is wrong")
+    check(st.bytes_read == nbytes["l"] + nbytes["r"],
+          f"analyze: bytes_read {st.bytes_read}")
+    payload = json.loads(json.dumps(report.to_chrome_trace()))
+    evs = payload["traceEvents"]
+    roots = [e for e in evs if e["cat"] == "query"]
+    check(len(roots) == 1 and roots[0]["ph"] == "X"
+          and {"query", "stage", "shuffle"} <= {e["cat"] for e in evs}
+          and all({"name", "cat", "ph", "ts", "pid", "tid"} <= set(e)
+                  and roots[0]["ts"] <= e["ts"]
+                  <= roots[0]["ts"] + roots[0]["dur"] + 1e-3 for e in evs),
+          "analyze: Chrome trace is not one query span over stage and "
+          "shuffle spans")
+    rec = METRICS.query_records[-1]
+    check(rec["fingerprint"] == report.pplan.fingerprint
+          and rec["mode"] == "bsp_staged"
+          and rec["bytes_read"] == st.bytes_read
+          and METRICS.counter("queries_total").value(mode="bsp_staged") >= 1,
+          "analyze: METRICS lacks the query record")
+    # tracing is invisible: same result, launches and stages; its cost is
+    # the difference of the cached walls
+    timed = {"off": [], "on": []}
+    exec_s = {"off": [], "on": []}
+    results = {}
+    for trace in ("off", "on", "on", "off", "off", "on"):
+        env.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        res, s = files_q.collect(collect_stats=True,
+                                 trace=(trace == "on"), **kw)
+        env.synchronize()
+        timed[trace].append(time.perf_counter() - t)
+        exec_s[trace].append(s.wall_time_s)
+        counts = {k.name: k.launches for k in CUDA_KERNELS}
+        check(s.cache_misses == 0, f"trace {trace}: {s.cache_misses} "
+              f"cache misses")
+        got = res.to_numpy()
+        prev = results.setdefault(trace, (got, counts))
+        check(same_columns(got, want) and counts == prev[1]
+              and counts == results["off"][1],
+              f"trace {trace}: result or launches differ ({counts})")
+        del res, got
+    print(f"tracing: cached bsp_staged wall off {timed['off']} s, on "
+          f"{timed['on']} s; ExecStats.wall_time_s off {exec_s['off']} s, "
+          f"on {exec_s['on']} s", flush=True)
+    return {"wall_s": wall, "stage_times": st.stage_times,
+            "wall_time_s": st.wall_time_s,
+            "device": d["device"],
+            "stages": [{k: r[k] for k in ("stage", "ops", "rows_shuffled",
+                                          "wire_bytes", "elapsed_s",
+                                          "bound_s", "dominant",
+                                          "roofline_fraction")}
+                       for r in rows],
+            "trace_events": len(evs),
+            "cached_wall_trace_off_s": timed["off"],
+            "cached_wall_trace_on_s": timed["on"],
+            "cached_exec_wall_trace_off_s": exec_s["off"],
+            "cached_exec_wall_trace_on_s": exec_s["on"]}
+
+
+def debug_overflow_check(rdf, env, paths, reader, morsel):
+    """``debug_overflow=True`` on an under-capacitated shuffle of the
+    first left file: one warning per (label, rank), each naming both."""
+    import warnings
+    from repro_torch.io import DictionaryCache
+    df = reader(paths["l"][:1], env=env, dict_cache=DictionaryCache(),
+                name="one")
+    rows = df.sources["one"].total_rows()
+    share = -(-rows // P)
+    q = df.repartition("k", out_capacity=share // 2, debug_overflow=True)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        _, st = q.collect(collect_stats=True, overflow="warn",
+                          optimize=False)
+    named = [str(x.message) for x in w if "dropped rows" in
+             str(x.message) and "@ rank" in str(x.message)]
+    ranks = sorted(int(m.split("@ rank ")[1].split()[0]) for m in named)
+    check(ranks == list(range(P)) and all(
+        m.startswith("shuffle(k) @ rank") for m in named),
+        f"debug_overflow: warnings {named}")
+    check(st.rows_dropped > 0, "debug_overflow: nothing dropped")
+    print(f"debug_overflow: {len(named)} warnings, one per rank, "
+          f"{st.rows_dropped} rows dropped; first: {named[0]}", flush=True)
+    return {"warnings": len(named), "rows_dropped": st.rows_dropped}
+
+
+def ingest_parity_data(rows, nfiles, nk, seed=23):
+    """``tests/md_scripts/ingest_parity.py``'s recipe at ``rows`` rows and
+    ``nk`` keys: file ``f`` draws its keys from the last ``(f + 1) / nfiles``
+    of the key space, so every later file adds lexicographically earlier
+    keys (the dictionary grows and chunks are recoded); 10% nulls in keys
+    and in the integer-valued float values.  Key and value columns come as
+    key indices (-1 for null) and float64 with NaN for the oracle, and as
+    object / float arrays with ``None`` for the files."""
+    rng = np.random.default_rng(seed)
+    names = np.array([f"key{i:06d}" for i in range(nk)], dtype=object)
+    per = rows // nfiles
+    kidx = np.concatenate([
+        rng.integers(nk - (f + 1) * (nk // nfiles), nk, per)
+        for f in range(nfiles)])
+    kidx[rng.random(len(kidx)) < 0.1] = -1
+    v0 = rng.integers(0, 256, len(kidx)).astype(np.float64)
+    v0[rng.random(len(kidx)) < 0.1] = np.nan
+    w = np.arange(nk, dtype=np.float64)
+    w[np.arange(nk) % 7 == 0] = np.nan
+    facts = {"k": np.where(kidx >= 0, names[np.maximum(kidx, 0)], None),
+             "v0": v0}
+    dim = {"k": np.concatenate([names, [None]]).astype(object),
+           "w": np.concatenate([w, [3.0]])}
+    return names, kidx, v0, w, facts, dim
+
+
+def ingest_parity_oracle(names, kidx, v0, w, pivot_idx):
+    """merge on the key (nulls never match) -> (v0 > 4) & (k < pivot) ->
+    groupby k: v0 sum and count, w max -> sorted by k, in numpy."""
+    sel = (kidx >= 0) & ~np.isnan(v0) & (v0 > 4) & (kidx < pivot_idx)
+    nk = len(names)
+    cnt = np.bincount(kidx[sel], minlength=nk)
+    sums = np.bincount(kidx[sel], weights=v0[sel], minlength=nk)
+    keys = np.flatnonzero(cnt)
+    return names[keys], sums[keys], cnt[keys], w[keys]
+
+
+def ingest_parity_pipeline(facts, dim, pivot, cap):
+    from repro_torch.expr import col
+    return (facts.merge(dim, on="k", out_capacity=cap)
+            [(col("v0") > 4) & (col("k") < pivot)]
+            .groupby("k").agg({"v0": ["sum", "count"], "w": "max"})
+            .sort_values("k"))
+
+
+def check_parity_result(res, oracle, label):
+    keys, sums, cnt, wmax = oracle
+    got = res.to_numpy()
+    check(len(got["k"]) == len(keys) and all(
+        a == b for a, b in zip(got["k"], keys)), f"{label}: keys differ")
+    check(np.array_equal(got["v0_sum"], sums.astype(np.float32)),
+          f"{label}: v0 sums differ")
+    check(np.array_equal(got["v0_count"], cnt.astype(got["v0_count"].dtype)),
+          f"{label}: v0 counts differ")
+    check(np.array_equal(np.isnan(got["w_max"]), np.isnan(wmax)) and
+          np.array_equal(np.nan_to_num(got["w_max"]),
+                         np.nan_to_num(wmax).astype(np.float32)),
+          f"{label}: w maxima differ")
+    return got
+
+
+def ingest_strings_phase(torch, rows=1 << 22, csv_rows=1 << 18, nfiles=4,
+                         nk=1 << 16, device=None):
+    """String keys and nulls from files: ``ingest_parity_data`` as
+    ``nfiles`` Parquet files (and ``nfiles`` CSV files at ``csv_rows``):
+    the first read recodes, the second hits the dictionary cache and
+    recodes nothing with the same physical (mask) layout, and a merge,
+    filter, groupby and sort over it equals a numpy oracle; the CSV
+    python lane passes the same checks and the arrow CSV lane agrees with
+    it.  Returns the numbers for the JSON line."""
+    import tempfile
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv
+    from repro_torch.io import DictionaryCache, have_pyarrow
+    t_phase = time.perf_counter()
+    env = CylonEnv(P, device=device)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_strings_") as d:
+        lanes = [("parquet", rows)] if have_pyarrow() else []
+        lanes += [("csv-python", csv_rows)]
+        if have_pyarrow():
+            lanes += [("csv-arrow", csv_rows)]
+        results = {}
+        for lane, n in lanes:
+            names, kidx, v0, w, facts, dim = ingest_parity_data(n, nfiles,
+                                                                nk)
+            pivot_idx = nk // 2
+            oracle = ingest_parity_oracle(names, kidx, v0, w, pivot_idx)
+            sub = os.path.join(d, lane)
+            os.makedirs(sub)
+            t = time.perf_counter()
+            if lane == "parquet":
+                import pyarrow as pa
+                import pyarrow.parquet as pq
+                paths = []
+                for f in range(nfiles):
+                    sl = slice(f * n // nfiles, (f + 1) * n // nfiles)
+                    path = os.path.join(sub, f"facts{f}.parquet")
+                    pq.write_table(pa.table({
+                        "k": pa.array(facts["k"][sl], type=pa.string()),
+                        "v0": pa.array(facts["v0"][sl],
+                                       mask=np.isnan(facts["v0"][sl]))}),
+                        path, row_group_size=1 << 20)
+                    paths.append(path)
+                dim_path = os.path.join(sub, "dim.parquet")
+                pq.write_table(pa.table({
+                    "k": pa.array(dim["k"], type=pa.string()),
+                    "w": pa.array(dim["w"], mask=np.isnan(dim["w"]))}),
+                    dim_path)
+                reader = rdf.read_parquet
+            else:
+                if lane == "csv-arrow":
+                    paths, dim_path = results["csv-python"]["paths"]
+                else:
+                    paths = write_csv_files(sub, "facts", facts, nfiles)
+                    dim_path = write_csv_files(sub, "dim", dim, 1)[0]
+                reader = rdf.read_csv
+            write_s = time.perf_counter() - t
+            saved = os.environ.pop("REPRO_NO_PYARROW", None)
+            if lane == "csv-python":
+                os.environ["REPRO_NO_PYARROW"] = "1"
+            try:
+                cache = DictionaryCache()
+                t = time.perf_counter()
+                fdf = reader(paths, env=env, dict_cache=cache, name="facts")
+                read_s = time.perf_counter() - t
+                ddf = reader(dim_path, env=env, dict_cache=cache, name="dim")
+                again = reader(paths, env=env, dict_cache=cache,
+                               name="again")
+            finally:
+                os.environ.pop("REPRO_NO_PYARROW", None)
+                if saved is not None:
+                    os.environ["REPRO_NO_PYARROW"] = saved
+            info = fdf.sources["facts"].provenance
+            info2 = again.sources["again"].provenance
+            label = f"strings {lane}"
+            check(info.rows == n and info.recodes > 0
+                  and not info.dict_cache_hit, f"{label}: first read {info} "
+                  f"({info.recodes} recodes)")
+            check(info2.dict_cache_hit and info2.recodes == 0,
+                  f"{label}: second read {info2} ({info2.recodes} recodes)")
+            a = fdf.sources["facts"].to_numpy(decode=False, nulls="mask")
+            b = again.sources["again"].to_numpy(decode=False, nulls="mask")
+            check("__m_k" in a and "__m_v0" in a and same_columns(a, b),
+                  f"{label}: second read's layout differs")
+            share = -(-n // P)
+            q = ingest_parity_pipeline(fdf, ddf, names[pivot_idx],
+                                       4 * share)
+            t = time.perf_counter()
+            res, st = q.collect(collect_stats=True)
+            env.synchronize()
+            wall = time.perf_counter() - t
+            check(st.rows_dropped == 0, f"{label}: {st.rows_dropped} rows "
+                  f"dropped")
+            got = check_parity_result(res, oracle, label)
+            del res
+            results[lane] = {"paths": (paths, dim_path), "got": got,
+                             "dicts": fdf.sources["facts"].dictionaries}
+            if lane == "csv-arrow":
+                py = results["csv-python"]
+                check(py["dicts"] == results[lane]["dicts"] and
+                      same_columns(py["got"], got),
+                      "strings: the arrow CSV lane differs from the python "
+                      "lane")
+            out[lane] = {"rows": n, "write_s": write_s, "read_s": read_s,
+                         "rows_per_s": n / read_s, "recodes": info.recodes,
+                         "batches": info.batches, "groups": len(got["k"]),
+                         "wall_s": wall}
+            print(f"{label}: {n} rows over {nfiles} files read in "
+                  f"{read_s:.3f} s ({n / read_s / 1e6:.2f} M rows/s, "
+                  f"{info.recodes} recodes; second read a cache hit, 0 "
+                  f"recodes, same layout); merge/filter/groupby/sort "
+                  f"{wall * 1e3:.1f} ms, {len(got['k'])} groups == numpy",
+                  flush=True)
+    print(f"phase ingest strings took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
 
 
 def degrade_phase(devices=("cuda", "cpu")):
@@ -1657,10 +2243,12 @@ def build_all():
 
 
 def kernel_record(k, cases, launches, launches_by_run=None,
-                  route_launches=None, launches_out_of_core=None):
+                  route_launches=None, launches_out_of_core=None,
+                  launches_ingest=None):
     """The kernels-line entry of wrapper ``k``: the main-shape case's
     numbers, the main path's launch count (and its launches per route,
-    and per run of the out-of-core Fig-9) and every case beside them."""
+    and per run of the out-of-core Fig-9 and of Fig-9 from files) and
+    every case beside them."""
     main = cases[0]
     rec = {"name": k.name, "route": "cuda", "source": k.source,
            "replaces": k.replaces, "launches": launches,
@@ -1674,6 +2262,8 @@ def kernel_record(k, cases, launches, launches_by_run=None,
         rec["route_launches"] = route_launches
     if launches_out_of_core is not None:
         rec["launches_out_of_core"] = launches_out_of_core
+    if launches_ingest is not None:
+        rec["launches_ingest"] = launches_ingest
     rec["cases"] = cases
     return rec
 
@@ -1733,6 +2323,9 @@ def main():
     segsum_cases += segsum_phase(torch, cap, flush, ooc_sums)
     del flush, ooc_sums
     phase_done("out-of-core")
+    ingest = ingest_phase(torch)
+    ingest["strings"] = ingest_strings_phase(torch)
+    phase_done("ingest and analyze")
     parity_phase()
     degrade_phase()
     unsigned_phase()
@@ -1751,12 +2344,17 @@ def main():
                       {run: c[rp.name] for run, c in launches.items()},
                       route_launches["bsp/first"],
                       {run: c[rp.name]
-                       for run, c in ooc["launches"].items()}),
+                       for run, c in ooc["launches"].items()},
+                      {run: c[rp.name]
+                       for run, c in ingest["launches"].items()}),
         kernel_record(ss, segsum_cases, launches["bsp/first"][ss.name],
                       {run: c[ss.name] for run, c in launches.items()},
                       launches_out_of_core={
                           run: c[ss.name]
-                          for run, c in ooc["launches"].items()}),
+                          for run, c in ooc["launches"].items()},
+                      launches_ingest={
+                          run: c[ss.name]
+                          for run, c in ingest["launches"].items()}),
         # the serving paths are the first run of each arch
         kernel_record(flash_attention_cuda, flash_cases,
                       served["qwen3-8b"]["first"]["launches"]),
@@ -1765,6 +2363,7 @@ def main():
     ]
     print(json.dumps({"fig9_wall_s": walls}))
     print(json.dumps({"out_of_core": ooc}))
+    print(json.dumps({"ingest": ingest}))
     print(json.dumps({"frontend_wall_s": front_walls,
                       "frontend_launches": front_launches,
                       "strings_wall_s": str_walls,

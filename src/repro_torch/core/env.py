@@ -26,6 +26,7 @@ from ..dataframe.schema import decode_columns, encode_columns
 from ..dataframe.table import Table
 from ..dtypes import to_x32, torch_dtype, x32_dtype
 from ..nulls import apply_null_columns, extract_null_columns
+from ..obs.trace import NULL_TRACER
 
 
 def resolve_device(device=None) -> torch.device:
@@ -57,6 +58,11 @@ class DistTable:
     #: metadata only: stage callables never see it.
     dictionaries: Dict[str, Tuple[str, ...]] = \
         dataclasses.field(default_factory=dict)
+    #: ``repro_torch.io.IngestInfo`` when this table was read from
+    #: Parquet/CSV (files, rows, source bytes); None for tables built in
+    #: memory.  Host-side only — EXPLAIN ANALYZE attributes scan work
+    #: from it.
+    provenance: Optional[Any] = None
 
     @property
     def parallelism(self) -> int:
@@ -184,12 +190,16 @@ class MorselSource:
     waits on an event recorded after the copy, so the upload of one
     morsel overlaps the compute of the one before it.  A staging set is
     refilled only after the event of the copy that last read it.
-    ``h2d_bytes`` accumulates the bytes shipped to the device.
+    ``h2d_bytes`` accumulates the bytes shipped to the device.  ``tracer``
+    (``repro_torch.obs.Tracer``) gets an ``h2d:morsel[m]`` instant with
+    the bytes of each morsel when its upload is enqueued; the copy's event
+    marks its end.
     """
 
     def __init__(self, source, morsel_rows: int,
                  env: Optional["CylonEnv"] = None,
-                 parallelism: Optional[int] = None, device=None):
+                 parallelism: Optional[int] = None, device=None,
+                 tracer=None):
         from .store import SpillTable  # deferred: store imports env
         if isinstance(source, DistTable):
             source = SpillTable.from_dist(source)
@@ -210,6 +220,7 @@ class MorselSource:
         #: column -> (device dtype, trailing shape)
         self._layout = {n: (x32_dtype(d), s)
                         for n, (d, s) in sorted(source.schema.items())}
+        self._tracer = tracer if tracer is not None else NULL_TRACER
 
     def _host_buffers(self, pin: bool) -> Tuple[Dict[str, torch.Tensor],
                                                 torch.Tensor]:
@@ -224,6 +235,7 @@ class MorselSource:
     def _fill(self, m: int, bufs: Dict[str, torch.Tensor],
               counts: torch.Tensor) -> None:
         """Write morsel ``m``'s rows into ``bufs`` (padding zeroed)."""
+        b0 = self.h2d_bytes
         lo, hi = m * self.capacity, (m + 1) * self.capacity
         cnt = counts.numpy()
         for name, t in bufs.items():
@@ -235,6 +247,8 @@ class MorselSource:
                 cnt[r] = len(piece)
             self.h2d_bytes += buf.nbytes
         self.h2d_bytes += cnt.nbytes
+        self._tracer.instant(f"h2d:morsel[{m}]", "transfer", morsel=m,
+                             bytes=self.h2d_bytes - b0)
 
     def _table(self, cols, counts) -> DistTable:
         return DistTable(cols, counts, self.capacity,
@@ -242,10 +256,18 @@ class MorselSource:
 
     def __iter__(self):
         if self.device.type != "cuda":
-            for m in range(self.num_morsels):
+            # morsel m+1 is built before m is handed over, as on a card
+            # (and as in the JAX package, so traces record the same order)
+            def build(m: int) -> DistTable:
                 bufs, counts = self._host_buffers(pin=False)
                 self._fill(m, bufs, counts)
-                yield self._table(bufs, counts)
+                return self._table(bufs, counts)
+
+            nxt = build(0) if self.num_morsels else None
+            for m in range(1, self.num_morsels + 1):
+                cur = nxt
+                nxt = build(m) if m < self.num_morsels else None
+                yield cur
             return
         yield from self._iter_card()
 

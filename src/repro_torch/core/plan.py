@@ -172,21 +172,21 @@ class Plan:
 #: ``execute`` options of the JAX package that later slices of the port add
 #: (the slice and its ROADMAP queue-1 item)
 _NOT_YET = {
-    "trace": ("observability", 9),
-    "debug_overflow": ("observability", 9),
     "retries": ("fault handling", 10),
     "timeout": ("fault handling", 10),
     "faults": ("fault handling", 10),
     "adaptive": ("adaptive skew handling", 10),
 }
-#: options passed through to the out-of-core executor
-_MORSEL_KW = ("capacity_factor", "samples")
+#: options passed through to the executors (``scan_capacity`` is the
+#: in-core one; the rest go to the out-of-core executor)
+_MORSEL_KW = ("capacity_factor", "samples", "debug_overflow",
+              "scan_capacity")
 
 
 def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
             optimize: bool = True, collect_stats: bool = False,
             shuffle_impl: str = "radix", a2a_chunks: int = 1,
-            morsel_rows: Optional[int] = None,
+            morsel_rows: Optional[int] = None, trace: Any = None,
             overflow: Optional[str] = None, **kw):
     """Execute a plan against DistTables.  Returns a DistTable, or
     ``(DistTable, planner.ExecStats)`` with ``collect_stats=True``.
@@ -201,17 +201,25 @@ def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
     hold host-resident data (``core.SpillTable`` / numpy dicts) larger than
     device capacity, streamed through the stage DAG in ``morsel_rows``-row
     morsels; the result is a ``SpillTable``.  Extra keywords
-    (``capacity_factor``, ``samples``) are forwarded to the morsel
-    executor.  ``overflow`` (``raise | warn | degrade``,
-    default ``degrade``) decides what rows dropped by capacity pressure
-    do: ``degrade`` replays an in-core plan out-of-core until every row
-    fits.
+    (``capacity_factor``, ``samples``, ``debug_overflow``) are forwarded
+    to the morsel executor; ``scan_capacity`` sets the per-rank capacity
+    that host-resident (ingested) scans get in-core.  ``overflow``
+    (``raise | warn | degrade``, default ``degrade``) decides what rows
+    dropped by capacity pressure do: ``degrade`` replays an in-core plan
+    out-of-core until every row fits.
 
-    The JAX package's ``trace``, ``debug_overflow``, ``retries``,
-    ``timeout``, ``faults`` and ``adaptive`` come with later slices of the
-    port; passing one raises ``NotImplementedError`` naming the slice and
-    its ROADMAP item.
+    ``trace`` turns on query tracing: ``True`` builds a fresh
+    ``repro_torch.obs.Tracer``, an existing ``Tracer`` is used as-is, and
+    ``None`` consults the ``REPRO_TRACE`` env var.  The finished
+    ``QueryTrace`` is retrievable via ``repro_torch.obs.last_trace()``
+    (or from the tracer you passed).  Tracing is host-side only — it
+    never changes which stages are built.
+
+    The JAX package's ``retries``, ``timeout``, ``faults`` and
+    ``adaptive`` come with a later slice of the port; passing one raises
+    ``NotImplementedError`` naming the slice and its ROADMAP item.
     """
+    from ..obs.trace import resolve_tracer
     from ..planner import compile_plan, run_physical
     morsel_kw = {}
     for name, value in kw.items():
@@ -225,9 +233,16 @@ def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
             raise NotImplementedError(
                 f"execute({name}=...) waits for the {what} slice of the "
                 f"port (ROADMAP queue 1, item {item})")
+    tracer = resolve_tracer(trace)
     pplan = compile_plan(plan, tables, optimize_plan=optimize)
-    return run_physical(pplan, env, tables, mode,
-                        collect_stats=collect_stats,
-                        shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
-                        morsel_rows=morsel_rows, overflow=overflow,
-                        **morsel_kw)
+    with tracer.span("query", "query", mode=mode,
+                     fingerprint=pplan.fingerprint,
+                     stages=pplan.num_stages, shuffles=pplan.num_shuffles):
+        out = run_physical(pplan, env, tables, mode,
+                           collect_stats=collect_stats,
+                           shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
+                           morsel_rows=morsel_rows, overflow=overflow,
+                           tracer=tracer, **morsel_kw)
+    if tracer.enabled:
+        tracer.finish()
+    return out

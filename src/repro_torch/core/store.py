@@ -31,6 +31,7 @@ import torch
 from ..dataframe.schema import decode_columns, encode_columns
 from ..dtypes import to_x32, x32_dtype
 from ..nulls import apply_null_columns, extract_null_columns
+from ..obs.trace import NULL_TRACER
 from .env import DistTable, resolve_device
 
 
@@ -123,6 +124,8 @@ class SpillTable:
         self.parallelism = parallelism
         self.dictionaries: Dict[str, Tuple[str, ...]] = \
             dict(dictionaries or {})
+        #: ``repro_torch.io.IngestInfo`` when read from Parquet/CSV, else None
+        self.provenance = None
         self._chunks: List[List[Dict[str, np.ndarray]]] = \
             [[] for _ in range(parallelism)]
         self._schema: Optional[Dict[str, Tuple[np.dtype, Tuple[int, ...]]]] = (
@@ -250,6 +253,7 @@ class SpillTable:
                   schema={k: (v.dtype, v.shape[1:])
                           for k, v in rows[0].items()},
                   dictionaries=table.dictionaries)
+        out.provenance = table.provenance
         for r, chunk in enumerate(rows):
             if counts[r]:
                 out.append(r, chunk)
@@ -351,38 +355,49 @@ def _route_chunks(spill: SpillTable, parallelism: int
     return buckets
 
 
-def respill(spill: SpillTable, parallelism: int) -> SpillTable:
+def respill(spill: SpillTable, parallelism: int,
+            tracer=NULL_TRACER) -> SpillTable:
     """Re-bucket a SpillTable to a different gang size, chunk by chunk.
 
     Host-only (no device materialization — the spill may not fit a
-    ``DistTable``)."""
+    ``DistTable``).  ``tracer`` records a span with rows/bytes moved."""
     if parallelism == spill.parallelism:
         return spill
-    out = SpillTable(parallelism, schema=spill.schema or None,
-                     dictionaries=spill.dictionaries)
-    for dest, pieces in enumerate(_route_chunks(spill, parallelism)):
-        for piece in pieces:
-            out.append(dest, piece)
+    with tracer.span("respill", "spill", from_p=spill.parallelism,
+                     to_p=parallelism, rows=spill.total_rows(),
+                     bytes=spill.nbytes()):
+        out = SpillTable(parallelism, schema=spill.schema or None,
+                         dictionaries=spill.dictionaries)
+        out.provenance = spill.provenance
+        for dest, pieces in enumerate(_route_chunks(spill, parallelism)):
+            for piece in pieces:
+                out.append(dest, piece)
     return out
 
 
-def respill_routed(spill: SpillTable, dest_of) -> SpillTable:
+def respill_routed(spill: SpillTable, dest_of,
+                   tracer=NULL_TRACER) -> SpillTable:
     """Re-route a SpillTable's rows by an arbitrary per-row rule.
 
     ``dest_of(cols: Dict[str, np.ndarray]) -> np.ndarray[int]`` maps one
     chunk's columns to destination ranks; the routing itself stays a
     host-only chunk-by-chunk pass like ``respill`` (peak extra memory is
-    one chunk)."""
-    out = SpillTable(spill.parallelism, schema=spill.schema or None,
-                     dictionaries=spill.dictionaries)
-    for r in range(spill.parallelism):
-        for chunk in spill.rank_chunks(r):
-            dest = np.asarray(dest_of(chunk))
-            if dest.ndim != 1 or len(dest) != len(next(iter(chunk.values()))):
-                raise ValueError("dest_of must return one rank per row")
-            for d in np.unique(dest):
-                sel = dest == d
-                out.append(int(d), {k: v[sel] for k, v in chunk.items()})
+    one chunk).  ``tracer`` records a span with rows/bytes moved."""
+    with tracer.span("respill-routed", "spill", p=spill.parallelism,
+                     rows=spill.total_rows(), bytes=spill.nbytes()):
+        out = SpillTable(spill.parallelism, schema=spill.schema or None,
+                         dictionaries=spill.dictionaries)
+        out.provenance = spill.provenance
+        for r in range(spill.parallelism):
+            for chunk in spill.rank_chunks(r):
+                dest = np.asarray(dest_of(chunk))
+                if dest.ndim != 1 or \
+                        len(dest) != len(next(iter(chunk.values()))):
+                    raise ValueError("dest_of must return one rank per row")
+                for d in np.unique(dest):
+                    sel = dest == d
+                    out.append(int(d),
+                               {k: v[sel] for k, v in chunk.items()})
     return out
 
 
@@ -390,7 +405,8 @@ def respill_routed(spill: SpillTable, dest_of) -> SpillTable:
 # Bucketed rescatter (replaces the host-gather repartition)
 # ---------------------------------------------------------------------- #
 def rescatter(spill: SpillTable, parallelism: int,
-              capacity: Optional[int] = None, device=None) -> DistTable:
+              capacity: Optional[int] = None, device=None,
+              tracer=NULL_TRACER) -> DistTable:
     """SpillTable -> DistTable over a (possibly different) gang size, on
     ``device`` (``None``: the card).
 
@@ -398,9 +414,12 @@ def rescatter(spill: SpillTable, parallelism: int,
     their global block index — no rank's data is ever concatenated into a
     single full-table host array, so peak extra host memory is one
     destination rank, not the whole table.  64-bit columns narrow on the
-    way up (``dtypes.to_x32``).
+    way up (``dtypes.to_x32``).  ``tracer`` records the H2D volume as an
+    instant event.
     """
     dev = resolve_device(device)
+    tracer.instant("rescatter", "transfer", to_p=parallelism,
+                   rows=spill.total_rows(), bytes=spill.nbytes())
     n = spill.total_rows()
     per = -(-max(n, 1) // parallelism)
     cap = capacity if capacity is not None else _round8(per)
@@ -420,7 +439,7 @@ def rescatter(spill: SpillTable, parallelism: int,
             counts[d] = pos
         cols[name] = torch.from_numpy(buf).to(dev)
     return DistTable(cols, torch.from_numpy(counts).to(dev), cap,
-                     dict(spill.dictionaries))
+                     dict(spill.dictionaries), provenance=spill.provenance)
 
 
 def repartition(table: Union[DistTable, SpillTable], parallelism: int,

@@ -29,6 +29,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -97,6 +98,43 @@ def _unpack_u32(buf: torch.Tensor, names, dtypes) -> Dict[str, torch.Tensor]:
     return out
 
 
+#: (label, rank) pairs that already warned since the last query start —
+#: the morsel executor runs one shuffle PER MORSEL, so without dedupe a
+#: streaming run spams identical warnings.  The executors reset this at
+#: query start; totals stay exactly attributed via the end-of-query
+#: ``describe_drops`` summary.
+_warned_overflow: set = set()
+
+
+def reset_overflow_warnings() -> None:
+    """Start a fresh warn-once-per-(op label, rank) window (called by the
+    executors at query start)."""
+    _warned_overflow.clear()
+
+
+def _overflow_warn(send_dropped: torch.Tensor, recv_dropped: torch.Tensor,
+                   label: str = "") -> None:
+    """Host-side overflow check (``debug_overflow=True``): warn, don't
+    drop silently — and say *which* op and rank overflowed.  Reads the
+    ``(p,)`` drop counters to the host (one synchronization per shuffle,
+    only when asked for); deduplicated to once per (op label, rank) per
+    query."""
+    sent = send_dropped.cpu().tolist()
+    recv = recv_dropped.cpu().tolist()
+    for rank, (sd, rd) in enumerate(zip(sent, recv)):
+        if not (sd or rd):
+            continue
+        key = (label or "shuffle", rank)
+        if key in _warned_overflow:
+            continue
+        _warned_overflow.add(key)
+        warnings.warn(
+            f"{key[0]} @ rank {key[1]} dropped rows: send_dropped={sd} "
+            f"recv_dropped={rd} (raise bucket_capacity / out_capacity or "
+            f"capacity_factor; per-query totals are attributed in the "
+            f"end-of-query summary)", RuntimeWarning, stacklevel=3)
+
+
 def hash_dest(table: Table, key_cols: Sequence[str], p: int) -> torch.Tensor:
     """(p, cap) int32 destination rank ``hash(keys) % p`` of every row."""
     return (hash_columns(table, key_cols) % p).to(torch.int32)
@@ -118,15 +156,12 @@ def shuffle(
 
     ``impl`` selects the sort-free ``"radix"`` path or the ``"sorted"``
     baseline; ``a2a_chunks`` splits the data collective into k pieces.
-    Dropped rows are always counted in the stats.  ``label`` only names
-    the shuffle for the caller.
+    Dropped rows are always counted in the stats.  ``debug_overflow``
+    additionally warns, once per (``label``, rank) per query, naming the
+    op and the rank that dropped rows.
     """
     if impl not in ("radix", "sorted"):
         raise ValueError(f"unknown shuffle impl {impl!r}")
-    if debug_overflow:
-        raise NotImplementedError(
-            "debug_overflow waits for the observability slice of the port; "
-            "drops are counted in ShuffleStats (collect_stats=True)")
     p = comm.size()
     cap = table.capacity
     dev = table.device
@@ -216,6 +251,8 @@ def shuffle(
         out_cols = {n: gather_rows(v, order2) for n, v in recv_cols.items()}
 
     recv_dropped = torch.clamp(total_recv - out_cap, min=0)
+    if debug_overflow:
+        _overflow_warn(send_dropped, recv_dropped, label)
     out = Table(out_cols, new_count).mask_padding()
     stats = ShuffleStats(sent_counts, recv_counts, send_dropped,
                          recv_dropped, shuffle_impl=impl,

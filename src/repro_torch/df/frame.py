@@ -16,14 +16,15 @@ declarative predicate the optimizer can split, push past joins, and prune
 columns through.
 
 Out-of-core runs take host-resident sources (``read_numpy(spill=True)``,
-``from_table`` of a ``SpillTable`` or a host column dict) through
-``collect(morsel_rows=...)``.
+``read_parquet`` / ``read_csv``, ``from_table`` of a ``SpillTable`` or a
+host column dict) through ``collect(morsel_rows=...)``; in-core modes
+scatter them onto the env's ranks.  ``collect(analyze=True)`` and
+``explain_analyze()`` report what a run did (EXPLAIN ANALYZE, with the
+card's roofline), and ``collect(trace=...)`` records its spans.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue-1 item: ``read_parquet`` / ``read_csv`` (item 8),
-``collect(analyze=, trace=)`` and ``explain_analyze`` (item 9), and the
-fault-tolerance and adaptive options of ``collect`` other than
-``overflow`` (item 10).
+queue-1 item: the fault-tolerance and adaptive options of ``collect``
+other than ``overflow`` (item 10).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from ..core.store import SpillTable
 from ..expr import Col, Expr, ensure_expr
 from ..nulls import data_columns
 from ..planner.logical import groupby_schema, join_schema
-from .session import get_env, not_ported, refuse_deferred
+from .session import get_env, refuse_deferred
 
 __all__ = ["DataFrame", "GroupBy", "read_numpy", "from_pandas", "from_table",
            "read_parquet", "read_csv"]
@@ -253,19 +254,24 @@ class DataFrame:
         host-resident ``SpillTable`` with ``morsel_rows=``, and a
         ``(result, ExecStats)`` pair with ``collect_stats=True``).
 
+        ``analyze=True`` returns ``(result, obs.QueryReport)`` instead: the
+        EXPLAIN tree annotated with measured per-node rows/bytes/times, a
+        per-stage roofline table against the card's peaks, and (when
+        tracing is on, the default under analyze) a Chrome-exportable
+        ``QueryTrace``.  ``trace`` alone turns on query tracing for a
+        plain collect (``repro_torch.obs.last_trace()`` retrieves the
+        timeline).
+
         ``env`` resolution: explicit argument > the env the data was
         ingested for (``read_numpy(env=...)``) > the active session env
         (``repro_torch.df.session``).  Extra ``kw`` (``shuffle_impl``,
-        ``a2a_chunks``, ``capacity_factor``, ...) pass through to
-        ``core.plan.execute``, as does ``overflow`` (``raise | warn |
-        degrade``).
+        ``a2a_chunks``, ``capacity_factor``, ``scan_capacity``, ...) pass
+        through to ``core.plan.execute``, as does ``overflow`` (``raise |
+        warn | degrade``).
 
-        ``analyze`` / ``trace`` (ROADMAP item 9) and ``timeout`` /
-        ``retries`` / ``faults`` / ``adaptive`` (item 10) are not ported
-        yet and raise ``NotImplementedError``.
+        ``timeout`` / ``retries`` / ``faults`` / ``adaptive`` (ROADMAP
+        item 10) are not ported yet and raise ``NotImplementedError``.
         """
-        if analyze or trace is not None:
-            raise not_ported("collect(analyze=..., trace=...)", 9)
         refuse_deferred("collect", timeout=timeout, retries=retries,
                         faults=faults, adaptive=adaptive)
         if env is None:
@@ -282,9 +288,19 @@ class DataFrame:
                         f"{t.parallelism} ranks but the resolved env has "
                         f"{env.parallelism}; pass collect(env=<ingest "
                         f"env>) or re-ingest under this session")
+        if analyze:
+            from ..obs.analyze import run_analyzed
+            if collect_stats:
+                raise TypeError("analyze=True already collects stats; drop "
+                                "collect_stats")
+            return run_analyzed(self.plan, env, self.sources, mode=mode,
+                                optimize=optimize, morsel_rows=morsel_rows,
+                                trace=True if trace is None else trace,
+                                overflow=overflow, **kw)
         return execute(self.plan, env, self.sources, mode=mode,
                        optimize=optimize, collect_stats=collect_stats,
-                       morsel_rows=morsel_rows, overflow=overflow, **kw)
+                       morsel_rows=morsel_rows, trace=trace,
+                       overflow=overflow, **kw)
 
     def to_numpy(self, nulls: str = "pandas", **kw) -> Dict[str, np.ndarray]:
         """``collect`` + gather valid rows to host numpy columns (string
@@ -308,8 +324,16 @@ class DataFrame:
 
     def explain_analyze(self, env: Optional[CylonEnv] = None,
                         mode: str = "bsp_staged", **kw) -> str:
-        """EXPLAIN ANALYZE: not ported yet (ROADMAP item 9)."""
-        raise not_ported("explain_analyze", 9)
+        """Execute the plan and render the EXPLAIN tree annotated with
+        measured per-node rows/bytes and per-stage times, plus the
+        per-stage roofline table against the card's peaks (a device
+        without peaks raises ``ValueError``; ``peaks=`` supplies them).
+        Defaults to ``bsp_staged`` (one dispatch per stage) so stage times
+        are exactly attributable.  Same knobs as ``collect``; the full
+        ``QueryReport`` (Chrome trace, JSON export) comes from
+        ``collect(analyze=True)``."""
+        _, report = self.collect(env=env, mode=mode, analyze=True, **kw)
+        return str(report)
 
     def num_stages(self) -> int:
         return self.plan.num_stages()
@@ -407,14 +431,42 @@ def read_numpy(data: Mapping[str, np.ndarray], *,
     return from_table(table, name, env)
 
 
-def read_parquet(source, **kw) -> DataFrame:
-    """Parquet ingest: not ported yet (ROADMAP item 8)."""
-    raise not_ported("read_parquet", 8)
+def read_parquet(source, *, env: Optional[CylonEnv] = None,
+                 columns: Optional[Sequence[str]] = None,
+                 batch_rows: Optional[int] = None,
+                 name: Optional[str] = None, **kw) -> DataFrame:
+    """Ingest Parquet file(s) as a host-resident out-of-core scan.
+
+    ``source`` is a path, a glob, or a list of either; row groups stream
+    in ``batch_rows``-row batches straight into the spill format, round-
+    robin over the gang (``env``'s, else the active session's) — whole
+    files are never materialized, so datasets larger than device memory
+    run under ``collect(morsel_rows=...)``.  Missing values become
+    validity masks (NaN / ``None`` on the way back out); string columns
+    are dictionary-encoded incrementally, with a process-level dictionary
+    cache keyed by the source files.  Requires pyarrow (``read_csv`` does
+    not)."""
+    from ..io import read_parquet as _read
+    if batch_rows is not None:
+        kw["batch_rows"] = batch_rows
+    p = (env if env is not None else get_env()).parallelism
+    spill = _read(source, p, columns=columns, **kw)
+    return from_table(spill, name, env)
 
 
-def read_csv(source, **kw) -> DataFrame:
-    """CSV ingest: not ported yet (ROADMAP item 8)."""
-    raise not_ported("read_csv", 8)
+def read_csv(source, *, env: Optional[CylonEnv] = None,
+             batch_rows: Optional[int] = None,
+             name: Optional[str] = None, **kw) -> DataFrame:
+    """Ingest CSV file(s) (header row required) as a host-resident
+    out-of-core scan — ``read_parquet`` semantics, CSV framing.  Empty
+    fields are null in every column type.  Streams via pyarrow when
+    available, else a pure-python fallback lane."""
+    from ..io import read_csv as _read
+    if batch_rows is not None:
+        kw["batch_rows"] = batch_rows
+    p = (env if env is not None else get_env()).parallelism
+    spill = _read(source, p, **kw)
+    return from_table(spill, name, env)
 
 
 def from_pandas(pdf, **kw) -> DataFrame:

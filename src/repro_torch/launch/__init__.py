@@ -1,3 +1,4 @@
 """Launchers of the port: ``serve`` (batched serving from the command
-line).  The JAX package's mesh, dry-run, roofline and training launchers
-are not ported yet (ROADMAP queue 1, item 13)."""
+line) and ``roofline`` (the card's bound of a measured query stage).  The
+JAX package's mesh, dry-run and training launchers and the model half of
+its roofline are not ported yet (ROADMAP queue 1, item 13)."""

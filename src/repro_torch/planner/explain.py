@@ -21,7 +21,10 @@ from .physical import PhysicalPlan
 def _label(n: LogicalNode) -> str:
     p = n.params
     if n.op == "scan":
-        return f"scan[{p['name']}]"
+        # ingested sources (repro_torch.io) carry a provenance summary:
+        # ``scan[parquet: 3 files, ~1000 rows]``
+        return f"scan[{p['source']}]" if p.get("source") else \
+            f"scan[{p['name']}]"
     if n.op == "noop":
         return f"noop[{p.get('note', '')}]"
     if n.op == "project":
@@ -61,6 +64,11 @@ def _label(n: LogicalNode) -> str:
         extra = " (shuffle-elided)" if p.get("elide_shuffle") else ""
         return f"sort[{','.join(p['by'])}]{extra}"
     return n.op
+
+
+#: public alias — EXPLAIN ANALYZE (``repro_torch.obs.analyze``) renders the
+#: same per-node labels with measured actuals appended
+node_label = _label
 
 
 def render(pplan: PhysicalPlan, mode: str = "bsp",

@@ -213,6 +213,10 @@ def _annotate_node(n: LogicalNode, catalog) -> None:
             n.est_rows = float(rows)
             n.dicts = dict(entry[2]) if len(entry) > 2 else {}
             n.nulls = frozenset(entry[3]) if len(entry) > 3 else frozenset()
+            if len(entry) > 4 and entry[4]:
+                # ingest provenance summary (repro_torch.io) — EXPLAIN
+                # renders ``scan[parquet: N files, ~M rows]``
+                n.params.setdefault("source", entry[4])
         n.partitioning = Partitioning.none()  # block-distributed source
         return
 
@@ -391,7 +395,8 @@ def build_catalog(tables: Optional[Mapping[str, Any]]
                                        Dict[str, Tuple[str, ...]],
                                        frozenset]]:
     """Normalize scan metadata to ``(columns, est_rows, dictionaries,
-    nullable_columns)``.
+    nullable_columns[, source])`` — ``source`` is the ingest-provenance
+    summary string for tables read by ``repro_torch.io`` (EXPLAIN label).
 
     Values may be DistTable-likes (``column_names`` + ``total_rows`` +
     optional ``dictionaries``), numpy column dicts, ``(cols, rows)`` pairs,
@@ -409,8 +414,10 @@ def build_catalog(tables: Optional[Mapping[str, Any]]
             rows = float(t.total_rows()) if hasattr(t, "total_rows") else 1024.0
             dicts = dict(getattr(t, "dictionaries", {}) or {})
             names = tuple(t.column_names)
+            prov = getattr(t, "provenance", None)
             cat[name] = (tuple(data_columns(names)), rows, dicts,
-                         frozenset(nullable_columns(names)))
+                         frozenset(nullable_columns(names)),
+                         str(prov) if prov is not None else None)
         elif isinstance(t, Mapping):
             # raw numpy column dict: string columns will be dictionary-
             # encoded at ingest — mirror the dictionary here (codes not

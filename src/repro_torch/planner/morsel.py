@@ -45,11 +45,12 @@ the ``overflow=`` policy (``faults.OverflowPolicy``): the default
 truncated result and raises one ``RuntimeWarning`` attributing the drops;
 ``raise`` fails the query with ``CapacityOverflow``.
 
-The JAX package's tracing, retries, timeouts, fault injection and
-adaptive skew handling (hot-key salting, splitter refresh, morsel
-autotuning) come with later slices of the port (ROADMAP queue 1, items 9
-and 10); ``run_morsel`` runs as the JAX package's does with
-``adaptive=False`` and none of them armed.
+The JAX package's retries, timeouts, fault injection and adaptive skew
+handling (hot-key salting, splitter refresh, morsel autotuning) come with
+a later slice of the port (ROADMAP queue 1, item 10); ``run_morsel`` runs
+as the JAX package's does with ``adaptive=False`` and none of them armed.
+Its spans (``tracer``) and ``debug_overflow`` warnings are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ from ..dataframe import ops_local
 from ..dataframe.groupby import (_normalize, combine_groupby_partials,
                                  groupby_partial)
 from ..dataframe.ops_local import hash_columns_np
+from ..dataframe.shuffle import reset_overflow_warnings
 from ..dataframe.shuffle import shuffle as df_shuffle
 from ..dataframe.table import Table
 from ..dtypes import numpy_dtype, order_view, to_x32
@@ -76,13 +78,15 @@ from ..expr import token as _token
 from ..faults import (CapacityOverflow, OverflowPolicy, default_degrade_step,
                       resolve_overflow)
 from ..nulls import mask_name
+from ..obs.metrics import record_exec
+from ..obs.trace import NULL_TRACER
 from .logical import LogicalNode, topo
 from .physical import (ExecStats, PhysicalPlan, _recode_tables, _row_bytes,
                        _shuffle_kw, _stat_vec, _sum_stats,
                        attach_dictionaries, build_shuffle_records,
-                       check_scan_dictionaries, describe_drops, eval_node,
-                       fingerprint, pair_stat_labels, plan_stat_labels,
-                       scan_rows_read)
+                       check_scan_dictionaries, describe_drops,
+                       emit_shuffle_events, eval_node, fingerprint,
+                       pair_stat_labels, plan_stat_labels, scan_read_stats)
 
 
 @dataclasses.dataclass
@@ -170,7 +174,8 @@ def segments(chain_tail: Sequence[LogicalNode]
 # ---------------------------------------------------------------------- #
 # Host-side helpers
 # ---------------------------------------------------------------------- #
-def _as_spill(source: Any, parallelism: int) -> SpillTable:
+def _as_spill(source: Any, parallelism: int,
+              tracer=NULL_TRACER) -> SpillTable:
     if isinstance(source, DistTable):
         source = SpillTable.from_dist(source)
     elif isinstance(source, dict):
@@ -179,7 +184,7 @@ def _as_spill(source: Any, parallelism: int) -> SpillTable:
         raise TypeError(f"cannot stream a {type(source).__name__}")
     # a spill bucketed for a different gang would silently lose every rank
     # beyond this env's ranks — re-bucket on the host
-    return respill(source, parallelism)
+    return respill(source, parallelism, tracer=tracer)
 
 
 def _to_dist(source: Any, env) -> DistTable:
@@ -266,7 +271,8 @@ def _host_sort_ranks(spill: SpillTable, by: Sequence[str]) -> SpillTable:
 # Morsel-stage node evaluation (batched over ranks)
 # ---------------------------------------------------------------------- #
 def _morsel_shuffle_kw(node: LogicalNode, W: int, shuffle_impl: str,
-                       a2a_chunks: int) -> Dict[str, Any]:
+                       a2a_chunks: int, debug_overflow: bool
+                       ) -> Dict[str, Any]:
     """Shuffle kwargs for a morsel stage: plan-level capacities (sized for
     in-core tables) are replaced by the working capacity ``W``."""
     kw = _shuffle_kw(node)
@@ -275,6 +281,8 @@ def _morsel_shuffle_kw(node: LogicalNode, W: int, shuffle_impl: str,
     kw["bucket_capacity"] = W
     kw.setdefault("impl", shuffle_impl)
     kw.setdefault("a2a_chunks", a2a_chunks)
+    if debug_overflow:
+        kw.setdefault("debug_overflow", True)
     return kw
 
 
@@ -291,7 +299,7 @@ def _groupby_wire_width(table: Table, keys, physical, pre: bool) -> int:
 def _eval_stream_node(node: LogicalNode, ctx, cur: Table,
                       residents: Dict[int, Table], W: int,
                       shuffle_impl: str, a2a_chunks: int,
-                      stats_out, consts) -> Table:
+                      stats_out, consts, debug_overflow: bool) -> Table:
     p_ = node.params
     if node.op == "noop":
         return cur
@@ -314,7 +322,8 @@ def _eval_stream_node(node: LogicalNode, ctx, cur: Table,
     # capacity W — plan-level bucket/out capacities describe in-core tables.
     # bucket_capacity = W lets a single destination absorb a whole morsel
     # (already-placed inputs route every row to the self bucket).
-    kw = _morsel_shuffle_kw(node, W, shuffle_impl, a2a_chunks)
+    kw = _morsel_shuffle_kw(node, W, shuffle_impl, a2a_chunks,
+                            debug_overflow)
 
     if node.op == "shuffle":
         lbl = f"shuffle({','.join(p_['key_cols'])})"
@@ -381,7 +390,8 @@ def _seg_stat_labels(seg_nodes: Sequence[LogicalNode]) -> List[str]:
 # Every stage returns (table, stat triples) — overflow accounting is
 # unconditional so capacity-pressure drops are never silent.
 # ---------------------------------------------------------------------- #
-def _make_stream_prog(seg_nodes, join_nids, W, shuffle_impl, a2a_chunks):
+def _make_stream_prog(seg_nodes, join_nids, W, shuffle_impl, a2a_chunks,
+                      debug_overflow):
     # recode tables go to the device once per built stage
     consts: Dict[int, Dict[str, torch.Tensor]] = {}
 
@@ -392,16 +402,17 @@ def _make_stream_prog(seg_nodes, join_nids, W, shuffle_impl, a2a_chunks):
         for node in seg_nodes:
             cur = _eval_stream_node(node, ctx, cur, residents, W,
                                     shuffle_impl, a2a_chunks, stats,
-                                    consts)
+                                    consts, debug_overflow)
         return cur, tuple(a for _, a in stats)
     return prog
 
 
-def _make_sort_prog(node, W, shuffle_impl, a2a_chunks):
+def _make_sort_prog(node, W, shuffle_impl, a2a_chunks, debug_overflow):
     """Range-route one morsel by the broadcast splitters.  No device-side
     sort: the host combiner (``_host_sort_ranks``) orders each rank."""
     by = tuple(node.params["by"])
-    kw = _morsel_shuffle_kw(node, W, shuffle_impl, a2a_chunks)
+    kw = _morsel_shuffle_kw(node, W, shuffle_impl, a2a_chunks,
+                            debug_overflow)
 
     def prog(ctx, morsel, splitters):
         # unsigned keys compare widened (dtypes.order_view)
@@ -423,7 +434,7 @@ def _make_sort_prog(node, W, shuffle_impl, a2a_chunks):
 # ---------------------------------------------------------------------- #
 def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
                     a2a_chunks, collected, acc: _Acc,
-                    capacity_factor: float) -> DistTable:
+                    capacity_factor: float, tracer=NULL_TRACER) -> DistTable:
     rroot = jnode.inputs[1]
     sub_order = topo(rroot)
     scan_names = [s.params["name"] for s in sub_order if s.op == "scan"]
@@ -465,16 +476,21 @@ def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
     labels = plan_stat_labels(sub_order)
     if not elide:
         labels.append(f"join({on}):right")
-    resident, stats = env.run(
-        prog, *args,
-        key=("morsel-resident", fingerprint(rroot),
-             # the subtree fingerprint does not cover the join node's own
-             # params (shuffle kwargs, capacities)
-             _token(dict(jnode.params)),
-             shuffle_impl, a2a_chunks, capacity_factor,
-             tuple(env._arg_sig(a) for a in args)))
-    acc.dispatches += 1
-    collected.extend(pair_stat_labels(labels, stats))
+    with tracer.span(f"build:join({on})", "stage", ops="resident-build"):
+        resident, stats = env.run(
+            prog, *args,
+            key=("morsel-resident", fingerprint(rroot),
+                 # the subtree fingerprint does not cover the join node's
+                 # own params (shuffle kwargs, capacities)
+                 _token(dict(jnode.params)),
+                 shuffle_impl, a2a_chunks, capacity_factor,
+                 tuple(env._arg_sig(a) for a in args)))
+        acc.dispatches += 1
+        pairs = pair_stat_labels(labels, stats)
+        collected.extend(pairs)
+        if tracer.enabled:
+            env.synchronize()
+            emit_shuffle_events(tracer, pairs, a2a_chunks)
     return resident
 
 
@@ -563,7 +579,8 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                morsel_rows: int, mode: str = "bsp",
                collect_stats: bool = False, shuffle_impl: str = "radix",
                a2a_chunks: int = 1, capacity_factor: float = 2.0,
-               samples: int = 64, overflow: Optional[str] = None):
+               samples: int = 64, debug_overflow: bool = False,
+               tracer=None, overflow: Optional[str] = None):
     """Stream a plan over morsels of ``morsel_rows`` rows per rank.
 
     Returns a host-resident ``SpillTable`` (or ``(SpillTable, ExecStats)``
@@ -571,6 +588,13 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     capacity ``W = capacity_factor * morsel_rows`` plus resident build
     sides, independent of the streamed input size.  Every device stage
     runs on the env's device.
+
+    ``tracer`` (``repro_torch.obs.Tracer``) records build/segment/combine
+    spans, per-morsel dispatch spans with spill-append volumes, the
+    morsels' H2D instants and per-shuffle data events — host-side only,
+    never part of a stage-cache key.  ``debug_overflow`` makes every
+    morsel shuffle warn once per (op label, rank) per query where it drops
+    rows.
 
     Each segment's input spill is a schema-stamped
     ``core.store.Checkpoint``, validated before every attempt.
@@ -583,6 +607,8 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         raise ValueError(
             "out-of-core morsel execution requires direct shuffles; the "
             "amt allgather baseline is inherently in-core")
+    tr = tracer if tracer is not None else NULL_TRACER
+    reset_overflow_warnings()
     ovf = resolve_overflow(overflow)
     degraded = 0
     p = env.parallelism
@@ -597,6 +623,7 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     acc = _Acc()
     collected: List[Tuple[Any, ...]] = []
     hits0, misses0 = env.cache_hits, env.cache_misses
+    timing = collect_stats or tr.enabled
     stage_times: List[Tuple[str, float]] = []
     t_query0 = time.perf_counter()
 
@@ -610,7 +637,7 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         for _ in range(_MAX_DEGRADE_BUILD):
             pairs: List[Tuple[str, Any]] = []
             dist = _build_resident(env, node, tables, shuffle_impl,
-                                   a2a_chunks, pairs, acc, cf)
+                                   a2a_chunks, pairs, acc, cf, tracer=tr)
             _, _, b_drop = _sum_stats([a for _, a in pairs])
             if b_drop and ovf == OverflowPolicy.DEGRADE:
                 degraded += 1
@@ -628,102 +655,132 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                 f"(capacity_factor={cf})")
         residents[node.nid] = dist
         collected.extend(pairs)
-        if collect_stats:
+        if timing:
             env.synchronize()
             stage_times.append((jname, time.perf_counter() - t0))
 
-    spill = _as_spill(tables[src_name], p)
+    spill = _as_spill(tables[src_name], p, tracer=tr)
 
     live_ckpts: List[Checkpoint] = []
     try:
         for si, (nodes, terminal) in enumerate(segments(chain[1:])):
             t0 = time.perf_counter()
             seg_name = f"segment:{si}:{terminal}"
-            if terminal == "sort" and nodes[0].params.get("elide_shuffle"):
-                # range-partitioned already: no device work, just order
-                spill = _host_sort_ranks(spill, nodes[0].params["by"])
-                if collect_stats:
-                    stage_times.append((seg_name, time.perf_counter() - t0))
-                continue
-
-            # the segment's input spill is its replay checkpoint:
-            # validated before every attempt, released only on commit
-            ckpt = Checkpoint(spill)
-            live_ckpts.append(ckpt)
-            M_seg, W_seg = M, W
-
-            def _segment_attempt(_nodes=nodes, _terminal=terminal,
-                                 _si=si):
-                seg_in = ckpt.validate()
-                if _terminal == "sort":
-                    node = _nodes[0]
-                    by = node.params["by"]
-                    n_samp = node.params.get("samples", samples)
-                    spl = to_x32(_host_splitters(seg_in, by[0], p, n_samp))
-                    extras: Tuple[Any, ...] = (
-                        torch.from_numpy(spl).to(env.device),)
-                    acc.h2d_bytes += spl.nbytes
-                    prog = _make_sort_prog(node, W_seg, shuffle_impl,
-                                           a2a_chunks)
-                    seg_labels = [f"sort({','.join(by)})"]
-                else:
-                    join_nodes = [n for n in _nodes if n.op == "join"]
-                    extras = tuple(residents[n.nid] for n in join_nodes)
-                    prog = _make_stream_prog(
-                        _nodes, [n.nid for n in join_nodes], W_seg,
-                        shuffle_impl, a2a_chunks)
-                    seg_labels = _seg_stat_labels(_nodes)
-                key = ("morsel-seg", fp, _si, M_seg, W_seg, shuffle_impl,
-                       a2a_chunks, tuple(env._arg_sig(e) for e in extras))
-                source = MorselSource(seg_in, M_seg, env)
-                out_spill: Optional[SpillTable] = None
-                pairs: List[Tuple[str, Any]] = []
-                for morsel in source:
-                    out, unit_stats = env.run(prog, morsel, *extras, key=key)
-                    acc.dispatches += 1
-                    acc.morsels += 1
-                    pairs.extend(pair_stat_labels(seg_labels, unit_stats))
-                    if out_spill is None:
-                        out_spill = SpillTable(p, schema=_schema_of(out))
-                    _append_out(out_spill, out, acc)
-                acc.h2d_bytes += source.h2d_bytes
-                res = out_spill
-                if _terminal == "groupby":
-                    # the combiner runs inside the attempt: a degrade
-                    # replays the whole segment from its input checkpoint
-                    res = _combine_groupby(env, res, _nodes[-1], M_seg, acc,
-                                           fp, _si)
-                elif _terminal == "sort":
-                    res = _host_sort_ranks(res, by)
-                return res, pairs
-
-            for _ in range(_MAX_DEGRADE_SEG):
-                out_spill, attempt_pairs = _segment_attempt()
-                _, _, seg_drop = _sum_stats([a for _, a in attempt_pairs])
-                if seg_drop and ovf == OverflowPolicy.DEGRADE:
-                    # never drop a row: replay with a morsel size that fits
-                    degraded += 1
-                    M_seg, W_seg = default_degrade_step(M_seg, W_seg)
+            with tr.span(seg_name, "stage",
+                         ops=",".join(n.op for n in nodes)) as seg_sp:
+                if terminal == "sort" and \
+                        nodes[0].params.get("elide_shuffle"):
+                    # range-partitioned already: no device work, just order
+                    spill = _host_sort_ranks(spill, nodes[0].params["by"])
+                    if timing:
+                        stage_times.append(
+                            (seg_name, time.perf_counter() - t0))
                     continue
-                if seg_drop and ovf == OverflowPolicy.RAISE:
-                    raise CapacityOverflow(
-                        f"{seg_name} dropped {seg_drop} rows "
-                        f"(overflow='raise'); raise capacity_factor "
-                        f"or use overflow='degrade'")
-                break
-            else:
-                raise CapacityOverflow(
-                    f"{seg_name} still dropping rows after "
-                    f"{_MAX_DEGRADE_SEG} degrade steps "
-                    f"(morsel_rows={M_seg}, working_capacity={W_seg})")
 
-            # commit: only the successful attempt's stats are recorded,
-            # keyed by (label, segment) so per-label histograms never mix
-            # morsel counts from different segments
-            collected.extend((lbl, arr, si) for lbl, arr in attempt_pairs)
-            ckpt.release()
-            spill = out_spill
-            if collect_stats:
+                # the segment's input spill is its replay checkpoint:
+                # validated before every attempt, released only on commit
+                ckpt = Checkpoint(spill)
+                live_ckpts.append(ckpt)
+                M_seg, W_seg = M, W
+
+                def _segment_attempt(_nodes=nodes, _terminal=terminal,
+                                     _si=si):
+                    seg_in = ckpt.validate()
+                    if _terminal == "sort":
+                        node = _nodes[0]
+                        by = node.params["by"]
+                        n_samp = node.params.get("samples", samples)
+                        spl = to_x32(_host_splitters(seg_in, by[0], p,
+                                                     n_samp))
+                        extras: Tuple[Any, ...] = (
+                            torch.from_numpy(spl).to(env.device),)
+                        acc.h2d_bytes += spl.nbytes
+                        prog = _make_sort_prog(node, W_seg, shuffle_impl,
+                                               a2a_chunks, debug_overflow)
+                        seg_labels = [f"sort({','.join(by)})"]
+                    else:
+                        join_nodes = [n for n in _nodes if n.op == "join"]
+                        extras = tuple(residents[n.nid] for n in join_nodes)
+                        prog = _make_stream_prog(
+                            _nodes, [n.nid for n in join_nodes], W_seg,
+                            shuffle_impl, a2a_chunks, debug_overflow)
+                        seg_labels = _seg_stat_labels(_nodes)
+                    key = ("morsel-seg", fp, _si, M_seg, W_seg,
+                           shuffle_impl, a2a_chunks, debug_overflow,
+                           tuple(env._arg_sig(e) for e in extras))
+                    source = MorselSource(seg_in, M_seg, env, tracer=tr)
+                    out_spill: Optional[SpillTable] = None
+                    pairs: List[Tuple[str, Any]] = []
+                    for mi, morsel in enumerate(source):
+                        with tr.span(f"morsel[{mi}]", "morsel",
+                                     segment=_si):
+                            out, unit_stats = env.run(prog, morsel,
+                                                      *extras, key=key)
+                            acc.dispatches += 1
+                            acc.morsels += 1
+                            unit_pairs = pair_stat_labels(seg_labels,
+                                                          unit_stats)
+                            pairs.extend(unit_pairs)
+                            if out_spill is None:
+                                out_spill = SpillTable(
+                                    p, schema=_schema_of(out))
+                            b0 = acc.spill_bytes
+                            _append_out(out_spill, out, acc)
+                            tr.instant(f"spill:morsel[{mi}]", "spill",
+                                       segment=_si,
+                                       bytes=acc.spill_bytes - b0)
+                            if tr.enabled:
+                                emit_shuffle_events(tr, unit_pairs,
+                                                    a2a_chunks)
+                    acc.h2d_bytes += source.h2d_bytes
+                    res = out_spill
+                    if _terminal == "groupby":
+                        # the combiner runs inside the attempt: a degrade
+                        # replays the whole segment from its input
+                        # checkpoint
+                        with tr.span(f"combine:groupby[{_si}]", "stage"):
+                            res = _combine_groupby(env, res, _nodes[-1],
+                                                   M_seg, acc, fp, _si)
+                    elif _terminal == "sort":
+                        with tr.span(f"host_sort({','.join(by)})",
+                                     "stage"):
+                            res = _host_sort_ranks(res, by)
+                    return (res, pairs, source.num_morsels,
+                            source.h2d_bytes)
+
+                for _ in range(_MAX_DEGRADE_SEG):
+                    out_spill, attempt_pairs, seg_morsels, seg_h2d = \
+                        _segment_attempt()
+                    _, _, seg_drop = _sum_stats(
+                        [a for _, a in attempt_pairs])
+                    if seg_drop and ovf == OverflowPolicy.DEGRADE:
+                        # never drop a row: replay with a morsel size
+                        # that fits
+                        degraded += 1
+                        M_seg, W_seg = default_degrade_step(M_seg, W_seg)
+                        continue
+                    if seg_drop and ovf == OverflowPolicy.RAISE:
+                        raise CapacityOverflow(
+                            f"{seg_name} dropped {seg_drop} rows "
+                            f"(overflow='raise'); raise capacity_factor "
+                            f"or use overflow='degrade'")
+                    break
+                else:
+                    raise CapacityOverflow(
+                        f"{seg_name} still dropping rows after "
+                        f"{_MAX_DEGRADE_SEG} degrade steps "
+                        f"(morsel_rows={M_seg}, working_capacity={W_seg})")
+
+                # commit: only the successful attempt's stats are
+                # recorded, keyed by (label, segment) so per-label
+                # histograms never mix morsel counts from different
+                # segments
+                collected.extend(
+                    (lbl, arr, si) for lbl, arr in attempt_pairs)
+                ckpt.release()
+                seg_sp.set(morsels=seg_morsels, h2d_bytes=seg_h2d)
+                spill = out_spill
+            if timing:
                 stage_times.append((seg_name, time.perf_counter() - t0))
     finally:
         # a failed query releases its checkpoints (the spills they guard
@@ -745,18 +802,20 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
             RuntimeWarning, stacklevel=2)
     if not collect_stats:
         return spill
+    rows_read, bytes_read = scan_read_stats(pplan.scan_names, tables)
     stats = ExecStats(
         "morsel", pplan.num_stages, pplan.num_shuffles, acc.dispatches,
         rows, byts, pplan.shuffle_labels(), pplan.fired,
+        rows_read=rows_read, bytes_read=bytes_read,
         shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
         rows_dropped=dropped,
         cache_hits=env.cache_hits - hits0,
         cache_misses=env.cache_misses - misses0,
-        rows_read=scan_rows_read(pplan.scan_names, tables),
         morsel_rows=M, morsels=acc.morsels, spill_bytes=acc.spill_bytes,
         h2d_bytes=acc.h2d_bytes, d2h_bytes=acc.d2h_bytes,
         d2h_copied_bytes=acc.d2h_copied_bytes,
         wall_time_s=time.perf_counter() - t_query0,
         stage_times=stage_times, shuffle_records=records,
         degraded=degraded)
+    record_exec(stats, fp, stats.wall_time_s)
     return spill, stats

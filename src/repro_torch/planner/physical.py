@@ -36,7 +36,8 @@ from ..dataframe import ops_local
 from ..dataframe.groupby import (_normalize, finalize_groupby,
                                  nullable_agg_cols)
 from ..dataframe.groupby import groupby as df_groupby
-from ..dataframe.shuffle import ShuffleStats, hash_dest
+from ..dataframe.shuffle import (ShuffleStats, hash_dest,
+                                 reset_overflow_warnings)
 from ..dataframe.shuffle import shuffle as df_shuffle
 from ..dataframe.sort import _range_dest
 from ..dataframe.sort import sort as df_sort
@@ -44,6 +45,8 @@ from ..dataframe.table import Table
 from ..expr import token as _token
 from ..faults import CapacityOverflow, OverflowPolicy, resolve_overflow
 from ..nulls import mask_name
+from ..obs.metrics import record_exec
+from ..obs.trace import NULL_TRACER
 from .logical import LogicalNode, topo
 
 #: param keys that are operator semantics, not shuffle kwargs
@@ -255,6 +258,25 @@ def describe_drops(records: Sequence[ShuffleRecord], limit: int = 6) -> str:
     return "; ".join(parts)
 
 
+def emit_shuffle_events(tracer, pairs: Sequence[Tuple[str, Any]],
+                        a2a_chunks: int) -> None:
+    """Per-shuffle (and per all-to-all chunk) events under the currently
+    open stage span.  The stage span times the device work; these carry
+    data volumes, not durations."""
+    for pair in pairs:
+        label, a = pair[0], pair[1]
+        a = np.asarray(a.cpu()).reshape(-1, 3)
+        rows, byts, dropped = (int(a[:, 0].sum()), int(a[:, 1].sum()),
+                               int(a[:, 2].sum()))
+        with tracer.span(f"shuffle:{label}", "shuffle", rows=rows,
+                         bytes=byts, dropped=dropped):
+            if not label.endswith(":overflow"):
+                for c in range(max(1, a2a_chunks)):
+                    tracer.instant(f"a2a:{label}[chunk {c}]", "chunk",
+                                   chunk=c, chunks=a2a_chunks,
+                                   bytes=byts // max(1, a2a_chunks))
+
+
 # ---------------------------------------------------------------------- #
 # Node evaluation (batched over ranks; shared by all modes)
 # ---------------------------------------------------------------------- #
@@ -431,6 +453,8 @@ class ExecStats:
     cache_hits: int = 0
     cache_misses: int = 0
     rows_read: int = 0        # rows entering the plan through its scans
+    #: source bytes of the scans' ingest provenance (Parquet/CSV files)
+    bytes_read: int = 0
     # -- out-of-core morsel execution only -------------------------------- #
     morsel_rows: Optional[int] = None  # per-rank morsel capacity, None=in-core
     morsels: int = 0                   # morsel stage dispatches
@@ -497,12 +521,25 @@ def attach_dictionaries(out, root: LogicalNode):
     return out
 
 
-def scan_rows_read(names: Sequence[str], tables: Dict[str, Any]) -> int:
-    """Rows entering a plan through its scans: each holder's
-    ``total_rows`` (host column dicts count none, as in the JAX
-    package)."""
-    return sum(int(t.total_rows()) for t in (tables.get(n) for n in names)
-               if callable(getattr(t, "total_rows", None)))
+def scan_read_stats(names: Sequence[str], tables: Dict[str, Any]
+                    ) -> Tuple[int, int]:
+    """(rows_read, bytes_read) across a plan's scan tables.
+
+    Rows come from the holder's ``total_rows`` (host column dicts count
+    none, as in the JAX package); bytes from the ``repro_torch.io``
+    ingest provenance (``IngestInfo.bytes_read``) when the table was read
+    from Parquet/CSV, 0 for tables built in memory."""
+    rows = byts = 0
+    for n in names:
+        t = tables.get(n)
+        if t is None:
+            continue
+        if callable(getattr(t, "total_rows", None)):
+            rows += int(t.total_rows())
+        prov = getattr(t, "provenance", None)
+        if prov is not None:
+            byts += int(prov.bytes_read)
+    return rows, byts
 
 
 def _sum_stats(collected) -> Tuple[int, int, int]:
@@ -517,7 +554,8 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                  mode: str = "bsp", collect_stats: bool = False,
                  shuffle_impl: str = "radix", a2a_chunks: int = 1,
                  morsel_rows: Optional[int] = None,
-                 overflow: Optional[str] = None, **morsel_kw):
+                 overflow: Optional[str] = None, tracer=None,
+                 scan_capacity: Optional[int] = None, **morsel_kw):
     """Execute a lowered plan against DistTables on a ``CylonEnv``.
 
     Returns a DistTable, or ``(DistTable, ExecStats)`` with
@@ -525,13 +563,22 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     plan-wide shuffle defaults (per-node params override); both are part
     of the stage-cache key.
 
+    ``tracer`` (a ``repro_torch.obs.Tracer``) records per-dispatch stage
+    spans — each ends after the env's device is synchronized, so it
+    covers the device work — plus per-shuffle data-volume events when
+    stats are collected.  Tracing is host-side only: it is NOT part of
+    any stage-cache key.  With ``collect_stats=True`` the execution is
+    also folded into the process-global ``repro_torch.obs.METRICS``.
+
     ``morsel_rows`` switches to the out-of-core morsel executor
     (``planner.morsel.run_morsel``): the input is streamed through the
     stage DAG in fixed-capacity morsels and the result is returned as a
     host-resident ``core.store.SpillTable``.  Extra ``morsel_kw``
-    (``capacity_factor``, ``samples``) are forwarded.
-    In-core, ``SpillTable`` scans are scattered onto the env's ranks with
-    2x headroom over a balanced split.
+    (``capacity_factor``, ``samples``, ``debug_overflow``) are forwarded.
+    In-core, ``SpillTable`` scans (``repro_torch.io`` ingest) are
+    scattered onto the env's ranks with 2x headroom over a balanced split,
+    or ``scan_capacity`` rows per rank; their provenance rides along for
+    the scan read stats.
 
     ``overflow`` (``raise | warn | degrade``, default ``degrade``) decides
     what to do when capacity pressure drops rows (observable in-core with
@@ -544,11 +591,13 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         return run_morsel(pplan, env, tables, morsel_rows, mode=mode,
                           collect_stats=collect_stats,
                           shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
-                          overflow=overflow, **morsel_kw)
+                          overflow=overflow, tracer=tracer, **morsel_kw)
     if morsel_kw:
         raise TypeError(f"unexpected kwargs without morsel_rows: "
                         f"{sorted(morsel_kw)}")
+    reset_overflow_warnings()
     ovf = resolve_overflow(overflow)
+    tr = tracer if tracer is not None else NULL_TRACER
     names = pplan.scan_names
     missing = [n for n in names if n not in tables]
     if missing:
@@ -558,10 +607,13 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     spills = {n: tables[n] for n in names
               if isinstance(tables[n], SpillTable)}
     if spills:
+        def _cap(s):
+            if scan_capacity is not None:
+                return scan_capacity
+            return _round8(2 * -(-max(s.total_rows(), 1) // env.parallelism))
         tables = {**tables, **{
             n: rescatter(s, env.parallelism, device=env.device,
-                         capacity=_round8(2 * -(-max(s.total_rows(), 1)
-                                                // env.parallelism)))
+                         capacity=_cap(s))
             for n, s in spills.items()}}
     root = pplan.root
     order = pplan.order
@@ -573,6 +625,7 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     eval_kw = dict(shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
                    consts=consts)
     hits0, misses0 = env.cache_hits, env.cache_misses
+    timing = collect_stats or tr.enabled
     stage_times: List[Tuple[str, float]] = []
     t_query0 = time.perf_counter()
 
@@ -580,17 +633,20 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         env.synchronize()
         wall = time.perf_counter() - t_query0
         rows, byts, dropped = _sum_stats([pr[1] for pr in pairs])
-        return ExecStats(mode, pplan.num_stages, pplan.num_shuffles,
-                         dispatches, rows, byts, pplan.shuffle_labels(),
-                         pplan.fired,
-                         shuffle_impl=("allgather" if mode == "amt"
-                                       else shuffle_impl),
-                         a2a_chunks=a2a_chunks, rows_dropped=dropped,
-                         cache_hits=env.cache_hits - hits0,
-                         cache_misses=env.cache_misses - misses0,
-                         rows_read=scan_rows_read(names, tables),
-                         wall_time_s=wall, stage_times=stage_times,
-                         shuffle_records=build_shuffle_records(pairs))
+        rows_read, bytes_read = scan_read_stats(names, tables)
+        stats = ExecStats(mode, pplan.num_stages, pplan.num_shuffles,
+                          dispatches, rows, byts, pplan.shuffle_labels(),
+                          pplan.fired,
+                          shuffle_impl=("allgather" if mode == "amt"
+                                        else shuffle_impl),
+                          a2a_chunks=a2a_chunks, rows_dropped=dropped,
+                          cache_hits=env.cache_hits - hits0,
+                          cache_misses=env.cache_misses - misses0,
+                          rows_read=rows_read, bytes_read=bytes_read,
+                          wall_time_s=wall, stage_times=stage_times,
+                          shuffle_records=build_shuffle_records(pairs))
+        record_exec(stats, fp, stats.wall_time_s)
+        return stats
 
     def finish(result, stats: ExecStats):
         """Apply the overflow policy to a finished stats run: raise, warn
@@ -622,7 +678,8 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
             spill, d_stats = run_morsel(
                 pplan, env, tables, max(caps) if caps else 128, mode="bsp",
                 collect_stats=True, shuffle_impl=shuffle_impl,
-                a2a_chunks=a2a_chunks, overflow=OverflowPolicy.DEGRADE)
+                a2a_chunks=a2a_chunks, overflow=OverflowPolicy.DEGRADE,
+                tracer=tr)
         except ValueError as e:
             raise CapacityOverflow(
                 f"capacity pressure dropped {stats.rows_dropped} rows "
@@ -649,15 +706,21 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                 return out, tuple(a for _, a in stats)
             return out
 
-        t0 = time.perf_counter()
-        res = env.run(prog, *[tables[n] for n in names],
-                      key=("bsp", fp, collect_stats, shuffle_impl,
-                           a2a_chunks))
-        if not collect_stats:
-            return attach_dictionaries(res, root)
-        env.synchronize()
-        stage_times.append(("program", time.perf_counter() - t0))
-        pairs = pair_stat_labels(plan_stat_labels(order), res[1])
+        with tr.span("stage:program", "stage", mode=mode,
+                     stages=pplan.num_stages, dispatch=0) as sp:
+            t0 = time.perf_counter()
+            res = env.run(prog, *[tables[n] for n in names],
+                          key=("bsp", fp, collect_stats, shuffle_impl,
+                               a2a_chunks))
+            sp.set(compiled=env.cache_misses > misses0)
+            if timing:
+                env.synchronize()
+                stage_times.append(("program", time.perf_counter() - t0))
+            if not collect_stats:
+                return attach_dictionaries(res, root)
+            pairs = pair_stat_labels(plan_stat_labels(order), res[1])
+            if tr.enabled:
+                emit_shuffle_events(tr, pairs, a2a_chunks)
         return finish(attach_dictionaries(res[0], root), mk_stats(1, pairs))
 
     if mode not in ("bsp_staged", "amt"):
@@ -706,20 +769,27 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
 
         args = [values[e.nid] for e in ext] + \
                [tables[s.params["name"]] for s in scans]
-        t0 = time.perf_counter()
-        res = env.run(prog, *args,
-                      key=(mode, fp, uidx, collect_stats, shuffle_impl,
-                           a2a_chunks))
-        if collect_stats:
-            out_tuple, unit_stats = res
-            collected.extend(pair_stat_labels(plan_stat_labels(unit),
-                                              unit_stats))
-        else:
-            out_tuple = res
-        for n, val in zip(outs, out_tuple):
-            values[n.nid] = val
-        env.synchronize()  # completion barrier: the host round-trip
-        stage_times.append((unit_names[uidx], time.perf_counter() - t0))
+        with tr.span(unit_names[uidx], "stage", mode=mode, dispatch=uidx,
+                     ops=",".join(n.op for n in unit)) as sp:
+            t0 = time.perf_counter()
+            m0 = env.cache_misses
+            res = env.run(prog, *args,
+                          key=(mode, fp, uidx, collect_stats, shuffle_impl,
+                               a2a_chunks))
+            sp.set(compiled=env.cache_misses > m0)
+            if collect_stats:
+                out_tuple, unit_stats = res
+                unit_pairs = pair_stat_labels(plan_stat_labels(unit),
+                                              unit_stats)
+                collected.extend(unit_pairs)
+            else:
+                out_tuple = res
+            for n, val in zip(outs, out_tuple):
+                values[n.nid] = val
+            env.synchronize()  # completion barrier: the host round-trip
+            stage_times.append((unit_names[uidx], time.perf_counter() - t0))
+            if collect_stats and tr.enabled:
+                emit_shuffle_events(tr, unit_pairs, a2a_chunks)
 
     result = attach_dictionaries(values[root.nid], root)
     if collect_stats:

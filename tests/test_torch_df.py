@@ -358,9 +358,6 @@ def test_default_env_is_the_card(monkeypatch):
 
 
 DEFERRED = [
-    ("read_parquet", 8), ("read_csv", 8),
-    ("collect(analyze=True)", 9), ("collect(trace=True)", 9),
-    ("explain_analyze", 9),
     ("collect(timeout=)", 10), ("collect(retries=)", 10),
     ("collect(faults=)", 10),
     ("collect(adaptive=)", 10), ("session(timeout=)", 10),
@@ -374,11 +371,6 @@ def test_deferred_options_name_their_roadmap_item(envs, rng, what, item):
     data = _data(rng, n=16)
     df = tdf.read_numpy(data)
     calls = {
-        "read_parquet": lambda: tdf.read_parquet("x.parquet"),
-        "read_csv": lambda: tdf.read_csv("x.csv"),
-        "collect(analyze=True)": lambda: df.collect(analyze=True),
-        "collect(trace=True)": lambda: df.collect(trace=True),
-        "explain_analyze": lambda: df.explain_analyze(),
         "collect(timeout=)": lambda: df.collect(timeout=1.0),
         "collect(retries=)": lambda: df.collect(retries=2),
         "collect(faults=)": lambda: df.collect(faults="stage=raise"),

@@ -7,6 +7,9 @@ the CUDA toolkit but not the JAX package's dependencies:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -658,3 +661,197 @@ def test_hash_columns_np_matches_card_hash(cuda, keys):
     assert dev.is_cuda
     np.testing.assert_array_equal(dev[0].cpu().numpy().astype(np.uint32),
                                   hash_columns_np(cols, keys))
+
+
+# ---------------------------------------------------------------------- #
+# File ingest and observability on the card
+# ---------------------------------------------------------------------- #
+def _ingest_files(tmp_path, rows=6000, nfiles=3, seed=9):
+    """Parquet files of ``_ooc_fig9``'s left and right inputs, with a
+    string column holding 10% nulls on the left side."""
+    pa = pytest.importorskip("pyarrow")
+    import pyarrow.parquet as pq
+    rng = np.random.default_rng(seed)
+    ld = {"k": rng.integers(0, int(rows * 0.9), rows).astype(np.int32),
+          "v0": rng.integers(0, 100, rows).astype(np.float32),
+          "s": np.array([f"s{i % 37:03d}" if rng.random() > 0.1 else None
+                         for i in range(rows)], dtype=object)}
+    rd = {"k": rng.integers(0, int(rows * 0.9), rows).astype(np.int32),
+          "w": rng.integers(0, 100, rows).astype(np.float32)}
+    out = {}
+    for side, data in (("l", ld), ("r", rd)):
+        paths = []
+        for f in range(nfiles):
+            sl = slice(f * rows // nfiles, (f + 1) * rows // nfiles)
+            p = tmp_path / f"{side}{f}.parquet"
+            pq.write_table(pa.table({c: v[sl] for c, v in data.items()}),
+                           str(p), row_group_size=1000)
+            paths.append(str(p))
+        out[side] = paths
+    return out
+
+
+def _ingest_fig9(rdf, files, env):
+    from repro_torch.io import DictionaryCache
+    l_df = rdf.read_parquet(files["l"], env=env, batch_rows=512,
+                            dict_cache=DictionaryCache(), name="l")
+    r_df = rdf.read_parquet(files["r"], env=env, batch_rows=512,
+                            dict_cache=DictionaryCache(), name="r")
+    return (l_df.merge(r_df, on="k", out_capacity=8192)
+            .groupby("k").agg({"v0": ["sum", "mean"], "s": "max"})
+            .sort_values("k"))
+
+
+@pytest.mark.parametrize("morsel_rows", [None, 128])
+def test_read_parquet_collect_card_equals_cpu(cuda, tmp_path, morsel_rows):
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv
+    from repro_torch.kernels import reset_launches, segmented_sum_cuda
+    files = _ingest_files(tmp_path)
+    out = {}
+    for dev in (cuda, "cpu"):
+        env = CylonEnv(8, device=dev)
+        q = _ingest_fig9(rdf, files, env)
+        reset_launches()
+        kw = {} if morsel_rows is None else dict(morsel_rows=morsel_rows,
+                                                 capacity_factor=4.0)
+        res, st = q.collect(collect_stats=True, **kw)
+        torch.cuda.synchronize()
+        launches = (radix_partition_cuda.launches,
+                    segmented_sum_cuda.launches)
+        out[str(dev)] = (res.to_numpy(nulls="mask"), st, launches)
+    (g, gst, gl), (w, wst, wl) = out[str(cuda)], out["cpu"]
+    assert sorted(g) == sorted(w)
+    for c in w:
+        assert g[c].dtype == w[c].dtype and np.array_equal(g[c], w[c]), c
+    assert gl[0] > 0 and gl[1] > 0 and wl == (0, 0)
+    assert gst.rows_dropped == wst.rows_dropped == 0
+    for k in ("rows_read", "bytes_read", "rows_shuffled", "dispatches"):
+        assert getattr(gst, k) == getattr(wst, k), k
+    assert gst.bytes_read == sum(os.path.getsize(p)
+                                 for p in files["l"] + files["r"])
+
+
+def test_tracing_invisible_on_the_card(cuda, tmp_path):
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv
+    from repro_torch.kernels import reset_launches, segmented_sum_cuda
+    from repro_torch.obs import Tracer
+    files = _ingest_files(tmp_path)
+    env = CylonEnv(8, device=cuda)
+    q = _ingest_fig9(rdf, files, env)
+    q.collect(mode="bsp_staged", collect_stats=True)   # builds the stages
+    runs = []
+    for trace in (None, Tracer("card")):
+        reset_launches()
+        res, st = q.collect(mode="bsp_staged", collect_stats=True,
+                            trace=trace)
+        torch.cuda.synchronize()
+        runs.append((res.to_numpy(nulls="mask"), st,
+                     (radix_partition_cuda.launches,
+                      segmented_sum_cuda.launches)))
+    (a, ast, al), (b, bst, bl) = runs
+    for c in a:
+        assert np.array_equal(a[c], b[c]), c
+    assert al == bl and al[0] > 0
+    assert ast.cache_misses == bst.cache_misses == 0
+
+
+def test_stage_span_covers_device_time_of_its_kernel(cuda):
+    # every radix launch is timed with CUDA events; a stage span, which
+    # ends after the card is synchronized, lasts at least as long as the
+    # device time of the launches made inside it
+    import importlib
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    from repro_torch.obs import Tracer
+    rows, p = 1 << 22, 8
+    rng = np.random.default_rng(1)
+    data = {"k": rng.integers(0, rows, rows).astype(np.int32),
+            "v0": rng.integers(0, 100, rows).astype(np.float32)}
+    cap = -(-(rows // p + rows // p // 8) // 8) * 8
+    env = CylonEnv(p, device=cuda)
+    t = DistTable.from_numpy(data, p, capacity=cap, device=cuda)
+    plan = Plan.scan("l").shuffle(["k"]).sort(["k"])
+    execute(plan, env, {"l": t}, mode="bsp_staged", optimize=False)
+    tr = Tracer("timed")
+    timed = []
+    # the module (the package's ``shuffle`` attribute is the function)
+    shuffle_mod = importlib.import_module("repro_torch.dataframe.shuffle")
+    inner = shuffle_mod.radix_partition
+
+    def timed_radix(dest, nb):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(dest, nb)
+        end.record()
+        timed.append((tr._stack[-1].name, start, end))
+        return out
+
+    shuffle_mod.radix_partition = timed_radix
+    try:
+        execute(plan, env, {"l": t}, mode="bsp_staged", optimize=False,
+                trace=tr)
+    finally:
+        shuffle_mod.radix_partition = inner
+    torch.cuda.synchronize()
+    spans = {s.name: s for s in tr.finish().find("stage")}
+    assert timed and {name for name, _, _ in timed} <= set(spans)
+    for name in spans:
+        ms = sum(a.elapsed_time(b) for n, a, b in timed if n == name)
+        assert spans[name].duration_s * 1e3 >= ms, (name, ms)
+    # Span.fence: the span of one launch ends after its CUDA event
+    dest = torch.as_tensor(rng.integers(0, 9, (8, 1 << 22),
+                                        dtype=np.int32), device=cuda)
+    tr2 = Tracer()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with tr2.span("launch") as h:
+        start.record()
+        out = radix_partition_cuda(dest, 9)
+        end.record()
+        h.fence(out)
+    span = tr2.finish().root()
+    assert span.duration_s * 1e3 >= start.elapsed_time(end)
+
+
+def test_debug_overflow_warns_on_the_card(cuda):
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    env = CylonEnv(2, device=cuda)
+    data = {"k": np.zeros(256, np.int32), "v0": np.ones(256, np.float32)}
+    t = DistTable.from_numpy(data, 2, device=cuda)
+    plan = Plan.scan("l").shuffle(["k"], out_capacity=32,
+                                  debug_overflow=True)
+    with pytest.warns(RuntimeWarning, match=r"shuffle\(k\) @ rank 0 "
+                                            r"dropped rows"):
+        execute(plan, env, {"l": t}, optimize=False)
+    with pytest.warns(RuntimeWarning, match=r"shuffle\(k\) @ rank 0 "
+                                            r"dropped rows"):
+        execute(Plan.scan("l").shuffle(["k"]), env, {"l": data},
+                optimize=False, morsel_rows=32, capacity_factor=1.0,
+                overflow="warn", debug_overflow=True)
+
+
+def test_card_roofline_table_and_unknown_device(cuda, monkeypatch):
+    import repro_torch.launch.roofline as roofline
+    from repro_torch.core import CylonEnv, DistTable, Plan
+    from repro_torch.obs import run_analyzed
+    name = torch.cuda.get_device_properties(cuda).name
+    rng = np.random.default_rng(2)
+    data = {"k": rng.integers(0, 5000, 1 << 16).astype(np.int32),
+            "v0": rng.integers(0, 100, 1 << 16).astype(np.float32)}
+    env = CylonEnv(8, device=cuda)
+    t = DistTable.from_numpy(data, 8, capacity=9216, device=cuda)
+    plan = Plan.scan("l").groupby(["k"], {"v0": ["sum"]}).sort(["k"])
+    _, report = run_analyzed(plan, env, {"l": t})
+    if name in roofline.DEVICE_PEAKS:
+        rows = report.stage_table()
+        assert report.to_dict()["device"] == name
+        assert all(r["roofline_fraction"] <= 1.05 for r in rows)
+        assert any(r["bound_s"] > 0 for r in rows)
+    monkeypatch.setattr(roofline, "DEVICE_PEAKS", {})
+    _, report = run_analyzed(plan, env, {"l": t})
+    with pytest.raises(ValueError, match=re.escape(repr(name))):
+        report.roofline_table()
+    with pytest.raises(ValueError, match="no roofline peaks"):
+        roofline.device_peaks(cuda)

@@ -208,8 +208,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert CylonEnv(P, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(trace=True), dict(debug_overflow=True),
-                                dict(retries=2), dict(timeout=1.0),
+@pytest.mark.parametrize("kw", [dict(retries=2), dict(timeout=1.0),
                                 dict(faults="stage:launch=raise"),
                                 dict(adaptive=True)],
                          ids=lambda kw: next(iter(kw)))
@@ -220,12 +219,41 @@ def test_execute_refuses_later_slices(kw, morsel_rows):
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
     env = CylonEnv(2, device="cpu")
     t = DistTable.from_numpy(make_table_data(32, 0), 2, device="cpu")
-    item = 9 if {"trace", "debug_overflow"} & set(kw) else 10
     with pytest.raises(NotImplementedError,
-                       match=rf"slice of the port \(ROADMAP queue 1, "
-                             rf"item {item}\)"):
+                       match=r"slice of the port \(ROADMAP queue 1, "
+                             r"item 10\)"):
         execute(fig9_plan(Plan, 32), env, {"l": t, "r": t},
                 morsel_rows=morsel_rows, **kw)
+
+
+@pytest.mark.parametrize("morsel_rows", [None, 8])
+def test_execute_debug_overflow_warns(morsel_rows):
+    # out-of-core, execute(debug_overflow=True) makes every morsel shuffle
+    # warn, once per (op label, rank), naming both; in-core it is a plan
+    # node option (Plan.shuffle(..., debug_overflow=True)) and execute
+    # refuses the keyword, as the JAX package does
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    env = CylonEnv(2, device="cpu")
+    data = {"k": np.zeros(64, np.int32), "v0": np.ones(64, np.float32)}
+    if morsel_rows is None:
+        t = DistTable.from_numpy(data, 2, device="cpu")
+        with pytest.raises(TypeError, match="without morsel_rows"):
+            execute(Plan.scan("l").shuffle(["k"]), env, {"l": t},
+                    optimize=False, debug_overflow=True)
+        plan = Plan.scan("l").shuffle(["k"], out_capacity=16,
+                                      debug_overflow=True)
+        tables, kw = {"l": t}, {}
+    else:
+        plan = Plan.scan("l").shuffle(["k"])
+        tables = {"l": data}
+        kw = dict(morsel_rows=morsel_rows, capacity_factor=1.0,
+                  debug_overflow=True, overflow="warn")
+    with pytest.warns(RuntimeWarning, match=r"shuffle\(k\) @ rank 0 "
+                                            r"dropped rows") as w:
+        execute(plan, env, tables, optimize=False, **kw)
+    named = [str(x.message) for x in w if "@ rank" in str(x.message)
+             and "dropped rows" in str(x.message)]
+    assert len(named) == 1
 
 
 def test_overflow_policies():
