@@ -23,7 +23,9 @@ ends the run with a non-zero exit code if it fails:
    SSD scan's three kernels (chunk state, state pass, chunk scan) are also
    timed one by one under ``torch.profiler`` at the mamba2-780m prefill's
    shape,
-   and its strong-decay case is also held to the float64 recurrence;
+   and its strong-decay case is also held to the float64 recurrence; the
+   radix kernel and the segmented sum are also held and timed on skewed
+   traffic (one bucket, one segment with 99% of the rows);
 3. Fig-9: the paper's pipeline (join -> groupby(sum) -> sort ->
    add_scalar) through ``execute`` at 2 x 2**25 rows over 8 ranks stacked
    on the card, in ``bsp``, ``bsp_staged`` and ``amt``, twice each, with
@@ -38,7 +40,10 @@ ends the run with a non-zero exit code if it fails:
    records the valid rows per rank of the radix kernel's calls, and the
    kernel is then held to its plain version and timed at those layouts
    (``main:join-layout``, ``main:sort-layout``: a uniform prefix of valid
-   rows, the rest in the pad bucket p);
+   rows, the rest in the pad bucket p); every run is at the default
+   ``adaptive`` (hot-key detection on, nothing salted on these keys), and
+   ``adaptive=False`` runs once more per mode: the same stage-cache keys,
+   no miss, and five alternating ``bsp`` pairs give the detection's cost;
 4. frontend: the same pipeline with a mean, written against
    ``repro_torch.df`` on the same data, in every mode, twice each, with
    the same launch checks; held to the host reference and to the
@@ -82,7 +87,19 @@ ends the run with a non-zero exit code if it fails:
    default ``degrade`` policy on an under-capacitated join (every row
    recovered, card == CPU); groupbys, a join and a sort over uint16 and
    uint32 columns, card == CPU slot for slot;
-8. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
+8. skew: the salted operators (``benchmarks/bench_skew.py``'s keys:
+   uniform, Zipf(1.5), 99% one key; ``skew_parity.py``'s raw groupby +
+   sort and join) on 8 ranks, in-core at 2**24 rows and out-of-core at
+   2**25 rows (``morsel_rows`` 524,288, capacity_factor 2), adaptive on
+   and off, first and cached: held to numpy (join placement included), no
+   drop with adaptive on, the kernels' launches, degrade attempts and
+   morsels equal to their derivation from the plan and the data, rows
+   routed per rank (hottest over median) and peak memory printed; then
+   faults: Fig-9 recovered bit for bit from one fault at each in-core site
+   (2 x 2**25 rows, ``bsp`` and ``bsp_staged``) and each out-of-core site
+   (2 x 2**23 rows), ``corrupt-capacity``, three ``random_plan`` seeds and
+   a ``hang`` fenced by ``timeout=``;
+9. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
    a seeded generator, batch 4, prompt 4096, 32 new tokens, greedy)
    through ``ServeEngine``, twice each; launch counts reset just before
    each prefill and each decode step and read just after it (flash
@@ -93,7 +110,7 @@ ends the run with a non-zero exit code if it fails:
    twice: finite logits, first tokens in the vocab, 36 flash launches,
    all on the kernel's bf16 tensor-core (wgmma) route; time to first
    token;
-9. serving parity: both SMOKE configs with the same weights on the card
+10. serving parity: both SMOKE configs with the same weights on the card
    (kernels forced, prompts longer than a tile) and on the CPU (plain
    versions): prefill logits within 1e-3, greedy tokens equal.
 
@@ -112,6 +129,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULL_ROWS = 1 << 25      # rows per input table on the main path
 PARITY_ROWS = 1 << 16
+SKEW_ROWS = 1 << 25      # rows of each skewed table (skew phase)
+HOT_KEY = 7              # the one-key table's hot key
 P = 8                    # ranks stacked on the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # float32 outside the tensor cores, H100 SXM
@@ -196,19 +215,24 @@ def sorted_bucketize(torch, dest, nb):
     return srt.indices, row_rank, counts
 
 
-def radix_phase(torch, cap, flush, layouts=None):
+def radix_phase(torch, cap, flush, layouts=None, skewed=False):
     """Radix kernel vs ``radix_partition_ref`` on the card, each case
     labelled with its route.  Without ``layouts``: the main path's shapes
     with uniform buckets, a wide case, a large bucket count (the threepass
     route) and n = 0.  With ``layouts`` ({case: (n, valid rows per rank)},
     read off a Fig-9 run): the shuffle's own layout, a uniform hashed
-    prefix of the valid rows and a tail of padding in bucket p.  The main
-    shapes are also timed through the shuffle's sorted bucketize."""
+    prefix of the valid rows and a tail of padding in bucket p.  With
+    ``skewed``: the salted shuffles' traffic, ``onepass`` at (8,
+    4,194,304, 9) with 99% of every rank's rows in one bucket, so the
+    in-bucket ranks reach about 4.15 M.  The main and skewed shapes are
+    also timed through the shuffle's sorted bucketize."""
     from repro_torch.kernels import radix_partition_cuda, radix_partition_ref
     from repro_torch.kernels.radix_partition.cuda import route_for
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    if layouts is None:
+    if skewed:
+        cases = [("skew:one-bucket", P, 4_194_304, P + 1, "hot")]
+    elif layouts is None:
         # (p, n, nb): the join's shuffles (n = cap) and the sort's (n = 4
         # cap) on the main path, then a wide case, a large bucket count and
         # n = 0
@@ -222,7 +246,13 @@ def radix_phase(torch, cap, flush, layouts=None):
                  for name, (n, valid) in layouts.items()]
     out = []
     for name, p, n, nb, valid in cases:
-        if valid is None:
+        if valid == "hot":
+            valid = None
+            dest = torch.where(
+                torch.rand((p, n), generator=gen, device=dev) < 0.99, 3,
+                torch.randint(0, nb, (p, n), generator=gen, device=dev,
+                              dtype=torch.int32)).to(torch.int32)
+        elif valid is None:
             dest = torch.randint(0, nb, (p, n), generator=gen, device=dev,
                                  dtype=torch.int32)
         else:
@@ -249,7 +279,7 @@ def radix_phase(torch, cap, flush, layouts=None):
                              3, flush)
         sorted_ms = (time_cuda(torch, lambda: sorted_bucketize(torch, dest,
                                                                nb), 5, flush)
-                     if name.startswith("main:") else None)
+                     if name.startswith(("main:", "skew:")) else None)
         # bytes the function must move: dest read once, ranks and the
         # histogram written once; it does no arithmetic worth counting
         nbytes = 4 * p * n * 2 + 4 * p * nb
@@ -336,16 +366,36 @@ def fig9_join_ids(torch, rows, p, cap, gen, dev):
     return seg, vals
 
 
-def segsum_phase(torch, cap, flush, recorded=None):
+def segsum_phase(torch, cap, flush, recorded=None, skewed=False):
     """Segmented-sum kernel vs ``segmented_sum_ref`` on the card; the first
     case is the Fig-9 groupby's call (n = S = the join's out_capacity),
     timed beside ``scatter_add_`` and ``index_add_`` at that shape.  With
     ``recorded`` ([(case, ids, values, S)], the inputs a run handed the
-    kernel), those cases alone."""
+    kernel), those cases alone.  With ``skewed``: the salted groupby's
+    traffic, (8, n = S = 4,194,304) with one segment holding 99% of every
+    rank's rows (sorted ids, as ``groupby_local`` hands them over; int32
+    values, exact), timed beside the same two calls."""
     if recorded is not None:
         return segsum_cases(torch, recorded, flush)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
+    if skewed:
+        n = 4_194_304
+        ids = torch.where(
+            torch.rand((P, n), generator=gen, device=dev) < 0.99, 7,
+            torch.randint(0, n, (P, n), generator=gen, device=dev,
+                          dtype=torch.int32)).to(torch.int32)
+        ids = torch.sort(ids, dim=1).values
+        # int32 values, held exactly: a float32 sum of 4 M values passes
+        # 2**24, where the plain version's own order loses more than the
+        # repo's 1e-5 (the contention on one address is the same)
+        vals = torch.randint(0, 100, (P, n), generator=gen, device=dev,
+                             dtype=torch.int32)
+        out = segsum_cases(torch, [("skew:hot-segment", ids, vals, n)],
+                           flush)
+        del ids, vals
+        torch.cuda.empty_cache()
+        return out
 
     def sorted_ids(p, n, s):
         return torch.sort(torch.randint(0, s, (p, n), generator=gen,
@@ -412,13 +462,13 @@ def segsum_cases(torch, cases, flush):
                                                if got.numel() else 0.0)
         check(ok, f"segmented_sum CUDA != plain at {name}: max |err| {err} "
               f"beyond {tol}")
-        main = name in ("main", "unsorted", "int32")
+        main = name in ("main", "unsorted", "int32", "skew:hot-segment")
         ms = time_cuda(torch, lambda: segmented_sum_cuda(seg, vals, s),
                        20 if main else 5, flush)
         plain_ms = time_cuda(torch, lambda: segmented_sum_ref(seg, vals, s),
                              3 if main else 2, flush)
         lib = None
-        if name == "main":
+        if name in ("main", "skew:hot-segment"):
             # one PyTorch call each over the same inputs (zero-filled
             # output included, as the kernel's launcher zero-fills)
             idx = seg.to(torch.int64)
@@ -429,7 +479,8 @@ def segsum_cases(torch, cases, flush):
                            1, idx, vals), 5, flush),
                    "index_add_": time_cuda(
                        torch, lambda: torch.zeros(
-                           seg.shape[0] * s, device=dev).index_add_(
+                           seg.shape[0] * s, dtype=vals.dtype,
+                           device=dev).index_add_(
                            0, flat, vals.flatten()), 5, flush)}
             del idx, flat
         p, n = seg.shape
@@ -446,8 +497,9 @@ def segsum_cases(torch, cases, flush):
                         library_ms=lib["scatter_add_"] if lib else None,
                         library=lib, max_abs_err=err))
         extra = (f", scatter_add_ {lib['scatter_add_']:.3f} ms, index_add_ "
-                 f"{lib['index_add_']:.3f} ms, {valid} valid rows of "
-                 f"{p * n}" if lib else "")
+                 f"{lib['index_add_']:.3f} ms" if lib else "")
+        if valid is not None:
+            extra += f", {valid} valid rows of {p * n}"
         print(f"kernel segmented_sum {name:10s} p={p} n={n} S={s} C={c} "
               f"{out[-1]['dtype']}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms{extra}), max |err| {err:.2e} "
@@ -591,7 +643,11 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
                   f"cache_misses={st.cache_misses} launches={counts} "
                   f"radix routes={routes} [{stages}]", flush=True)
             check_fig9(res, st, ref, f"{mode}/{run}")
+            check(st.adaptive and st.salted_shuffles == 0,
+                  f"{mode}/{run}: adaptive {st.adaptive}, "
+                  f"{st.salted_shuffles} salted shuffles on uniform keys")
             del res
+    detection_overhead(env, plan, tables, walls)
     # the join's row count, from the join alone (after the counts are read)
     joined = execute(Plan.scan("l").join(Plan.scan("r"), on="k",
                                          out_capacity=4 * cap),
@@ -609,6 +665,47 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
         profile_run(env, lambda: execute(plan, env, tables, mode="bsp"),
                     "bsp (cached run under the profiler)")
     return launches, route_launches, walls, layouts
+
+
+def detection_overhead(env, plan, tables, walls, reps=5):
+    """The default (adaptive on) against ``adaptive=False`` on the
+    uniform Fig-9 keys: the default builds no stage that ``adaptive=False``
+    does not (the stage-cache keys are equal, no miss on either), and
+    the cached walls of the two, each mode once and ``bsp`` ``reps``
+    times alternating, go into ``walls`` (``<mode>/cached_adaptive_off``
+    and the ``bsp`` medians)."""
+    from repro_torch.core import execute
+    keys = set(env._cache)
+    for mode in ("bsp", "bsp_staged", "amt"):
+        env.synchronize()
+        t = time.perf_counter()
+        res, st = execute(plan, env, tables, mode=mode, collect_stats=True,
+                          adaptive=False)
+        env.synchronize()
+        walls[f"{mode}/cached_adaptive_off"] = time.perf_counter() - t
+        check(st.cache_misses == 0 and not st.adaptive, f"{mode} "
+              f"adaptive=False: {st.cache_misses} stages built anew")
+        del res
+    check(set(env._cache) == keys, "adaptive=False used stage-cache keys "
+          "the default (adaptive on) run did not")
+    bsp = {True: [], False: []}
+    for _ in range(reps):
+        for adaptive in (True, False):
+            env.synchronize()
+            t = time.perf_counter()
+            execute(plan, env, tables, mode="bsp", adaptive=adaptive)
+            env.synchronize()
+            bsp[adaptive].append(time.perf_counter() - t)
+    walls["bsp/cached_median_default"] = float(np.median(bsp[True]))
+    walls["bsp/cached_median_adaptive_off"] = float(np.median(bsp[False]))
+    print(f"fig9 detection overhead (uniform keys, nothing salted, same "
+          f"stages): cached wall adaptive=False "
+          + ", ".join(f"{m} {walls[f'{m}/cached_adaptive_off'] * 1e3:.2f} ms"
+                      for m in ("bsp", "bsp_staged", "amt"))
+          + f"; bsp median of {reps} alternating runs: default "
+          f"{walls['bsp/cached_median_default'] * 1e3:.2f} ms, "
+          f"adaptive=False {walls['bsp/cached_median_adaptive_off'] * 1e3:.2f}"
+          f" ms", flush=True)
 
 
 def fig9_frontend(l_df, r_df, cap):
@@ -702,6 +799,16 @@ def frontend_phase(torch, rows=FULL_ROWS, device=None):
             print(f"fig9 frontend {mode}: equal to the Plan-built pipeline "
                   f"({len(got['k'])} groups)", flush=True)
             del built, want, got
+        env.synchronize()
+        t = time.perf_counter()
+        _, st = front.collect(mode="bsp", collect_stats=True, adaptive=False)
+        env.synchronize()
+        walls["bsp/cached_adaptive_off"] = time.perf_counter() - t
+        check(st.cache_misses == 0, f"frontend adaptive=False: "
+              f"{st.cache_misses} stages built anew")
+        print(f"fig9 frontend bsp cached adaptive=False wall "
+              f"{walls['bsp/cached_adaptive_off'] * 1e3:9.2f} ms (same "
+              f"stages)", flush=True)
     return launches, walls
 
 
@@ -1100,6 +1207,26 @@ def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
               f"(derived {want_launches}) radix routes={routes} [{stages}]",
               flush=True)
         del out, got
+    keys = set(env._cache)
+    for adaptive in (False, True):
+        env.synchronize()
+        t = time.perf_counter()
+        out, st = execute(plan, env, tables, mode="bsp", collect_stats=True,
+                          morsel_rows=morsel, capacity_factor=4.0,
+                          adaptive=adaptive)
+        env.synchronize()
+        walls["cached_adaptive_off" if not adaptive
+              else "cached_default_again"] = time.perf_counter() - t
+        check(st.cache_misses == 0 and st.salted_shuffles == 0,
+              f"out-of-core adaptive={adaptive}: {st.cache_misses} stages "
+              f"built anew, {st.salted_shuffles} salted")
+        del out
+    check(set(env._cache) == keys, "out-of-core adaptive=False used "
+          "stage-cache keys the default run did not")
+    print(f"fig9 out-of-core cached wall adaptive=False "
+          f"{walls['cached_adaptive_off'] * 1e3:.2f} ms, default again "
+          f"{walls['cached_default_again'] * 1e3:.2f} ms (same stages)",
+          flush=True)
     gib = {k: (f"{v / 2**30:.2f} GiB" if v is not None else "not measured")
            for k, v in peaks.items()}
     print(f"out-of-core peak device memory: first {gib['first']}, cached "
@@ -1413,6 +1540,21 @@ def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
                       f"cache_misses={st.cache_misses} launches={counts} "
                       f"[{stages}]", flush=True)
                 del res, got
+        for name, kw in (runs[0], runs[2]):
+            env.synchronize()
+            t = time.perf_counter()
+            res, st = files_q.collect(collect_stats=True, adaptive=False,
+                                      **kw)
+            env.synchronize()
+            walls[f"{name}/cached_adaptive_off"] = time.perf_counter() - t
+            check(st.cache_misses == 0 and same_columns(res.to_numpy(),
+                                                        want),
+                  f"ingest {name} adaptive=False: {st.cache_misses} stages "
+                  f"built anew, or the result differs")
+            print(f"fig9 from files {name:22s} cached adaptive=False wall "
+                  f"{walls[f'{name}/cached_adaptive_off'] * 1e3:9.2f} ms "
+                  f"(same stages)", flush=True)
+            del res
         out["wall_s"] = walls
         out["launches"] = launches
         out["analyze"] = analyze_phase(env, files_q, cap, nbytes, want,
@@ -1718,6 +1860,549 @@ def ingest_strings_phase(torch, rows=1 << 22, csv_rows=1 << 18, nfiles=4,
     print(f"phase ingest strings took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
+
+
+def skew_data(kind, rows, rng):
+    """``benchmarks/bench_skew.py:35-48``: int32 keys (uniform over
+    ``rows``, Zipf(1.5) over 1000 keys, or 99% ``k = 7``) and an
+    integer-valued float32 ``v`` in [0, 100)."""
+    if kind == "uniform":
+        k = rng.integers(0, max(1, rows), rows).astype(np.int32)
+    elif kind == "zipf":
+        probs = np.arange(1, 1001, dtype=np.float64) ** -1.5
+        k = rng.choice(1000, size=rows, p=probs / probs.sum()
+                       ).astype(np.int32)
+    else:
+        k = np.where(rng.random(rows) < 0.99, HOT_KEY,
+                     rng.integers(0, 1000, rows)).astype(np.int32)
+    return {"k": k, "v": rng.integers(0, 100, rows).astype(np.float32)}
+
+
+def skew_plans(Plan, rows, in_core):
+    """``gplan`` (raw groupby sum + count, then sort) and ``jplan`` (join
+    with the 64-row build table).  In-core they carry
+    ``tests/md_scripts/skew_parity.py``'s capacities, which let the
+    unsalted run survive the hot rank (``rows + 8192``); out-of-core they
+    are ``benchmarks/bench_skew.py``'s (the morsel executor sizes every
+    shuffle by its working capacity)."""
+    big = rows + 8192
+    if in_core:
+        g = (Plan.scan("t").groupby(["k"], {"v": ["sum", "count"]},
+                                    pre_aggregate=False,
+                                    bucket_capacity=big, out_capacity=big)
+             .sort(["k"], bucket_capacity=big))
+        j = Plan.scan("t").join(Plan.scan("r"), on="k", bucket_capacity=big,
+                                shuffle_out_capacity=big, out_capacity=big)
+    else:
+        g = (Plan.scan("t").groupby(["k"], {"v": ["sum", "count"]},
+                                    pre_aggregate=False).sort(["k"]))
+        j = Plan.scan("t").join(Plan.scan("r"), on="k", out_capacity=big)
+    return {"g": g, "j": j}
+
+
+def skew_prep(data, p):
+    """Host facts of one skewed table, computed once: each row's rank and
+    position on it (block distribution, ``SpillTable.from_numpy``), its
+    key's hash (``hash_columns_np``, the card's hash), the sorted distinct
+    keys with their counts and each row's index among them (keys are
+    non-negative int32, so by ``bincount``), and the hot hashes: the keys
+    above 2 / p of the rows (the detector's threshold,
+    ``AdaptiveConfig.hot_key_factor``), what salting must find."""
+    from repro_torch.dataframe.ops_local import hash_columns_np
+    keys = data["k"]
+    n = len(keys)
+    per = -(-n // p)
+    full = np.bincount(keys)
+    uk = np.flatnonzero(full)
+    index = np.cumsum(full > 0) - 1
+    cnt = full[uk]
+    hot = uk[cnt > n * min(0.5, 2.0 / p)]
+    return {"keys": keys, "vals": data["v"], "pos": np.arange(n) % per,
+            "src": np.arange(n) // per, "per": per,
+            "h": hash_columns_np({"k": keys}, ["k"]), "uk": uk,
+            "cnt": cnt, "inv": index[keys],
+            "hot": set(int(x) for x in hash_columns_np({"k": hot}, ["k"]))}
+
+
+def skew_routing(prep, p, slot, hot, plan_kind):
+    """Each row's destination rank in the plan's first shuffle: the hash
+    home ``h % p``, or with ``hot`` salting, a hot groupby row's home
+    plus its slot mod p (``salted_dest``, k = p) and a hot join probe
+    row's own rank."""
+    h = prep["h"]
+    dest = (h % np.uint32(p)).astype(np.int64)
+    if hot:
+        is_hot = np.isin(h, np.asarray(sorted(hot), np.uint32))
+        if plan_kind == "g":
+            dest = np.where(is_hot, (dest + slot % p) % p, dest)
+        else:
+            dest = np.where(is_hot, prep["src"], dest)
+    return dest
+
+
+def skew_launches_in_core(plan_kind, salted):
+    """Radix / segmented-sum launches of one in-core ``bsp`` skew run: the
+    groupby shuffles once (plus its ``:remerge`` when salted) and the sort
+    once; its local groupby sums two aggregates (sum, count) once, and
+    salted once more over the partials; the join shuffles both sides (the
+    broadcast of hot build rows is an all-gather, no radix) and sums
+    nothing."""
+    if plan_kind == "g":
+        return {"radix_partition": 2 + salted,
+                "segmented_sum": 2 * (1 + salted)}
+    return {"radix_partition": 2, "segmented_sum": 0}
+
+
+def skew_launches_out_of_core(plan_kind, prep, hot, p, morsel, factor,
+                              tuner, memo):
+    """Radix / segmented-sum launches, attempts and morsels of one
+    out-of-core skew run, derived from the plan and the data.
+
+    Morsel ``m`` of a rank holds its rows ``[m M, (m + 1) M)``
+    (``skew_prep``).  An attempt of the first segment overflows when a
+    rank receives more than the working capacity ``W`` rows in one
+    morsel (``skew_routing``); the degrade step is the tuner's (``tuner``,
+    a ``MorselTuner``, from the observed peak) or the blind halving, as
+    the executor picks it, and every attempt streams all its morsels.  Per
+    morsel: one radix launch (the groupby's or the join probe's shuffle)
+    and, for the groupby, two segmented sums; per attempt the groupby
+    combine sums two aggregates once per sub-bucket (``combine_buckets``,
+    kept in ``memo`` by (salted, ``M``)).  Then the sort segment (one
+    radix launch per morsel of the grouped rows' fullest rank) or, for the
+    join, the resident build's one shuffle."""
+    from repro_torch.faults import default_degrade_step
+    pos, per = prep["pos"], prep["per"]
+    M, W = morsel, max(morsel, -(-int(morsel * factor) // 8) * 8)
+    radix = segsum = morsels = 0
+    attempts = []
+    while True:
+        nm = -(-per // M)
+        dest = skew_routing(prep, p, pos % M, hot, plan_kind)
+        recv = np.bincount((pos // M) * p + dest, minlength=nm * p)
+        worst = int(max(recv.max() - W, 0))
+        attempts.append((M, W, nm))
+        morsels += nm
+        radix += nm
+        if plan_kind == "g":
+            segsum += 2 * nm
+            if (bool(hot), M) not in memo:
+                memo[(bool(hot), M)] = combine_buckets(prep, dest, M, p)
+            segsum += 2 * memo[(bool(hot), M)]
+        if not worst:
+            break
+        a = np.zeros((p, 3), np.int64)
+        a[0, 2] = worst
+        if tuner.enabled:
+            M, W = tuner.degrade(M, W, [a], salted=bool(hot))
+        else:
+            M, W = default_degrade_step(M, W)
+    if plan_kind == "g":
+        from repro_torch.dataframe.ops_local import hash_columns_np
+        home = hash_columns_np({"k": prep["uk"]}, ["k"]) % np.uint32(p)
+        sort_m = -(-int(np.bincount(home, minlength=p).max()) // morsel)
+        radix += sort_m
+        morsels += sort_m
+    else:
+        radix += 1
+    return ({"radix_partition": radix, "segmented_sum": segsum}, attempts,
+            morsels)
+
+
+def combine_buckets(prep, dest, M, p):
+    """The groupby combine's sub-buckets: one partial row per (morsel,
+    stage-1 rank, key), on the key's home rank after the host re-route;
+    the fullest rank over ``M``."""
+    inv, nk = prep["inv"], len(prep["uk"])
+    code = ((prep["pos"] // M) * p + dest) * nk + inv
+    space = (-(-prep["per"] // M)) * p * nk
+    seen = (np.flatnonzero(np.bincount(code, minlength=space))
+            if space <= 1 << 26 else np.unique(code))
+    home = np.zeros(nk, np.int64)
+    home[inv] = (prep["h"] % np.uint32(p)).astype(np.int64)
+    widest = int(np.bincount(home[seen % nk], minlength=p).max())
+    return max(1, -(-widest // M))
+
+
+def skew_run(torch, env, plan, tables, kw, routed=False):
+    """One skew run; with ``routed``, the rows each rank received over all
+    the run's shuffles (the radix kernel's destinations, recorded on the
+    device) come back beside the result."""
+    from repro_torch.core import execute
+    from repro_torch.kernels import CUDA_KERNELS, reset_launches
+    got = []
+
+    def run():
+        env.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        res, st = execute(plan, env, tables, optimize=False,
+                          collect_stats=True, **kw)
+        env.synchronize()
+        got.append((res, st, time.perf_counter() - t,
+                    {k.name: k.launches for k in CUDA_KERNELS}))
+
+    if not routed:
+        run()
+        return got[0] + (None,)
+    per_rank = torch.zeros(env.parallelism + 1, dtype=torch.int64,
+                           device=env.device)
+
+    def note(dest, nb):
+        per_rank.add_(torch.bincount(dest.flatten(), minlength=nb))
+    recording(env, run, [("repro_torch.dataframe.shuffle",
+                          "radix_partition", note)])
+    return got[0] + (per_rank[:-1].cpu().numpy(),)
+
+
+def skew_oracle(prep, build, p):
+    """What every skew run over the table must return, from numpy: the
+    groupby's sorted keys, counts and float64 sums; the join's rows and
+    probe payload sums per build key, and its rows per rank when the
+    probe routes unsalted and salted (``skew_routing``)."""
+    keys = prep["keys"]
+    sums = np.bincount(prep["inv"], weights=prep["vals"].astype(np.float64))
+    nb = len(build["k"])
+    join_rows = {salted: np.bincount(
+        skew_routing(prep, p, None, prep["hot"] if salted else set(),
+                     "j")[keys < nb], minlength=p)
+        for salted in (False, True)}
+    small = keys < nb
+    return {"keys": prep["uk"], "counts": prep["cnt"], "sums": sums,
+            "join_counts": np.bincount(keys[small], minlength=nb),
+            "join_vsum": np.bincount(keys[small], weights=prep["vals"][
+                small].astype(np.float64), minlength=nb),
+            "join_rows": join_rows, "build_w": build["w"]}
+
+
+def check_skew_result(plan_kind, res, st, oracle, salted, p, in_core,
+                      label):
+    """A run's result against ``skew_oracle``: the groupby's keys and
+    counts exactly and its sums within 1e-3 relative (past 2**24 rows a
+    float32 sum is not exact in any order); the join's rows per key,
+    every row's build payload and each key's probe payload sum exactly,
+    and its rows on the ranks the routing sends them to."""
+    out = res.to_numpy()
+    check(st.rows_dropped == 0, f"{label}: {st.rows_dropped} rows dropped")
+    check(bool(st.salted_shuffles) == salted, f"{label}: "
+          f"{st.salted_shuffles} salted shuffles, want salted={salted}")
+    if plan_kind == "g":
+        check(np.array_equal(out["k"], oracle["keys"]),
+              f"{label}: group keys differ")
+        check(np.array_equal(out["v_count"], oracle["counts"]),
+              f"{label}: counts differ")
+        sums = oracle["sums"]
+        rel = np.abs(out["v_sum"] - sums) / np.maximum(sums, 1.0)
+        check(float(rel.max()) <= 1e-3, f"{label}: v_sum off by "
+              f"{rel.max()} relative")
+        return
+    cnt = oracle["join_counts"]
+    nb = len(cnt)
+    check(len(out["k"]) == int(cnt.sum()), f"{label}: {len(out['k'])} join "
+          f"rows, want {int(cnt.sum())}")
+    check(np.array_equal(np.bincount(out["k"], minlength=nb), cnt),
+          f"{label}: join rows per key differ")
+    check(np.array_equal(out["w"], oracle["build_w"][out["k"]]),
+          f"{label}: build payloads misplaced")
+    check(np.array_equal(np.bincount(out["k"], weights=out["v"].astype(
+        np.float64), minlength=nb), oracle["join_vsum"]),
+          f"{label}: probe payload sums per key differ")
+    want = oracle["join_rows"][salted]
+    rows = (res.row_counts.cpu().numpy() if in_core
+            else np.array([res.rank_rows(r) for r in range(p)]))
+    check(np.array_equal(rows, want), f"{label}: rows per rank {rows}, "
+          f"routing says {want}")
+
+
+def skew_phase(torch, rows=SKEW_ROWS, device=None, morsel=None,
+               in_core_rows=None):
+    """The salted operators on skewed tables, 8 stacked ranks: ``rows``
+    keys uniform, Zipf(1.5) over 1000 and 99% one key, through ``gplan``
+    and ``jplan`` in-core (``bsp``) and out-of-core (``morsel`` rows per
+    rank, default ``rows / 8 / 8``, capacity_factor 2), adaptive on and
+    off, first and cached (in-core a third, recorded run gives the rows
+    each rank received; out-of-core the first run is recorded).  In-core
+    runs take the first ``in_core_rows`` rows (default ``rows / 2``): at
+    skew_parity.py's capacities every shuffle of a table whose capacity is
+    ``rows + 8192`` per rank stacks p × p × that many slots on the one
+    card, and at 2**25 rows the unsalted run's sort shuffle alone asked
+    for more than the 80 GB (a 16 GiB receive index on top of 66 GiB).  Each run
+    is held to numpy (``check_skew_result``), its kernel launches to
+    their derivation, adaptive on drops no row, and on uniform keys the
+    default salts nothing, builds no stage ``adaptive=False`` does not
+    and misses the cache on no repeat.  Returns the runs' numbers."""
+    from repro_torch.adapt import AdaptiveConfig, MorselTuner
+    from repro_torch.core import CylonEnv, DistTable, Plan
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(42)
+    build = {"k": np.arange(64, dtype=np.int32),
+             "w": rng.integers(0, 100, 64).astype(np.float32)}
+    morsel = morsel or -(-(rows // P // 8) // 8) * 8
+    n_in = in_core_rows or rows // 2
+    cap = 2 * (n_in // P)
+    on_card = resolve_on_card(device)
+    results = {"in_core_rows": n_in, "out_of_core_rows": rows,
+               "morsel_rows": morsel}
+    run_s = 0.0
+    print(f"skew: {n_in} rows in-core ({rows} cut to fit the card: see "
+          f"skew_phase), capacity {cap}/rank (shuffle capacities "
+          f"{n_in + 8192}); {rows} rows out-of-core, morsel_rows {morsel}, "
+          f"capacity_factor 2.0; {P} stacked ranks", flush=True)
+    for kind in ("uniform", "zipf", "one_key"):
+        full = skew_data(kind, rows, rng)
+        env = CylonEnv(P, device=device)
+        t = DistTable.from_numpy({c: v[:n_in] for c, v in full.items()}, P,
+                                 capacity=cap, device=device)
+        bt = DistTable.from_numpy(build, P, device=device)
+        for where in ("in-core", "out-of-core"):
+            in_core = where == "in-core"
+            data = ({c: v[:n_in] for c, v in full.items()} if in_core
+                    else full)
+            prep = skew_prep(data, P)
+            hot = prep["hot"]
+            oracle = skew_oracle(prep, build, P)
+            memo = {}
+            plans = skew_plans(Plan, n_in if in_core else rows, in_core)
+            for plan_kind in ("g", "j"):
+                tables = ({"t": t} if in_core else {"t": data})
+                if plan_kind == "j":
+                    tables["r"] = bt if in_core else build
+                keys_off = None
+                for adaptive in (False, True):
+                    salted = adaptive and bool(hot)
+                    label = (f"skew {kind} {plan_kind}plan {where} "
+                             f"adaptive={adaptive}")
+                    kw = ({} if in_core else
+                          dict(morsel_rows=morsel, capacity_factor=2.0))
+                    kw["adaptive"] = adaptive
+                    if in_core:
+                        want = skew_launches_in_core(plan_kind, salted)
+                        detail = ""
+                    else:
+                        tuner = MorselTuner(
+                            AdaptiveConfig() if adaptive
+                            else AdaptiveConfig(autotune=False),
+                            capacity_factor=2.0)
+                        want, attempts, n_m = skew_launches_out_of_core(
+                            plan_kind, prep, hot if salted else set(),
+                            P, morsel, 2.0, tuner, memo)
+                        detail = f" attempts (M, W, morsels) {attempts}"
+                    runs = {}
+                    order = (("first", False), ("cached", False),
+                             ("recorded", True)) if in_core else \
+                        (("first", True), ("cached", False))
+                    for run, rec in order:
+                        if on_card:
+                            torch.cuda.reset_peak_memory_stats()
+                        res, st, wall, counts, routed = skew_run(
+                            torch, env, plans[plan_kind], tables, kw, rec)
+                        run_s += wall
+                        peak = (torch.cuda.max_memory_allocated() / 2**30
+                                if on_card else None)
+                        check_skew_result(plan_kind, res, st, oracle,
+                                          salted, P, in_core,
+                                          f"{label} {run}")
+                        if not in_core:
+                            check(st.degraded == len(attempts) - 1 and
+                                  st.morsels == n_m, f"{label} {run}: "
+                                  f"{st.degraded} degrades, {st.morsels} "
+                                  f"morsels; derived {len(attempts) - 1}, "
+                                  f"{n_m}")
+                        counts = {k: counts[k] for k in want}
+                        if on_card:
+                            check(counts == want, f"{label} {run}: launches "
+                                  f"{counts}, derived {want}")
+                        if run == "cached":
+                            check(st.cache_misses == 0, f"{label}: "
+                                  f"{st.cache_misses} misses on the repeat")
+                        ratio = None
+                        if routed is not None:
+                            ratio = float(routed.max()
+                                          / max(np.median(routed), 1.0))
+                        runs[run] = dict(
+                            wall_s=wall, peak_gib=peak,
+                            salted_shuffles=st.salted_shuffles,
+                            rows_dropped=st.rows_dropped,
+                            degraded=st.degraded,
+                            autotune_steps=st.autotune_steps,
+                            splitter_refreshes=st.splitter_refreshes,
+                            cache_misses=st.cache_misses,
+                            launches=counts, derived=want,
+                            routed_max_over_median=ratio)
+                        print(f"{label} {run:8s} wall {wall * 1e3:9.2f} ms "
+                              f"peak {'%.2f GiB' % peak if peak else 'n/a'} "
+                              f"salted={st.salted_shuffles} "
+                              f"dropped={st.rows_dropped} "
+                              f"degraded={st.degraded} "
+                              f"autotune={st.autotune_steps} "
+                              f"refreshes={st.splitter_refreshes} "
+                              f"misses={st.cache_misses} launches={counts} "
+                              f"(derived {want}){detail}"
+                              + (f" routed rows per rank {routed.tolist()}, "
+                                 f"hottest / median {ratio:.3f}"
+                                 if ratio is not None else ""), flush=True)
+                        del res
+                    if kind == "uniform":
+                        if not adaptive:
+                            keys_off = set(env._cache)
+                        else:
+                            check(set(env._cache) == keys_off, f"{label}: "
+                                  f"the default built stages adaptive=False"
+                                  f" did not")
+                    results[f"{kind}/{plan_kind}/{where}/"
+                            f"{'on' if adaptive else 'off'}"] = runs
+        del t, bt, env, full, data
+        if on_card:
+            torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"phase skew took {took:.1f} s, {run_s:.1f} s of it in the runs "
+          f"(the rest: making the tables, the numpy oracle and launch "
+          f"derivations, reading results back)", flush=True)
+    return results
+
+
+def resolve_on_card(device):
+    from repro_torch.core import resolve_device
+    return resolve_device(device).type == "cuda"
+
+
+OOC_SITES = ("segment:launch", "morsel:compile", "morsel:execute",
+             "transfer:h2d", "transfer:d2h", "spill:append", "spill:respill",
+             "spill:combine", "build:resident")
+
+
+def fault_visits(run):
+    """Visits per fault site of one fault-free run: ``run(faults)`` runs
+    the query with an armed plan of no faults, whose occurrence counters
+    then hold every site's visits."""
+    from repro_torch.faults import FaultPlan
+    counter = FaultPlan(()).start()
+    run(counter)
+    return dict(counter._seen)
+
+
+def same_result(got, want):
+    return sorted(got) == sorted(want) and all(
+        got[c].dtype == want[c].dtype and np.array_equal(got[c], want[c])
+        for c in want)
+
+
+def faults_phase(torch, rows=FULL_ROWS, ooc_rows=1 << 23, device=None):
+    """Fig-9 recovered from injected faults, on integer-valued payloads
+    (exact sums, so a recovered result is bit for bit the fault-free one):
+    in-core at 2 x ``rows`` rows, one ``raise`` at ``stage:launch`` and at
+    ``a2a:chunk``, in ``bsp`` and ``bsp_staged``; out-of-core at 2 x
+    ``ooc_rows`` rows, 8x oversubscribed, one ``raise`` at each of the
+    nine out-of-core sites, ``corrupt-capacity`` at ``build:resident``
+    and ``segment:launch``, three ``random_plan`` seeds, and one ``hang``
+    under ``timeout=`` (``QueryTimeout`` within the deadline + 1 s, then a
+    fault-free run on the same env).  Each recovered run: bit-identical
+    to the fault-free run, no row dropped, ``faults_injected`` what the
+    plan fires on this run's site visits and ``retries`` one per fired
+    ``raise``.  Returns the walls."""
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    from repro_torch.faults import FaultPlan, FaultSpec, QueryTimeout, \
+        random_plan
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def timed(label, fn):
+        env.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        env.synchronize()
+        walls[label] = time.perf_counter() - t
+        return out
+
+    def recovered(label, res, st, want, fired, raises):
+        check(same_result(res.to_numpy(), want), f"faults {label}: result "
+              f"differs from the fault-free run")
+        check(st.rows_dropped == 0 and st.faults_injected == fired
+              and st.retries == raises, f"faults {label}: dropped "
+              f"{st.rows_dropped}, injected {st.faults_injected} (want "
+              f"{fired}), retries {st.retries} (want {raises})")
+        print(f"faults {label}: recovered bit-identical in "
+              f"{walls[label] * 1e3:.2f} ms, injected {st.faults_injected},"
+              f" retries {st.retries}, degraded {st.degraded}, "
+              f"autotune {st.autotune_steps}", flush=True)
+
+    # -- in-core ------------------------------------------------------- #
+    ld, rd = make_exact_data(rows, 0, "v0"), make_exact_data(rows, 1, "w")
+    cap = capacity_for(rows, P)
+    env = CylonEnv(P, device=device)
+    tables = {"l": DistTable.from_numpy(ld, P, capacity=cap, device=device),
+              "r": DistTable.from_numpy(rd, P, capacity=cap, device=device)}
+    plan = fig9_plan(Plan, cap)
+    for mode in ("bsp", "bsp_staged"):
+        want = timed(f"{mode}/clean", lambda: execute(
+            plan, env, tables, mode=mode, collect_stats=True))[0].to_numpy()
+        for site in ("stage:launch", "a2a:chunk"):
+            label = f"{mode}/{site}"
+            res, st = timed(label, lambda: execute(
+                plan, env, tables, mode=mode, collect_stats=True,
+                faults=f"{site}@0=raise"))
+            recovered(label, res, st, want, 1, 1)
+            del res
+    del tables, want, env
+    # -- out-of-core --------------------------------------------------- #
+    ld, rd = (make_exact_data(ooc_rows, 0, "v0"),
+              make_exact_data(ooc_rows, 1, "w"))
+    cap = capacity_for(ooc_rows, P)
+    morsel = -(-(-(-ooc_rows // P) // 8) // 8) * 8
+    env = CylonEnv(P, device=device)
+    tables = {"l": ld, "r": DistTable.from_numpy(rd, P, capacity=cap,
+                                                 device=device)}
+    plan = fig9_plan(Plan, cap)
+
+    def ooc(faults=False, **kw):
+        return execute(plan, env, tables, collect_stats=True,
+                       morsel_rows=morsel, capacity_factor=4.0,
+                       faults=faults, **kw)
+    res, st = timed("ooc/clean", ooc)
+    want = res.to_numpy()
+    check(st.retries == st.faults_injected == 0, "faults: clean run faulted")
+    visits = fault_visits(lambda f: ooc(f))
+    print(f"faults: out-of-core Fig-9 at 2 x {ooc_rows} rows, morsel_rows "
+          f"{morsel}; site visits of a fault-free run {visits}", flush=True)
+    for site in OOC_SITES:
+        check(visits.get(site, 0) > 0, f"faults: {site} never visited")
+        res, st = timed(f"ooc/{site}", lambda: ooc(f"{site}@0=raise"))
+        recovered(f"ooc/{site}", res, st, want, 1, 1)
+    for site in ("build:resident", "segment:launch"):
+        label = f"ooc/{site}/corrupt-capacity"
+        res, st = timed(label, lambda: ooc(f"{site}@0=corrupt-capacity"))
+        recovered(label, res, st, want, 1, 0)
+        # a quarter of the build's headroom may still hold a uniform hash
+        # spread; a quarter of the segment's working capacity cannot
+        check(st.degraded > 0 or site == "build:resident",
+              f"faults {label}: no degrade replay")
+    for seed in (1, 2, 3):
+        rp = random_plan(seed, max_occurrence=2, sites=OOC_SITES)
+        (spec,) = rp.specs
+        fired = int(visits.get(spec.site, 0) > spec.at)
+        label = f"ooc/random_plan({seed})={rp}"
+        res, st = timed(label, lambda: ooc(rp))
+        recovered(label, res, st, want, fired, fired)
+    hang = FaultPlan((FaultSpec("morsel:execute", kind="hang", at=1),),
+                     hang_s=30.0)
+    deadline = 2.0 * walls["ooc/clean"] + 1.0
+    t = time.perf_counter()
+    try:
+        ooc(hang, timeout=deadline)
+        check(False, "faults: the hang was not fenced by the deadline")
+    except QueryTimeout:
+        pass
+    took = time.perf_counter() - t
+    check(took <= deadline + 1.0, f"faults: QueryTimeout after {took:.2f} s,"
+          f" deadline {deadline:.2f} s")
+    res, st = timed("ooc/after-timeout", ooc)
+    recovered("ooc/after-timeout", res, st, want, 0, 0)
+    check(st.cache_misses == 0, "faults: the run after the timeout built "
+          "stages anew")
+    print(f"faults: hang under timeout={deadline:.2f} s raised QueryTimeout "
+          f"after {took:.2f} s; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    walls["ooc/hang-timeout"] = took
+    return walls
 
 
 def degrade_phase(devices=("cuda", "cpu")):
@@ -2296,7 +2981,9 @@ def main():
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     cap = capacity_for(FULL_ROWS, P)
     radix_cases = radix_phase(torch, cap, flush)
+    radix_cases += radix_phase(torch, cap, flush, skewed=True)
     segsum_cases = segsum_phase(torch, cap, flush)
+    segsum_cases += segsum_phase(torch, cap, flush, skewed=True)
     flash_cases = flash_phase(torch, flush)
     ssd_cases = ssd_phase(torch, flush)
     del flush
@@ -2326,6 +3013,10 @@ def main():
     ingest = ingest_phase(torch)
     ingest["strings"] = ingest_strings_phase(torch)
     phase_done("ingest and analyze")
+    skew = skew_phase(torch)
+    phase_done("skew")
+    fault_walls = faults_phase(torch)
+    phase_done("faults")
     parity_phase()
     degrade_phase()
     unsigned_phase()
@@ -2362,6 +3053,8 @@ def main():
                       served["mamba2-780m"]["first"]["launches"]),
     ]
     print(json.dumps({"fig9_wall_s": walls}))
+    print(json.dumps({"skew": skew}))
+    print(json.dumps({"faults_wall_s": fault_walls}))
     print(json.dumps({"out_of_core": ooc}))
     print(json.dumps({"ingest": ingest}))
     print(json.dumps({"frontend_wall_s": front_walls,

@@ -194,12 +194,19 @@ class MorselSource:
     (``repro_torch.obs.Tracer``) gets an ``h2d:morsel[m]`` instant with
     the bytes of each morsel when its upload is enqueued; the copy's event
     marks its end.
+
+    The staging of each morsel is the ``transfer:h2d`` fault site
+    (``repro_torch.faults``; ``faults`` and ``token`` default to no-ops).
+    A fault unwinds the iteration while earlier uploads may still read
+    the pinned staging sets, so the iterator waits on their events before
+    it lets go of them: a replay's new source never refills memory a copy
+    is still reading.
     """
 
     def __init__(self, source, morsel_rows: int,
                  env: Optional["CylonEnv"] = None,
                  parallelism: Optional[int] = None, device=None,
-                 tracer=None):
+                 tracer=None, faults=None, token=None):
         from .store import SpillTable  # deferred: store imports env
         if isinstance(source, DistTable):
             source = SpillTable.from_dist(source)
@@ -221,6 +228,11 @@ class MorselSource:
         self._layout = {n: (x32_dtype(d), s)
                         for n, (d, s) in sorted(source.schema.items())}
         self._tracer = tracer if tracer is not None else NULL_TRACER
+        if faults is None:
+            from ..faults import NULL_FAULTS
+            faults = NULL_FAULTS
+        self._faults = faults
+        self._token = token
 
     def _host_buffers(self, pin: bool) -> Tuple[Dict[str, torch.Tensor],
                                                 torch.Tensor]:
@@ -235,6 +247,7 @@ class MorselSource:
     def _fill(self, m: int, bufs: Dict[str, torch.Tensor],
               counts: torch.Tensor) -> None:
         """Write morsel ``m``'s rows into ``bufs`` (padding zeroed)."""
+        self._faults.check("transfer:h2d", token=self._token, morsel=m)
         b0 = self.h2d_bytes
         lo, hi = m * self.capacity, (m + 1) * self.capacity
         cnt = counts.numpy()
@@ -299,14 +312,22 @@ class MorselSource:
             last_read[s] = ev
             return self._table(cols, cnt), ev
 
-        nxt = enqueue(0)
         try:
+            nxt = enqueue(0)
             for m in range(1, self.num_morsels + 1):
                 cur, ev = nxt
                 # prefetch: morsel m's upload goes out before m-1 is used
                 nxt = enqueue(m) if m < self.num_morsels else None
                 compute.wait_event(ev)
                 yield cur
+        except BaseException:
+            # a fault (or a consumer that stops early) unwinds while
+            # uploads may still read the pinned staging sets: wait for
+            # them before the sets are let go
+            for ev in last_read:
+                if ev is not None:
+                    ev.synchronize()
+            raise
         finally:
             # a consumer that stops early must not free blocks a copy is
             # still writing

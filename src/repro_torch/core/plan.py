@@ -169,25 +169,13 @@ class Plan:
                                a2a_chunks=a2a_chunks)
 
 
-#: ``execute`` options of the JAX package that later slices of the port add
-#: (the slice and its ROADMAP queue-1 item)
-_NOT_YET = {
-    "retries": ("fault handling", 10),
-    "timeout": ("fault handling", 10),
-    "faults": ("fault handling", 10),
-    "adaptive": ("adaptive skew handling", 10),
-}
-#: options passed through to the executors (``scan_capacity`` is the
-#: in-core one; the rest go to the out-of-core executor)
-_MORSEL_KW = ("capacity_factor", "samples", "debug_overflow",
-              "scan_capacity")
-
-
 def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
             optimize: bool = True, collect_stats: bool = False,
             shuffle_impl: str = "radix", a2a_chunks: int = 1,
             morsel_rows: Optional[int] = None, trace: Any = None,
-            overflow: Optional[str] = None, **kw):
+            retries: Any = None, timeout: Any = None,
+            overflow: Any = None, faults: Any = None,
+            adaptive: Any = None, **morsel_kw):
     """Execute a plan against DistTables.  Returns a DistTable, or
     ``(DistTable, planner.ExecStats)`` with ``collect_stats=True``.
 
@@ -203,10 +191,7 @@ def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
     morsels; the result is a ``SpillTable``.  Extra keywords
     (``capacity_factor``, ``samples``, ``debug_overflow``) are forwarded
     to the morsel executor; ``scan_capacity`` sets the per-rank capacity
-    that host-resident (ingested) scans get in-core.  ``overflow``
-    (``raise | warn | degrade``, default ``degrade``) decides what rows
-    dropped by capacity pressure do: ``degrade`` replays an in-core plan
-    out-of-core until every row fits.
+    that host-resident (ingested) scans get in-core.
 
     ``trace`` turns on query tracing: ``True`` builds a fresh
     ``repro_torch.obs.Tracer``, an existing ``Tracer`` is used as-is, and
@@ -215,24 +200,22 @@ def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
     (or from the tracer you passed).  Tracing is host-side only — it
     never changes which stages are built.
 
-    The JAX package's ``retries``, ``timeout``, ``faults`` and
-    ``adaptive`` come with a later slice of the port; passing one raises
-    ``NotImplementedError`` naming the slice and its ROADMAP item.
+    Fault tolerance (``repro_torch.faults``): ``retries`` (int or
+    ``RetryPolicy``) replays failed dispatch units with exponential
+    backoff; ``timeout`` (seconds or a ``CancellationToken``) deadlines
+    the whole query; ``overflow`` (``raise | warn | degrade``, default
+    ``degrade``) governs capacity-pressure row drops — ``degrade`` replays
+    an in-core plan out-of-core until every row fits; ``faults`` arms a
+    deterministic fault-injection plan (``None`` consults the
+    ``REPRO_FAULTS`` env var).
+
+    ``adaptive`` (None | bool | dict | ``repro_torch.adapt.
+    AdaptiveConfig``) gates runtime skew mitigation — hot-key salting,
+    splitter refresh, morsel autotuning.  Default on; data with no
+    detected skew runs exactly the ``adaptive=False`` stages.
     """
     from ..obs.trace import resolve_tracer
     from ..planner import compile_plan, run_physical
-    morsel_kw = {}
-    for name, value in kw.items():
-        if name in _MORSEL_KW:
-            morsel_kw[name] = value
-        elif name not in _NOT_YET:
-            raise TypeError(f"execute() got an unexpected keyword argument "
-                            f"{name!r}")
-        elif value is not None and value is not False:
-            what, item = _NOT_YET[name]
-            raise NotImplementedError(
-                f"execute({name}=...) waits for the {what} slice of the "
-                f"port (ROADMAP queue 1, item {item})")
     tracer = resolve_tracer(trace)
     pplan = compile_plan(plan, tables, optimize_plan=optimize)
     with tracer.span("query", "query", mode=mode,
@@ -241,8 +224,10 @@ def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",
         out = run_physical(pplan, env, tables, mode,
                            collect_stats=collect_stats,
                            shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
-                           morsel_rows=morsel_rows, overflow=overflow,
-                           tracer=tracer, **morsel_kw)
+                           morsel_rows=morsel_rows, tracer=tracer,
+                           retries=retries, timeout=timeout,
+                           overflow=overflow, faults=faults,
+                           adaptive=adaptive, **morsel_kw)
     if tracer.enabled:
         tracer.finish()
     return out

@@ -84,12 +84,17 @@ def fetch_valid(table: DistTable, staging: Optional[D2HStaging] = None
         staging = D2HStaging()
     copied = counts.nbytes
     host: Dict[str, torch.Tensor] = {}
-    for name, v in table.columns.items():
-        src = v[:, :widest]
-        host[name] = staging.land(name, src) if on_card else src
-        copied += src.numel() * src.element_size()
-    if on_card:
-        torch.cuda.current_stream(table.device).synchronize()
+    try:
+        for name, v in table.columns.items():
+            src = v[:, :widest]
+            host[name] = staging.land(name, src) if on_card else src
+            copied += src.numel() * src.element_size()
+    finally:
+        # also on an exception: no landing copy may still be in flight
+        # when the buffers are reused (the ``transfer:d2h`` fault site is
+        # visited before this call, so a replay starts with them idle)
+        if on_card:
+            torch.cuda.current_stream(table.device).synchronize()
     arrays = {n: t.numpy() for n, t in host.items()}
     rows = [{n: np.array(a[r, :int(c)]) for n, a in arrays.items()}
             for r, c in enumerate(counts)]

@@ -15,18 +15,20 @@ from .ops_local import (
     sort_local,
     with_columns,
 )
-from .shuffle import ShuffleStats, default_bucket_capacity, shuffle
+from .shuffle import (ShuffleStats, default_bucket_capacity,
+                      replicate_hot_rows, shuffle)
 from .groupby import (combine_groupby_partials, finalize_groupby, groupby,
-                      groupby_partial)
+                      groupby_partial, groupby_salted, salted_dest)
 from .join import join
-from .sort import sort
+from .sort import repartition_balanced, sort
 
 __all__ = [
     "Table", "concat_tables",
     "add_scalar", "drop_null_keys", "filter_expr", "groupby_local",
     "hash_columns", "hash_columns_np", "join_local", "join_overflow",
     "recode", "sort_local", "with_columns",
-    "ShuffleStats", "default_bucket_capacity", "shuffle",
-    "combine_groupby_partials", "finalize_groupby", "groupby",
-    "groupby_partial", "join", "sort",
+    "ShuffleStats", "default_bucket_capacity", "replicate_hot_rows",
+    "shuffle", "combine_groupby_partials", "finalize_groupby", "groupby",
+    "groupby_partial", "groupby_salted", "join", "repartition_balanced",
+    "salted_dest", "sort",
 ]

@@ -1,8 +1,7 @@
 """Distributed groupby: optional local pre-aggregation + shuffle + final agg.
 
 The torch counterpart of ``repro.dataframe.groupby``, with the out-of-core
-partial/combine pair (the salted functions come with a later slice of the
-port).
+partial/combine pair and the hot-key salted groupby (``repro_torch.adapt``).
 
 The paper's groupby is shuffle-then-aggregate (map-reduce style).  We add a
 *partial-aggregation pushdown* (classic distributed-DB optimization, and the
@@ -20,7 +19,7 @@ import torch
 
 from ..comm import Communicator
 from ..nulls import mask_name
-from .ops_local import drop_null_keys, groupby_local
+from .ops_local import drop_null_keys, groupby_local, hash_columns
 from .shuffle import ShuffleStats, shuffle
 from .table import Table
 
@@ -139,6 +138,72 @@ def groupby(
 
 
 # ---------------------------------------------------------------------- #
+# Hot-key salting (repro_torch.adapt): spread a hot key over k ranks,
+# re-merge
+# ---------------------------------------------------------------------- #
+def hot_mask(h: torch.Tensor, hot_hashes: Sequence[int]) -> torch.Tensor:
+    """Rows whose key hash (``hash_columns``' uint32 values) is one of the
+    hot constants."""
+    hot = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+    for v in hot_hashes:
+        hot = hot | (h == int(v))
+    return hot
+
+
+def salted_dest(table: Table, comm: Communicator, keys: Sequence[str],
+                hot_hashes: Sequence[int], k: int):
+    """Per-row destinations with hot keys spread over ``k`` ranks.
+
+    Cold rows route to their hash home ``h % p`` exactly as an unsalted
+    shuffle would; rows whose key hash is in ``hot_hashes`` (constants
+    the decision layer fixed for this stage) rotate over the ``k`` ranks
+    following the home — the per-row ``arange % k`` salt is what spreads
+    rows that all share one ``h``.  Returns ``(dest, is_hot)``, each
+    ``(p, cap)``.
+    """
+    p = comm.size()
+    h = hash_columns(table, list(keys))
+    base = (h % p).to(torch.int32)
+    hot = hot_mask(h, hot_hashes)
+    salt = (torch.arange(table.capacity, dtype=torch.int32,
+                         device=table.device) % max(k, 1))[None, :]
+    return torch.where(hot, (base + salt) % p, base), hot
+
+
+def groupby_salted(
+    table: Table,
+    comm: Communicator,
+    keys: Sequence[str],
+    aggs: Mapping[str, Sequence[str]],
+    hot_hashes: Sequence[int],
+    k: int,
+    shuffle_kw: Optional[Mapping] = None,
+    remerge_kw: Optional[Mapping] = None,
+) -> Tuple[Table, ShuffleStats, ShuffleStats]:
+    """Skew-mitigated distributed groupby.
+
+    Stage 1 shuffles rows by salted destination (a hot key's rows land on
+    ``k`` ranks instead of one) and aggregates locally into mergeable
+    partials; a second shuffle — tiny, one partial row per (rank, key) —
+    re-merges each key's partials on its unsalted home rank, where stage 2
+    combines them.  Exactly the pre-aggregation decomposition, so it is
+    exact for every agg ``_DECOMP`` supports.  Returns
+    ``(result, stage1 stats, re-merge stats)``.
+    """
+    physical, post = _normalize(aggs)
+    nullable = nullable_agg_cols(table, physical)
+    table = drop_null_keys(table, keys)
+    dest, _ = salted_dest(table, comm, keys, hot_hashes, k)
+    shuffled, st1 = shuffle(table, comm, dest=dest, **dict(shuffle_kw or {}))
+    partial = groupby_local(shuffled, keys, physical)
+    stage2, rename = _stage2_spec(physical)
+    merged, st2 = shuffle(partial, comm, key_cols=list(keys),
+                          **dict(remerge_kw or {}))
+    final = groupby_local(merged, keys, stage2).rename(rename)
+    return finalize_groupby(final, keys, post, nullable), st1, st2
+
+
+# ---------------------------------------------------------------------- #
 # Out-of-core: per-morsel partials + rank-local cross-morsel combine
 # ---------------------------------------------------------------------- #
 def groupby_partial(
@@ -148,6 +213,7 @@ def groupby_partial(
     physical: Mapping[str, Sequence[str]],
     pre_aggregate: bool = False,
     elide_shuffle: bool = False,
+    salt: Optional[Tuple[Sequence[int], int]] = None,
     **shuffle_kw,
 ) -> Tuple[Table, Optional[ShuffleStats]]:
     """One morsel's contribution to a distributed groupby.
@@ -158,6 +224,11 @@ def groupby_partial(
     the same key land on the same rank in **every** morsel, so the
     cross-morsel combine (``combine_groupby_partials``) is rank-local — no
     further communication.
+
+    ``salt=(hot_hashes, k)`` spreads hot keys over ``k`` ranks instead
+    (``salted_dest``); the co-residency guarantee then holds only after
+    the morsel executor host-re-routes the partial spill by ``hash % p``
+    ahead of the combine.
     """
     stage2, rename = _stage2_spec(physical)
     table = drop_null_keys(table, keys)
@@ -169,7 +240,13 @@ def groupby_partial(
         shuffled, stats = shuffle(partial, comm, key_cols=list(keys),
                                   **shuffle_kw)
         return groupby_local(shuffled, keys, stage2).rename(rename), stats
-    shuffled, stats = shuffle(table, comm, key_cols=list(keys), **shuffle_kw)
+    if salt is not None:
+        hot_hashes, k = salt
+        dest, _ = salted_dest(table, comm, keys, hot_hashes, k)
+        shuffled, stats = shuffle(table, comm, dest=dest, **shuffle_kw)
+    else:
+        shuffled, stats = shuffle(table, comm, key_cols=list(keys),
+                                  **shuffle_kw)
     return groupby_local(shuffled, keys, physical), stats
 
 

@@ -38,7 +38,7 @@ from ..comm import Communicator
 from ..dtypes import signed_view
 from ..kernels import radix_partition
 from .ops_local import hash_columns
-from .table import Table, gather_rows, scatter_rows
+from .table import Table, gather_rows, scatter_rows, stable_partition_order
 
 
 @dataclasses.dataclass
@@ -257,4 +257,87 @@ def shuffle(
     stats = ShuffleStats(sent_counts, recv_counts, send_dropped,
                          recv_dropped, shuffle_impl=impl,
                          a2a_chunks=a2a_chunks)
+    return out, stats
+
+
+def replicate_hot_rows(
+    table: Table,
+    comm: Communicator,
+    is_hot: torch.Tensor,
+    hot_cap: int,
+    base: Table,
+) -> Tuple[Table, ShuffleStats]:
+    """Broadcast each rank's ``is_hot`` rows to every rank, appended to
+    ``base`` (the skew-mitigated build side of a broadcast join).
+
+    The salted join path excludes hot build rows from the hash shuffle
+    (they route to the overflow bin ``p``, uncounted) and replicates them
+    here instead: a stable compaction into ``hot_cap`` slots per rank, one
+    packed ``all_gather``, then a prefix-sum append onto ``base`` past its
+    ``row_count``.  Output capacity is ``base.capacity + p * hot_cap``;
+    rows beyond ``hot_cap`` on one rank ARE counted as ``send_dropped``
+    (the decision layer sizes ``hot_cap`` from an exact host count
+    precisely so this stays zero).
+    """
+    p = comm.size()
+    cap = table.capacity
+    dev = table.device
+    k = min(int(hot_cap), cap)  # per-rank slots, the same on every rank
+    hot = is_hot & table.valid_mask()
+    n_hot = hot.sum(dim=1, dtype=torch.int32)
+    sent = torch.clamp(n_hot, max=k)
+    dropped = n_hot - sent
+
+    order = stable_partition_order(hot)[:, :k]
+    counts = comm.all_gather(sent)                      # (p, p) everywhere
+    offsets = torch.cumsum(counts, dim=1) - counts      # exclusive
+    total = counts.sum(dim=1, dtype=torch.int32)
+
+    base_cap = base.capacity
+    new_cap = base_cap + p * k
+    start = base.row_count
+    # start <= base_cap and total <= p*k, so the append never overflows
+    idx = torch.arange(p * k, device=dev)
+    blk, q = idx // k, idx % k
+    g_valid = q[None, :] < counts[:, blk]
+    pos = torch.where(g_valid, (start[:, None] + offsets[:, blk]).to(
+        torch.int64) + q[None, :], new_cap)
+
+    names = base.column_names
+    dtypes = {n: table.columns[n].dtype for n in names}
+    packables = [n for n in names if dtypes[n] in PACKABLE
+                 and table.columns[n].dim() == 2]
+    singles = [n for n in names if n not in packables]
+
+    def _gather(col: torch.Tensor) -> torch.Tensor:
+        got = comm.all_gather(gather_rows(col, order))  # (p, p, k, ...)
+        return got.reshape((p, p * k) + col.shape[2:])
+
+    def _append(n: str, flat: torch.Tensor) -> torch.Tensor:
+        # base rows first, then the gathered hot rows past row_count; slot
+        # new_cap is the trash slot of JAX's mode="drop"
+        b = signed_view(base.columns[n])
+        out = torch.zeros((p, new_cap + 1) + b.shape[2:], dtype=b.dtype,
+                          device=dev)
+        out[:, :base_cap] = b
+        at = pos.reshape(pos.shape + (1,) * (flat.dim() - 2)).expand(
+            flat.shape)
+        out.scatter_(1, at, flat.to(b.dtype))
+        return out[:, :new_cap].view(dtypes[n])
+
+    out_cols: Dict[str, torch.Tensor] = {}
+    if packables:
+        got = _gather(_pack_u32(table.columns, packables))
+        for n, v in _unpack_u32(got, packables, dtypes).items():
+            out_cols[n] = _append(n, signed_view(v))
+    for n in singles:
+        out_cols[n] = _append(n, _gather(signed_view(table.columns[n])))
+
+    new_count = (start + total).to(torch.int32)
+    out = Table(out_cols, new_count).mask_padding()
+    # this rank sends its ``sent`` hot rows to every rank and receives
+    # each rank's contribution once — the honest wire accounting
+    stats = ShuffleStats(sent[:, None].expand(p, p).contiguous(), counts,
+                         dropped, torch.zeros((p,), dtype=torch.int32,
+                                              device=dev))
     return out, stats

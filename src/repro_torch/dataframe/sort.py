@@ -76,3 +76,19 @@ def sort(
     dest = _range_dest(table, by[0], comm, samples)
     shuffled, stats = shuffle(table, comm, dest=dest, **shuffle_kw)
     return sort_local(shuffled, by), stats
+
+
+def repartition_balanced(
+    table: Table,
+    comm: Communicator,
+    key_col: str,
+    samples: int = 64,
+    **shuffle_kw,
+) -> Tuple[Table, ShuffleStats]:
+    """Sample-based repartition (paper §VI): balance rows across ranks.
+
+    Range-partitions on sampled quantiles of ``key_col`` without the final
+    local sort — used for skew/straggler mitigation in long pipelines.
+    """
+    dest = _range_dest(table, key_col, comm, samples)
+    return shuffle(table, comm, dest=dest, **shuffle_kw)

@@ -21,10 +21,9 @@ host column dict) through ``collect(morsel_rows=...)``; in-core modes
 scatter them onto the env's ranks.  ``collect(analyze=True)`` and
 ``explain_analyze()`` report what a run did (EXPLAIN ANALYZE, with the
 card's roofline), and ``collect(trace=...)`` records its spans.
-
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-queue-1 item: the fault-tolerance and adaptive options of ``collect``
-other than ``overflow`` (item 10).
+``collect`` takes the fault-tolerance and adaptive options
+(``timeout``, ``retries``, ``overflow``, ``faults``, ``adaptive``), or
+the active session's defaults for them.
 """
 
 from __future__ import annotations
@@ -40,7 +39,7 @@ from ..core.store import SpillTable
 from ..expr import Col, Expr, ensure_expr
 from ..nulls import data_columns
 from ..planner.logical import groupby_schema, join_schema
-from .session import get_env, refuse_deferred
+from .session import get_env, get_session_defaults
 
 __all__ = ["DataFrame", "GroupBy", "read_numpy", "from_pandas", "from_table",
            "read_parquet", "read_csv"]
@@ -266,14 +265,27 @@ class DataFrame:
         ingested for (``read_numpy(env=...)``) > the active session env
         (``repro_torch.df.session``).  Extra ``kw`` (``shuffle_impl``,
         ``a2a_chunks``, ``capacity_factor``, ``scan_capacity``, ...) pass
-        through to ``core.plan.execute``, as does ``overflow`` (``raise |
-        warn | degrade``).
+        through to ``core.plan.execute``.
 
-        ``timeout`` / ``retries`` / ``faults`` / ``adaptive`` (ROADMAP
-        item 10) are not ported yet and raise ``NotImplementedError``.
+        Fault tolerance: ``timeout`` (s) deadlines the query, ``retries``
+        replays faulted dispatch units with backoff, ``overflow`` (``raise
+        | warn | degrade``) governs capacity-pressure drops, ``faults``
+        injects a deterministic fault plan.  ``None`` falls back to the
+        active session's defaults (``session(timeout=..., ...)``), then
+        the library defaults.  ``adaptive`` gates runtime skew mitigation
+        the same way.
         """
-        refuse_deferred("collect", timeout=timeout, retries=retries,
-                        faults=faults, adaptive=adaptive)
+        defaults = get_session_defaults()
+        if timeout is None:
+            timeout = defaults.get("timeout")
+        if retries is None:
+            retries = defaults.get("retries")
+        if overflow is None:
+            overflow = defaults.get("overflow")
+        if faults is None:
+            faults = defaults.get("faults")
+        if adaptive is None:
+            adaptive = defaults.get("adaptive")
         if env is None:
             env = self._env if self._env is not None else get_env()
         if morsel_rows is None:
@@ -296,11 +308,14 @@ class DataFrame:
             return run_analyzed(self.plan, env, self.sources, mode=mode,
                                 optimize=optimize, morsel_rows=morsel_rows,
                                 trace=True if trace is None else trace,
-                                overflow=overflow, **kw)
+                                timeout=timeout, retries=retries,
+                                overflow=overflow, faults=faults,
+                                adaptive=adaptive, **kw)
         return execute(self.plan, env, self.sources, mode=mode,
                        optimize=optimize, collect_stats=collect_stats,
                        morsel_rows=morsel_rows, trace=trace,
-                       overflow=overflow, **kw)
+                       timeout=timeout, retries=retries, overflow=overflow,
+                       faults=faults, adaptive=adaptive, **kw)
 
     def to_numpy(self, nulls: str = "pandas", **kw) -> Dict[str, np.ndarray]:
         """``collect`` + gather valid rows to host numpy columns (string

@@ -36,27 +36,6 @@ _lock = threading.Lock()
 _default: Optional[CylonEnv] = None
 _tls = threading.local()
 
-#: ``session`` / ``collect`` options of the JAX package that later slices
-#: of the port add, with the ROADMAP queue-1 item that brings each
-DEFERRED = {"timeout": 10, "retries": 10, "overflow": 10, "faults": 10,
-            "adaptive": 10, "scheduler": 11}
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for a part of ``repro.df`` that ROADMAP queue 1, item
-    ``item`` brings to the port."""
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"ROADMAP queue 1, item {item}")
-
-
-def refuse_deferred(where: str, **options: Any) -> None:
-    """Raise ``not_ported`` for the first option in ``options`` that is
-    set."""
-    for name, value in options.items():
-        if value is not None:
-            raise not_ported(f"{where}({name}=...)", DEFERRED[name])
-
-
 def _stack() -> List[CylonEnv]:
     """Per-thread session stack: concurrent threads scope independently
     (the process default below is shared, guarded by ``_lock``)."""
@@ -78,10 +57,8 @@ def _defaults_stack() -> List[dict]:
 
 
 def get_session_defaults() -> dict:
-    """Effective collect() defaults for this thread: innermost session
-    values win, outer sessions fill the gaps.  No default is settable
-    yet (the fault-tolerance and adaptive ones come with ROADMAP item 10),
-    so this holds only the ``scheduler`` layer key."""
+    """Effective fault-tolerance / adaptivity defaults for this thread:
+    innermost session values win, outer sessions fill the gaps."""
     merged: dict = {}
     for layer in _defaults_stack():
         merged.update(layer)
@@ -138,11 +115,18 @@ def session(env: Optional[CylonEnv] = None, *,
     the env, so reusing one session across many ``collect`` calls is what
     makes repeat execution cheap.
 
-    ``scheduler=`` (ROADMAP item 11) and the collect defaults
-    ``timeout`` / ``retries`` / ``overflow`` / ``faults`` / ``adaptive``
-    (item 10) are not ported yet and raise ``NotImplementedError``;
-    ``scheduler=`` together with an env raises ``TypeError`` first, as in
-    the JAX package.
+    ``timeout`` / ``retries`` / ``overflow`` / ``faults`` set the
+    session-wide fault-tolerance defaults applied to every ``collect()``
+    in scope; a per-call argument overrides, and nested sessions override
+    outer ones per key.  A session-level ``timeout`` is a *per-query*
+    deadline, re-armed at each collect.  ``adaptive`` defaults the
+    runtime skew-mitigation knob the same way: ``session(adaptive=False)``
+    pins every collect in scope to the non-adaptive stages; a dict or
+    ``repro_torch.adapt.AdaptiveConfig`` tunes detection thresholds.
+
+    ``scheduler=`` (ROADMAP item 11) is not ported yet and raises
+    ``NotImplementedError``; together with an env it raises
+    ``TypeError`` first, as in the JAX package.
     """
     if scheduler is not None:
         if env is not None or parallelism is not None or device is not None:
@@ -154,16 +138,22 @@ def session(env: Optional[CylonEnv] = None, *,
         raise TypeError(
             "pass either env= or device=, not both: the env already "
             f"carries its device ({env.device})")
-    refuse_deferred("session", scheduler=scheduler, timeout=timeout,
-                    retries=retries, overflow=overflow, faults=faults,
-                    adaptive=adaptive)
+    if scheduler is not None:
+        raise NotImplementedError(
+            "session(scheduler=...) is not ported yet: it comes with "
+            "ROADMAP queue 1, item 11")
     if env is None:
         env = CylonEnv(1 if parallelism is None else parallelism,
                        device=device)
+    layer = {k: v for k, v in (("timeout", timeout), ("retries", retries),
+                               ("overflow", overflow), ("faults", faults),
+                               ("adaptive", adaptive))
+             if v is not None}
+    # an env session masks any outer scheduler (innermost wins)
+    layer["scheduler"] = None
     stack = _stack()
     stack.append(env)
-    # an env session masks any outer scheduler (innermost wins)
-    _defaults_stack().append({"scheduler": None})
+    _defaults_stack().append(layer)
     try:
         yield env
     finally:

@@ -100,7 +100,7 @@ def _stage_seconds(stats) -> Dict[int, float]:
 def render_analyze(pplan, stats, scan_rows: Optional[Dict[str, int]] = None,
                    result_rows: Optional[int] = None) -> str:
     """The EXPLAIN tree with ``act:`` annotations from a finished run."""
-    from ..planner.explain import node_label
+    from ..planner.explain import adapt_note, node_label
     scan_rows = scan_rows or {}
     records = _records_by_label(stats)
     stage_secs = _stage_seconds(stats)
@@ -109,6 +109,16 @@ def render_analyze(pplan, stats, scan_rows: Optional[Dict[str, int]] = None,
     if getattr(stats, "retries", 0) or getattr(stats, "degraded", 0):
         ft = (f" retries={getattr(stats, 'retries', 0)} "
               f"degraded={getattr(stats, 'degraded', 0)}")
+    if (getattr(stats, "salted_shuffles", 0)
+            or getattr(stats, "splitter_refreshes", 0)
+            or getattr(stats, "autotune_steps", 0)):
+        ft += (f" adapt[salted={getattr(stats, 'salted_shuffles', 0)} "
+               f"refreshes={getattr(stats, 'splitter_refreshes', 0)} "
+               f"autotune={getattr(stats, 'autotune_steps', 0)}]")
+    salted_by_idx = {e["node_index"]: e
+                     for e in getattr(stats, "adapt_events", [])
+                     if e.get("kind") == "salted"}
+    idx_of = {n.nid: i for i, n in enumerate(pplan.order)}
     lines = [
         f"== EXPLAIN ANALYZE: mode={stats.mode}, "
         f"wall={stats.wall_time_s:.4f}s, dispatches={stats.dispatches} "
@@ -139,6 +149,9 @@ def render_analyze(pplan, stats, scan_rows: Optional[Dict[str, int]] = None,
             a = _node_actuals(n, records)
             if a:
                 acts.append(a)
+            ev = salted_by_idx.get(idx_of.get(n.nid))
+            if ev is not None:
+                acts.append(adapt_note(ev))
             if n.nid == pplan.root.nid and result_rows is not None:
                 acts.append(f"out_rows={result_rows}")
             est = f"rows~{int(n.est_rows):>9d}"
@@ -275,6 +288,12 @@ class QueryReport:
             "cache_misses": st.cache_misses,
             "retries": getattr(st, "retries", 0),
             "degraded": getattr(st, "degraded", 0),
+            "faults_injected": getattr(st, "faults_injected", 0),
+            "adaptive": getattr(st, "adaptive", False),
+            "salted_shuffles": getattr(st, "salted_shuffles", 0),
+            "splitter_refreshes": getattr(st, "splitter_refreshes", 0),
+            "autotune_steps": getattr(st, "autotune_steps", 0),
+            "adapt_events": list(getattr(st, "adapt_events", [])),
             "device": self.peaks.name,
             "scan_rows": self.scan_rows,
             "rows_read": getattr(st, "rows_read", 0),

@@ -71,6 +71,16 @@ def _label(n: LogicalNode) -> str:
 node_label = _label
 
 
+def adapt_note(event: Mapping[str, Any]) -> str:
+    """EXPLAIN ANALYZE annotation for one fired adaptive event (the dict
+    form recorded in ``ExecStats.adapt_events`` — serializable, so reports
+    round-trip through ``to_dict``).  Mirrors ``SaltDecision.note``."""
+    if event.get("op") == "groupby":
+        return f"salted[k:{event['k']}, hot:{event['hot_keys']}]"
+    return (f"salted[broadcast, hot:{event['hot_keys']}, "
+            f"cap:{event['hot_cap']}]")
+
+
 def render(pplan: PhysicalPlan, mode: str = "bsp",
            shuffle_impl: str = "radix", a2a_chunks: int = 1) -> str:
     # amt executes the allgather object-store shuffle; the bucketize/chunking

@@ -351,6 +351,30 @@ def _annotate_node(n: LogicalNode, catalog) -> None:
         raise ValueError(f"unknown op {n.op!r}")
 
 
+def preserves_rows_and_columns(n: LogicalNode, cols: Sequence[str]) -> bool:
+    """True iff ``n``'s output carries exactly its first input's rows with
+    the values of ``cols`` unchanged.
+
+    This is the invariant the skew detector's chase needs: if every node
+    between a shuffle boundary and a scan preserves the key columns' row
+    multiset, the scan's key distribution IS the boundary's, so the host
+    can sample the (already materialized) scan instead of the
+    not-yet-computed boundary input.  Filters, recodes, and comm ops all
+    change the multiset (or the codes), so they stop the chase.
+    """
+    wanted = set(cols)
+    if n.op == "noop":
+        return True
+    if n.op == "project":
+        return wanted <= set(n.params["cols"])
+    if n.op == "with_columns":
+        return not (wanted & set(n.params["exprs"]))
+    if n.op == "add_scalar":
+        touched = n.params.get("cols")
+        return touched is not None and not (wanted & set(touched))
+    return False
+
+
 # ---------------------------------------------------------------------- #
 # Conversion from the core plan (duck-typed: needs .op/.inputs/.params)
 # ---------------------------------------------------------------------- #

@@ -45,12 +45,11 @@ the ``overflow=`` policy (``faults.OverflowPolicy``): the default
 truncated result and raises one ``RuntimeWarning`` attributing the drops;
 ``raise`` fails the query with ``CapacityOverflow``.
 
-The JAX package's retries, timeouts, fault injection and adaptive skew
-handling (hot-key salting, splitter refresh, morsel autotuning) come with
-a later slice of the port (ROADMAP queue 1, item 10); ``run_morsel`` runs
-as the JAX package's does with ``adaptive=False`` and none of them armed.
-Its spans (``tracer``) and ``debug_overflow`` warnings are the JAX
-package's.
+Retries, timeouts and fault injection (``repro_torch.faults``) replay a
+faulted segment from its input checkpoint; adaptive skew handling
+(``repro_torch.adapt``: hot-key salting, splitter refresh, morsel
+autotuning) is on by default, as in the JAX package.  Its spans
+(``tracer``) and ``debug_overflow`` warnings are the JAX package's.
 """
 
 from __future__ import annotations
@@ -63,26 +62,30 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..adapt import MorselTuner, SplitterEstimator, resolve_adaptive
+from ..adapt.hotkeys import plan_salt_decisions, salt_cache_token
 from ..core.env import DistTable, MorselSource
 from ..core.store import (Checkpoint, D2HStaging, SpillTable, _round8,
-                          fetch_valid, rescatter, respill)
+                          fetch_valid, rescatter, respill, respill_routed)
 from ..dataframe import ops_local
 from ..dataframe.groupby import (_normalize, combine_groupby_partials,
-                                 groupby_partial)
-from ..dataframe.ops_local import hash_columns_np
-from ..dataframe.shuffle import reset_overflow_warnings
+                                 groupby_partial, hot_mask)
+from ..dataframe.ops_local import hash_columns, hash_columns_np
+from ..dataframe.shuffle import replicate_hot_rows, reset_overflow_warnings
 from ..dataframe.shuffle import shuffle as df_shuffle
 from ..dataframe.table import Table
 from ..dtypes import numpy_dtype, order_view, to_x32
 from ..expr import token as _token
 from ..faults import (CapacityOverflow, OverflowPolicy, default_degrade_step,
-                      resolve_overflow)
+                      resolve_faults, resolve_overflow, resolve_retry,
+                      resolve_token, run_with_retries)
 from ..nulls import mask_name
 from ..obs.metrics import record_exec
 from ..obs.trace import NULL_TRACER
 from .logical import LogicalNode, topo
-from .physical import (ExecStats, PhysicalPlan, _recode_tables, _row_bytes,
-                       _shuffle_kw, _stat_vec, _sum_stats,
+from .physical import (ExecStats, PhysicalPlan, _partial_width,
+                       _recode_tables, _row_bytes, _shuffle_kw, _stat_vec,
+                       _sum_stats,
                        attach_dictionaries, build_shuffle_records,
                        check_scan_dictionaries, describe_drops,
                        emit_shuffle_events, eval_node, fingerprint,
@@ -202,9 +205,11 @@ def _schema_of(dist: DistTable) -> Dict[str, Tuple[np.dtype, Tuple[int, ...]]]:
             for k, v in dist.columns.items()}
 
 
-def _append_out(out_spill: SpillTable, dist: DistTable, acc: _Acc) -> None:
+def _append_out(out_spill: SpillTable, dist: DistTable,
+                acc: _Acc) -> np.ndarray:
     """Spill one morsel-output DistTable to per-rank host buckets (D2H):
-    the row counts first, then the valid prefixes (``fetch_valid``)."""
+    the row counts first, then the valid prefixes (``fetch_valid``).
+    Returns the per-rank row counts."""
     counts, rows, copied = fetch_valid(dist, acc.staging)
     # counted as the JAX package counts it: the counts and whole columns
     acc.d2h_bytes += counts.nbytes + sum(
@@ -213,6 +218,7 @@ def _append_out(out_spill: SpillTable, dist: DistTable, acc: _Acc) -> None:
     for r, chunk in enumerate(rows):
         if counts[r]:
             acc.spill_bytes += out_spill.append(r, chunk)
+    return counts
 
 
 def _host_splitters(spill: SpillTable, col: str, p: int,
@@ -286,21 +292,13 @@ def _morsel_shuffle_kw(node: LogicalNode, W: int, shuffle_impl: str,
     return kw
 
 
-def _groupby_wire_width(table: Table, keys, physical, pre: bool) -> int:
-    if not pre:
-        return _row_bytes(table)
-    width = sum(table.columns[k].element_size() for k in keys)
-    for col, names in physical.items():
-        width += sum(4 if a == "count" else table.columns[col].element_size()
-                     for a in names)
-    return width
-
-
 def _eval_stream_node(node: LogicalNode, ctx, cur: Table,
                       residents: Dict[int, Table], W: int,
                       shuffle_impl: str, a2a_chunks: int,
-                      stats_out, consts, debug_overflow: bool) -> Table:
+                      stats_out, consts, debug_overflow: bool,
+                      salt=None) -> Table:
     p_ = node.params
+    dec = salt.get(node.nid) if salt else None
     if node.op == "noop":
         return cur
     if node.op == "project":
@@ -336,8 +334,21 @@ def _eval_stream_node(node: LogicalNode, ctx, cur: Table,
         on = p_["on"]
         l, r = cur, residents[node.nid]
         if not p_.get("elide_left"):
-            l, st = df_shuffle(l, ctx.comm, key_cols=[on], out_capacity=W,
-                               label=f"join({on}):left", **kw)
+            if dec is not None:
+                # salted probe (repro_torch.adapt): hot rows stay on their
+                # source rank — the resident build side broadcast-appended
+                # every hot build row, so the local hash join still finds
+                # them
+                h = hash_columns(l, [on])
+                dest = torch.where(hot_mask(h, dec.hot_hashes),
+                                   ctx.comm.rank(l.device)[:, None],
+                                   (h % ctx.comm.size()).to(torch.int32))
+                l, st = df_shuffle(l, ctx.comm, dest=dest, out_capacity=W,
+                                   label=f"join({on}):left", **kw)
+            else:
+                l, st = df_shuffle(l, ctx.comm, key_cols=[on],
+                                   out_capacity=W,
+                                   label=f"join({on}):left", **kw)
             stats_out.append((f"join({on}):left",
                               _stat_vec(st, _row_bytes(cur))))
         out_cap = p_.get("morsel_out_capacity") or W
@@ -353,15 +364,18 @@ def _eval_stream_node(node: LogicalNode, ctx, cur: Table,
         keys = list(p_["keys"])
         physical, _post = _normalize(p_["aggs"])
         pre = bool(p_.get("pre_aggregate", False))
+        gsalt = ((dec.hot_hashes, dec.k)
+                 if dec is not None and not pre else None)
         out, st = groupby_partial(cur, ctx.comm, keys, physical,
                                   pre_aggregate=pre,
                                   elide_shuffle=bool(p_.get("elide_shuffle")),
-                                  out_capacity=W,
+                                  salt=gsalt, out_capacity=W,
                                   label=f"groupby({','.join(keys)})", **kw)
         if st is not None:
             stats_out.append(
                 (f"groupby({','.join(keys)})",
-                 _stat_vec(st, _groupby_wire_width(cur, keys, physical, pre))))
+                 _stat_vec(st, _partial_width(cur, keys, physical) if pre
+                           else _row_bytes(cur))))
         return out
 
     raise ValueError(f"op {node.op!r} cannot run in a morsel segment")
@@ -391,7 +405,7 @@ def _seg_stat_labels(seg_nodes: Sequence[LogicalNode]) -> List[str]:
 # unconditional so capacity-pressure drops are never silent.
 # ---------------------------------------------------------------------- #
 def _make_stream_prog(seg_nodes, join_nids, W, shuffle_impl, a2a_chunks,
-                      debug_overflow):
+                      debug_overflow, salt=None):
     # recode tables go to the device once per built stage
     consts: Dict[int, Dict[str, torch.Tensor]] = {}
 
@@ -402,7 +416,7 @@ def _make_stream_prog(seg_nodes, join_nids, W, shuffle_impl, a2a_chunks,
         for node in seg_nodes:
             cur = _eval_stream_node(node, ctx, cur, residents, W,
                                     shuffle_impl, a2a_chunks, stats,
-                                    consts, debug_overflow)
+                                    consts, debug_overflow, salt=salt)
         return cur, tuple(a for _, a in stats)
     return prog
 
@@ -434,12 +448,14 @@ def _make_sort_prog(node, W, shuffle_impl, a2a_chunks, debug_overflow):
 # ---------------------------------------------------------------------- #
 def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
                     a2a_chunks, collected, acc: _Acc,
-                    capacity_factor: float, tracer=NULL_TRACER) -> DistTable:
+                    capacity_factor: float, tracer=NULL_TRACER,
+                    salt=None) -> DistTable:
     rroot = jnode.inputs[1]
     sub_order = topo(rroot)
     scan_names = [s.params["name"] for s in sub_order if s.op == "scan"]
     on = jnode.params["on"]
     elide = bool(jnode.params.get("elide_right"))
+    dec = salt.get(jnode.nid) if (salt and not elide) else None
     jkw = {k: v for k, v in _shuffle_kw(jnode).items()
            if k != "out_capacity"}
     jkw.setdefault("impl", shuffle_impl)
@@ -467,15 +483,34 @@ def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
                           _round8(int(r.capacity * capacity_factor)))
             kw.setdefault("bucket_capacity",
                           _round8(int(r.capacity * capacity_factor)))
-            r, st = df_shuffle(r, ctx.comm, key_cols=[on],
-                               label=f"join({on}):right", **kw)
-            stats.append((f"join({on}):right", _stat_vec(st, width)))
+            if dec is not None:
+                # salted build (repro_torch.adapt): hot rows skip the hash
+                # shuffle (overflow bin, uncounted) and are broadcast-
+                # appended so every rank's probe morsels find them locally
+                h = hash_columns(r, [on])
+                hot = hot_mask(h, dec.hot_hashes)
+                dest = torch.where(hot, ctx.comm.size(),
+                                   (h % ctx.comm.size()).to(torch.int32))
+                r2, st = df_shuffle(r, ctx.comm, dest=dest,
+                                    label=f"join({on}):right", **kw)
+                stats.append((f"join({on}):right", _stat_vec(st, width)))
+                r2, bst = replicate_hot_rows(r, ctx.comm, hot,
+                                             dec.hot_cap, r2)
+                stats.append((f"join({on}):broadcast",
+                              _stat_vec(bst, width)))
+                r = r2
+            else:
+                r, st = df_shuffle(r, ctx.comm, key_cols=[on],
+                                   label=f"join({on}):right", **kw)
+                stats.append((f"join({on}):right", _stat_vec(st, width)))
         return r, tuple(a for _, a in stats)
 
     args = [_to_dist(tables[n], env) for n in scan_names]
     labels = plan_stat_labels(sub_order)
     if not elide:
         labels.append(f"join({on}):right")
+    if dec is not None:
+        labels.append(f"join({on}):broadcast")
     with tracer.span(f"build:join({on})", "stage", ops="resident-build"):
         resident, stats = env.run(
             prog, *args,
@@ -484,7 +519,8 @@ def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
                  # own params (shuffle kwargs, capacities)
                  _token(dict(jnode.params)),
                  shuffle_impl, a2a_chunks, capacity_factor,
-                 tuple(env._arg_sig(a) for a in args)))
+                 tuple(env._arg_sig(a) for a in args))
+            + salt_cache_token(salt or {}, [jnode.nid]))
         acc.dispatches += 1
         pairs = pair_stat_labels(labels, stats)
         collected.extend(pairs)
@@ -498,7 +534,8 @@ def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
 # Cross-morsel groupby combine (hash sub-buckets, rank-local)
 # ---------------------------------------------------------------------- #
 def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
-                     M: int, acc: _Acc, fp: str, si: int) -> SpillTable:
+                     M: int, acc: _Acc, fp: str, si: int,
+                     faults=None, token=None) -> SpillTable:
     keys = list(gnode.params["keys"])
     physical, post = _normalize(gnode.params["aggs"])
     # the partials carry no mask for sum/count, so mean nullability is not
@@ -553,6 +590,8 @@ def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
             acc.h2d_bytes += buf.nbytes
             cols[name] = torch.from_numpy(buf).to(env.device)
         acc.h2d_bytes += counts.nbytes
+        if faults is not None:
+            faults.check("spill:combine", token=token, segment=si, bucket=b)
         dist = DistTable(cols, torch.from_numpy(counts).to(env.device),
                          cap_b)
         out = env.run(prog, dist,
@@ -580,7 +619,8 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                collect_stats: bool = False, shuffle_impl: str = "radix",
                a2a_chunks: int = 1, capacity_factor: float = 2.0,
                samples: int = 64, debug_overflow: bool = False,
-               tracer=None, overflow: Optional[str] = None):
+               tracer=None, retries=None, timeout=None, overflow=None,
+               faults=None, adaptive=None):
     """Stream a plan over morsels of ``morsel_rows`` rows per rank.
 
     Returns a host-resident ``SpillTable`` (or ``(SpillTable, ExecStats)``
@@ -591,17 +631,31 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
 
     ``tracer`` (``repro_torch.obs.Tracer``) records build/segment/combine
     spans, per-morsel dispatch spans with spill-append volumes, the
-    morsels' H2D instants and per-shuffle data events — host-side only,
-    never part of a stage-cache key.  ``debug_overflow`` makes every
-    morsel shuffle warn once per (op label, rank) per query where it drops
-    rows.
+    morsels' H2D instants, per-shuffle data events and a ``retry:`` instant
+    for each replay — host-side only, never part of a stage-cache key.
+    ``debug_overflow`` makes every morsel shuffle warn once per (op label,
+    rank) per query where it drops rows.
 
-    Each segment's input spill is a schema-stamped
-    ``core.store.Checkpoint``, validated before every attempt.
+    Fault tolerance (``repro_torch.faults``): each segment's input spill
+    is a schema-stamped ``core.store.Checkpoint``; a segment attempt that
+    faults (``retries`` replays with backoff, fenced by ``timeout``) is
+    replayed from that checkpoint verbatim, and its partial output spill
+    is discarded — committed results come only from the attempt that
+    succeeded, so recovered runs are bit-identical to fault-free ones.
     ``overflow`` (default ``degrade``) re-executes an overflowing segment
-    with halved ``morsel_rows`` (then grown working capacity) until no row
-    is dropped, and an overflowing build side with a doubled
-    ``capacity_factor``.
+    with a smaller ``morsel_rows`` (then grown working capacity) until no
+    row is dropped, and an overflowing build side with a doubled
+    ``capacity_factor``; ``faults`` arms a deterministic ``FaultPlan``
+    (None consults ``REPRO_FAULTS``).
+
+    ``adaptive`` (None | bool | dict | ``repro_torch.adapt.
+    AdaptiveConfig``) gates runtime skew mitigation: hot-key salting of
+    streamed joins/groupbys (with the partial spill host-re-routed to key
+    home ranks ahead of the combine), sample-refreshed sort splitters when
+    the observed per-rank routing imbalance exceeds a bound, and a
+    degrade controller that picks the replay morsel size from the
+    observed overflow peak instead of blind halving.  A run where no
+    mitigation fires uses exactly the ``adaptive=False`` stage-cache keys.
     """
     if mode == "amt":
         raise ValueError(
@@ -609,14 +663,30 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
             "amt allgather baseline is inherently in-core")
     tr = tracer if tracer is not None else NULL_TRACER
     reset_overflow_warnings()
+    fr = resolve_faults(faults)
+    policy = resolve_retry(retries)
+    token = resolve_token(timeout)
     ovf = resolve_overflow(overflow)
-    degraded = 0
+    counters = {"retries": 0, "degraded": 0}
+
+    def _count_retry(attempt, exc):
+        counters["retries"] += 1
+
     p = env.parallelism
     chain = spine(pplan)
     src_name = chain[0].params["name"]
     if src_name not in tables:
         raise KeyError(f"plan scans missing from tables: [{src_name!r}]")
     check_scan_dictionaries(pplan.order, tables)
+    # runtime skew mitigation (repro_torch.adapt): decisions are sampled
+    # from the host-resident sources before any spill conversion; an empty
+    # decision set leaves every stage-cache key exactly as adaptive=False
+    # would
+    acfg = resolve_adaptive(adaptive)
+    adapt_events: List[Dict[str, Any]] = []
+    salt = plan_salt_decisions(pplan.order, tables, p, acfg, adapt_events)
+    tuner = MorselTuner(acfg, capacity_factor=capacity_factor,
+                        events=adapt_events)
     M = _round8(morsel_rows)
     W = max(M, _round8(int(M * capacity_factor)))
     fp = pplan.fingerprint
@@ -635,12 +705,25 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         jname = f"build:join({node.params['on']})"
         cf = capacity_factor
         for _ in range(_MAX_DEGRADE_BUILD):
-            pairs: List[Tuple[str, Any]] = []
-            dist = _build_resident(env, node, tables, shuffle_impl,
-                                   a2a_chunks, pairs, acc, cf, tracer=tr)
+            def _build_once(_node=node, _cf=cf, _jname=jname):
+                token.check(_jname)
+                # corrupt-capacity scales the build headroom (part of the
+                # stage-cache key, so a corrupted build is built apart and
+                # cannot poison the clean cache entry)
+                scale = fr.capacity("build:resident", 256, token=token,
+                                    join=_node.nid) / 256.0
+                pairs: List[Tuple[str, Any]] = []
+                dist = _build_resident(env, _node, tables, shuffle_impl,
+                                       a2a_chunks, pairs, acc, _cf * scale,
+                                       tracer=tr, salt=salt)
+                return dist, pairs
+
+            dist, pairs = run_with_retries(
+                _build_once, policy=policy, token=token, tracer=tr,
+                label=jname, on_retry=_count_retry)
             _, _, b_drop = _sum_stats([a for _, a in pairs])
             if b_drop and ovf == OverflowPolicy.DEGRADE:
-                degraded += 1
+                counters["degraded"] += 1
                 cf *= 2.0
                 continue
             if b_drop and ovf == OverflowPolicy.RAISE:
@@ -659,7 +742,14 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
             env.synchronize()
             stage_times.append((jname, time.perf_counter() - t0))
 
-    spill = _as_spill(tables[src_name], p, tracer=tr)
+    def _respill():
+        token.check("spill:respill")
+        fr.check("spill:respill", token=token)
+        return _as_spill(tables[src_name], p, tracer=tr)
+
+    spill = run_with_retries(_respill, policy=policy, token=token,
+                             tracer=tr, label="spill:respill",
+                             on_retry=_count_retry)
 
     live_ckpts: List[Checkpoint] = []
     try:
@@ -671,6 +761,7 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                 if terminal == "sort" and \
                         nodes[0].params.get("elide_shuffle"):
                     # range-partitioned already: no device work, just order
+                    token.check(seg_name)
                     spill = _host_sort_ranks(spill, nodes[0].params["by"])
                     if timing:
                         stage_times.append(
@@ -681,39 +772,60 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                 # validated before every attempt, released only on commit
                 ckpt = Checkpoint(spill)
                 live_ckpts.append(ckpt)
-                M_seg, W_seg = M, W
+                M_seg, W_seg = tuner.initial_morsel(M), W
 
                 def _segment_attempt(_nodes=nodes, _terminal=terminal,
-                                     _si=si):
+                                     _si=si, _seg_name=seg_name):
                     seg_in = ckpt.validate()
+                    token.check(_seg_name)
+                    W_a = fr.capacity("segment:launch", W_seg, token=token,
+                                      segment=_si)
+                    est: Optional[SplitterEstimator] = None
                     if _terminal == "sort":
                         node = _nodes[0]
                         by = node.params["by"]
                         n_samp = node.params.get("samples", samples)
                         spl = to_x32(_host_splitters(seg_in, by[0], p,
                                                      n_samp))
+                        # refreshable splitters: if the one-shot sample
+                        # routes too many rows to one rank, re-sample with
+                        # a boosted budget and re-route what already landed
+                        est = SplitterEstimator(
+                            spl,
+                            lambda s, _in=seg_in, _b=by[0]: to_x32(
+                                _host_splitters(_in, _b, p, s)),
+                            n_samp, acfg, events=adapt_events,
+                            label=f"sort({','.join(by)})")
                         extras: Tuple[Any, ...] = (
                             torch.from_numpy(spl).to(env.device),)
                         acc.h2d_bytes += spl.nbytes
-                        prog = _make_sort_prog(node, W_seg, shuffle_impl,
+                        prog = _make_sort_prog(node, W_a, shuffle_impl,
                                                a2a_chunks, debug_overflow)
                         seg_labels = [f"sort({','.join(by)})"]
                     else:
                         join_nodes = [n for n in _nodes if n.op == "join"]
                         extras = tuple(residents[n.nid] for n in join_nodes)
                         prog = _make_stream_prog(
-                            _nodes, [n.nid for n in join_nodes], W_seg,
-                            shuffle_impl, a2a_chunks, debug_overflow)
+                            _nodes, [n.nid for n in join_nodes], W_a,
+                            shuffle_impl, a2a_chunks, debug_overflow,
+                            salt=salt)
                         seg_labels = _seg_stat_labels(_nodes)
-                    key = ("morsel-seg", fp, _si, M_seg, W_seg,
+                    key = ("morsel-seg", fp, _si, M_seg, W_a,
                            shuffle_impl, a2a_chunks, debug_overflow,
-                           tuple(env._arg_sig(e) for e in extras))
-                    source = MorselSource(seg_in, M_seg, env, tracer=tr)
+                           tuple(env._arg_sig(e) for e in extras)) \
+                        + salt_cache_token(salt, [n.nid for n in _nodes])
+                    source = MorselSource(seg_in, M_seg, env, tracer=tr,
+                                          faults=fr, token=token)
                     out_spill: Optional[SpillTable] = None
                     pairs: List[Tuple[str, Any]] = []
                     for mi, morsel in enumerate(source):
                         with tr.span(f"morsel[{mi}]", "morsel",
                                      segment=_si):
+                            if mi == 0:
+                                fr.check("morsel:compile", token=token,
+                                         segment=_si)
+                            fr.check("morsel:execute", token=token,
+                                     segment=_si, morsel=mi)
                             out, unit_stats = env.run(prog, morsel,
                                                       *extras, key=key)
                             acc.dispatches += 1
@@ -725,23 +837,65 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                                 out_spill = SpillTable(
                                     p, schema=_schema_of(out))
                             b0 = acc.spill_bytes
-                            _append_out(out_spill, out, acc)
+                            fr.check("transfer:d2h", token=token,
+                                     segment=_si, morsel=mi)
+                            routed = _append_out(out_spill, out, acc)
+                            fr.check("spill:append", token=token,
+                                     segment=_si, morsel=mi)
                             tr.instant(f"spill:morsel[{mi}]", "spill",
                                        segment=_si,
                                        bytes=acc.spill_bytes - b0)
                             if tr.enabled:
                                 emit_shuffle_events(tr, unit_pairs,
                                                     a2a_chunks)
+                            if est is not None and est.observe(routed):
+                                # same shapes/dtypes -> same stage; only
+                                # the splitter VALUES change, so the swap
+                                # never rebuilds it
+                                extras = (torch.from_numpy(
+                                    est.splitters).to(env.device),)
+                                acc.h2d_bytes += est.splitters.nbytes
                     acc.h2d_bytes += source.h2d_bytes
                     res = out_spill
                     if _terminal == "groupby":
-                        # the combiner runs inside the attempt: a degrade
-                        # replays the whole segment from its input
-                        # checkpoint
+                        gdec = salt.get(_nodes[-1].nid) if salt else None
+                        if gdec is not None and res is not None:
+                            # salted partials live on k salt ranks; route
+                            # every partial to its key's home rank so the
+                            # rank-local combiner sees each key exactly once
+                            gkeys = list(_nodes[-1].params["keys"])
+                            res = respill_routed(
+                                res,
+                                lambda cols, _k=gkeys:
+                                    (hash_columns_np(cols, _k)
+                                     % np.uint32(p)).astype(np.int64),
+                                tracer=tr)
+                        # the combiner runs inside the attempt: a fault
+                        # mid-combine replays the whole segment from its
+                        # input checkpoint (partials are discarded)
                         with tr.span(f"combine:groupby[{_si}]", "stage"):
                             res = _combine_groupby(env, res, _nodes[-1],
-                                                   M_seg, acc, fp, _si)
+                                                   M_seg, acc, fp, _si,
+                                                   faults=fr, token=token)
                     elif _terminal == "sort":
+                        if est is not None and est.refreshes and \
+                                res is not None:
+                            # a refresh breaks range disjointness between
+                            # early and late morsels — re-route the spilled
+                            # rows by the final splitters before ordering
+                            fin = est.splitters
+
+                            def _dest(cols, _f=fin, _b=by[0]):
+                                d = np.searchsorted(
+                                    _f, cols[_b],
+                                    side="right").astype(np.int64)
+                                m = cols.get(mask_name(_b))
+                                if m is not None:  # nulls-last
+                                    d = np.where(
+                                        np.asarray(m).astype(bool),
+                                        d, p - 1)
+                                return d
+                            res = respill_routed(res, _dest, tracer=tr)
                         with tr.span(f"host_sort({','.join(by)})",
                                      "stage"):
                             res = _host_sort_ranks(res, by)
@@ -750,14 +904,30 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
 
                 for _ in range(_MAX_DEGRADE_SEG):
                     out_spill, attempt_pairs, seg_morsels, seg_h2d = \
-                        _segment_attempt()
+                        run_with_retries(_segment_attempt, policy=policy,
+                                         token=token, tracer=tr,
+                                         label=seg_name,
+                                         on_retry=_count_retry)
                     _, _, seg_drop = _sum_stats(
                         [a for _, a in attempt_pairs])
                     if seg_drop and ovf == OverflowPolicy.DEGRADE:
-                        # never drop a row: replay with a morsel size
-                        # that fits
-                        degraded += 1
-                        M_seg, W_seg = default_degrade_step(M_seg, W_seg)
+                        # never drop a row: replay with a morsel size that
+                        # fits.  The tuner jumps straight to the size the
+                        # observed overflow peak implies (and never splits
+                        # a salted segment — its routing is already
+                        # balanced, so it grows W instead); with autotune
+                        # off, the blind halving applies.
+                        counters["degraded"] += 1
+                        if tuner.enabled:
+                            M_seg, W_seg = tuner.degrade(
+                                M_seg, W_seg,
+                                [pr[1].cpu().numpy()
+                                 for pr in attempt_pairs],
+                                salted=any(n.nid in salt for n in nodes),
+                                label=seg_name)
+                        else:
+                            M_seg, W_seg = default_degrade_step(M_seg,
+                                                                W_seg)
                         continue
                     if seg_drop and ovf == OverflowPolicy.RAISE:
                         raise CapacityOverflow(
@@ -775,6 +945,11 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                 # recorded, keyed by (label, segment) so per-label
                 # histograms never mix morsel counts from different
                 # segments
+                if tuner.enabled:
+                    tuner.observe_expansion(
+                        sum(spill.rank_rows(r) for r in range(p)),
+                        sum(out_spill.rank_rows(r) for r in range(p))
+                        if out_spill is not None else 0)
                 collected.extend(
                     (lbl, arr, si) for lbl, arr in attempt_pairs)
                 ckpt.release()
@@ -783,8 +958,8 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
             if timing:
                 stage_times.append((seg_name, time.perf_counter() - t0))
     finally:
-        # a failed query releases its checkpoints (the spills they guard
-        # belong to the run and are dropped with it)
+        # a cancelled/failed query releases its checkpoints (the spills
+        # they guard belong to the run and are dropped with it)
         for c in live_ckpts:
             if not c.released:
                 c.release()
@@ -816,6 +991,11 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         d2h_copied_bytes=acc.d2h_copied_bytes,
         wall_time_s=time.perf_counter() - t_query0,
         stage_times=stage_times, shuffle_records=records,
-        degraded=degraded)
+        retries=counters["retries"], degraded=counters["degraded"],
+        faults_injected=fr.injected,
+        adaptive=acfg.enabled, salted_shuffles=len(salt),
+        splitter_refreshes=sum(1 for e in adapt_events
+                               if e.get("kind") == "splitter_refresh"),
+        autotune_steps=tuner.steps, adapt_events=list(adapt_events))
     record_exec(stats, fp, stats.wall_time_s)
     return spill, stats

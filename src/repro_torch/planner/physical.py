@@ -17,6 +17,13 @@ Execution modes:
 
 ``eval_node`` and everything below it keep row counts on the device: no
 tensor is read back to the host until a stage has returned.
+
+Faults (``repro_torch.faults``) and hot-key salting (``repro_torch.adapt``)
+are host-side: injection sites are visited before each dispatch, a failed
+dispatch is replayed from the host-held inputs, and a salting decision
+changes the stages only where it fired — its ``salt_cache_token`` then
+joins the stage-cache key, which a run where nothing fired leaves as it
+was.
 """
 
 from __future__ import annotations
@@ -33,17 +40,20 @@ import torch
 
 from ..comm import Communicator
 from ..dataframe import ops_local
-from ..dataframe.groupby import (_normalize, finalize_groupby,
+from ..dataframe.groupby import (_normalize, finalize_groupby, hot_mask,
                                  nullable_agg_cols)
 from ..dataframe.groupby import groupby as df_groupby
-from ..dataframe.shuffle import (ShuffleStats, hash_dest,
+from ..dataframe.ops_local import hash_columns
+from ..dataframe.shuffle import (ShuffleStats, _round_up, hash_dest,
                                  reset_overflow_warnings)
 from ..dataframe.shuffle import shuffle as df_shuffle
 from ..dataframe.sort import _range_dest
 from ..dataframe.sort import sort as df_sort
 from ..dataframe.table import Table
 from ..expr import token as _token
-from ..faults import CapacityOverflow, OverflowPolicy, resolve_overflow
+from ..faults import (CapacityOverflow, OverflowPolicy, resolve_faults,
+                      resolve_overflow, resolve_retry, resolve_token,
+                      run_with_retries)
 from ..nulls import mask_name
 from ..obs.metrics import record_exec
 from ..obs.trace import NULL_TRACER
@@ -181,11 +191,15 @@ def _stat_vec(st: ShuffleStats, width: int) -> torch.Tensor:
 # Per-shuffle stat attribution (host-side labels for the in-stage stats
 # triples, reconstructed from the static plan in dispatch order)
 # ---------------------------------------------------------------------- #
-def node_stat_labels(node: LogicalNode) -> List[str]:
+def node_stat_labels(node: LogicalNode, salt=None) -> List[str]:
     """Stat labels ``eval_node`` appends for one node, in append order:
     one per shuffle, plus a join's ``:overflow`` entry (local join output
-    capacity pressure, zero wire bytes)."""
+    capacity pressure, zero wire bytes).  With a fired salting decision
+    (``salt`` maps nid -> SaltDecision) a groupby additionally appends its
+    ``:remerge`` partial shuffle and a join its ``:broadcast`` hot-row
+    replication (before ``:overflow``)."""
     p = node.params
+    salted = salt is not None and node.nid in salt
     if node.op == "shuffle":
         return [f"shuffle({','.join(p['key_cols'])})"]
     if node.op == "join":
@@ -194,17 +208,20 @@ def node_stat_labels(node: LogicalNode) -> List[str]:
             labels.append(f"join({p['on']}):left")
         if not p.get("elide_right"):
             labels.append(f"join({p['on']}):right")
+        if salted:
+            labels.append(f"join({p['on']}):broadcast")
         labels.append(f"join({p['on']}):overflow")
         return labels
     if node.op == "groupby" and not p.get("elide_shuffle"):
-        return [f"groupby({','.join(p['keys'])})"]
+        label = f"groupby({','.join(p['keys'])})"
+        return [label, f"{label}:remerge"] if salted else [label]
     if node.op == "sort" and not p.get("elide_shuffle"):
         return [f"sort({','.join(p['by'])})"]
     return []
 
 
-def plan_stat_labels(nodes: Sequence[LogicalNode]) -> List[str]:
-    return [label for n in nodes for label in node_stat_labels(n)]
+def plan_stat_labels(nodes: Sequence[LogicalNode], salt=None) -> List[str]:
+    return [label for n in nodes for label in node_stat_labels(n, salt)]
 
 
 def pair_stat_labels(labels: Sequence[str], arrays: Sequence[Any]
@@ -307,11 +324,13 @@ def eval_node(node: LogicalNode, comm: Communicator,
               shuffle_mode: str,
               stats_out: Optional[List[Tuple[str, torch.Tensor]]] = None,
               shuffle_impl: str = "radix", a2a_chunks: int = 1,
-              consts: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
-              ) -> Table:
+              consts: Optional[Dict[int, Dict[str, torch.Tensor]]] = None,
+              salt=None) -> Table:
     p = node.params
     ins = [values[i.nid] for i in node.inputs]
     shuffle_fn = df_shuffle if shuffle_mode == "direct" else shuffle_allgather
+    decision = salt.get(node.nid) if (salt and shuffle_mode == "direct") \
+        else None
 
     def run_shuffle(label: str, table: Table, **kw) -> Table:
         out, st = shuffle_fn(table, comm, label=label, **kw)
@@ -360,6 +379,10 @@ def eval_node(node: LogicalNode, comm: Communicator,
         jkw = {k: v for k, v in kw.items() if k != "out_capacity"}
         if "shuffle_out_capacity" in p:  # receive headroom for skewed keys
             jkw["out_capacity"] = p["shuffle_out_capacity"]
+        if decision is not None and not p.get("elide_left") \
+                and not p.get("elide_right"):
+            return _eval_join_salted(node, comm, l, r, decision, jkw,
+                                     stats_out)
         if not p.get("elide_left"):
             l = run_shuffle(f"join({on}):left", l, key_cols=[on], **jkw)
         if not p.get("elide_right"):
@@ -383,22 +406,20 @@ def eval_node(node: LogicalNode, comm: Communicator,
             # input already co-partitioned on the keys: local-only groupby
             final = ops_local.groupby_local(ins[0], keys, physical)
             return finalize_groupby(final, keys, post, nullable)
+        if (decision is not None and shuffle_mode == "direct"
+                and not p.get("pre_aggregate")):
+            return _eval_groupby_salted(node, comm, ins[0], decision, kw,
+                                        stats_out)
         if shuffle_mode == "direct":
             pre = bool(p.get("pre_aggregate", False))
             out, st = df_groupby(ins[0], comm, keys, aggs,
                                  pre_aggregate=pre,
                                  label=f"groupby({','.join(keys)})", **kw)
             if stats_out is not None:
-                if pre:
-                    # the wire carries keys + stage-1 partial-agg columns
-                    width = sum(ins[0].columns[k].element_size()
-                                for k in keys)
-                    for col, names in physical.items():
-                        width += sum(4 if a == "count"
-                                     else ins[0].columns[col].element_size()
-                                     for a in names)
-                else:
-                    width = _row_bytes(ins[0])
+                # with pre-aggregation the wire carries keys + stage-1
+                # partial-agg columns
+                width = (_partial_width(ins[0], keys, physical) if pre
+                         else _row_bytes(ins[0]))
                 stats_out.append((f"groupby({','.join(keys)})",
                                   _stat_vec(st, width)))
             return out
@@ -427,6 +448,97 @@ def eval_node(node: LogicalNode, comm: Communicator,
         return ops_local.sort_local(shuffled, by)
 
     raise ValueError(node.op)
+
+
+# ---------------------------------------------------------------------- #
+# Salted evaluation (repro_torch.adapt; in-core, batched over ranks)
+# ---------------------------------------------------------------------- #
+def _partial_width(table: Table, keys, physical) -> int:
+    """Bytes per row of a stage-1 partial: keys + partial-agg columns."""
+    width = sum(table.columns[k].element_size() for k in keys)
+    for col, names in physical.items():
+        width += sum(4 if a == "count" else table.columns[col].element_size()
+                     for a in names)
+    return width
+
+
+def _eval_groupby_salted(node: LogicalNode, comm: Communicator,
+                         table: Table, decision, kw, stats_out) -> Table:
+    """Two-shuffle salted groupby: salted row shuffle + stage-1 partials,
+    then a tiny unsalted partial re-merge on each key's home rank.
+
+    Both shuffles get full-table bucket/out capacities: the whole point of
+    the decision is that one rank would otherwise receive ~everything, so
+    per-destination "balanced share" sizing is exactly what we can't
+    assume until the salt has done its job."""
+    from ..dataframe.groupby import groupby_salted
+    p = node.params
+    keys = list(p["keys"])
+    cap = table.capacity
+    label = f"groupby({','.join(keys)})"
+    skw = dict(kw, bucket_capacity=cap, label=label)
+    skw["out_capacity"] = skw.get("out_capacity") or cap
+    rkw = dict(kw, bucket_capacity=cap, out_capacity=cap,
+               label=f"{label}:remerge")
+    out, st1, st2 = groupby_salted(table, comm, keys, p["aggs"],
+                                   decision.hot_hashes, decision.k,
+                                   shuffle_kw=skw, remerge_kw=rkw)
+    if stats_out is not None:
+        physical, _ = _normalize(p["aggs"])
+        stats_out.append((label, _stat_vec(st1, _row_bytes(table))))
+        stats_out.append((f"{label}:remerge",
+                          _stat_vec(st2, _partial_width(table, keys,
+                                                        physical))))
+    return out
+
+
+def _eval_join_salted(node: LogicalNode, comm: Communicator,
+                      l: Table, r: Table, decision, jkw, stats_out) -> Table:
+    """Skew-mitigated hash join: hot probe rows stay on their source rank,
+    hot build rows skip the hash shuffle (overflow bin, uncounted) and are
+    broadcast-appended to every rank's build table instead — so each hot
+    probe row meets every build row of its key locally, exactly once."""
+    from ..dataframe.shuffle import replicate_hot_rows
+    p = node.params
+    on = p["on"]
+    psize = comm.size()
+    rank = comm.rank(l.device)[:, None]
+
+    h_l, h_r = hash_columns(l, [on]), hash_columns(r, [on])
+    hot_l = hot_mask(h_l, decision.hot_hashes)
+    hot_r = hot_mask(h_r, decision.hot_hashes)
+    dest_l = torch.where(hot_l, rank, (h_l % psize).to(torch.int32))
+    dest_r = torch.where(hot_r, psize,
+                         (h_r % psize).to(torch.int32))  # excluded
+
+    # probe: the self-bucket must hold every hot row this rank keeps, and
+    # the output every kept-hot + received-cold row
+    lkw = dict(jkw, bucket_capacity=l.capacity)
+    lkw["out_capacity"] = (lkw.get("out_capacity")
+                           or _round_up(2 * l.capacity, 8))
+    rkw = dict(jkw)
+    rkw["out_capacity"] = rkw.get("out_capacity") or r.capacity
+
+    l2, st_l = df_shuffle(l, comm, dest=dest_l,
+                          label=f"join({on}):left", **lkw)
+    r2, st_r = df_shuffle(r, comm, dest=dest_r,
+                          label=f"join({on}):right", **rkw)
+    r2, st_b = replicate_hot_rows(r, comm, hot_r, decision.hot_cap, r2)
+    if stats_out is not None:
+        stats_out.append((f"join({on}):left", _stat_vec(st_l, _row_bytes(l))))
+        stats_out.append((f"join({on}):right",
+                          _stat_vec(st_r, _row_bytes(r))))
+        stats_out.append((f"join({on}):broadcast",
+                          _stat_vec(st_b, _row_bytes(r))))
+        out, ov = ops_local.join_local(l2, r2, on,
+                                       out_capacity=p.get("out_capacity"),
+                                       with_overflow=True)
+        z = torch.zeros_like(ov, dtype=torch.int64)
+        stats_out.append((f"join({on}):overflow",
+                          torch.stack([z, z, ov.to(torch.int64)], dim=1)))
+        return out
+    return ops_local.join_local(l2, r2, on,
+                                out_capacity=p.get("out_capacity"))
 
 
 # ---------------------------------------------------------------------- #
@@ -476,7 +588,19 @@ class ExecStats:
     #: morsels)
     shuffle_records: List[ShuffleRecord] = \
         dataclasses.field(default_factory=list)
+    # -- fault tolerance (repro_torch.faults) ----------------------------- #
+    retries: int = 0           # dispatch units replayed after a fault
     degraded: int = 0          # capacity-degrade re-executions (overflow)
+    faults_injected: int = 0   # faults the active FaultPlan fired this query
+    # -- runtime skew mitigation (repro_torch.adapt) ---------------------- #
+    adaptive: bool = False         # was the adaptive layer enabled
+    salted_shuffles: int = 0       # shuffle boundaries that got salted
+    splitter_refreshes: int = 0    # sort splitter re-samples that fired
+    autotune_steps: int = 0        # tuner-chosen degrade replans
+    #: one dict per fired mitigation ({"kind": "salted" | ...}) — the
+    #: machine-readable trail EXPLAIN ANALYZE renders as annotations
+    adapt_events: List[Dict[str, Any]] = \
+        dataclasses.field(default_factory=list)
 
 
 def check_scan_dictionaries(order: Sequence[LogicalNode],
@@ -553,9 +677,10 @@ def _sum_stats(collected) -> Tuple[int, int, int]:
 def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                  mode: str = "bsp", collect_stats: bool = False,
                  shuffle_impl: str = "radix", a2a_chunks: int = 1,
-                 morsel_rows: Optional[int] = None,
-                 overflow: Optional[str] = None, tracer=None,
-                 scan_capacity: Optional[int] = None, **morsel_kw):
+                 morsel_rows: Optional[int] = None, tracer=None,
+                 retries=None, timeout=None, overflow=None, faults=None,
+                 scan_capacity: Optional[int] = None, adaptive=None,
+                 **morsel_kw):
     """Execute a lowered plan against DistTables on a ``CylonEnv``.
 
     Returns a DistTable, or ``(DistTable, ExecStats)`` with
@@ -580,23 +705,45 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     or ``scan_capacity`` rows per rank; their provenance rides along for
     the scan read stats.
 
-    ``overflow`` (``raise | warn | degrade``, default ``degrade``) decides
-    what to do when capacity pressure drops rows (observable in-core with
-    ``collect_stats=True``; the morsel executor always counts):
-    ``degrade`` replays the plan out-of-core until every row fits and
-    re-scatters the result to a ``DistTable``.
+    Fault tolerance (``repro_torch.faults``): ``retries`` (None | int |
+    ``RetryPolicy``) replays failed dispatch units with exponential
+    backoff; ``timeout`` (seconds or a ``CancellationToken``) fences every
+    dispatch and backoff sleep; ``overflow`` (``raise | warn | degrade``,
+    default ``degrade``) decides what to do when capacity pressure drops
+    rows (observable in-core with ``collect_stats=True``; the morsel
+    executor always counts): ``degrade`` replays the plan out-of-core
+    until every row fits and re-scatters the result to a ``DistTable``.
+    ``faults`` arms a deterministic ``FaultPlan`` (None consults
+    ``REPRO_FAULTS``).  All of this is host-side: with injection
+    disabled, stage-cache keys are identical to a run without it.
+
+    ``adaptive`` (None | bool | dict | ``AdaptiveConfig``) gates runtime
+    skew mitigation (``repro_torch.adapt``): hot-key salting at shuffle
+    boundaries here, splitter refresh + morsel autotuning in the
+    out-of-core executor.  Default on; a run where no mitigation fires
+    uses exactly the ``adaptive=False`` stage-cache keys.
     """
     if morsel_rows is not None:
         from .morsel import run_morsel
         return run_morsel(pplan, env, tables, morsel_rows, mode=mode,
                           collect_stats=collect_stats,
                           shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
-                          overflow=overflow, tracer=tracer, **morsel_kw)
+                          tracer=tracer, retries=retries, timeout=timeout,
+                          overflow=overflow, faults=faults,
+                          adaptive=adaptive, **morsel_kw)
     if morsel_kw:
         raise TypeError(f"unexpected kwargs without morsel_rows: "
                         f"{sorted(morsel_kw)}")
     reset_overflow_warnings()
+    fr = resolve_faults(faults)
+    policy = resolve_retry(retries)
+    token = resolve_token(timeout)
     ovf = resolve_overflow(overflow)
+    counters = {"retries": 0}
+
+    def _count_retry(attempt, exc):
+        counters["retries"] += 1
+
     tr = tracer if tracer is not None else NULL_TRACER
     names = pplan.scan_names
     missing = [n for n in names if n not in tables]
@@ -619,11 +766,23 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     order = pplan.order
     fp = pplan.fingerprint
     shuffle_mode = "allgather" if mode == "amt" else "direct"
+    # -- runtime skew detection (repro_torch.adapt) -- host-side sampling
+    # of the (now device-resident) scan tables; an empty decision set
+    # leaves every stage-cache key below exactly as adaptive=False would.
+    # AMT shuffles are allgather-based (every rank sees all rows), which
+    # is skew-immune by construction, so salting is direct-mode only.
+    from ..adapt import resolve_adaptive
+    from ..adapt.hotkeys import plan_salt_decisions, salt_cache_token
+    acfg = resolve_adaptive(adaptive)
+    adapt_events: List[Dict[str, Any]] = []
+    salt = (plan_salt_decisions(order, tables, env.parallelism, acfg,
+                                adapt_events)
+            if shuffle_mode == "direct" else {})
     # recode tables on the device, filled by the first call of each built
     # stage callable and kept with it
     consts: Dict[int, Dict[str, torch.Tensor]] = {}
     eval_kw = dict(shuffle_impl=shuffle_impl, a2a_chunks=a2a_chunks,
-                   consts=consts)
+                   consts=consts, salt=salt)
     hits0, misses0 = env.cache_hits, env.cache_misses
     timing = collect_stats or tr.enabled
     stage_times: List[Tuple[str, float]] = []
@@ -644,7 +803,12 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                           cache_misses=env.cache_misses - misses0,
                           rows_read=rows_read, bytes_read=bytes_read,
                           wall_time_s=wall, stage_times=stage_times,
-                          shuffle_records=build_shuffle_records(pairs))
+                          shuffle_records=build_shuffle_records(pairs),
+                          retries=counters["retries"],
+                          faults_injected=fr.injected,
+                          adaptive=acfg.enabled,
+                          salted_shuffles=len(salt),
+                          adapt_events=list(adapt_events))
         record_exec(stats, fp, stats.wall_time_s)
         return stats
 
@@ -678,8 +842,9 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
             spill, d_stats = run_morsel(
                 pplan, env, tables, max(caps) if caps else 128, mode="bsp",
                 collect_stats=True, shuffle_impl=shuffle_impl,
-                a2a_chunks=a2a_chunks, overflow=OverflowPolicy.DEGRADE,
-                tracer=tr)
+                a2a_chunks=a2a_chunks, tracer=tr, retries=policy,
+                timeout=token, overflow=OverflowPolicy.DEGRADE, faults=fr,
+                adaptive=acfg)
         except ValueError as e:
             raise CapacityOverflow(
                 f"capacity pressure dropped {stats.rows_dropped} rows "
@@ -689,6 +854,7 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         out = attach_dictionaries(
             rescatter(spill, env.parallelism, device=env.device), root)
         d_stats.degraded += 1
+        d_stats.retries += stats.retries
         d_stats.dispatches += stats.dispatches
         return out, d_stats
 
@@ -709,16 +875,28 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         with tr.span("stage:program", "stage", mode=mode,
                      stages=pplan.num_stages, dispatch=0) as sp:
             t0 = time.perf_counter()
-            res = env.run(prog, *[tables[n] for n in names],
-                          key=("bsp", fp, collect_stats, shuffle_impl,
-                               a2a_chunks))
+
+            def dispatch():
+                token.check("stage:program")
+                fr.check("stage:launch", token=token, stage=0)
+                if pplan.num_shuffles:
+                    for c in range(max(1, a2a_chunks)):
+                        fr.check("a2a:chunk", token=token, stage=0, chunk=c)
+                return env.run(prog, *[tables[n] for n in names],
+                               key=("bsp", fp, collect_stats, shuffle_impl,
+                                    a2a_chunks) + salt_cache_token(salt))
+
+            res = run_with_retries(dispatch, policy=policy, token=token,
+                                   tracer=tr, label="stage:program",
+                                   on_retry=_count_retry)
             sp.set(compiled=env.cache_misses > misses0)
             if timing:
                 env.synchronize()
                 stage_times.append(("program", time.perf_counter() - t0))
             if not collect_stats:
                 return attach_dictionaries(res, root)
-            pairs = pair_stat_labels(plan_stat_labels(order), res[1])
+            pairs = pair_stat_labels(plan_stat_labels(order, salt),
+                                     res[1])
             if tr.enabled:
                 emit_shuffle_events(tr, pairs, a2a_chunks)
         return finish(attach_dictionaries(res[0], root), mk_stats(1, pairs))
@@ -773,13 +951,28 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                      ops=",".join(n.op for n in unit)) as sp:
             t0 = time.perf_counter()
             m0 = env.cache_misses
-            res = env.run(prog, *args,
-                          key=(mode, fp, uidx, collect_stats, shuffle_impl,
-                               a2a_chunks))
+            has_comm = any(n.is_comm() for n in unit)
+            unit_salt = salt_cache_token(salt, [n.nid for n in unit])
+
+            def dispatch(_uidx=uidx, _args=args, _prog=prog,
+                         _has_comm=has_comm, _usalt=unit_salt):
+                token.check(unit_names[_uidx])
+                fr.check("stage:launch", token=token, stage=_uidx)
+                if _has_comm:
+                    for c in range(max(1, a2a_chunks)):
+                        fr.check("a2a:chunk", token=token, stage=_uidx,
+                                 chunk=c)
+                return env.run(_prog, *_args,
+                               key=(mode, fp, _uidx, collect_stats,
+                                    shuffle_impl, a2a_chunks) + _usalt)
+
+            res = run_with_retries(dispatch, policy=policy, token=token,
+                                   tracer=tr, label=unit_names[uidx],
+                                   on_retry=_count_retry)
             sp.set(compiled=env.cache_misses > m0)
             if collect_stats:
                 out_tuple, unit_stats = res
-                unit_pairs = pair_stat_labels(plan_stat_labels(unit),
+                unit_pairs = pair_stat_labels(plan_stat_labels(unit, salt),
                                               unit_stats)
                 collected.extend(unit_pairs)
             else:

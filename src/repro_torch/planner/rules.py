@@ -1,7 +1,7 @@
 """Rewrite-rule engine over the logical plan.
 
-The torch counterpart of ``repro.planner.rules`` (pure Python; the JAX
-package's ``skew_candidates`` comes with the adaptive slice of the port).
+The torch counterpart of ``repro.planner.rules`` (pure Python), with the
+skew-salting candidates the adaptive layer (``repro_torch.adapt``) reads.
 
 Rules mutate the DAG in place and return human-readable "fired" records
 (surfaced by EXPLAIN).  ``optimize`` runs the rule list to a fixpoint,
@@ -430,6 +430,35 @@ def prune_identity_projects(root: LogicalNode) -> None:
             if (inp.op == "project"
                     and set(inp.params["cols"]) == set(inp.inputs[0].schema)):
                 n.inputs[i] = inp.inputs[0]
+
+
+# ---------------------------------------------------------------------- #
+# Skew-mitigation candidates (consumed by repro_torch.adapt — NOT in RULES:
+# salting is a runtime decision, the optimizer only says where it's legal)
+# ---------------------------------------------------------------------- #
+def skew_candidates(nodes) -> List[LogicalNode]:
+    """Shuffle boundaries where hot-key salting is semantically safe.
+
+    * ``groupby`` — only when it actually shuffles and is NOT
+      pre-aggregated (pre-aggregation collapses each rank's hot rows to
+      one partial per key, which is already skew-immune);
+    * ``join`` — only when BOTH sides shuffle (an elided side's rows sit
+      wherever the producer left them, so broadcasting hot build rows
+      would duplicate the pairs that rank already matches locally).
+
+    Plain ``shuffle`` nodes are never candidates: their contract is
+    co-partitioning for a downstream consumer, which salt would break.
+    """
+    out: List[LogicalNode] = []
+    for n in nodes:
+        p = n.params
+        if (n.op == "groupby" and not p.get("elide_shuffle")
+                and not p.get("pre_aggregate")):
+            out.append(n)
+        elif (n.op == "join" and not p.get("elide_left")
+                and not p.get("elide_right")):
+            out.append(n)
+    return out
 
 
 # ---------------------------------------------------------------------- #

@@ -367,22 +367,35 @@ DEFERRED = [
 
 @pytest.mark.parametrize("what,item", DEFERRED)
 def test_deferred_options_name_their_roadmap_item(envs, rng, what, item):
+    # item 10 brought the fault-tolerance and adaptive options: on a
+    # collect or as a session default they run, and a fault-free query
+    # gives the plain collect's result; item 11's scheduler= still raises
+    # NotImplementedError naming its item
     import repro_torch.df as tdf
     data = _data(rng, n=16)
     df = tdf.read_numpy(data)
+    env = envs[1]
+
+    def in_session(**kw):
+        with tdf.session(env=env, **kw):
+            return df.collect()
     calls = {
-        "collect(timeout=)": lambda: df.collect(timeout=1.0),
+        "collect(timeout=)": lambda: df.collect(timeout=60.0),
         "collect(retries=)": lambda: df.collect(retries=2),
-        "collect(faults=)": lambda: df.collect(faults="stage=raise"),
+        "collect(faults=)": lambda: df.collect(
+            faults="stage:launch=raise"),
         "collect(adaptive=)": lambda: df.collect(adaptive=False),
-        "session(timeout=)": lambda: tdf.session(timeout=1.0).__enter__(),
-        "session(adaptive=)": lambda: tdf.session(adaptive=False
-                                                  ).__enter__(),
+        "session(timeout=)": lambda: in_session(timeout=60.0),
+        "session(adaptive=)": lambda: in_session(adaptive=False),
         "session(scheduler=)": lambda: tdf.session(scheduler=object()
                                                    ).__enter__(),
     }
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        calls[what]()
+    if item == 11:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+            calls[what]()
+    else:
+        _same(calls[what]().to_numpy(), df.collect().to_numpy(),
+              exact_floats=True)
     with pytest.raises(TypeError, match="capacity only applies"):
         tdf.read_numpy(data, spill=True, capacity=64)
 

@@ -855,3 +855,132 @@ def test_card_roofline_table_and_unknown_device(cuda, monkeypatch):
         report.roofline_table()
     with pytest.raises(ValueError, match="no roofline peaks"):
         roofline.device_peaks(cuda)
+
+
+# ---------------------------------------------------------------------- #
+# Skewed traffic (salting) and fault recovery on the card
+# ---------------------------------------------------------------------- #
+def test_segmented_sum_cuda_hot_segment(cuda):
+    # one segment holds 99% of the rows: every warp-run of it adds into
+    # one address (integers exact, floats to 1e-5 as above)
+    from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
+    rng = np.random.default_rng(17)
+    p, n = 8, 300_000
+    ids = np.where(rng.random((p, n)) < 0.99, 5,
+                   rng.integers(0, n, (p, n))).astype(np.int32)
+    ids = torch.as_tensor(ids, device=cuda)
+    for dtype in (torch.int32, torch.float32):
+        vals = torch.as_tensor(rng.integers(0, 100, (p, n)), device=cuda
+                               ).to(dtype)
+        got = segmented_sum_cuda(ids, vals, n)
+        want = segmented_sum_ref(ids, vals, n)
+        if dtype == torch.int32:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+def _skew_case(device, env=None, hot=7, n=40_000):
+    """skew_parity.py's one-key table on 8 ranks of ``device``: the raw
+    groupby + sort and the join, in-core (bsp, bsp_staged) and 16-morsel,
+    at the default adaptive."""
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    rng = np.random.default_rng(11)
+    keys = np.where(rng.random(n) < 0.99, hot,
+                    rng.integers(0, 1000, n)).astype(np.int32)
+    data = {"k": keys, "v": rng.integers(0, 100, n).astype(np.float32)}
+    build = {"k": np.arange(64, dtype=np.int32),
+             "w": rng.integers(0, 100, 64).astype(np.float32)}
+    env = env if env is not None else CylonEnv(8, device=device)
+    t = DistTable.from_numpy(data, 8, capacity=2 * n // 8, device=device)
+    bt = DistTable.from_numpy(build, 8, device=device)
+    g = (Plan.scan("t").groupby(["k"], {"v": ["sum", "count"]},
+                                pre_aggregate=False).sort(["k"]))
+    j = Plan.scan("t").join(Plan.scan("r"), on="k", bucket_capacity=n,
+                            shuffle_out_capacity=n, out_capacity=n)
+    out = {}
+    for name, plan, tables, kw in (
+            ("g/bsp", g, {"t": t}, dict(mode="bsp")),
+            ("g/bsp_staged", g, {"t": t}, dict(mode="bsp_staged")),
+            ("j/bsp", j, {"t": t, "r": bt}, dict(mode="bsp")),
+            ("g/morsel", g, {"t": data}, dict(morsel_rows=320,
+                                              capacity_factor=4.0)),
+            ("j/morsel", j, {"t": data, "r": build},
+             dict(morsel_rows=320, capacity_factor=4.0))):
+        res, st = execute(plan, env, tables, optimize=False,
+                          collect_stats=True, **kw)
+        assert st.rows_dropped == 0 and st.salted_shuffles == 1, name
+        assert st.degraded == 0, name
+        out[name] = res.to_numpy()
+    return out
+
+
+def test_salted_operators_card_equal_cpu(cuda):
+    # integer payloads, sums below 2**24: bit for bit, with the radix and
+    # segmented-sum kernels launched on the one-key traffic
+    from repro_torch.kernels import reset_launches, segmented_sum_cuda
+    reset_launches()
+    got = _skew_case(cuda)
+    torch.cuda.synchronize()
+    assert radix_partition_cuda.launches > 0
+    assert segmented_sum_cuda.launches > 0
+    want = _skew_case("cpu")
+    for name in want:
+        for c in want[name]:
+            assert np.array_equal(got[name][c], want[name][c]), (name, c)
+
+
+def test_two_hot_keys_in_a_row_on_the_card(cuda):
+    # one env, two queries with different hot keys: the second builds its
+    # own salted stages (their keys carry the hot hashes)
+    from repro_torch.core import CylonEnv
+    env = CylonEnv(8, device=cuda)
+    for hot in (7, 11):
+        got = _skew_case(cuda, env, hot=hot, n=8_000)
+        want = _skew_case("cpu", hot=hot, n=8_000)
+        for name in want:
+            for c in want[name]:
+                assert np.array_equal(got[name][c], want[name][c]), \
+                    (hot, name, c)
+
+
+@pytest.mark.parametrize("site", ["transfer:h2d@1", "transfer:d2h@1",
+                                  "morsel:execute@2", "spill:combine@0",
+                                  "build:resident@0"])
+def test_fault_recovery_on_the_card(cuda, site):
+    # a fault mid-segment unwinds while uploads may be in flight; the
+    # replay refills fresh staging from the checkpoint and the result is
+    # the fault-free one, bit for bit
+    from repro_torch.core import CylonEnv, execute
+    env = CylonEnv(8, device=cuda)
+    ld, rd, plan, morsel = _ooc_fig9(p=8)
+    clean, cst = execute(plan, env, {"l": ld, "r": rd}, collect_stats=True,
+                         morsel_rows=morsel, capacity_factor=4.0)
+    got, st = execute(plan, env, {"l": ld, "r": rd}, collect_stats=True,
+                      morsel_rows=morsel, capacity_factor=4.0,
+                      faults=f"{site}=raise")
+    assert st.faults_injected == 1 and st.retries == 1
+    assert st.rows_dropped == 0
+    _same_spill(got, clean)
+
+
+def test_morsel_source_fault_waits_for_its_copies(cuda):
+    # an h2d fault raised while earlier uploads are queued: the iterator
+    # waits on their events before it lets go of the pinned sets, and a
+    # new source over the same spill yields the rows the CPU source does
+    from repro_torch.core import MorselSource, SpillTable
+    from repro_torch.faults import InjectedFault, resolve_faults
+    rng = np.random.default_rng(2)
+    data = {"k": rng.integers(0, 1000, 200_000).astype(np.int32),
+            "v": rng.random(200_000).astype(np.float32)}
+    spill = SpillTable.from_numpy(data, 4, chunk_rows=9_999)
+    src = MorselSource(spill, 8192, device=cuda,
+                       faults=resolve_faults("transfer:h2d@3=raise"))
+    with pytest.raises(InjectedFault):
+        for _ in src:
+            pass
+    card = list(MorselSource(spill, 8192, device=cuda))
+    host = list(MorselSource(spill, 8192, device="cpu"))
+    for c, h in zip(card, host):
+        for n in h.columns:
+            assert torch.equal(c.columns[n].cpu(), h.columns[n]), n

@@ -317,7 +317,7 @@ def test_counter_accuracy_out_of_core(envs, rng):
     want, jst = jexec(jp, envs[0], {"l": data}, optimize=False,
                       collect_stats=True, morsel_rows=m, adaptive=False)
     got, tst = texec(tp, envs[1], {"l": data}, optimize=False,
-                     collect_stats=True, morsel_rows=m)
+                     collect_stats=True, morsel_rows=m, adaptive=False)
     assert tst.morsels == jst.morsels == n // m
     assert tst.rows_shuffled == n and tst.bytes_shuffled == n * ROW_BYTES
     assert _records(tst) == _records(jst)
@@ -393,7 +393,8 @@ def test_tracing_invisible_out_of_core(envs, rng):
     data = _data(rng, 128)
     jp, tp = _plans(lambda P: P.scan("l").shuffle(["k"]).groupby(
         ["k"], {"v0": ["sum"]}))
-    kw = dict(optimize=False, collect_stats=True, morsel_rows=32)
+    kw = dict(optimize=False, collect_stats=True, morsel_rows=32,
+              adaptive=False)
     env = envs[1]
     ref, _ = texec(tp, env, {"l": data}, **kw)
     keys0 = set(env._cache)
@@ -406,7 +407,7 @@ def test_tracing_invisible_out_of_core(envs, rng):
     assert trace.find("morsel")              # per-morsel spans
     assert trace.find("transfer", "h2d")     # MorselSource H2D volumes
     jtr = JTracer("ooc")
-    jexec(jp, envs[0], {"l": data}, trace=jtr, adaptive=False, **kw)
+    jexec(jp, envs[0], {"l": data}, trace=jtr, **kw)
     assert _tree(trace) == _tree(jtr.finish())
 
 
@@ -456,11 +457,10 @@ def test_morsel_drop_warning_attributes_loss(pkg):
     ld = {"k": np.zeros(64, np.int32), "v0": np.ones(64, np.float32)}
     rd = {"k": np.zeros(64, np.int32), "w": np.ones(64, np.float32)}
     plan = core.Plan.scan("l").join(core.Plan.scan("r"), on="k")
-    kw = {"adaptive": False} if pkg == "repro" else {}
     with pytest.warns(RuntimeWarning,
                       match=r"capacity pressure \(join\(k\).*@ rank 0"):
         core.execute(plan, env, {"l": ld, "r": rd}, optimize=False,
-                     morsel_rows=16, overflow="warn", **kw)
+                     morsel_rows=16, overflow="warn", adaptive=False)
 
 
 # ---------------------------------------------------------------------- #
@@ -486,7 +486,8 @@ def test_run_analyzed_matches_reference(envs, rng, tmp_path, mode):
         jt, tt = {"l": ld, "r": jt["r"]}, {"l": ld, "r": tt["r"]}
         kw["morsel_rows"] = 32
     peaks = DEVICE_PEAKS[H100]
-    result, report = tanalyzed(tp, envs[1], tt, peaks=peaks, **kw)
+    result, report = tanalyzed(tp, envs[1], tt, peaks=peaks,
+                               adaptive=False, **kw)
     _, jreport = janalyzed(jp, envs[0], jt, adaptive=False, **kw)
     text = report.explain_analyze()
     assert _mask_times(text) == _mask_times(jreport.explain_analyze())
@@ -585,3 +586,167 @@ def test_roofline_peaks_table():
     assert t["collective_s"] == pytest.approx(2e9 / (2 * 3.35e12))
     assert t["step_s_lower_bound"] == pytest.approx(4e9 / (2 * 3.35e12))
     assert t["dominant"] == "memory"
+
+
+# ---------------------------------------------------------------------- #
+# Faults and adaptivity in spans and EXPLAIN ANALYZE
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("mode", ["bsp_staged", "bsp", "morsel"])
+def test_run_analyzed_matches_reference_at_default(envs, rng, mode):
+    # both packages at their default adaptive: out-of-core the morsel
+    # tuner replans the degrade steps, and the header says so
+    # (adapt[salted= refreshes= autotune=]) in both texts
+    from repro.obs import run_analyzed as janalyzed
+    from repro_torch.launch.roofline import DEVICE_PEAKS
+    from repro_torch.obs import run_analyzed as tanalyzed
+    ld = _data(rng, 128)
+    rd = {"k": rng.integers(0, 12, 64).astype(np.int32),
+          "w": rng.integers(0, 64, 64).astype(np.float32)}
+    jt, tt = _tables({"l": ld, "r": rd})
+    jp, tp = _plans(_fig9)
+    kw = dict(mode="bsp_staged") if mode == "morsel" else dict(mode=mode)
+    if mode == "morsel":
+        jt, tt = {"l": ld, "r": jt["r"]}, {"l": ld, "r": tt["r"]}
+        kw["morsel_rows"] = 32
+    _, report = tanalyzed(tp, envs[1], tt, peaks=DEVICE_PEAKS[H100], **kw)
+    _, jreport = janalyzed(jp, envs[0], jt, **kw)
+    text = report.explain_analyze()
+    assert _mask_times(text) == _mask_times(jreport.explain_analyze())
+    assert ("adapt[salted=0 refreshes=0 autotune=" in text) == \
+        (mode == "morsel")
+    got, want = report.to_dict(), jreport.to_dict()
+    for k in ("retries", "degraded", "faults_injected", "adaptive",
+              "salted_shuffles", "splitter_refreshes", "autotune_steps",
+              "adapt_events"):
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("mode", ["bsp_staged", "morsel"])
+def test_retry_spans_and_header_match_reference(envs, rng, mode):
+    # a fault at the first dispatch unit: the trace gets the reference's
+    # retry:<unit> instant, and out-of-core the replayed segment's spans;
+    # EXPLAIN ANALYZE's header reports retries= degraded= as the
+    # reference does
+    from repro.core import execute as jexec
+    from repro.obs import Tracer as JTracer, run_analyzed as janalyzed
+    from repro_torch.core import execute as texec
+    from repro_torch.launch.roofline import DEVICE_PEAKS
+    from repro_torch.obs import Tracer as TTracer, run_analyzed as tanalyzed
+    ld = _data(rng, 128)
+    rd = {"k": rng.integers(0, 12, 64).astype(np.int32),
+          "w": rng.integers(0, 64, 64).astype(np.float32)}
+    jt, tt = _tables({"l": ld, "r": rd})
+    jp, tp = _plans(_fig9)
+    kw = dict(mode="bsp_staged", collect_stats=True)
+    faults = "stage:launch@0=raise"
+    if mode == "morsel":
+        jt, tt = {"l": ld, "r": jt["r"]}, {"l": ld, "r": tt["r"]}
+        kw = dict(collect_stats=True, morsel_rows=32)
+        faults = "morsel:execute@1=raise"
+    ttr, jtr = TTracer("faults"), JTracer("faults")
+    _, tst = texec(tp, envs[1], tt, trace=ttr, faults=faults, **kw)
+    _, jst = jexec(jp, envs[0], jt, trace=jtr, faults=faults, **kw)
+    assert tst.retries == jst.retries == 1
+    tree, jtree = _tree(ttr.finish()), _tree(jtr.finish())
+    assert tree == jtree
+    assert [t for t in tree if t[1].startswith("retry:")]
+    if mode == "morsel":
+        # the faulted segment's morsel spans are recorded twice: the
+        # attempt that failed and the replay
+        assert sum(t[1] == "morsel[0]" for t in tree) >= 2
+    kw.pop("collect_stats")
+    _, report = tanalyzed(tp, envs[1], tt, peaks=DEVICE_PEAKS[H100],
+                          faults=faults, **kw)
+    _, jreport = janalyzed(jp, envs[0], jt, faults=faults, **kw)
+    text = report.explain_analyze()
+    assert "retries=1 degraded=" in text
+    assert _mask_times(text) == _mask_times(jreport.explain_analyze())
+
+
+#: rows of the 8-rank one-key table (``skew_parity.py``'s recipe, cut)
+N_SKEW = 4000
+
+
+def _skew_explain(core, obs, env, dist_kw):
+    """EXPLAIN ANALYZE texts of the salted groupby and join on 8 ranks,
+    default adaptive, in ``bsp_staged`` (and the join out-of-core)."""
+    rng = np.random.default_rng(11)
+    keys = np.where(rng.random(N_SKEW) < 0.99, 7,
+                    rng.integers(0, 1000, N_SKEW)).astype(np.int32)
+    data = {"k": keys, "v": rng.integers(0, 100, N_SKEW).astype(np.float32)}
+    build = {"k": np.arange(64, dtype=np.int32),
+             "w": rng.integers(0, 100, 64).astype(np.float32)}
+    t = core.DistTable.from_numpy(data, 8, capacity=N_SKEW // 4, **dist_kw)
+    bt = core.DistTable.from_numpy(build, 8, **dist_kw)
+    g = (core.Plan.scan("t").groupby(["k"], {"v": ["sum", "count"]},
+                                     pre_aggregate=False).sort(["k"]))
+    j = core.Plan.scan("t").join(core.Plan.scan("r"), on="k",
+                                 out_capacity=N_SKEW)
+    out = {}
+    for name, plan, tables, kw in (
+            ("groupby", g, {"t": t}, {}),
+            ("join", j, {"t": t, "r": bt}, {}),
+            ("join_ooc", j, {"t": data, "r": build},
+             dict(morsel_rows=64, capacity_factor=4.0))):
+        _, report = obs.run_analyzed(plan, env, tables, optimize=False,
+                                     **kw, **({"peaks": dist_kw["peaks"]}
+                                              if "peaks" in dist_kw else {}))
+        out[name] = _mask_times(report.explain_analyze())
+    return out
+
+
+def _reference_main(path):
+    """JAX side: 8 host devices; writes the texts to ``path``."""
+    import repro.core as core
+    import repro.obs as obs
+    env = core.CylonEnv()
+    assert env.parallelism == 8, env.parallelism
+    with open(path, "w") as f:
+        json.dump(_skew_explain(core, obs, env, {}), f)
+
+
+@pytest.fixture(scope="module")
+def reference_skew_texts(tmp_path_factory):
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = str(tmp_path_factory.mktemp("obs8") / "ref.json")
+    env = dict(os.environ,
+               PYTHONPATH=os.path.abspath(os.path.join(here, os.pardir,
+                                                       "src")),
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), path],
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(path) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", ["groupby", "join", "join_ooc"])
+def test_salted_explain_analyze_matches_reference(reference_skew_texts,
+                                                  name):
+    # the salted node's note (salted[k:8, hot:1] / salted[broadcast, ...])
+    # and the :remerge / :broadcast shuffles attributed to their node, on
+    # 8 ranks, as the reference renders them
+    import repro_torch.core as core
+    import repro_torch.obs as obs
+    from repro_torch.launch.roofline import DEVICE_PEAKS
+    env = core.CylonEnv(8, device="cpu")
+    got = _skew_explain(core, obs, env, {"device": "cpu"})
+    assert got[name] == reference_skew_texts[name]
+    assert "adapt[salted=1" in got[name] and "salted[" in got[name]
+    report = obs.run_analyzed(
+        core.Plan.scan("t").groupby(["k"], {"v": ["sum"]},
+                                    pre_aggregate=False),
+        env, {"t": {"k": np.full(512, 7, np.int32),
+                    "v": np.ones(512, np.float32)}},
+        optimize=False, morsel_rows=64, peaks=DEVICE_PEAKS[H100])[1]
+    assert report.to_dict()["adapt_events"][0]["kind"] == "salted"
+
+
+if __name__ == "__main__":
+    import sys
+    _reference_main(sys.argv[1])

@@ -10,9 +10,10 @@ Keys, integer payloads, integer-valued float payloads, row counts, drop
 counts and cache hit / miss counts must match exactly, and so must the
 row placement: the port mirrors the reference's sub-bucketing and host
 sorts.  Payloads with random floats pass through filters and additions
-only, so they are exact too.  The JAX package runs with ``adaptive=False``
-where its default could differ: the port has no adaptive layer yet
-(ROADMAP queue 1, item 10) and runs as the reference does without it.
+only, so they are exact too.  Cases written before the port had its
+adaptive layer run both packages with ``adaptive=False``; the
+``*_at_default`` cases run both at their default (adaptive on: morsel
+autotuning replans the degrade steps).
 
 One case runs at 8 ranks: a module-scoped subprocess runs the JAX Fig-9
 pipeline in-core and out-of-core on 8 host devices (``XLA_FLAGS`` must be
@@ -65,14 +66,14 @@ def envs():
     return JEnv(), TEnv(1, device="cpu")
 
 
-def _both(envs, build, tables_j, tables_t, jax_kw=None, **kw):
+def _both(envs, build, tables_j, tables_t, **kw):
     """``execute`` of the plan ``build(Plan, col)`` in both packages."""
     from repro.core import Plan as JPlan, execute as jexec
     from repro.expr import col as jcol
     from repro_torch.core import Plan as TPlan, execute as texec
     from repro_torch.expr import col as tcol
     jenv, tenv = envs
-    want = jexec(build(JPlan, jcol), jenv, tables_j, **kw, **(jax_kw or {}))
+    want = jexec(build(JPlan, jcol), jenv, tables_j, **kw)
     got = texec(build(TPlan, tcol), tenv, tables_t, **kw)
     return got, want
 
@@ -258,7 +259,7 @@ def test_morsel_pipeline_bit_identical(envs, rng, opt):
     (got, gst), (want, wst) = _both(envs, build, tables, tables,
                                     optimize=opt, collect_stats=True,
                                     morsel_rows=64, capacity_factor=16.0,
-                                    jax_kw=dict(adaptive=False))
+                                    adaptive=False)
     assert gst.rows_dropped == 0 and gst.morsels >= 600 // 64
     assert min(gst.spill_bytes, gst.h2d_bytes, gst.d2h_bytes) > 0
     _same_stats(gst, wst, [k for k in MORSEL_STATS
@@ -299,7 +300,7 @@ def test_morsel_adversarial_keys_bit_identical(envs, rng, table):
     (got, gst), (want, wst) = _both(envs, build, {"l": data}, {"l": data},
                                     optimize=False, morsel_rows=64,
                                     collect_stats=True,
-                                    jax_kw=dict(adaptive=False))
+                                    adaptive=False)
     assert gst.rows_dropped == wst.rows_dropped == 0
     _same(got.to_numpy(), want.to_numpy())
 
@@ -339,7 +340,7 @@ def test_morsel_warns_on_capacity_pressure(envs):
         (got, gst), (want, wst) = _both(
             envs, build, tables, tables, optimize=False, morsel_rows=16,
             collect_stats=True, overflow="warn",
-            jax_kw=dict(adaptive=False))
+            adaptive=False)
     assert gst.rows_dropped == wst.rows_dropped > 0
     _same_stats(gst, wst, ("morsels", "rows_shuffled", "rows_dropped",
                            "degraded"))
@@ -354,7 +355,7 @@ def test_morsel_degrade_recovers_every_row(envs):
     (got, gst), (want, wst) = _both(envs, build, tables, tables,
                                     optimize=False, morsel_rows=16,
                                     collect_stats=True,
-                                    jax_kw=dict(adaptive=False))
+                                    adaptive=False)
     assert gst.rows_dropped == wst.rows_dropped == 0
     assert gst.degraded == wst.degraded > 0
     out = got.to_numpy()
@@ -366,6 +367,28 @@ def test_morsel_degrade_recovers_every_row(envs):
                                             8))
     np.testing.assert_array_equal(out["w"][order],
                                   np.tile(np.arange(8, dtype=np.float32), 64))
+
+
+@pytest.mark.parametrize("n_right", [8, 64])
+def test_morsel_degrade_recovers_every_row_at_default(envs, n_right):
+    # both packages at their default adaptive: the tuner replans each
+    # degrade step from the observed overflow peak, with the reference's
+    # steps, replays and rows
+    build, tables = _exploding_join(n_right)
+    (got, gst), (want, wst) = _both(envs, build, tables, tables,
+                                    optimize=False, morsel_rows=16,
+                                    collect_stats=True)
+    assert gst.adaptive and wst.adaptive
+    assert gst.rows_dropped == wst.rows_dropped == 0
+    assert gst.autotune_steps == gst.degraded > 0
+    _same_stats(gst, wst, MORSEL_STATS + ("autotune_steps",
+                                          "splitter_refreshes",
+                                          "salted_shuffles"))
+    assert [e["how"] for e in gst.adapt_events] == \
+        [e["how"] for e in wst.adapt_events]
+    out = got.to_numpy()
+    assert len(out["k"]) == 64 * n_right
+    _same(out, want.to_numpy())
 
 
 def test_morsel_overflow_raise_policy(envs):
@@ -439,12 +462,33 @@ def test_in_core_degrade_recovers_join_overflow(envs):
     (got, gst), (want, wst) = _both(envs, build, {"l": jl, "r": jr},
                                     {"l": tl, "r": tr}, optimize=False,
                                     collect_stats=True,
-                                    jax_kw=dict(adaptive=False))
+                                    adaptive=False)
     assert isinstance(got, DistTable)
     assert gst.rows_dropped == wst.rows_dropped == 0
     assert gst.degraded == wst.degraded > 0
     assert got.total_rows() == want.total_rows() == 32 * 32
     assert got.capacity == want.capacity
+    _same(got.to_numpy(), want.to_numpy())
+
+
+def test_in_core_degrade_recovers_join_overflow_at_default(envs):
+    # the same under-capacitated join with both packages at their default
+    # adaptive: the out-of-core replay is replanned by the tuner
+    from repro_torch.core import DistTable
+    ld = {"k": np.zeros(32, np.int32), "v0": np.arange(32, dtype=np.float32)}
+    rd = {"k": np.zeros(32, np.int32), "w": np.arange(32, dtype=np.float32)}
+    (jl, tl), (jr, tr) = _dist_pair(ld), _dist_pair(rd)
+
+    def build(Plan, col):
+        return Plan.scan("l").join(Plan.scan("r"), on="k", out_capacity=64)
+    (got, gst), (want, wst) = _both(envs, build, {"l": jl, "r": jr},
+                                    {"l": tl, "r": tr}, optimize=False,
+                                    collect_stats=True)
+    assert isinstance(got, DistTable)
+    assert gst.rows_dropped == wst.rows_dropped == 0
+    assert gst.degraded == wst.degraded > 0
+    assert gst.autotune_steps == wst.autotune_steps > 0
+    assert got.total_rows() == want.total_rows() == 32 * 32
     _same(got.to_numpy(), want.to_numpy())
 
 
@@ -491,12 +535,33 @@ def test_frontend_out_of_core_matches_jax(rng, source):
             q = (df.groupby("k").agg({"v0": ["sum", "mean"]})
                  .sort_values("k"))
             frames.append(q.collect(morsel_rows=32, collect_stats=True,
-                                    **({"adaptive": False} if env else {})))
+                                    adaptive=False))
     (want, wst), (got, gst) = frames
     assert isinstance(got, TSpill)
     _same(got.to_numpy(), want.to_numpy())
     _same_stats(gst, wst, ("morsels", "rows_dropped", "spill_bytes",
                            "h2d_bytes", "d2h_bytes"))
+
+
+def test_frontend_out_of_core_matches_jax_at_default(rng):
+    # both frontends at their default adaptive (a Zipf key: detection runs,
+    # one rank, nothing to salt)
+    import repro.df as jdf
+    import repro_torch.df as tdf
+    from repro.core import CylonEnv as JEnv
+    data = zipf_table(rng, 300)
+    frames = []
+    for rdf, env in ((jdf, JEnv()), (tdf, None)):
+        with (tdf.session(parallelism=1, device="cpu") if env is None
+              else jdf.session(env)):
+            q = (rdf.read_numpy(data, spill=True, chunk_rows=64)
+                 .groupby("k").agg({"v": ["sum", "mean"]}).sort_values("k"))
+            frames.append(q.collect(morsel_rows=32, collect_stats=True))
+    (want, wst), (got, gst) = frames
+    _same(got.to_numpy(), want.to_numpy())
+    _same_stats(gst, wst, MORSEL_STATS + ("autotune_steps",
+                                          "splitter_refreshes",
+                                          "salted_shuffles", "adaptive"))
 
 
 def test_frontend_spill_source_runs_in_core(rng):
@@ -776,16 +841,18 @@ def _reference_main(path):
         plan = _fig9(Plan, lt.capacity)
         ref, rst = execute(plan, env, {"l": lt, "r": rt}, optimize=opt,
                            collect_stats=True)
-        sp, st = execute(plan, env, {"l": ld, "r": rd}, optimize=opt,
-                         collect_stats=True, morsel_rows=MORSEL8,
-                         capacity_factor=4.0, adaptive=False)
-        tag = str(int(opt))
-        for c, a in sp.to_numpy().items():
-            out[f"out/{tag}/{c}"] = a
-        out[f"rows/{tag}"] = np.array([sp.rank_rows(r) for r in range(P8)])
-        out[f"stats/{tag}"] = np.array([getattr(st, k) for k in STATS8],
-                                       np.int64)
-        out[f"in_core_rows_shuffled/{tag}"] = np.int64(rst.rows_shuffled)
+        for adaptive, suffix in ((False, ""), (None, "-default")):
+            sp, st = execute(plan, env, {"l": ld, "r": rd}, optimize=opt,
+                             collect_stats=True, morsel_rows=MORSEL8,
+                             capacity_factor=4.0, adaptive=adaptive)
+            tag = str(int(opt)) + suffix
+            for c, a in sp.to_numpy().items():
+                out[f"out/{tag}/{c}"] = a
+            out[f"rows/{tag}"] = np.array([sp.rank_rows(r)
+                                           for r in range(P8)])
+            out[f"stats/{tag}"] = np.array([getattr(st, k) for k in STATS8],
+                                           np.int64)
+        out[f"in_core_rows_shuffled/{opt:d}"] = np.int64(rst.rows_shuffled)
     np.savez(path, **out)
 
 
@@ -814,7 +881,7 @@ def test_fig9_eight_ranks_matches_reference(reference8, opt):
                        collect_stats=True)
     sp, st = execute(plan, env, {"l": ld, "r": rd}, optimize=opt,
                      collect_stats=True, morsel_rows=MORSEL8,
-                     capacity_factor=4.0)
+                     capacity_factor=4.0, adaptive=False)
     tag = str(int(opt))
     want = {k.split("/")[2]: v for k, v in reference8.items()
             if k.startswith(f"out/{tag}/")}
@@ -831,8 +898,35 @@ def test_fig9_eight_ranks_matches_reference(reference8, opt):
     _same(sp.to_numpy(), ref.to_numpy())
     _, again = execute(plan, env, {"l": ld, "r": rd}, optimize=opt,
                        collect_stats=True, morsel_rows=MORSEL8,
-                       capacity_factor=4.0)
+                       capacity_factor=4.0, adaptive=False)
     assert again.cache_misses == 0 and again.cache_hits > 0
+
+
+@pytest.mark.parametrize("opt", [False, True])
+def test_fig9_eight_ranks_matches_reference_at_default(reference8, opt):
+    # both packages at their default adaptive: detection runs on the Fig-9
+    # keys (uniform), nothing fires, and the run builds no stage that
+    # adaptive=False does not
+    from repro_torch.core import CylonEnv, Plan, execute
+    env = CylonEnv(P8, device="cpu")
+    ld, rd = _fig9_inputs()
+    plan = _fig9(Plan, -(-N8 // P8 // 8) * 8)
+    execute(plan, env, {"l": ld, "r": rd}, optimize=opt, morsel_rows=MORSEL8,
+            capacity_factor=4.0, adaptive=False)
+    keys = set(env._cache)
+    sp, st = execute(plan, env, {"l": ld, "r": rd}, optimize=opt,
+                     collect_stats=True, morsel_rows=MORSEL8,
+                     capacity_factor=4.0)
+    assert set(env._cache) == keys and st.cache_misses == 0
+    assert st.adaptive and st.salted_shuffles == 0
+    tag = f"{opt:d}-default"
+    want = {k.split("/")[2]: v for k, v in reference8.items()
+            if k.startswith(f"out/{tag}/")}
+    _same(sp.to_numpy(), want)
+    np.testing.assert_array_equal([sp.rank_rows(r) for r in range(P8)],
+                                  reference8[f"rows/{tag}"])
+    np.testing.assert_array_equal([getattr(st, k) for k in STATS8],
+                                  reference8[f"stats/{tag}"])
 
 
 if __name__ == "__main__":

@@ -7,8 +7,11 @@ optimizer on and off, and writes its inputs and results to an ``.npz``.
 The port starts from the same input state (``DistTable.from_reference``)
 on 8 stacked ranks on the CPU and must match slot for slot: keys, counts
 and row placement exactly, the float ``v0_sum`` column to ``rtol=1e-5``
-(summation order may differ).  This file also checks EXPLAIN parity, the
-import boundary of ``repro_torch`` and its entry points' refusals.
+(summation order may differ).  Both packages run at their default
+``adaptive`` (on): on the paper's uniform keys nothing fires, and on a
+left table whose keys are 99% one value both salt the join.  This file
+also checks EXPLAIN parity, the import boundary of ``repro_torch`` and
+its entry points' refusals.
 
 Run as a script (``python tests/test_torch_pipeline.py OUT.npz``) it is
 the JAX side of that comparison.
@@ -52,6 +55,16 @@ def fig9_plan(Plan, capacity):
 
 STAT_KEYS = ("num_stages", "num_shuffles", "dispatches", "rows_shuffled",
              "bytes_shuffled", "rows_dropped")
+SKEW_KEYS = STAT_KEYS + ("salted_shuffles", "degraded")
+
+
+def make_skewed_data(rows, seed, hot=7, frac=0.99):
+    """``make_table_data`` with ``frac`` of the keys equal to ``hot``
+    (``tests/strategies.py::one_key_table``)."""
+    d = make_table_data(rows, seed)
+    rng = np.random.default_rng(seed + 100)
+    d["k"] = np.where(rng.random(rows) < frac, hot, d["k"]).astype(np.int32)
+    return d
 
 
 def _reference_main(path):
@@ -78,6 +91,18 @@ def _reference_main(path):
             out[f"out/{tag}/__counts"] = np.asarray(res.row_counts)
             out[f"stats/{tag}"] = np.array(
                 [getattr(st, k) for k in STAT_KEYS], np.int64)
+    skewed = {"l": DistTable.from_numpy(make_skewed_data(ROWS, 0), P,
+                                        capacity=CAP), "r": tables["r"]}
+    for mode in MODES:
+        for opt in (True, False):
+            res, st = execute(plan, env, skewed, mode=mode, optimize=opt,
+                              collect_stats=True)
+            tag = f"skew/{mode}/{int(opt)}"
+            for c, a in res.columns.items():
+                out[f"out/{tag}/{c}"] = np.asarray(a)
+            out[f"out/{tag}/__counts"] = np.asarray(res.row_counts)
+            out[f"stats/{tag}"] = np.array(
+                [getattr(st, k) for k in SKEW_KEYS], np.int64)
     np.savez(path, **out)
 
 
@@ -128,6 +153,41 @@ def test_fig9_matches_reference(reference, mode, opt):
     _, again = execute(fig9_plan(Plan, CAP), env, tables, mode=mode,
                        optimize=opt, collect_stats=True)
     assert again.cache_misses == 0 and again.cache_hits >= 1
+
+
+@pytest.mark.parametrize("opt", [True, False])
+@pytest.mark.parametrize("mode", MODES)
+def test_fig9_skewed_matches_reference_at_default(reference, mode, opt):
+    # 99% of the left keys are one value: at their default both packages
+    # salt the join in bsp / bsp_staged (amt's all-gather is skew-immune)
+    # and keep every row, slot for slot
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    env = CylonEnv(P, device="cpu")
+    tables = port_tables(reference)
+    tables["l"] = DistTable.from_numpy(make_skewed_data(ROWS, 0), P,
+                                       capacity=CAP, device="cpu")
+    res, st = execute(fig9_plan(Plan, CAP), env, tables, mode=mode,
+                      optimize=opt, collect_stats=True)
+    tag = f"skew/{mode}/{int(opt)}"
+    cols, counts = res.to_reference()
+    np.testing.assert_array_equal(counts, reference[f"out/{tag}/__counts"])
+    want = {k.split("/")[4]: v for k, v in reference.items()
+            if k.startswith(f"out/{tag}/") and not k.endswith("__counts")}
+    assert sorted(cols) == sorted(want)
+    np.testing.assert_array_equal(cols["k"], want["k"])
+    np.testing.assert_allclose(cols["v0_sum"], want["v0_sum"], rtol=RTOL)
+    np.testing.assert_array_equal(
+        [getattr(st, k) for k in SKEW_KEYS], reference[f"stats/{tag}"])
+    assert st.rows_dropped == 0
+    if opt and mode != "amt":
+        # optimized, the groupby after the join is rank-local: salting the
+        # join alone keeps the whole plan in-core (unoptimized, the hot
+        # key's join output re-shuffles onto one rank and both packages
+        # degrade to out-of-core)
+        assert st.salted_shuffles == 1 and st.degraded == 0
+    _, again = execute(fig9_plan(Plan, CAP), env, tables, mode=mode,
+                       optimize=opt, collect_stats=True)
+    assert again.cache_misses == 0
 
 
 # ---------------------------------------------------------------------- #
@@ -208,22 +268,26 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert CylonEnv(P, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(retries=2), dict(timeout=1.0),
+@pytest.mark.parametrize("kw", [dict(retries=2), dict(timeout=60.0),
                                 dict(faults="stage:launch=raise"),
                                 dict(adaptive=True)],
                          ids=lambda kw: next(iter(kw)))
 @pytest.mark.parametrize("morsel_rows", [None, 8])
 def test_execute_refuses_later_slices(kw, morsel_rows):
-    # refused at entry, in-core and out-of-core alike, naming the slice
-    # and its ROADMAP item
+    # ROADMAP queue 1, item 10 brought these options: accepted in-core and
+    # out-of-core alike, they leave a fault-free result as it was (the
+    # injected stage:launch fault exists in-core only, and is replayed)
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
     env = CylonEnv(2, device="cpu")
     t = DistTable.from_numpy(make_table_data(32, 0), 2, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"slice of the port \(ROADMAP queue 1, "
-                             r"item 10\)"):
-        execute(fig9_plan(Plan, 32), env, {"l": t, "r": t},
-                morsel_rows=morsel_rows, **kw)
+    plan = fig9_plan(Plan, 32)
+    want = execute(plan, env, {"l": t, "r": t}, morsel_rows=morsel_rows)
+    got, st = execute(plan, env, {"l": t, "r": t}, morsel_rows=morsel_rows,
+                      collect_stats=True, **kw)
+    assert st.retries == st.faults_injected == (
+        1 if "faults" in kw and morsel_rows is None else 0)
+    for c, w in want.to_numpy().items():
+        np.testing.assert_array_equal(got.to_numpy()[c], w, err_msg=c)
 
 
 @pytest.mark.parametrize("morsel_rows", [None, 8])
