@@ -112,10 +112,36 @@ ends the run with a non-zero exit code if it fails:
    token;
 10. serving parity: both SMOKE configs with the same weights on the card
    (kernels forced, prompts longer than a tile) and on the CPU (plain
-   versions): prefill logits within 1e-3, greedy tokens equal.
+   versions): prefill logits within 1e-3, greedy tokens equal;
+11. query serving (run after the faults phase; ``benchmarks/
+   bench_pipeline.py:383-472``): a ``DevicePool`` of 8 rank slots on the
+   card, 4 gangs of 2 stacked ranks, each query gang on its worker's CUDA
+   stream; two 2**24-row tables (integer-valued payloads) ingested once,
+   pinned to no env; the three query kinds (join + filter + groupby sum +
+   sort, groupby sum/mean + sort, filter + sort) pre-warmed on every
+   partition through one shared stage cache; a serial sweep
+   (``max_inflight=1``) and a concurrent one (``max_inflight=4``) of 24
+   queries, then the concurrent one again under ``torch.profiler``:
+   queries per second, p50 and largest latency (submit to result; with
+   24 queries the p99 is the largest), the speedup, peak memory, the
+   device's busy share and the time kernels of two gangs' streams ran at
+   once; held: results bit-identical to the pre-warm runs and equal to
+   numpy, ``cache_misses == 0`` on every handle, the shared cache
+   unchanged, radix and segmented-sum launches equal to the lowered plans'
+   count (radix all onepass), overlapping queries on disjoint slots; the
+   radix and segmented-sum inputs of one query of each kind on a gang
+   (p = 2) are recorded and, after the phase, each kernel is held to its
+   plain version on them and timed beside its bound; then ``tests/md_scripts/serving_stress.py``'s checks at
+   this size (16 submissions from 8 threads, ``collect()`` inside
+   ``session(scheduler=)`` from 8 threads, a mid-queue cancellation, a
+   faulted run recovered bit for bit); last, Fig-9 ``bsp`` at 2 x 2**25
+   rows over 8 ranks with each communicator (``xla``, ``ring``,
+   ``bruck``): bit-identical to ``xla``, stage keys distinct, each run's
+   wall and its data all-to-alls' device time.
 
-The last lines are the card's ``nvidia-smi`` name and power limit, one
-JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
+The last lines are the query-serving JSON line, the card's ``nvidia-smi``
+name and power limit, one JSON object describing each kernel, and
+``{"ok": true, "device": ...}``.
 """
 
 import json
@@ -149,13 +175,16 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def make_table_data(rows, seed, cardinality=0.9):
+def make_table_data(rows, seed, cardinality=0.9, exact_values=False):
     """The paper's §V data recipe (``benchmarks/common.py``): uniform int32
-    keys at 90% cardinality, float32 values."""
+    keys at 90% cardinality, float32 values (integer-valued in [0, 256)
+    with ``exact_values``, so sums are exact in any order)."""
     rng = np.random.default_rng(seed)
     n_unique = max(1, int(rows * cardinality))
-    return {"k": rng.integers(0, n_unique, rows).astype(np.int32),
-            "v0": rng.random(rows).astype(np.float32)}
+    keys = rng.integers(0, n_unique, rows).astype(np.int32)
+    vals = (rng.integers(0, 256, rows).astype(np.float32) if exact_values
+            else rng.random(rows).astype(np.float32))
+    return {"k": keys, "v0": vals}
 
 
 def capacity_for(rows, p):
@@ -215,7 +244,8 @@ def sorted_bucketize(torch, dest, nb):
     return srt.indices, row_rank, counts
 
 
-def radix_phase(torch, cap, flush, layouts=None, skewed=False):
+def radix_phase(torch, cap, flush, layouts=None, skewed=False,
+                recorded=None):
     """Radix kernel vs ``radix_partition_ref`` on the card, each case
     labelled with its route.  Without ``layouts``: the main path's shapes
     with uniform buckets, a wide case, a large bucket count (the threepass
@@ -224,13 +254,17 @@ def radix_phase(torch, cap, flush, layouts=None, skewed=False):
     prefix of the valid rows and a tail of padding in bucket p.  With
     ``skewed``: the salted shuffles' traffic, ``onepass`` at (8,
     4,194,304, 9) with 99% of every rank's rows in one bucket, so the
-    in-bucket ranks reach about 4.15 M.  The main and skewed shapes are
-    also timed through the shuffle's sorted bucketize."""
+    in-bucket ranks reach about 4.15 M.  With ``recorded`` ([(case, dest,
+    nb)], the inputs a run handed the kernel), those cases alone.  The
+    main and skewed shapes are also timed through the shuffle's sorted
+    bucketize."""
     from repro_torch.kernels import radix_partition_cuda, radix_partition_ref
     from repro_torch.kernels.radix_partition.cuda import route_for
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    if skewed:
+    if recorded is not None:
+        cases = [(name, *dest.shape, nb, dest) for name, dest, nb in recorded]
+    elif skewed:
         cases = [("skew:one-bucket", P, 4_194_304, P + 1, "hot")]
     elif layouts is None:
         # (p, n, nb): the join's shuffles (n = cap) and the sort's (n = 4
@@ -246,7 +280,9 @@ def radix_phase(torch, cap, flush, layouts=None, skewed=False):
                  for name, (n, valid) in layouts.items()]
     out = []
     for name, p, n, nb, valid in cases:
-        if valid == "hot":
+        if isinstance(valid, torch.Tensor):     # a recorded input
+            dest, valid = valid, (valid < nb - 1).sum(dim=1).tolist()
+        elif valid == "hot":
             valid = None
             dest = torch.where(
                 torch.rand((p, n), generator=gen, device=dev) < 0.99, 3,
@@ -2908,6 +2944,591 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
               f"{err:.2e}, {new} greedy tokens equal)", flush=True)
 
 
+#: the query-serving phase: rank slots in the pool, gangs, queries a sweep
+SERVE_SLOTS, SERVE_GANGS, SERVE_QUERIES = 8, 4, 24
+#: the faulted-serving plan of ``tests/md_scripts/serving_stress.py``
+SERVE_FAULTS = "stage:launch@0x1=raise;a2a:chunk@1x1=raise"
+
+
+def serving_queries(left, right):
+    """``benchmarks/bench_pipeline.py:420-428`` (``run_serving``): join +
+    filter + groupby sum + sort; groupby sum/mean + sort; filter + sort,
+    with its join capacities."""
+    from repro_torch.expr import col
+    cap = next(iter(left.sources.values())).capacity
+    jkw = dict(out_capacity=cap * 4, bucket_capacity=cap * 2,
+               shuffle_out_capacity=cap * 2)
+    return {
+        "join": lambda: (left.merge(right, on="k", **jkw)
+                         [(col("v0") > 4) & (col("w") < 250)]
+                         .groupby("k").agg({"v0": ["sum"]})
+                         .sort_values("k")),
+        "groupby": lambda: (left.groupby("k").agg({"v0": ["sum", "mean"]})
+                            .sort_values("k")),
+        "filter": lambda: left[col("v0") > 64].sort_values("k"),
+    }
+
+
+def serving_oracle(name, ld, rd):
+    """What query ``name`` must return, from numpy on the host: the
+    groupbys' keys and float64 sums (exact: integer payloads) rounded to
+    float32, the filter's rows in key order."""
+    if name == "filter":
+        m = ld["v0"] > 64
+        order = np.lexsort((ld["v0"][m], ld["k"][m]))
+        return {"k": ld["k"][m][order], "v0": ld["v0"][m][order]}
+    nk = int(max(ld["k"].max(), rd["k"].max())) + 1
+    if name == "groupby":
+        cnt = np.bincount(ld["k"], minlength=nk)
+        sums = np.bincount(ld["k"], weights=ld["v0"].astype(np.float64),
+                           minlength=nk)
+        keys = np.nonzero(cnt)[0]
+        return {"k": keys.astype(np.int32),
+                "v0_sum": sums[keys].astype(np.float32),
+                "v0_mean": (sums[keys] / cnt[keys]).astype(np.float32)}
+    ml, mr = ld["v0"] > 4, rd["w"] < 250
+    cnt_l = np.bincount(ld["k"][ml], minlength=nk)
+    cnt_r = np.bincount(rd["k"][mr], minlength=nk)
+    sum_l = np.bincount(ld["k"][ml], weights=ld["v0"][ml].astype(np.float64),
+                        minlength=nk)
+    keys = np.nonzero((cnt_l > 0) & (cnt_r > 0))[0]
+    # the join keeps the left v0; each left row meets cnt_r partners
+    return {"k": keys.astype(np.int32),
+            "v0_sum": (sum_l * cnt_r)[keys].astype(np.float32)}
+
+
+def check_oracle(out, want, label):
+    got = dict(out)
+    if "v0" in want:        # the sort orders by k only: ties in any order
+        order = np.lexsort((got["v0"], got["k"]))
+        check(np.array_equal(got["k"], np.sort(got["k"])),
+              f"{label}: keys not in order")
+        got = {c: a[order] for c, a in got.items()}
+    check(sorted(got) == sorted(want), f"{label}: columns {sorted(got)}, "
+          f"want {sorted(want)}")
+    for c in want:
+        check(got[c].dtype == want[c].dtype and np.array_equal(
+            got[c], want[c]), f"{label}: column {c} differs from numpy")
+
+
+def same_dist(torch, got, want):
+    """Slot for slot: equal row counts and equal valid rows per rank."""
+    if (got.parallelism != want.parallelism
+            or sorted(got.columns) != sorted(want.columns)
+            or not torch.equal(got.row_counts.cpu(), want.row_counts.cpu())):
+        return False
+    counts = want.row_counts.tolist()
+    return all(torch.equal(got.columns[c][r, :n], want.columns[c][r, :n])
+               for c in want.columns for r, n in enumerate(counts))
+
+
+def serving_launches(pplans, kinds):
+    """Radix and segmented-sum launches that queries of ``kinds`` make on
+    the card: one radix launch per shuffle of each lowered plan, one
+    segmented sum per sum / count / size of every local groupby."""
+    return ({"radix_partition": sum(pplans[k].num_shuffles for k in kinds),
+             "segmented_sum": sum(segsum_launches_expected(pplans[k], "bsp")
+                                  for k in kinds)})
+
+
+def disjoint_overlaps(handles, label):
+    """Queries whose [started, finished] intervals overlap never share a
+    rank slot; returns the number of overlapping pairs."""
+    spans = [(h.stats["started_monotonic"], h.stats["finished_monotonic"],
+              set(h.stats["devices"])) for h in handles]
+    pairs = 0
+    for i, (a0, a1, da) in enumerate(spans):
+        for b0, b1, db in spans[i + 1:]:
+            if a0 < b1 and b0 < a1:
+                pairs += 1
+                check(not da & db, f"{label}: overlapping queries shared "
+                      f"slots {sorted(da & db)}")
+    return pairs
+
+
+def stream_overlap(trace_path):
+    """From a Chrome trace of ``torch.profiler``: the time (ms) during
+    which any kernel ran (the union of kernel intervals), the kernels'
+    summed time (ms), the time (ms) during which kernels of two or more
+    streams ran at once, and the number of kernels."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ks = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream"))
+          for e in events if e.get("cat") == "kernel" and "dur" in e]
+    edges = sorted([(t0, 1, st) for t0, _, st in ks]
+                   + [(t1, -1, st) for _, t1, st in ks])
+    active, busy, both, last = {}, 0.0, 0.0, None
+    for t, step, st in edges:
+        if last is not None:
+            streams = sum(1 for n in active.values() if n > 0)
+            busy += (t - last) if streams else 0.0
+            both += (t - last) if streams >= 2 else 0.0
+        active[st] = active.get(st, 0) + step
+        last = t
+    total = sum(t1 - t0 for t0, t1, _ in ks)
+    return busy / 1e3, total / 1e3, both / 1e3, len(ks)
+
+
+def query_serving_phase(torch, rows=1 << 24, device=None, fig9_rows=None,
+                        smi=None):
+    """Serving of queries (``benchmarks/bench_pipeline.py:383-472``,
+    ``run_serving``): ``SERVE_GANGS`` gangs of 2 stacked ranks carved from
+    a pool of ``SERVE_SLOTS`` rank slots on the card, the three query kinds
+    over two ``rows``-row tables (integer-valued payloads) ingested once
+    and pinned to no env, every partition pre-warmed through one shared
+    stage cache; a serial sweep (``max_inflight=1``) and a concurrent one
+    (``max_inflight=SERVE_GANGS``) of ``SERVE_QUERIES`` queries each, then
+    the concurrent sweep once more under ``torch.profiler``; held:
+    results bit-identical to the pre-warm runs and equal to numpy, no
+    stage built, launches equal to their derivation, overlapping queries
+    on disjoint slots.  Then ``tests/md_scripts/serving_stress.py``'s
+    checks at this size (16 submissions from 8 threads, ``collect()`` in
+    ``session(scheduler=)`` from 8 threads, a mid-queue cancellation, a
+    faulted run recovered), and Fig-9 ``bsp`` at ``fig9_rows`` per table
+    (default ``2 * rows``: ``FULL_ROWS`` on the card) over ``P`` ranks per
+    communicator (``xla``, ``ring``, ``bruck``), bit-identical to ``xla``.
+    Returns the numbers for the JSON line and, on the card, the radix and
+    segmented-sum inputs of one query of each kind on a gang
+    (``serving_kernel_inputs``)."""
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv, DevicePool, DistTable
+    from repro_torch.kernels import (CUDA_KERNELS, radix_partition_cuda,
+                                     reset_launches)
+    from repro_torch.planner import compile_plan
+    from repro_torch.serve import ProgramCache, QueryScheduler
+    t_phase = time.perf_counter()
+    gang = SERVE_SLOTS // SERVE_GANGS
+    pool = DevicePool(slots=SERVE_SLOTS, device=device)
+    on_card = pool.device.type == "cuda"
+    card = smi if smi is not None else "not a card"
+    ld = make_table_data(rows, 0, exact_values=True)
+    rd = make_table_data(rows, 1, exact_values=True)
+    rd["w"] = rd.pop("v0")
+    left = rdf.from_table(DistTable.from_numpy(ld, gang, device=pool.device),
+                          name="l")
+    right = rdf.from_table(DistTable.from_numpy(rd, gang,
+                                                device=pool.device),
+                           name="r")
+    queries = serving_queries(left, right)
+    kinds = sorted(queries)
+    pplans = {k: compile_plan(q().plan, q().sources)
+              for k, q in queries.items()}
+    shared = ProgramCache(registry=False)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # pre-warm every partition; the first is the sequential reference
+    refs, lone = {}, {}
+    for g in range(SERVE_GANGS):
+        env = CylonEnv(devices=pool.devices[g * gang:(g + 1) * gang],
+                       program_cache=shared)
+        for k in kinds:
+            out = queries[k]().collect(env=env)
+            if k not in refs:
+                refs[k] = out
+            else:
+                check(same_dist(torch, out, refs[k]), f"serving pre-warm "
+                      f"{k} on slots {env.slot_ids} differs from slots "
+                      f"(0, 1)")
+            del out
+    warm = (len(shared), shared.misses)
+    # a lone warm query of each kind on the first gang: wall and the
+    # peak memory it adds
+    env = CylonEnv(devices=pool.devices[:gang], program_cache=shared)
+    for k in kinds:
+        sync()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = queries[k]().collect(env=env)
+        env.synchronize()
+        lone[k] = {"wall_s": time.perf_counter() - t, "peak_gib": (
+            (torch.cuda.max_memory_allocated() - base) / 2**30
+            if on_card else None)}
+        check(same_dist(torch, out, refs[k]) and env.cache_misses == 0,
+              f"serving lone {k}: differs or built a stage")
+        del out
+    for k in kinds:
+        check_oracle(refs[k].to_numpy(), serving_oracle(k, ld, rd),
+                     f"serving {k}")
+    print(f"query serving: {SERVE_GANGS} gangs of {gang} stacked ranks from "
+          f"{SERVE_SLOTS} slots on {pool.device}, 2 x {rows} rows, "
+          f"{warm[0]} stages after the pre-warm ({warm[0] // SERVE_GANGS} "
+          f"per partition); each kind bit-identical on every partition and "
+          f"equal to numpy; lone warm query "
+          + ", ".join(f"{k} {lone[k]['wall_s'] * 1e3:.2f} ms" for k in kinds)
+          + f"; set-up {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    def sweep(inflight, profiled=False):
+        sched = QueryScheduler(pool=pool, gang_size=gang,
+                               max_inflight=inflight,
+                               max_queue=SERVE_QUERIES, program_cache=shared,
+                               name=f"serve-x{inflight}")
+        sync()
+        reset_launches()
+        routes0 = dict(radix_partition_cuda.route_launches)
+        base = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
+        names = [kinds[i % len(kinds)] for i in range(SERVE_QUERIES)]
+        t0 = time.perf_counter()
+        handles = [sched.submit(queries[n](), label=f"x{inflight}-{i}")
+                   for i, n in enumerate(names)]
+        results = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        sched.close()
+        sync()
+        rec = {"inflight": inflight, "wall_s": wall,
+               "queries_per_s": SERVE_QUERIES / wall}
+        lat = sorted(h.stats["finished_monotonic"]
+                     - h.stats["submitted_monotonic"] for h in handles)
+        # with 24 latencies a p99 is the largest: report it as such
+        rec["p50_s"], rec["max_s"] = lat[len(lat) // 2], lat[-1]
+        rec["wall_s_by_kind"] = {k: float(np.median(
+            [h.stats["wall_s"] for h, n in zip(handles, names) if n == k]))
+            for k in kinds}
+        if on_card:
+            rec["peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            rec["peak_reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+            rec["peak_over_base_gib"] = (torch.cuda.max_memory_allocated()
+                                         - base) / 2**30
+            # allocations that had to free the cached blocks and retry
+            rec["alloc_retries"] = (torch.cuda.memory_stats()
+                                    ["num_alloc_retries"] - retries0)
+        counts = {k.name: k.launches for k in CUDA_KERNELS}
+        routes = {r: radix_partition_cuda.route_launches[r] - routes0[r]
+                  for r in routes0}
+        label = f"serving sweep x{inflight}" + (" profiled" if profiled
+                                                else "")
+        check(all(h.stats["cache_misses"] == 0 for h in handles),
+              f"{label}: a warm handle built a stage")
+        check((len(shared), shared.misses) == warm, f"{label}: the shared "
+              f"cache grew")
+        for h, n, out in zip(handles, names, results):
+            check(same_dist(torch, out, refs[n]), f"{label}: {h.label} "
+                  f"({n}) differs from its sequential run")
+        want = serving_launches(pplans, names) if on_card else {
+            "radix_partition": 0, "segmented_sum": 0}
+        for k, n in want.items():
+            check(counts[k] == n, f"{label}: {k} launched {counts[k]} "
+                  f"times, want {n}")
+        if on_card:
+            check(routes == {"onepass": want["radix_partition"],
+                             "threepass": 0}, f"{label}: radix routes "
+                  f"{routes}")
+        rec["launches"] = {k: counts[k] for k in want}
+        rec["concurrent_pairs"] = disjoint_overlaps(handles, label)
+        del results, handles
+        return rec
+
+    serial = sweep(1)
+    concurrent = sweep(SERVE_GANGS)
+    speedup = serial["wall_s"] / concurrent["wall_s"]
+    for tag, r in (("serial", serial), ("concurrent", concurrent)):
+        mem = (f"peak allocated {r['peak_allocated_gib']:.2f} GiB "
+               f"(+{r['peak_over_base_gib']:.2f} over the tables and "
+               f"references), reserved {r['peak_reserved_gib']:.2f} GiB, "
+               f"{r['alloc_retries']} allocation retries"
+               if on_card else "peak memory not measured")
+        print(f"serving {tag:10s} x{r['inflight']}: {SERVE_QUERIES} queries "
+              f"in {r['wall_s']:.4f} s, {r['queries_per_s']:.3f} queries/s, "
+              f"latency p50 {r['p50_s'] * 1e3:.2f} ms, max (the p99 of "
+              f"{SERVE_QUERIES}) {r['max_s'] * 1e3:.2f} ms, gang wall by "
+              f"kind "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms"
+                          for k, v in r["wall_s_by_kind"].items())
+              + f"; {mem}; {r['concurrent_pairs']} overlapping pairs, "
+              f"launches {r['launches']} (derived, all onepass); {card}",
+              flush=True)
+    print(f"serving speedup concurrent/serial {speedup:.4f}x; lone warm "
+          f"query peak "
+          + ", ".join(f"{k} +{v['peak_gib']:.2f} GiB" if on_card else
+                      f"{k} not measured" for k, v in lone.items())
+          + f"; {card}", flush=True)
+    profile = {}
+    for tag, inflight in (("serial", 1), ("concurrent", SERVE_GANGS)):
+        if not on_card:
+            break
+        profile[tag] = profiled_sweep(torch, lambda: sweep(inflight, True))
+        p = profile[tag]
+        print(f"serving {tag} sweep under torch.profiler: wall "
+              f"{p['wall_ms']:.1f} ms, device busy {p['busy_ms']:.1f} ms "
+              f"({100 * p['busy_share']:.1f}%, idle "
+              f"{100 - 100 * p['busy_share']:.1f}%), kernel time "
+              f"{p['kernel_ms']:.1f} ms over {p['kernels']} kernels, "
+              f"kernels of two or more gangs' streams at once "
+              f"{p['two_streams_ms']:.1f} ms, {p['alloc_retries']} "
+              f"allocation retries; {card}", flush=True)
+    if on_card:
+        check(profile["concurrent"]["two_streams_ms"] > 0, "no two gangs' "
+              "kernels ran at once in the concurrent sweep")
+
+    stress = serving_stress(torch, pool, shared, queries, refs, gang, kinds,
+                            warm)
+    comms = communicator_fig9(torch, fig9_rows or 2 * rows, device)
+    # recorded last, so that the copies take no memory from the sweeps
+    recorded = serving_kernel_inputs(env, queries, kinds, pplans)
+    print(f"phase query serving took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"rows": rows, "slots": SERVE_SLOTS, "gangs": SERVE_GANGS,
+            "gang_size": gang, "queries": SERVE_QUERIES,
+            "serial": serial, "concurrent": concurrent,
+            "speedup": speedup, "lone": lone, "profile": profile,
+            "stress": stress, "communicators": comms}, recorded
+
+
+def serving_kernel_inputs(env, queries, kinds, pplans):
+    """The radix and segmented-sum kernels' inputs as one query of each
+    kind hands them over on gang ``env``, the first call at each shape:
+    ([(case, dest, nb)], [(case, ids, values, S)]) for ``radix_phase``
+    and ``segsum_phase``.  Each kind's calls are held to the launches
+    derived from its lowered plan."""
+    dests, sums = {}, {}
+    for k in kinds:
+        calls = {"radix_partition": 0, "segmented_sum": 0}
+
+        def note_radix(dest, nb, k=k, calls=calls):
+            calls["radix_partition"] += 1
+            seen = dests.setdefault((dest.shape[1], nb),
+                                    ([], dest.clone(), nb))
+            if k not in seen[0]:
+                seen[0].append(k)
+
+        def note_sum(ids, vals, s, k=k, calls=calls):
+            calls["segmented_sum"] += 1
+            seen = sums.setdefault((ids.shape[1], s, vals.dtype),
+                                   ([], ids.clone(), vals.clone(), s))
+            if k not in seen[0]:
+                seen[0].append(k)
+        recording(env, lambda k=k: queries[k]().collect(env=env), [
+            ("repro_torch.dataframe.shuffle", "radix_partition", note_radix),
+            ("repro_torch.dataframe.ops_local", "segmented_sum", note_sum)])
+        want = serving_launches(pplans, [k])
+        check(calls == want, f"serving {k}: kernel calls {calls}, want "
+              f"{want}")
+    return ([(f"serve:n={n} ({'/'.join(ks)})", dest, nb)
+             for (n, _), (ks, dest, nb) in dests.items()],
+            [(f"serve:n={i.shape[1]},S={s},{str(v.dtype).split('.')[-1]} "
+              f"({'/'.join(ks)})", i, v, s)
+             for ks, i, v, s in sums.values()])
+
+
+def profiled_sweep(torch, run):
+    """``run()`` (a sweep) under ``torch.profiler``: wall, the device's
+    busy time and share, summed kernel time, the time kernels of two or
+    more streams ran at once."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            rec = run()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        busy, total, both, nk = stream_overlap(path)
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+            "kernel_ms": total, "two_streams_ms": both, "kernels": nk,
+            "queries_per_s": rec["queries_per_s"],
+            "alloc_retries": rec.get("alloc_retries")}
+
+
+def serving_stress(torch, pool, shared, queries, refs, gang, kinds, warm):
+    """``tests/md_scripts/serving_stress.py``'s checks on the phase's
+    pool, cache and frames."""
+    import threading
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv
+    from repro_torch.faults import QueryCancelled, RetryPolicy
+    from repro_torch.serve import QueryScheduler
+    t0 = time.perf_counter()
+    sched = QueryScheduler(pool=pool, gang_size=gang,
+                           max_inflight=SERVE_GANGS, max_queue=64,
+                           program_cache=shared, name="stress")
+    handles, errors = [None] * 16, []
+    barrier = threading.Barrier(8)
+
+    def submitter(t):
+        try:
+            barrier.wait()
+            for j in (2 * t, 2 * t + 1):
+                n = kinds[j % 3]
+                handles[j] = (n, sched.submit(queries[n](),
+                                              label=f"storm-{j}",
+                                              timeout=300.0))
+        except Exception as e:
+            errors.append(e)
+    threads = [threading.Thread(target=submitter, args=(t,))
+               for t in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    check(not errors, f"stress submitters failed: {errors}")
+    for n, h in handles:
+        check(same_dist(torch, h.result(timeout=600), refs[n]),
+              f"stress {h.label} ({n}) differs from its sequential run")
+        check(h.stats["cache_misses"] == 0, f"stress {h.label} built a "
+              f"stage")
+    pairs = disjoint_overlaps([h for _, h in handles], "stress storm")
+    check(pairs > 0, "stress storm never ran two queries at once")
+    check((len(shared), shared.misses) == warm, "stress storm built stages")
+    del handles
+
+    routed_errors = []
+
+    def routed(t):
+        try:
+            n = kinds[t % 3]
+            with rdf.session(scheduler=sched):
+                out = queries[n]().collect()
+            check(same_dist(torch, out, refs[n]), f"routed {n} differs")
+        except Exception as e:
+            routed_errors.append(e)
+    threads = [threading.Thread(target=routed, args=(t,)) for t in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not routed_errors, f"session routing failed: {routed_errors}")
+    check((len(shared), shared.misses) == warm, "session routing built "
+          "stages")
+
+    class Gated:
+        def __init__(self, inner):
+            self.inner = inner
+            self.started = threading.Event()
+            self.gate = threading.Event()
+
+        def collect(self, **kw):
+            self.started.set()
+            check(self.gate.wait(300), "gate never opened")
+            return self.inner.collect(**kw)
+
+    narrow = QueryScheduler(pool=pool, gang_size=gang, max_inflight=1,
+                            max_queue=8, program_cache=shared,
+                            name="narrow")
+    gated = Gated(queries["groupby"]())
+    running = narrow.submit(gated)
+    check(gated.started.wait(120), "the narrow scheduler took no query")
+    queued = [narrow.submit(queries[kinds[i % 3]]()) for i in range(3)]
+    check(queued[1].cancel("mid-queue cancellation"), "cancel refused")
+    try:
+        queued[1].result(timeout=5)
+        check(False, "a cancelled query returned a result")
+    except QueryCancelled:
+        pass
+    gated.gate.set()
+    check(same_dist(torch, running.result(timeout=600), refs["groupby"]),
+          "the query in flight during a cancellation differs")
+    for i in (0, 2):
+        check(same_dist(torch, queued[i].result(timeout=600),
+                        refs[kinds[i % 3]]), "a survivor differs")
+    narrow.close()
+
+    env0 = CylonEnv(devices=pool.devices[:gang], program_cache=shared)
+    fault_ref = queries["join"]().collect(env=env0, mode="bsp_staged",
+                                          a2a_chunks=2, faults=False)
+    check(same_dist(torch, fault_ref, refs["join"]), "bsp_staged join "
+          "differs from bsp")
+    fkw = dict(mode="bsp_staged", a2a_chunks=2, collect_stats=True,
+               faults=SERVE_FAULTS,
+               retries=RetryPolicy(retries=6, backoff_s=0.001))
+    fh = [sched.submit(queries["join"](), label=f"faulted-{i}", **fkw)
+          for i in range(4)]
+    fired = 0
+    for h in fh:
+        out, st = h.result(timeout=600)
+        check(same_dist(torch, out, fault_ref) and st.rows_dropped == 0,
+              f"{h.label} did not recover bit-identically")
+        fired += st.faults_injected
+    check(fired > 0, "the fault plan never fired under serving")
+    sched.close()
+    check(pool.available == pool.size, "leaked slot leases")
+    wall = time.perf_counter() - t0
+    print(f"serving stress: 16 submissions from 8 threads ({pairs} "
+          f"overlapping pairs, disjoint slots, 0 stages built), 8 threads "
+          f"through session(scheduler=), a mid-queue cancellation, {fired} "
+          f"faults recovered over 4 queries; all bit-identical; "
+          f"{wall:.1f} s", flush=True)
+    return {"storm_pairs": pairs, "faults_fired": fired, "wall_s": wall}
+
+
+def communicator_fig9(torch, rows, device):
+    """Fig-9 ``bsp`` at ``rows`` per table over ``P`` stacked ranks per
+    communicator: bit-identical to ``xla``, stage keys distinct per
+    communicator; each run's wall and its data all-to-alls' device time
+    (CUDA events around each ``all_to_all_chunked`` call on the stage's
+    stream)."""
+    from repro_torch.core import (CylonEnv, DistTable, Plan, execute,
+                                  resolve_device)
+    ld, rd = make_table_data(rows, 0), make_table_data(rows, 1)
+    cap = capacity_for(rows, P)
+    tables = {"l": DistTable.from_numpy(ld, P, capacity=cap, device=device),
+              "r": DistTable.from_numpy(rd, P, capacity=cap, device=device)}
+    on_card = resolve_device(device).type == "cuda"
+    plan = fig9_plan(Plan, cap)
+    ref_np = host_reference(ld, rd)
+    out, keys, base = {}, {}, None
+    for name in ("xla", "ring", "bruck"):
+        env = CylonEnv(P, device=device, communicator=name)
+        events = []
+        inner = env.comm.all_to_all_chunked
+
+        def timed(x, chunks=1, _inner=inner, _events=events):
+            if not on_card:
+                return _inner(x, chunks=chunks)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            y = _inner(x, chunks=chunks)
+            b.record()
+            _events.append((a, b))
+            return y
+        env.comm.all_to_all_chunked = timed
+        walls = {}
+        for run in ("first", "cached"):
+            events.clear()
+            env.synchronize()
+            t = time.perf_counter()
+            res, st = execute(plan, env, tables, mode="bsp",
+                              collect_stats=True)
+            env.synchronize()
+            walls[run] = time.perf_counter() - t
+        a2a_ms = sum(a.elapsed_time(b) for a, b in events) if on_card \
+            else None
+        check(st.cache_misses == 0, f"fig9 {name}: cached run built stages")
+        check_fig9(res, st, ref_np, f"fig9 {name}")
+        if base is None:
+            base = res
+        else:
+            check(same_dist(torch, res, base), f"fig9 {name}: differs from "
+                  f"xla")
+        keys[name] = set(env._cache)
+        check(all(name in k for k in keys[name]), f"fig9 {name}: a stage "
+              f"key without the communicator's name")
+        out[name] = {"first_wall_s": walls["first"],
+                     "cached_wall_s": walls["cached"],
+                     "a2a_calls": len(events), "a2a_ms": a2a_ms}
+        print(f"fig9 bsp communicator {name:5s}: 2 x {rows} rows over {P} "
+              f"ranks, wall first {walls['first'] * 1e3:.2f} ms cached "
+              f"{walls['cached'] * 1e3:.2f} ms, data all-to-all "
+              + (f"{a2a_ms:.3f} ms device time over {len(events)} calls"
+                 if on_card else "not measured")
+              + ("" if name == "xla" else ", bit-identical to xla"),
+              flush=True)
+        del res
+    check(not (keys["xla"] & keys["ring"] or keys["xla"] & keys["bruck"]
+               or keys["ring"] & keys["bruck"]),
+          "two communicators share a stage key")
+    return out
+
+
 def build_all():
     """Build every kernel: one nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2929,11 +3550,11 @@ def build_all():
 
 def kernel_record(k, cases, launches, launches_by_run=None,
                   route_launches=None, launches_out_of_core=None,
-                  launches_ingest=None):
+                  launches_ingest=None, launches_serving=None):
     """The kernels-line entry of wrapper ``k``: the main-shape case's
     numbers, the main path's launch count (and its launches per route,
-    and per run of the out-of-core Fig-9 and of Fig-9 from files) and
-    every case beside them."""
+    and per run of the out-of-core Fig-9, of Fig-9 from files and per
+    sweep of served queries) and every case beside them."""
     main = cases[0]
     rec = {"name": k.name, "route": "cuda", "source": k.source,
            "replaces": k.replaces, "launches": launches,
@@ -2949,6 +3570,8 @@ def kernel_record(k, cases, launches, launches_by_run=None,
         rec["launches_out_of_core"] = launches_out_of_core
     if launches_ingest is not None:
         rec["launches_ingest"] = launches_ingest
+    if launches_serving is not None:
+        rec["launches_serving"] = launches_serving
     rec["cases"] = cases
     return rec
 
@@ -3017,6 +3640,15 @@ def main():
     phase_done("skew")
     fault_walls = faults_phase(torch)
     phase_done("faults")
+    serving, (serve_dests, serve_sums) = query_serving_phase(torch, smi=smi)
+    for k in ("radix_partition", "segmented_sum"):
+        check(serving["concurrent"]["launches"][k] > 0, f"{k} never "
+              f"launched by the served queries")
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    radix_cases += radix_phase(torch, cap, flush, recorded=serve_dests)
+    segsum_cases += segsum_phase(torch, cap, flush, serve_sums)
+    del flush, serve_dests, serve_sums
+    phase_done("query serving")
     parity_phase()
     degrade_phase()
     unsigned_phase()
@@ -3037,7 +3669,9 @@ def main():
                       {run: c[rp.name]
                        for run, c in ooc["launches"].items()},
                       {run: c[rp.name]
-                       for run, c in ingest["launches"].items()}),
+                       for run, c in ingest["launches"].items()},
+                      {sw: serving[sw]["launches"][rp.name]
+                       for sw in ("serial", "concurrent")}),
         kernel_record(ss, segsum_cases, launches["bsp/first"][ss.name],
                       {run: c[ss.name] for run, c in launches.items()},
                       launches_out_of_core={
@@ -3045,7 +3679,10 @@ def main():
                           for run, c in ooc["launches"].items()},
                       launches_ingest={
                           run: c[ss.name]
-                          for run, c in ingest["launches"].items()}),
+                          for run, c in ingest["launches"].items()},
+                      launches_serving={
+                          sw: serving[sw]["launches"][ss.name]
+                          for sw in ("serial", "concurrent")}),
         # the serving paths are the first run of each arch
         kernel_record(flash_attention_cuda, flash_cases,
                       served["qwen3-8b"]["first"]["launches"]),
@@ -3066,6 +3703,7 @@ def main():
                                        for run, r in runs.items()}
                                 for arch, runs in served.items()},
                       "serve_bf16_prefill": {"qwen3-8b": served_bf16}}))
+    print(json.dumps({"query_serving": serving}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

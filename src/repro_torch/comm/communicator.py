@@ -12,17 +12,32 @@ would hold one.  Below, shapes are written per rank, after that axis:
 Block-major ``all_to_all``: rank ``i`` passes ``(p, m, ...)`` where block
 ``j`` is destined to rank ``j``; output block ``j`` is the block received
 from rank ``j`` (MPI semantics).
+
+The swappable dimension is the collective *schedule*, as in the JAX
+package: a registry maps names to communicator classes
+(``register_communicator`` / ``get_communicator``):
+
+  * ``xla``   — one tensor reshuffle per collective (``comm.stacked``;
+                the name keeps the JAX package's default);
+  * ``ring``  — (p-1)-step ring schedules of rolls of the rank axis
+                (``comm.ring``);
+  * ``bruck`` — ceil(log2 p)-step Bruck all-to-all, recursive doubling
+                for the rest when p is a power of two (``comm.bruck``).
 """
 
 from __future__ import annotations
 
 import abc
+from typing import Dict, List, Type
 
 import torch
 
 
 class Communicator(abc.ABC):
     """Abstract DDF communicator over ``parallelism`` ranks."""
+
+    #: registry key, set by subclasses
+    name: str = "abstract"
 
     def __init__(self, parallelism: int):
         self.parallelism = parallelism
@@ -123,3 +138,30 @@ class Communicator(abc.ABC):
         round): counts[j] = rows this rank sends to rank j -> recv[j] =
         rows rank j sends to this rank."""
         return self.all_to_all(counts[..., None])[..., 0]
+
+
+# ---------------------------------------------------------------------- #
+# Registry
+# ---------------------------------------------------------------------- #
+_REGISTRY: Dict[str, Type[Communicator]] = {}
+
+
+def register_communicator(cls: Type[Communicator]) -> Type[Communicator]:
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+def get_communicator(name: str, parallelism: int) -> Communicator:
+    """Instantiate a communicator by registry name over ``parallelism``
+    ranks."""
+    try:
+        cls = _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown communicator {name!r}; available: {sorted(_REGISTRY)}"
+        ) from None
+    return cls(parallelism)
+
+
+def available_communicators() -> List[str]:
+    return sorted(_REGISTRY)

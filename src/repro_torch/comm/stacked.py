@@ -4,17 +4,23 @@ Rank ``r`` is slice ``r`` of a leading ``(p, ...)`` axis, so every
 collective is a tensor reshuffle on the device: ``all_to_all`` transposes
 the two rank axes, ``all_gather`` broadcasts, ``all_reduce`` sums over
 axis 0.  This is what lets an 8-rank plan run on one H100 (and on the CPU
-in the tests) with the JAX package's collective semantics.
+in the tests) with the JAX package's collective semantics.  It is the
+registry's ``xla`` communicator: one reshuffle per collective, as XLA's
+native collectives are one HLO op each.  ``ring`` and ``bruck`` subclass
+it and replace the reshuffles with their step schedules.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .communicator import Communicator
+from .communicator import Communicator, register_communicator
 
 
+@register_communicator
 class StackedCommunicator(Communicator):
+    name = "xla"
+
     def rank(self, device=None) -> torch.Tensor:
         return torch.arange(self.parallelism, dtype=torch.int32,
                             device=device)
@@ -57,3 +63,34 @@ class StackedCommunicator(Communicator):
         for src, dst in perm:
             out[dst] = x[src]
         return out
+
+    # step primitives of the ring and Bruck schedules ------------------ #
+    @staticmethod
+    def _shift(x: torch.Tensor, k: int) -> torch.Tensor:
+        """Every rank sends to rank + k: rank d receives rank d - k's
+        value (``ppermute`` over the full shift permutation)."""
+        return torch.roll(x, shifts=k, dims=0)
+
+    def _xor(self, x: torch.Tensor, dist: int) -> torch.Tensor:
+        """Rank d receives rank (d ^ dist)'s value (recursive doubling's
+        pairwise exchange)."""
+        idx = torch.arange(self.parallelism, device=x.device) ^ dist
+        return x.index_select(0, idx)
+
+    def _per_rank(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``out[r] = x[r, idx[r]]``: each rank picks one block of its
+        own (p, ...) buffer, ``idx`` (p,) int64."""
+        return x[torch.arange(self.parallelism, device=x.device), idx]
+
+    def _reorder(self, stacked: torch.Tensor, idx: torch.Tensor
+                 ) -> torch.Tensor:
+        """``out[r, j] = stacked[r, idx[r, j]]`` over the block axis 1,
+        ``idx`` (p, p) int64."""
+        p = self.parallelism
+        rows = torch.arange(p, device=stacked.device)[:, None].expand(p, p)
+        return stacked[rows, idx]
+
+    def _rel(self, device, sign: int) -> torch.Tensor:
+        """(p, p) int64: ``(r + sign * j) % p`` at [r, j]."""
+        r = torch.arange(self.parallelism, device=device)
+        return (r[:, None] + sign * r[None, :]) % self.parallelism

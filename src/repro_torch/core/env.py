@@ -11,17 +11,24 @@ and ``(p,)`` row counts on one device, and the callable a stage runs sees
 them as one batched ``dataframe.Table``.  Entry points run on ``cuda``
 unless the caller asks for the CPU; with no card they raise rather than
 fall back.
+
+Serving (``DevicePool``, ``Lease``): a pool slot is one *rank slot* on a
+device (``RankSlot``).  A gang of ``g`` slots leased from the pool is a
+``CylonEnv`` of ``g`` stacked ranks on that device; the query scheduler
+runs each gang's work on a CUDA stream of its own, so gangs on one card
+overlap where the card has room.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..comm import Communicator, StackedCommunicator
+from ..comm import Communicator, get_communicator
 from ..dataframe.schema import decode_columns, encode_columns
 from ..dataframe.table import Table
 from ..dtypes import to_x32, torch_dtype, x32_dtype
@@ -353,21 +360,70 @@ class EnvContext:
 
 class CylonEnv:
     """A pseudo-BSP environment of ``parallelism`` ranks stacked on one
-    device, joined by a ``StackedCommunicator``.
+    device, joined by a communicator from the registry.
 
-    ``device=None`` means ``cuda`` and raises without a card; pass
-    ``device="cpu"`` for the plain PyTorch path.
+    Parameters
+    ----------
+    parallelism:   ranks stacked on the device (default 1).
+    device:        ``None`` means ``cuda`` and raises without a card; pass
+                   ``device="cpu"`` for the plain PyTorch path.
+    devices:       a ``Lease`` (or a list of ``RankSlot``) from a
+                   ``DevicePool``: sets the parallelism (one rank per slot)
+                   and the device (the slots', which must agree).
+    communicator:  registry name (``"xla"`` | ``"ring"`` | ``"bruck"``).
+    program_cache: a ``repro_torch.serve.cache.ProgramCache`` to share
+                   built stages with other envs (the serving scheduler
+                   passes one per process, so a freshly carved gang reuses
+                   every stage an earlier gang over the same slots built).
+                   Default: a private cache.
+
+    Thread safety: ``run`` may be called from many threads.  Stage
+    lookups and builds go through the (locked, single-flight) program
+    cache, so two threads racing the same key build once; the per-env
+    hit/miss counters are updated under a lock.
     """
 
-    def __init__(self, parallelism: int = 1, device=None):
+    def __init__(self, parallelism: int = 1, device=None, *,
+                 devices: Optional[Sequence["RankSlot"]] = None,
+                 communicator: str = "xla",
+                 program_cache: Optional[Any] = None):
+        # deferred import: serve.cache stands alone, but the serve package
+        # must not be entered while core.env is still importing
+        from ..serve.cache import ProgramCache
+        if devices is not None:
+            slots = list(devices)
+            devs = {str(resolve_device(d.device)) for d in slots}
+            if len(devs) != 1:
+                raise ValueError(f"a gang's rank slots must share one "
+                                 f"device (its ranks are stacked on it); "
+                                 f"got slots on {sorted(devs)}")
+            if device is not None or parallelism != 1:
+                raise TypeError("devices= sets the parallelism and the "
+                                "device; pass neither beside it")
+            parallelism, device = len(slots), slots[0].device
+            slot_ids = tuple(d.id for d in slots)
+        else:
+            slot_ids = tuple(range(parallelism))
         if parallelism < 1:
             raise ValueError(f"parallelism must be >= 1, got {parallelism}")
         self.device = resolve_device(device)
-        self.comm: Communicator = StackedCommunicator(parallelism)
-        #: built stage callables by cache key (``set(env._cache)`` is the
-        #: introspection surface, as in the JAX package)
+        self.comm: Communicator = get_communicator(communicator, parallelism)
+        self.communicator_name = communicator
+        self.slot_ids = slot_ids
+        self.programs = (program_cache if program_cache is not None
+                         else ProgramCache())
+        #: a built stage holds its communicator and device, so the
+        #: shared-cache key pins the gang's placement: device + rank-slot
+        #: ids + communicator.  ``CylonEnv(2)`` is slots (0, 1); the
+        #: ``DevicePool`` free-list hands out lowest ids first, so a
+        #: released-and-recarved gang hits these entries.
+        self._gang_key = (str(self.device), slot_ids, communicator)
+        #: env-local memo in front of the shared cache (``set(env._cache)``
+        #: is the introspection surface, as in the JAX package)
         self._cache: Dict[Any, Callable] = {}
-        #: a miss builds a stage callable, a hit reuses one
+        self._lock = threading.Lock()
+        #: a miss builds a stage callable, a hit reuses one — whether this
+        #: env built it or found it in a shared program cache
         self.cache_hits = 0
         self.cache_misses = 0
 
@@ -376,12 +432,17 @@ class CylonEnv:
         return self.comm.size()
 
     def close(self) -> None:
-        self._cache.clear()
+        """Drop this env's local stage memo (shared ``programs`` entries
+        persist for the next gang carved over these slots)."""
+        with self._lock:
+            self._cache.clear()
 
     def synchronize(self) -> None:
-        """Wait for the device (a no-op on the CPU)."""
+        """Wait for the work queued on the current stream of the env's
+        device (a no-op on the CPU).  Only this stream: gangs that run on
+        streams of their own do not wait for each other's work."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     # ------------------------------------------------------------------ #
     # Submission API (the paper's run_cylon / execute_cylon)
@@ -407,13 +468,25 @@ class CylonEnv:
         cache_key = key if key is not None else (
             fn, tuple(sorted(static_kwargs)),
             tuple(self._arg_sig(a) for a in args))
-        stage = self._cache.get(cache_key)
+        with self._lock:
+            stage = self._cache.get(cache_key)
+            if stage is not None:
+                self.cache_hits += 1
         if stage is None:
-            stage = self._build(fn, static_kwargs)
-            self._cache[cache_key] = stage
-            self.cache_misses += 1
-        else:
-            self.cache_hits += 1
+            # shared-cache path: a single-flight build keyed by (stage,
+            # gang placement).  A hit here — an earlier env over the same
+            # slots built it, or a racing thread did — counts as a hit, so
+            # a freshly carved gang that reuses every stage reports
+            # cache_misses == 0
+            stage, built = self.programs.get_or_build(
+                (cache_key, self._gang_key),
+                lambda: self._build(fn, static_kwargs))
+            with self._lock:
+                self._cache[cache_key] = stage
+                if built:
+                    self.cache_misses += 1
+                else:
+                    self.cache_hits += 1
         return stage(*args)
 
     @staticmethod
@@ -444,3 +517,198 @@ class CylonEnv:
             return conv(fn(ctx, *local, **static_kwargs))
 
         return stage
+
+
+# ---------------------------------------------------------------------- #
+# Device pool: resource partitioning for independent applications (§IV-A)
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class RankSlot:
+    """One rank slot of a ``DevicePool``: a rank that a gang stacks on
+    ``device``.  ``id`` is the slot's index in the pool, and what
+    ``QueryHandle.stats["devices"]`` lists."""
+
+    id: int
+    device: torch.device
+
+
+class PoolExhausted(RuntimeError):
+    """``DevicePool.reserve`` could not satisfy the request."""
+
+
+class Lease(Sequence):
+    """A disjoint slot partition handed out by ``DevicePool.reserve``.
+
+    Behaves as a sequence of slots (so ``CylonEnv(devices=lease)`` and
+    ``pool.reserve(n)[0]``-style code work) and carries its own
+    ``release()``; it is also a context manager::
+
+        with pool.reserve(2) as gang:
+            env = CylonEnv(devices=gang)
+            ...
+        # slots returned to the free list here
+    """
+
+    __slots__ = ("_pool", "_indices", "devices", "_released")
+
+    def __init__(self, pool: "DevicePool", indices: Tuple[int, ...],
+                 devices: Tuple[Any, ...]):
+        self._pool = pool
+        self._indices = indices
+        self.devices = devices
+        self._released = False
+
+    @property
+    def indices(self) -> Tuple[int, ...]:
+        return self._indices
+
+    @property
+    def released(self) -> bool:
+        return self._released
+
+    def release(self) -> None:
+        """Return the partition to the pool (idempotent)."""
+        self._pool.release(self)
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def __getitem__(self, i):
+        return self.devices[i]
+
+    def __iter__(self):
+        return iter(self.devices)
+
+    def __enter__(self) -> "Lease":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def __repr__(self) -> str:
+        state = "released" if self._released else "held"
+        return f"<Lease devices={[d.id for d in self.devices]} {state}>"
+
+
+class DevicePool:
+    """Carves a list of rank slots into disjoint partitions (gang
+    scheduling), as the JAX package's pool carves its device list.
+
+    ``DevicePool(devices)`` takes an explicit slot list (``RankSlot``s, or
+    any objects with ``.id``; ``CylonEnv`` needs ``.device`` too);
+    ``DevicePool(slots=n, device=d)`` makes ``n`` slots on ``d`` (default
+    1 slot; ``device=None`` means the card and raises without one, as
+    ``resolve_device`` does).
+
+    A locked free-list hands out the ``n`` lowest-indexed free slots as a
+    ``Lease`` that can be returned individually (``lease.release()`` /
+    ``pool.release(lease)``): two threads are never handed overlapping
+    partitions, and released partitions are re-carved lowest ids first,
+    so a re-carved gang matches its predecessor's placement (which is
+    what lets the shared ``ProgramCache`` skip rebuilding).
+    ``release_all`` is kept for tests and whole-epoch resets.
+
+    ``reserve(n, block=True)`` waits (optionally fenced by a
+    ``CancellationToken``) until ``n`` slots free up — the serving
+    scheduler's admission path.
+    """
+
+    def __init__(self, devices: Optional[Sequence[Any]] = None, *,
+                 slots: Optional[int] = None, device=None):
+        if devices is not None:
+            if slots is not None or device is not None:
+                raise TypeError("pass either devices= or slots= / device=, "
+                                "not both")
+            self._devices = list(devices)
+        else:
+            dev = resolve_device(device)
+            n = 1 if slots is None else int(slots)
+            if n < 1:
+                raise ValueError(f"a pool needs slots >= 1, got {n}")
+            self._devices = [RankSlot(i, dev) for i in range(n)]
+        self._cond = threading.Condition(threading.Lock())
+        self._free = list(range(len(self._devices)))  # kept sorted
+        self._leases: Dict[int, Lease] = {}           # id(lease) -> lease
+
+    @property
+    def size(self) -> int:
+        return len(self._devices)
+
+    @property
+    def available(self) -> int:
+        with self._cond:
+            return len(self._free)
+
+    @property
+    def devices(self) -> List[Any]:
+        return list(self._devices)
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The device every slot stacks its rank on, or None when the
+        slots carry none (fake slots) or disagree."""
+        devs = {getattr(d, "device", None) for d in self._devices}
+        if len(devs) != 1 or None in devs:
+            return None
+        return resolve_device(devs.pop())
+
+    def _try_reserve_locked(self, n: int) -> Optional[Lease]:
+        if n > len(self._free):
+            return None
+        take = tuple(self._free[:n])
+        del self._free[:n]
+        lease = Lease(self, take, tuple(self._devices[i] for i in take))
+        self._leases[id(lease)] = lease
+        return lease
+
+    def reserve(self, n: int, *, block: bool = False, token: Any = None,
+                poll_s: float = 0.05) -> Lease:
+        """Reserve the ``n`` lowest-indexed free slots.
+
+        Non-blocking by default: raises ``PoolExhausted`` when fewer than
+        ``n`` slots are free.  ``block=True`` waits for releases, polling
+        ``token.check()`` (a ``repro_torch.faults.CancellationToken``) so
+        a queued reservation honors deadlines and cancellation.
+        """
+        if n < 1:
+            raise ValueError(f"reserve needs n >= 1, got {n}")
+        if n > len(self._devices):
+            raise PoolExhausted(
+                f"pool exhausted: want {n}, pool only has "
+                f"{len(self._devices)} slots")
+        with self._cond:
+            while True:
+                lease = self._try_reserve_locked(n)
+                if lease is not None:
+                    return lease
+                if not block:
+                    raise PoolExhausted(
+                        f"pool exhausted: want {n}, have {len(self._free)} "
+                        f"free of {len(self._devices)}")
+                self._cond.wait(timeout=poll_s)
+                if token is not None:
+                    token.check("DevicePool.reserve")
+
+    def try_reserve(self, n: int) -> Optional[Lease]:
+        """``reserve`` that returns None instead of raising on exhaustion."""
+        with self._cond:
+            return self._try_reserve_locked(n) if n >= 1 else None
+
+    def release(self, lease: Lease) -> None:
+        """Return one lease's slots to the free list (idempotent)."""
+        with self._cond:
+            if lease._released or id(lease) not in self._leases:
+                return
+            lease._released = True
+            del self._leases[id(lease)]
+            self._free = sorted(self._free + list(lease._indices))
+            self._cond.notify_all()
+
+    def release_all(self) -> None:
+        """Reclaim every outstanding lease (tests / epoch reset)."""
+        with self._cond:
+            for lease in list(self._leases.values()):
+                lease._released = True
+            self._leases.clear()
+            self._free = list(range(len(self._devices)))
+            self._cond.notify_all()

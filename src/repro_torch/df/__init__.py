@@ -17,16 +17,22 @@ env asks for the CPU:
         print(out.explain())        # optimized plan, rules fired
         table = out.collect()       # a DistTable on the session's env
 
-``session(device="cpu")`` runs the same code on the CPU.
+``session(device="cpu")`` runs the same code on the CPU.  Many
+applications share the card through a query scheduler: inside
+``session(scheduler=QueryScheduler(slots=8, gang_size=2))`` each
+``collect()`` runs on a gang of stacked ranks carved for it
+(``repro_torch.serve``).
 """
 
 from ..expr import Expr, col, lit
 from .frame import (DataFrame, GroupBy, from_pandas, from_table, read_csv,
                     read_numpy, read_parquet)
-from .session import get_env, reset_default_env, session, set_default_env
+from .session import (get_active_scheduler, get_env, reset_default_env,
+                      session, set_default_env)
 
 __all__ = [
     "DataFrame", "GroupBy", "Expr", "col", "lit",
     "read_numpy", "from_pandas", "from_table", "read_parquet", "read_csv",
-    "session", "get_env", "set_default_env", "reset_default_env",
+    "session", "get_env", "get_active_scheduler", "set_default_env",
+    "reset_default_env",
 ]

@@ -23,7 +23,9 @@ scatter them onto the env's ranks.  ``collect(analyze=True)`` and
 card's roofline), and ``collect(trace=...)`` records its spans.
 ``collect`` takes the fault-tolerance and adaptive options
 (``timeout``, ``retries``, ``overflow``, ``faults``, ``adaptive``), or
-the active session's defaults for them.
+the active session's defaults for them.  Inside ``session(scheduler=)``
+a ``collect`` is submitted to the query scheduler, and ingests partition
+for its gang size.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from ..core.store import SpillTable
 from ..expr import Col, Expr, ensure_expr
 from ..nulls import data_columns
 from ..planner.logical import groupby_schema, join_schema
-from .session import get_env, get_session_defaults
+from .session import get_active_scheduler, get_env, get_session_defaults
 
 __all__ = ["DataFrame", "GroupBy", "read_numpy", "from_pandas", "from_table",
            "read_parquet", "read_csv"]
@@ -274,6 +276,14 @@ class DataFrame:
         active session's defaults (``session(timeout=..., ...)``), then
         the library defaults.  ``adaptive`` gates runtime skew mitigation
         the same way.
+
+        Scheduler routing: inside a ``session(scheduler=...)`` scope, a
+        collect with no explicit ``env=`` and no ingest-pinned env is
+        submitted to the scheduler — it queues under admission control,
+        runs on a gang carved from the scheduler's pool of rank slots,
+        and this call blocks on the ``QueryHandle`` (use
+        ``scheduler.submit(df, ...)`` directly for the non-blocking
+        handle).
         """
         defaults = get_session_defaults()
         if timeout is None:
@@ -286,6 +296,15 @@ class DataFrame:
             faults = defaults.get("faults")
         if adaptive is None:
             adaptive = defaults.get("adaptive")
+        scheduler = defaults.get("scheduler")
+        if scheduler is not None and env is None and self._env is None:
+            handle = scheduler.submit(
+                self, mode=mode, optimize=optimize,
+                collect_stats=collect_stats, morsel_rows=morsel_rows,
+                analyze=analyze, trace=trace, timeout=timeout,
+                retries=retries, overflow=overflow, faults=faults,
+                adaptive=adaptive, **kw)
+            return handle.result()
         if env is None:
             env = self._env if self._env is not None else get_env()
         if morsel_rows is None:
@@ -430,20 +449,35 @@ def read_numpy(data: Mapping[str, np.ndarray], *,
     ``collect()`` calls to it.  ``spill=True`` keeps the data host-resident
     as a ``SpillTable`` (in ``chunk_rows``-row chunks) for out-of-core
     ``collect(morsel_rows=...)`` runs.
+
+    Inside a ``session(scheduler=...)`` scope (and with no explicit
+    ``env``), data is partitioned for the scheduler's gang size on its
+    pool's device, so the frame can run on *any* gang the scheduler
+    carves.
     """
-    target = env if env is not None else get_env()
+    p, device = _resolve_target(env)
     if spill:
         if capacity is not None:
             raise TypeError("capacity only applies to device tables "
                             "(spill=False); use chunk_rows for spills")
-        table: Any = SpillTable.from_numpy(data, target.parallelism,
-                                           chunk_rows=chunk_rows)
+        table: Any = SpillTable.from_numpy(data, p, chunk_rows=chunk_rows)
     else:
         if chunk_rows is not None:
             raise TypeError("chunk_rows only applies with spill=True")
-        table = DistTable.from_numpy(dict(data), target.parallelism,
-                                     capacity, device=target.device)
+        table = DistTable.from_numpy(dict(data), p, capacity, device=device)
     return from_table(table, name, env)
+
+
+def _resolve_target(env: Optional[CylonEnv]):
+    """(ranks, device) an ingest partitions for: the explicit env's, else
+    the active scheduler's gang size on its pool's device, else the
+    active env's."""
+    if env is None:
+        sched = get_active_scheduler()
+        if sched is not None:
+            return sched.gang_size, sched.device
+        env = get_env()
+    return env.parallelism, env.device
 
 
 def read_parquet(source, *, env: Optional[CylonEnv] = None,
@@ -454,7 +488,8 @@ def read_parquet(source, *, env: Optional[CylonEnv] = None,
 
     ``source`` is a path, a glob, or a list of either; row groups stream
     in ``batch_rows``-row batches straight into the spill format, round-
-    robin over the gang (``env``'s, else the active session's) — whole
+    robin over the gang (``env``'s, else the active scheduler's gang size,
+    else the active session's) — whole
     files are never materialized, so datasets larger than device memory
     run under ``collect(morsel_rows=...)``.  Missing values become
     validity masks (NaN / ``None`` on the way back out); string columns
@@ -464,8 +499,7 @@ def read_parquet(source, *, env: Optional[CylonEnv] = None,
     from ..io import read_parquet as _read
     if batch_rows is not None:
         kw["batch_rows"] = batch_rows
-    p = (env if env is not None else get_env()).parallelism
-    spill = _read(source, p, columns=columns, **kw)
+    spill = _read(source, _resolve_target(env)[0], columns=columns, **kw)
     return from_table(spill, name, env)
 
 
@@ -479,8 +513,7 @@ def read_csv(source, *, env: Optional[CylonEnv] = None,
     from ..io import read_csv as _read
     if batch_rows is not None:
         kw["batch_rows"] = batch_rows
-    p = (env if env is not None else get_env()).parallelism
-    spill = _read(source, p, **kw)
+    spill = _read(source, _resolve_target(env)[0], **kw)
     return from_table(spill, name, env)
 
 

@@ -19,6 +19,11 @@ Sessions nest (a stack per thread); an explicit ``env=`` argument on
 process-wide fallback without a ``with`` block.  Where the JAX package's
 env takes ``devices=``, the port's takes ``parallelism=`` (ranks stacked
 on one device) and ``device=`` (``None`` means the card).
+
+``session(scheduler=sched)`` scopes a ``repro_torch.serve.QueryScheduler``
+instead of an env: every ``collect()`` in scope without an explicit or
+ingest-pinned env is submitted to it and blocks on its handle, and
+ingests partition for its gang size.
 """
 
 from __future__ import annotations
@@ -36,9 +41,10 @@ _lock = threading.Lock()
 _default: Optional[CylonEnv] = None
 _tls = threading.local()
 
-def _stack() -> List[CylonEnv]:
+def _stack() -> List[Optional[CylonEnv]]:
     """Per-thread session stack: concurrent threads scope independently
-    (the process default below is shared, guarded by ``_lock``)."""
+    (the process default below is shared, guarded by ``_lock``).  A
+    scheduler session pushes ``None``: it scopes no env."""
     try:
         return _tls.stack
     except AttributeError:
@@ -66,20 +72,23 @@ def get_session_defaults() -> dict:
 
 
 def get_active_scheduler():
-    """The query scheduler the innermost session scopes on this thread,
-    or None.  Scheduler sessions come with ROADMAP item 11, so this is
-    None until then."""
+    """The ``repro_torch.serve.QueryScheduler`` the innermost session
+    scopes on this thread, or None.  An inner env-bearing ``session(...)``
+    masks an outer scheduler session (its layer pins ``scheduler=None``),
+    so plain in-thread execution wins wherever it is the innermost
+    choice."""
     return get_session_defaults().get("scheduler")
 
 
 def get_env() -> CylonEnv:
-    """The active env: innermost ``session`` on this thread, else the
+    """The active env: innermost env-bearing ``session`` on this thread
+    (scheduler sessions scope no env and are skipped), else the
     lazily-created process default (``CylonEnv()``: one rank on the card,
     raising without one)."""
     global _default
-    stack = _stack()
-    if stack:
-        return stack[-1]
+    for e in reversed(_stack()):
+        if e is not None:
+            return e
     with _lock:
         if _default is None:
             _default = CylonEnv()
@@ -103,17 +112,26 @@ def reset_default_env() -> None:
 @contextlib.contextmanager
 def session(env: Optional[CylonEnv] = None, *,
             parallelism: Optional[int] = None, device: Any = None,
+            communicator: Optional[str] = None,
             scheduler=None, timeout=None, retries=None, overflow=None,
             faults=None, adaptive=None) -> Iterator[Any]:
     """Scope an active env: ``with session(...) as env: df.collect()``.
 
     Pass an existing ``env``, or let the session build one from
-    ``parallelism`` (default 1) and ``device`` (default: the card).
-    Passing ``parallelism=`` or ``device=`` alongside an explicit ``env=``
-    raises ``TypeError`` — the env already pins both, so silently
-    ignoring either would misconfigure the gang.  The stage cache lives on
-    the env, so reusing one session across many ``collect`` calls is what
-    makes repeat execution cheap.
+    ``parallelism`` (default 1), ``device`` (default: the card) and
+    ``communicator`` (default ``"xla"``).  Passing any of those alongside
+    an explicit ``env=`` raises ``TypeError`` — the env already pins them,
+    so silently ignoring one would misconfigure the gang.  The stage
+    cache lives on the env, so reusing one session across many
+    ``collect`` calls is what makes repeat execution cheap.
+
+    ``scheduler=`` scopes a ``repro_torch.serve.QueryScheduler`` instead
+    of an env: every ``collect()`` in scope (without an explicit ``env=``
+    or an ingest-pinned env) is submitted to the scheduler and blocks on
+    its ``QueryHandle`` — many threads each inside such a session share
+    the scheduler's gangs.  The session yields the scheduler.  Mutually
+    exclusive with ``env=`` / ``parallelism=`` / ``device=`` /
+    ``communicator=``; a nested env-bearing session masks it.
 
     ``timeout`` / ``retries`` / ``overflow`` / ``faults`` set the
     session-wide fault-tolerance defaults applied to every ``collect()``
@@ -123,39 +141,39 @@ def session(env: Optional[CylonEnv] = None, *,
     runtime skew-mitigation knob the same way: ``session(adaptive=False)``
     pins every collect in scope to the non-adaptive stages; a dict or
     ``repro_torch.adapt.AdaptiveConfig`` tunes detection thresholds.
-
-    ``scheduler=`` (ROADMAP item 11) is not ported yet and raises
-    ``NotImplementedError``; together with an env it raises
-    ``TypeError`` first, as in the JAX package.
     """
     if scheduler is not None:
-        if env is not None or parallelism is not None or device is not None:
+        if (env is not None or parallelism is not None or device is not None
+                or communicator is not None):
             raise TypeError("pass either scheduler= or an env (env= / "
-                            "parallelism= / device=), not both")
+                            "parallelism= / device= / communicator=), not "
+                            "both")
     elif env is not None and parallelism is not None:
         raise TypeError("pass either env= or parallelism=, not both")
     elif env is not None and device is not None:
         raise TypeError(
             "pass either env= or device=, not both: the env already "
             f"carries its device ({env.device})")
-    if scheduler is not None:
-        raise NotImplementedError(
-            "session(scheduler=...) is not ported yet: it comes with "
-            "ROADMAP queue 1, item 11")
-    if env is None:
+    elif env is not None and communicator is not None:
+        raise TypeError(
+            "pass either env= or communicator=, not both: the env already "
+            f"carries its communicator ({env.communicator_name!r})")
+    if scheduler is None and env is None:
         env = CylonEnv(1 if parallelism is None else parallelism,
-                       device=device)
+                       device=device,
+                       communicator=communicator or "xla")
     layer = {k: v for k, v in (("timeout", timeout), ("retries", retries),
                                ("overflow", overflow), ("faults", faults),
                                ("adaptive", adaptive))
              if v is not None}
-    # an env session masks any outer scheduler (innermost wins)
-    layer["scheduler"] = None
+    # a scheduler session scopes the scheduler; an env session masks any
+    # outer scheduler (innermost wins)
+    layer["scheduler"] = scheduler
     stack = _stack()
     stack.append(env)
     _defaults_stack().append(layer)
     try:
-        yield env
+        yield scheduler if scheduler is not None else env
     finally:
         stack.pop()
         _defaults_stack().pop()

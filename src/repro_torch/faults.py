@@ -382,9 +382,9 @@ class CancellationToken:
     ``QueryTimeout`` rather than blocking forever.
 
     ``parent`` links tokens into a tree: a child observes its parent's
-    cancellation and deadline as well as its own (the JAX package's query
-    scheduler parents per-query tokens on one scheduler-wide token; the
-    port's scheduler is ROADMAP queue 1, item 11).  Cancellation is a
+    cancellation and deadline as well as its own (the query scheduler,
+    ``repro_torch.serve.QueryScheduler``, parents per-query tokens on one
+    scheduler-wide token).  Cancellation is a
     plain flag write (atomic under CPython), safe to call from any thread.
     """
 

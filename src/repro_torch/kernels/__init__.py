@@ -29,7 +29,7 @@ CUDA_KERNELS = (radix_partition_cuda, segmented_sum_cuda,
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for k in CUDA_KERNELS:
-        k.launches = 0
+        k.reset()
 
 
 __all__ = ["CUDA_KERNELS", "attention_ref", "flash_attention",

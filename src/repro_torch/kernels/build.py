@@ -7,6 +7,11 @@ into ``src/repro_torch/_build/`` (listed in ``.gitignore``), named by a
 hash of the source and flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing here runs at import time: a kernel
 builds on its first use.
+
+Threads may build and load at once (the query scheduler's workers do):
+each kernel name has a lock, so one thread runs ``nvcc`` while the others
+wait for its library, and the temporary output is named by process and
+thread.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from typing import Dict, List, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -34,6 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: one lock per kernel name, held across its build and load
+_locks: Dict[str, threading.Lock] = {name: threading.Lock()
+                                     for name in SOURCES}
 
 
 def _nvcc() -> str:
@@ -58,11 +67,16 @@ def build(name: str) -> str:
     """Compile one kernel with nvcc unless its library is already built;
     returns the library's path.  The compiler's output goes to
     ``_build/<name>.log``."""
+    with _locks[name]:
+        return _build_locked(name)
+
+
+def _build_locked(name: str) -> str:
     out = library_path(name)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_HERE, SOURCES[name])]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
@@ -115,6 +129,7 @@ def ptxas_report(name: str) -> List[Tuple[str, int, int, int]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built on first use."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build(name))
-    return _loaded[name]
+    with _locks[name]:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(_build_locked(name))
+        return _loaded[name]

@@ -14,11 +14,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..build import load
+from ..common import LaunchCounter
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
@@ -86,7 +87,7 @@ def block_work(block: int, geo: Geometry, bhq: int):
     return block % bhq, geo.q_tiles - 1 - block // bhq
 
 
-class FlashAttentionCuda:
+class FlashAttentionCuda(LaunchCounter):
     """Callable wrapper; ``launches`` counts the calls that launched the
     kernel (nothing else adds to it), and ``route_launches`` the same
     calls by route."""
@@ -97,8 +98,7 @@ class FlashAttentionCuda:
     replaces = "src/repro/kernels/flash_attention/flash_attention.py:78"
 
     def __init__(self):
-        self.launches = 0
-        self.route_launches: Dict[str, int] = {r: 0 for r in ROUTES}
+        LaunchCounter.__init__(self, ROUTES)
         self._fn = None
         self._err = None
         self._geo = None
@@ -118,7 +118,8 @@ class FlashAttentionCuda:
             geo.argtypes = [ctypes.c_int, ctypes.c_int,
                             ctypes.POINTER(ctypes.c_int)]
             geo.restype = ctypes.c_int
-            self._fn, self._err, self._geo = fn, err, geo
+            # ``_fn`` last: another thread reads it as "loaded"
+            self._err, self._geo, self._fn = err, geo, fn
         return self._fn
 
     def kernel_geometry(self, route: str, d: int):
@@ -182,8 +183,7 @@ class FlashAttentionCuda:
             raise RuntimeError(
                 f"flash_attention CUDA launch failed: "
                 f"{self._err(code).decode()} (code {code})")
-        self.launches += 1
-        self.route_launches[geo.route] += 1
+        self._count(geo.route)
         return out
 
 

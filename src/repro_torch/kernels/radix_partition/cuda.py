@@ -15,11 +15,12 @@ reads the kernel's own, and the card's tests hold the two equal.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from ..build import load
+from ..common import LaunchCounter
 
 #: rows per tile of the threepass route, as ``kTileRows`` in the source
 TILE_ROWS = 8192
@@ -59,7 +60,7 @@ def warps_for(num_buckets: int) -> int:
     return warps
 
 
-class RadixPartitionCuda:
+class RadixPartitionCuda(LaunchCounter):
     """Callable wrapper; ``launches`` counts the calls that launched the
     kernel (nothing else adds to it), and ``route_launches`` the same calls
     by route."""
@@ -70,8 +71,7 @@ class RadixPartitionCuda:
     replaces = "src/repro/kernels/radix_partition/radix_partition.py:57"
 
     def __init__(self):
-        self.launches = 0
-        self.route_launches: Dict[str, int] = {r: 0 for r in ROUTES}
+        LaunchCounter.__init__(self, ROUTES)
         self._lib = None
 
     def _load(self):
@@ -153,8 +153,7 @@ class RadixPartitionCuda:
                 f"radix_partition CUDA launch ({route}) failed: "
                 f"{self._lib.radix_partition_error(code).decode()} "
                 f"(code {code})")
-        self.launches += 1
-        self.route_launches[route] += 1
+        self._count(route)
         return ranks, hist
 
 

@@ -13,13 +13,14 @@ import ctypes
 import torch
 
 from ..build import load
+from ..common import LaunchCounter
 
 #: value dtypes the kernel's atomicAdd overloads cover, by launcher code
 DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
           torch.int64: 3}
 
 
-class SegmentedSumCuda:
+class SegmentedSumCuda(LaunchCounter):
     """Callable wrapper; ``launches`` counts the calls that launched the
     kernel (nothing else adds to it)."""
 
@@ -29,7 +30,7 @@ class SegmentedSumCuda:
     replaces = "src/repro/kernels/segmented_reduce/segmented_reduce.py:50"
 
     def __init__(self):
-        self.launches = 0
+        LaunchCounter.__init__(self)
         self._fn = None
         self._err = None
 
@@ -43,7 +44,8 @@ class SegmentedSumCuda:
             err = lib.segmented_sum_error
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
+            # ``_fn`` last: another thread reads it as "loaded"
+            self._err, self._fn = err, fn
         return self._fn
 
     def __call__(self, seg_ids: torch.Tensor, values: torch.Tensor,
@@ -88,7 +90,7 @@ class SegmentedSumCuda:
         if code != 0:
             raise RuntimeError(f"segmented_sum CUDA launch failed: "
                                f"{self._err(code).decode()} (code {code})")
-        self.launches += 1
+        self._count()
         return out
 
 

@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..build import load
+from ..common import LaunchCounter
 
 #: largest head dim P, state size N and chunk length the kernel takes
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 128
@@ -71,7 +72,7 @@ def launch_geometry(bh: int, t: int, p: int, n: int, chunk: int
                     state_smem, scan_smem, (bh, t), (bh, nc, n, p))
 
 
-class SsdScanCuda:
+class SsdScanCuda(LaunchCounter):
     """Callable wrapper; ``launches`` counts the calls that launched the
     kernels (one per call, for its three kernels; nothing else adds to
     it)."""
@@ -84,7 +85,7 @@ class SsdScanCuda:
     kernels = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
 
     def __init__(self):
-        self.launches = 0
+        LaunchCounter.__init__(self)
         self._fn = None
         self._err = None
         self._geo = None
@@ -102,7 +103,8 @@ class SsdScanCuda:
             geo = lib.ssd_scan_geometry
             geo.argtypes = [ctypes.POINTER(ctypes.c_int)]
             geo.restype = ctypes.c_int
-            self._fn, self._err, self._geo = fn, err, geo
+            # ``_fn`` last: another thread reads it as "loaded"
+            self._err, self._geo, self._fn = err, geo, fn
         return self._fn
 
     def kernel_geometry(self) -> Tuple[int, ...]:
@@ -168,7 +170,7 @@ class SsdScanCuda:
         if code != 0:
             raise RuntimeError(f"ssd_scan CUDA launch failed: "
                                f"{self._err(code).decode()} (code {code})")
-        self.launches += 1
+        self._count()
         return y, h
 
 

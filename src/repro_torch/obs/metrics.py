@@ -220,8 +220,8 @@ def record_serve_query(stats: Dict[str, Any], scheduler: str = "serve",
     into the registry: per-outcome completion counters plus queue-wait and
     execution-wall histograms, all labeled by scheduler name.  The
     per-stage engine metrics still arrive via ``record_exec`` from the
-    worker's own execution.  Nothing in the port calls it yet: query
-    serving (``session(scheduler=)``) is ROADMAP queue 1, item 11."""
+    worker's own execution.  ``repro_torch.serve.QueryScheduler`` calls
+    it as each query finishes."""
     reg = registry if registry is not None else METRICS
     state = stats.get("state", "unknown")
     reg.counter("serve_completed_total",

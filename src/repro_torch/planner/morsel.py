@@ -518,7 +518,8 @@ def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
                  # the subtree fingerprint does not cover the join node's
                  # own params (shuffle kwargs, capacities)
                  _token(dict(jnode.params)),
-                 shuffle_impl, a2a_chunks, capacity_factor,
+                 env.communicator_name, shuffle_impl, a2a_chunks,
+                 capacity_factor,
                  tuple(env._arg_sig(a) for a in args))
             + salt_cache_token(salt or {}, [jnode.nid]))
         acc.dispatches += 1
@@ -596,7 +597,7 @@ def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
                          cap_b)
         out = env.run(prog, dist,
                       key=("morsel-combine", fp, si, cap_b, nullable,
-                           env._arg_sig(dist)))
+                           env.communicator_name, env._arg_sig(dist)))
         acc.dispatches += 1
         if out_spill is None:
             out_spill = SpillTable(p, schema=_schema_of(out))
@@ -811,7 +812,8 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                             salt=salt)
                         seg_labels = _seg_stat_labels(_nodes)
                     key = ("morsel-seg", fp, _si, M_seg, W_a,
-                           shuffle_impl, a2a_chunks, debug_overflow,
+                           shuffle_impl, a2a_chunks, env.communicator_name,
+                           debug_overflow,
                            tuple(env._arg_sig(e) for e in extras)) \
                         + salt_cache_token(salt, [n.nid for n in _nodes])
                     source = MorselSource(seg_in, M_seg, env, tracer=tr,

@@ -883,8 +883,9 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                     for c in range(max(1, a2a_chunks)):
                         fr.check("a2a:chunk", token=token, stage=0, chunk=c)
                 return env.run(prog, *[tables[n] for n in names],
-                               key=("bsp", fp, collect_stats, shuffle_impl,
-                                    a2a_chunks) + salt_cache_token(salt))
+                               key=("bsp", fp, env.communicator_name,
+                                    collect_stats, shuffle_impl, a2a_chunks)
+                               + salt_cache_token(salt))
 
             res = run_with_retries(dispatch, policy=policy, token=token,
                                    tracer=tr, label="stage:program",
@@ -963,8 +964,9 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                         fr.check("a2a:chunk", token=token, stage=_uidx,
                                  chunk=c)
                 return env.run(_prog, *_args,
-                               key=(mode, fp, _uidx, collect_stats,
-                                    shuffle_impl, a2a_chunks) + _usalt)
+                               key=(mode, fp, _uidx, env.communicator_name,
+                                    collect_stats, shuffle_impl, a2a_chunks)
+                               + _usalt)
 
             res = run_with_retries(dispatch, policy=policy, token=token,
                                    tracer=tr, label=unit_names[uidx],

@@ -367,11 +367,11 @@ DEFERRED = [
 
 @pytest.mark.parametrize("what,item", DEFERRED)
 def test_deferred_options_name_their_roadmap_item(envs, rng, what, item):
-    # item 10 brought the fault-tolerance and adaptive options: on a
-    # collect or as a session default they run, and a fault-free query
-    # gives the plain collect's result; item 11's scheduler= still raises
-    # NotImplementedError naming its item
+    # item 10 brought the fault-tolerance and adaptive options and item
+    # 11 the query scheduler: on a collect or as a session they run, and
+    # a fault-free query gives the plain collect's result
     import repro_torch.df as tdf
+    from repro_torch.serve import QueryScheduler
     data = _data(rng, n=16)
     df = tdf.read_numpy(data)
     env = envs[1]
@@ -379,6 +379,13 @@ def test_deferred_options_name_their_roadmap_item(envs, rng, what, item):
     def in_session(**kw):
         with tdf.session(env=env, **kw):
             return df.collect()
+
+    def in_scheduler():
+        with QueryScheduler(device="cpu") as sched:
+            with tdf.session(scheduler=sched):
+                out = df.collect()
+            assert sched.stats()["completed"] == 1
+        return out
     calls = {
         "collect(timeout=)": lambda: df.collect(timeout=60.0),
         "collect(retries=)": lambda: df.collect(retries=2),
@@ -387,15 +394,10 @@ def test_deferred_options_name_their_roadmap_item(envs, rng, what, item):
         "collect(adaptive=)": lambda: df.collect(adaptive=False),
         "session(timeout=)": lambda: in_session(timeout=60.0),
         "session(adaptive=)": lambda: in_session(adaptive=False),
-        "session(scheduler=)": lambda: tdf.session(scheduler=object()
-                                                   ).__enter__(),
+        "session(scheduler=)": in_scheduler,
     }
-    if item == 11:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-            calls[what]()
-    else:
-        _same(calls[what]().to_numpy(), df.collect().to_numpy(),
-              exact_floats=True)
+    _same(calls[what]().to_numpy(), df.collect().to_numpy(),
+          exact_floats=True)
     with pytest.raises(TypeError, match="capacity only applies"):
         tdf.read_numpy(data, spill=True, capacity=64)
 

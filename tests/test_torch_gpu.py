@@ -9,6 +9,7 @@ the CUDA toolkit but not the JAX package's dependencies:
 
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -984,3 +985,243 @@ def test_morsel_source_fault_waits_for_its_copies(cuda):
     for c, h in zip(card, host):
         for n in h.columns:
             assert torch.equal(c.columns[n].cpu(), h.columns[n]), n
+
+
+# --------------------------------------------------------------------- #
+# Query serving: gangs of stacked ranks on streams of their own
+# --------------------------------------------------------------------- #
+def _serve_data(rows=1 << 16):
+    rng = np.random.default_rng(11)
+    nk = int(rows * 0.9)
+    ld = {"k": rng.integers(0, nk, rows).astype(np.int32),
+          "v0": rng.integers(0, 256, rows).astype(np.float32)}
+    rd = {"k": rng.integers(0, nk, rows).astype(np.int32),
+          "w": rng.integers(0, 256, rows).astype(np.float32)}
+    return ld, rd
+
+
+def _serve_queries(left, right):
+    from repro_torch.expr import col
+    cap = next(iter(left.sources.values())).capacity
+    jkw = dict(out_capacity=cap * 4, bucket_capacity=cap * 2,
+               shuffle_out_capacity=cap * 2)
+    return {
+        "join": lambda: (left.merge(right, on="k", **jkw)
+                         [(col("v0") > 4) & (col("w") < 250)]
+                         .groupby("k").agg({"v0": ["sum"]})
+                         .sort_values("k")),
+        "groupby": lambda: (left.groupby("k").agg({"v0": ["sum", "mean"]})
+                            .sort_values("k")),
+        "filter": lambda: left[col("v0") > 64].sort_values("k"),
+    }
+
+
+def _same_np(got, want):
+    assert sorted(got) == sorted(want)
+    for c in want:
+        assert got[c].dtype == want[c].dtype, c
+        np.testing.assert_array_equal(got[c], want[c], err_msg=c)
+
+
+def test_four_gangs_on_streams_equal_sequential_runs(cuda):
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv, DevicePool
+    from repro_torch.kernels import reset_launches, segmented_sum_cuda
+    from repro_torch.serve import ProgramCache, QueryScheduler
+    pool = DevicePool(slots=8, device=cuda)
+    shared = ProgramCache(registry=False)
+    sched = QueryScheduler(pool=pool, gang_size=2, max_inflight=4,
+                           program_cache=shared)
+    ld, rd = _serve_data()
+    with rdf.session(scheduler=sched):
+        left = rdf.read_numpy(ld, name="l")
+        right = rdf.read_numpy(rd, name="r")
+    queries = _serve_queries(left, right)
+    refs = {}
+    for g in range(4):
+        env = CylonEnv(devices=pool.devices[2 * g:2 * g + 2],
+                       program_cache=shared)
+        for name, q in queries.items():
+            out = q().collect(env=env).to_numpy()
+            if name in refs:
+                _same_np(out, refs[name])
+            refs[name] = out
+    torch.cuda.synchronize()
+    reset_launches()
+    handles = [(n, sched.submit(queries[n]())) for n in sorted(queries) * 4]
+    for name, h in handles:
+        _same_np(h.result(timeout=300).to_numpy(), refs[name])
+        assert h.stats["cache_misses"] == 0
+    assert radix_partition_cuda.launches > 0
+    assert segmented_sum_cuda.launches > 0
+    sched.close()
+    assert pool.available == 8
+
+
+def test_launch_counts_exact_under_threads(cuda):
+    # R2: four threads, each on a stream of its own, launch the radix and
+    # segmented-sum kernels; no count is lost
+    import threading
+    from repro_torch.kernels import segmented_sum_cuda
+    rng = np.random.default_rng(4)
+    dest = torch.as_tensor(rng.integers(0, 9, (8, 40_000), dtype=np.int32),
+                           device=cuda)
+    ids = torch.as_tensor(rng.integers(0, 500, (8, 40_000), dtype=np.int32),
+                          device=cuda)
+    vals = torch.ones((8, 40_000), dtype=torch.float32, device=cuda)
+    r0 = radix_partition_cuda.launches
+    o0 = radix_partition_cuda.route_launches["onepass"]
+    s0 = segmented_sum_cuda.launches
+    barrier = threading.Barrier(4)
+    errors = []
+
+    def worker():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                barrier.wait()
+                for _ in range(100):
+                    radix_partition_cuda(dest, 9)
+                    segmented_sum_cuda(ids, vals, 500)
+                torch.cuda.current_stream(cuda).synchronize()
+        except Exception as e:  # pragma: no cover - failure path
+            errors.append(e)
+    threads = [threading.Thread(target=worker) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    assert radix_partition_cuda.launches - r0 == 400
+    assert radix_partition_cuda.route_launches["onepass"] - o0 == 400
+    assert segmented_sum_cuda.launches - s0 == 400
+
+
+def test_threads_loading_one_kernel_build_it_once(cuda, tmp_path,
+                                                  monkeypatch):
+    # R1: eight threads ask for a kernel that is not built yet; nvcc runs
+    # once, into a temporary file of its own, and all get one library
+    import subprocess
+    import threading
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_loaded", {})
+    runs = []
+    real = subprocess.run
+
+    def counting(cmd, *a, **kw):
+        runs.append(cmd[cmd.index("-o") + 1])
+        return real(cmd, *a, **kw)
+    monkeypatch.setattr(build.subprocess, "run", counting)
+    barrier = threading.Barrier(8)
+    libs, errors = [], []
+
+    def loader():
+        try:
+            barrier.wait()
+            libs.append(build.load("segmented_sum"))
+        except Exception as e:  # pragma: no cover - failure path
+            errors.append(e)
+    threads = [threading.Thread(target=loader) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors, errors
+    assert len(runs) == 1 and runs[0].endswith(".tmp")
+    assert len({id(lib) for lib in libs}) == 1 and len(libs) == 8
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        [os.path.basename(build.library_path("segmented_sum")),
+         "segmented_sum.log"])
+
+
+def test_query_waits_for_the_submitters_upload(cuda):
+    # the submit event: the submitter's stream is busy, then uploads the
+    # table with a non_blocking copy and submits at once; the worker's
+    # stream waits for that copy before the query reads the rows
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv, DistTable
+    from repro_torch.serve import QueryScheduler
+    ld, _ = _serve_data(1 << 18)
+    host = DistTable.from_numpy(ld, 2, device="cpu")
+    want = (rdf.from_table(host).groupby("k").agg({"v0": ["sum"]})
+            .sort_values("k").collect(env=CylonEnv(2, device="cpu"))
+            .to_numpy())
+    with QueryScheduler(slots=2, gang_size=2, device=cuda) as sched:
+        for _ in range(2):
+            cols = {}
+            torch.cuda._sleep(200_000_000)    # keep the stream busy
+            for n, v in host.columns.items():
+                cols[n] = torch.empty(v.shape, dtype=v.dtype, device=cuda)
+                cols[n].copy_(v.pin_memory(), non_blocking=True)
+            counts = torch.empty_like(host.row_counts, device=cuda)
+            counts.copy_(host.row_counts.pin_memory(), non_blocking=True)
+            df = rdf.from_table(DistTable(cols, counts, host.capacity))
+            h = sched.submit(df.groupby("k").agg({"v0": ["sum"]})
+                             .sort_values("k"))
+            _same_np(h.result(timeout=300).to_numpy(), want)
+
+
+def test_dropped_result_outlives_the_callers_reads(cuda):
+    # result() marks the result's tensors as used on the caller's stream:
+    # the caller queues a slow read of a result and drops it while the
+    # same worker runs another query (submitted from an idle stream, so it
+    # starts at once); that query's allocations must not take the result's
+    # blocks before the read has run
+    import repro_torch.df as rdf
+    from repro_torch.core import DistTable
+    from repro_torch.serve import QueryScheduler
+    ld, _ = _serve_data(1 << 18)
+    other = {"k": ld["k"], "v0": 255 - ld["v0"]}
+    with QueryScheduler(slots=2, gang_size=2, max_inflight=1,
+                        device=cuda) as sched:
+        with rdf.session(scheduler=sched):
+            df, df2 = rdf.read_numpy(ld), rdf.read_numpy(other)
+        q = df.groupby("k").agg({"v0": ["sum"]}).sort_values("k")
+        q2 = df2.groupby("k").agg({"v0": ["sum"]}).sort_values("k")
+        want = sched.submit(q).result(timeout=300).to_numpy()
+        sched.submit(q2).result(timeout=300)
+        idle = torch.cuda.Stream(cuda)
+        for _ in range(3):
+            out = sched.submit(q).result(timeout=300)
+            host = {n: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for n, v in out.columns.items()}
+            counts = torch.empty(out.row_counts.shape,
+                                 dtype=out.row_counts.dtype, pin_memory=True)
+            capacity = out.capacity
+            torch.cuda._sleep(1_000_000_000)  # the caller's stream is busy
+            for n in host:
+                host[n].copy_(out.columns[n], non_blocking=True)
+            counts.copy_(out.row_counts, non_blocking=True)
+            del out
+            with torch.cuda.stream(idle):
+                h = sched.submit(q2)
+            h.result(timeout=300)
+            assert not torch.cuda.current_stream(cuda).query(), \
+                "the caller's read ran before the other query finished"
+            torch.cuda.current_stream(cuda).synchronize()
+            _same_np(DistTable(host, counts, capacity).to_numpy(), want)
+
+
+def test_wall_is_not_inflated_by_another_gangs_work(cuda):
+    # R4: a query's completion barrier waits on its own stream only, so
+    # another stream's long kernel does not count in its wall_s
+    import repro_torch.df as rdf
+    from repro_torch.serve import QueryScheduler
+    ld, _ = _serve_data(1 << 14)
+    with QueryScheduler(slots=2, gang_size=1, device=cuda) as sched:
+        with rdf.session(scheduler=sched):
+            df = rdf.read_numpy(ld)
+        q = df.groupby("k").agg({"v0": ["sum"]}).sort_values("k")
+        sched.submit(q).result(timeout=300)   # builds, warms the stream
+        other = torch.cuda.Stream(cuda)
+        t0 = time.monotonic()
+        with torch.cuda.stream(other):
+            torch.cuda._sleep(3_000_000_000)  # about 1.5 s on the card
+        h = sched.submit(q)
+        h.result(timeout=300)
+        busy = not other.query()
+        other.synchronize()
+        other_s = time.monotonic() - t0
+    assert busy, "the other stream finished before the query did"
+    assert other_s > 0.5
+    assert h.stats["wall_s"] < other_s / 2, (h.stats["wall_s"], other_s)

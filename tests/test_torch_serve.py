@@ -186,7 +186,7 @@ def test_model_constructors_refuse_cpu_fallback(monkeypatch, pair):
 
 def test_serving_modules_and_chip_smoke_import_no_jax_or_repro():
     # the port's import boundary (tests/test_torch_pipeline.py walks the
-    # whole package) for this slice's modules by name, and chip_smoke.py's
+    # whole package) for the serving modules by name, and chip_smoke.py's
     # imports, module level and inside its functions
     import ast
     import os
@@ -197,7 +197,12 @@ def test_serving_modules_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.launch.serve", "repro_torch.configs.qwen3_8b",
             "repro_torch.configs.mamba2_780m",
             "repro_torch.kernels.flash_attention.cuda",
-            "repro_torch.kernels.ssd_scan.cuda", "chip_smoke"]
+            "repro_torch.kernels.ssd_scan.cuda",
+            # query serving: the scheduler, the stage cache, the actor
+            # gang and the stacked ring / Bruck communicators
+            "repro_torch.serve.cache", "repro_torch.serve.scheduler",
+            "repro_torch.core.actor", "repro_torch.comm.ring",
+            "repro_torch.comm.bruck", "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
