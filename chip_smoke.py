@@ -16,7 +16,12 @@ ends the run with a non-zero exit code if it fails:
    events (L2 overwritten before each launch), beside its bound and, where
    one PyTorch call computes the same function, that call's time
    (``scatter_add_`` and ``index_add_`` for the segmented sum,
-   ``scaled_dot_product_attention`` for flash attention); each radix case
+   ``scaled_dot_product_attention`` for flash attention); the segmented sum
+   runs each case with sorted ids through both of its routes (``sorted``,
+   the single pass the main paths take, and ``atomic``), each held to the
+   plain version, the sorted one also bit for bit to a second call, both
+   timed in turns in the same run, with its fixed cost at the served
+   queries' S (4,096 rows); each radix case
    names its route (``onepass`` up to 256 buckets, ``threepass`` above),
    and the radix kernel's main shapes are also timed through the shuffle's
    sorted bucketize (stable sort, ``searchsorted``, ``scatter_add_``); the
@@ -35,7 +40,9 @@ ends the run with a non-zero exit code if it fails:
    all-gather and launches it never), and
    every sum, count and size of every local groupby launches the
    segmented-sum kernel once, in every mode (the count is read off the
-   lowered plan); results are held against a numpy computation on the
+   lowered plan), on its sorted route (every launch-count read of every
+   phase checks that no segmented-sum launch took the atomic route);
+   results are held against a numpy computation on the
    host, and one cached ``bsp`` run is profiled; one more ``bsp`` run
    records the valid rows per rank of the radix kernel's calls, and the
    kernel is then held to its plain version and timed at those layouts
@@ -216,6 +223,11 @@ def time_cuda(torch, fn, iters, flush):
     """Median milliseconds of ``fn`` over ``iters`` launches, each timed
     with CUDA events after overwriting a buffer larger than L2 (the
     caller finds its input cold)."""
+    return float(np.median(time_cuda_samples(torch, fn, iters, flush)))
+
+
+def time_cuda_samples(torch, fn, iters, flush):
+    """``time_cuda``'s milliseconds, one per launch."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -228,7 +240,39 @@ def time_cuda(torch, fn, iters, flush):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+#: the segmented sum's launches per route at the last ``reset_counts()``
+_SEGSUM_ROUTES0 = {}
+#: its launches per route between that reset and the last
+#: ``launch_counts()``
+SEGSUM_ROUTES = {}
+
+
+def reset_counts():
+    """``reset_launches()``, noting the segmented sum's launches per route
+    (which keep running) so that ``launch_counts`` can tell the routes of
+    the launches that follow."""
+    from repro_torch.kernels import reset_launches, segmented_sum_cuda
+    reset_launches()
+    _SEGSUM_ROUTES0.update(segmented_sum_cuda.route_launches)
+
+
+def launch_counts():
+    """Each kernel's launches since ``reset_counts()``.  Every main path
+    hands the segmented sum the groupby's sorted ids, so every one of its
+    launches in that time must have taken the sorted route."""
+    from repro_torch.kernels import CUDA_KERNELS, segmented_sum_cuda
+    counts = {k.name: k.launches for k in CUDA_KERNELS}
+    routes = {r: c - _SEGSUM_ROUTES0.get(r, 0)
+              for r, c in segmented_sum_cuda.route_launches.items()}
+    check(routes == {"atomic": 0, "sorted": counts["segmented_sum"]},
+          f"segmented_sum launches by route {routes}, want all "
+          f"{counts['segmented_sum']} on the sorted route")
+    SEGSUM_ROUTES.clear()
+    SEGSUM_ROUTES.update(routes)
+    return counts
 
 
 def sorted_bucketize(torch, dest, nb):
@@ -341,17 +385,18 @@ def radix_phase(torch, cap, flush, layouts=None, skewed=False,
 
 def recording(env, run, notes):
     """Run ``run()`` with each ``(module, function, note)`` of ``notes``
-    wrapped so that ``note`` sees the arguments of every call (the
-    module's own name for the function, as its callers there use it)."""
+    wrapped so that ``note`` sees the arguments of every call, keywords
+    included (the module's own name for the function, as its callers there
+    use it)."""
     import importlib
     patched = []
     for mod_name, attr, note in notes:
         mod = importlib.import_module(mod_name)
         real = getattr(mod, attr)
 
-        def wrapped(*args, _real=real, _note=note):
-            _note(*args)
-            return _real(*args)
+        def wrapped(*args, _real=real, _note=note, **kw):
+            _note(*args, **kw)
+            return _real(*args, **kw)
         setattr(mod, attr, wrapped)
         patched.append((mod, attr, real))
     try:
@@ -403,9 +448,12 @@ def fig9_join_ids(torch, rows, p, cap, gen, dev):
 
 
 def segsum_phase(torch, cap, flush, recorded=None, skewed=False):
-    """Segmented-sum kernel vs ``segmented_sum_ref`` on the card; the first
-    case is the Fig-9 groupby's call (n = S = the join's out_capacity),
-    timed beside ``scatter_add_`` and ``index_add_`` at that shape.  With
+    """Segmented-sum kernel vs ``segmented_sum_ref`` on the card, through
+    both routes where the ids are sorted (``segsum_cases``); the first case
+    is the Fig-9 groupby's call (n = S = the join's out_capacity), timed
+    beside ``scatter_add_`` and ``index_add_`` at that shape, and
+    ``fixed:n=4096`` splits the fixed cost from the streaming cost (4,096
+    rows at the served queries' S = 8,388,608).  With
     ``recorded`` ([(case, ids, values, S)], the inputs a run handed the
     kernel), those cases alone.  With ``skewed``: the salted groupby's
     traffic, (8, n = S = 4,194,304) with one segment holding 99% of every
@@ -463,6 +511,11 @@ def segsum_phase(torch, cap, flush, recorded=None, skewed=False):
              ("oob", torch.randint(-5, 1005, (2, 1 << 20), generator=gen,
                                    device=dev, dtype=torch.int32),
               floats(2, 1 << 20), 1000)]
+    # the fixed cost at the served queries' S (2, 8,388,608): 4,096 rows
+    # counting up from 0 as the groupby's do, the rest of S one gap
+    cases.append(("fixed:n=4096", (torch.arange(
+        4096, device=dev, dtype=torch.int32) // 2).expand(2, 4096)
+        .contiguous(), floats(2, 4096), 8_388_608))
     for n, segs, cols in ((64, 5, 1), (500, 37, 3), (1024, 512, 2),
                           (300, 1, 4)):
         ids = sorted_ids(1, n, segs)
@@ -477,70 +530,127 @@ def segsum_phase(torch, cap, flush, recorded=None, skewed=False):
 
 
 def segsum_cases(torch, cases, flush):
-    """Each ``(case, ids, values, S)``: the kernel held to its plain
-    version and timed beside it (the ``main`` case also beside one
-    ``scatter_add_`` and one ``index_add_`` call)."""
+    """Each ``(case, ids, values, S)`` through both of the kernel's routes
+    where the ids are non-decreasing within each rank (the ``atomic``
+    route alone otherwise), each held to the plain version and the
+    ``sorted`` route also bit for bit to a second call of itself; both
+    timed in turns in this run (atomic, sorted, sorted, atomic; as
+    ``time_cuda`` times every kernel) with each route's host time a call
+    beside it, the bound, the plain version and, for the main,
+    hot-segment, fixed-cost, out-of-core and served cases, one
+    ``scatter_add_`` and one ``index_add_`` call."""
     from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
     dev = torch.device("cuda")
     out = []
     for name, seg, vals, s in cases:
-        got = segmented_sum_cuda(seg, vals, s)
-        want = segmented_sum_ref(seg, vals, s)
-        torch.cuda.synchronize()
-        if vals.dtype == torch.int32:
-            ok, tol = torch.equal(got, want), "exact"
-            err = float((got - want).abs().max()) if got.numel() else 0.0
-        else:
-            # tests/test_kernels.py's tolerance: float sums in another order
-            diff = (got - want).abs()
-            ok = bool((diff <= 1e-5 * want.abs() + 1e-5).all())
-            tol, err = "1e-5 |want| + 1e-5", (float(diff.max())
-                                               if got.numel() else 0.0)
-        check(ok, f"segmented_sum CUDA != plain at {name}: max |err| {err} "
-              f"beyond {tol}")
-        main = name in ("main", "unsorted", "int32", "skew:hot-segment")
-        ms = time_cuda(torch, lambda: segmented_sum_cuda(seg, vals, s),
-                       20 if main else 5, flush)
-        plain_ms = time_cuda(torch, lambda: segmented_sum_ref(seg, vals, s),
-                             3 if main else 2, flush)
-        lib = None
-        if name in ("main", "skew:hot-segment"):
-            # one PyTorch call each over the same inputs (zero-filled
-            # output included, as the kernel's launcher zero-fills)
-            idx = seg.to(torch.int64)
-            flat = (idx + torch.arange(seg.shape[0], device=dev)[:, None]
-                    * s).flatten()
-            lib = {"scatter_add_": time_cuda(
-                       torch, lambda: torch.zeros_like(vals).scatter_add_(
-                           1, idx, vals), 5, flush),
-                   "index_add_": time_cuda(
-                       torch, lambda: torch.zeros(
-                           seg.shape[0] * s, dtype=vals.dtype,
-                           device=dev).index_add_(
-                           0, flat, vals.flatten()), 5, flush)}
-            del idx, flat
         p, n = seg.shape
         c = vals.shape[2] if vals.dim() == 3 else 1
+        ordered = n < 2 or bool((seg[:, 1:] >= seg[:, :-1]).all())
+        routes = ("atomic", "sorted") if ordered else ("atomic",)
+        want = segmented_sum_ref(seg, vals, s)
+        errs, tol, identical = {}, "exact", None
+        for route in routes:
+            before = segmented_sum_cuda.route_launches[route]
+            got = segmented_sum_cuda(seg, vals, s,
+                                     sorted_ids=route == "sorted")
+            torch.cuda.synchronize()
+            check(n == 0 or segmented_sum_cuda.route_launches[route]
+                  == before + 1, f"segmented_sum {name}: not launched on "
+                  f"its {route} route")
+            if vals.dtype in (torch.int32, torch.int64):
+                ok = torch.equal(got, want)
+                err = float((got - want).abs().max()) if got.numel() else 0.
+            else:
+                # tests/test_kernels.py's tolerance: float sums in another
+                # order
+                diff = (got - want).abs()
+                ok = bool((diff <= 1e-5 * want.abs() + 1e-5).all())
+                tol = "1e-5 |want| + 1e-5"
+                err = float(diff.max()) if got.numel() else 0.0
+            check(ok, f"segmented_sum CUDA ({route}) != plain at {name}: "
+                  f"max |err| {err} beyond {tol}")
+            errs[route] = err
+            if route == "sorted":
+                # the sorted route adds in a fixed order: bit-identical
+                again = segmented_sum_cuda(seg, vals, s, sorted_ids=True)
+                identical = torch.equal(got.view(torch.uint8),
+                                        again.view(torch.uint8))
+                check(identical, f"segmented_sum sorted route at {name}: "
+                      f"two calls differ")
+                del again
+            del got
+        main = name in ("main", "unsorted", "int32", "skew:hot-segment") \
+            or name.startswith(("ooc:", "serve:", "fixed:"))
+        iters = 10 if main else 3
+        samples = {r: [] for r in routes}
+        for route in (("atomic", "sorted", "sorted", "atomic") if ordered
+                      else ("atomic", "atomic")):
+            samples[route] += time_cuda_samples(
+                torch, lambda r=route: segmented_sum_cuda(
+                    seg, vals, s, sorted_ids=r == "sorted"), iters, flush)
+        ms = {r: float(np.median(v)) for r, v in samples.items()}
+        # the wrapper's host time a call (checks, allocations, launches):
+        # where it passes the L2 overwrite's device time, the rest shows in
+        # the CUDA-event time above
+        host_us = {}
+        for route in routes:
+            torch.cuda.synchronize()
+            t = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                segmented_sum_cuda(seg, vals, s, sorted_ids=route == "sorted")
+                t.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            host_us[route] = float(np.median(t)) * 1e6
+        plain_ms = float(np.median(time_cuda_samples(
+            torch, lambda: segmented_sum_ref(seg, vals, s),
+            3 if main else 2, flush)))
+        lib = None
+        if name in ("main", "skew:hot-segment") or name.startswith(
+                ("ooc:", "serve:", "fixed:")):
+            # one PyTorch call each over the same inputs (zero-filled
+            # output included)
+            idx = seg.to(torch.int64)
+            if vals.dim() == 3:
+                idx = idx[..., None].expand(vals.shape)
+            rows = idx if vals.dim() == 2 else idx[..., 0]
+            flat = (rows + torch.arange(p, device=dev)[:, None] * s).flatten()
+            lib = {"scatter_add_": float(np.median(time_cuda_samples(
+                       torch, lambda: torch.zeros(
+                           (p, s) + tuple(vals.shape[2:]), dtype=vals.dtype,
+                           device=dev).scatter_add_(1, idx, vals), 5, flush))),
+                   "index_add_": float(np.median(time_cuda_samples(
+                       torch, lambda: torch.zeros(
+                           (p * s,) + tuple(vals.shape[2:]),
+                           dtype=vals.dtype, device=dev).index_add_(
+                           0, flat, vals.flatten(0, 1)), 5, flush)))}
+            del idx, flat, rows
         # bytes the function must move: ids and values read once, the sums
         # written once; one addition per value is far below the f32 peak
         nbytes = 4 * p * n + vals.element_size() * c * (p * n + p * s)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        route = routes[-1]  # the route the main paths take where they can
         valid = int((seg < s - 1).sum()) if name == "main" else None
-        out.append(dict(case=name, p=p, n=n, segments=s, cols=c,
-                        dtype=str(vals.dtype).split(".")[-1], ms=ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by="bytes",
+        out.append(dict(case=name, route=route, p=p, n=n, segments=s,
+                        cols=c, dtype=str(vals.dtype).split(".")[-1],
+                        ms=ms[route], atomic_ms=ms["atomic"],
+                        sorted_ms=ms.get("sorted"), plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by="bytes",
                         library_ms=lib["scatter_add_"] if lib else None,
-                        library=lib, max_abs_err=err))
+                        library=lib, max_abs_err=max(errs.values()),
+                        bit_identical=identical, host_us=host_us))
         extra = (f", scatter_add_ {lib['scatter_add_']:.3f} ms, index_add_ "
                  f"{lib['index_add_']:.3f} ms" if lib else "")
         if valid is not None:
             extra += f", {valid} valid rows of {p * n}"
+        timing = " ".join(f"{r} {ms[r]:.4f} ms ({bound_ms / ms[r]:.0%} of "
+                          f"bound; host {host_us[r]:.1f} us)" for r in routes)
         print(f"kernel segmented_sum {name:10s} p={p} n={n} S={s} C={c} "
-              f"{out[-1]['dtype']}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms{extra}), max |err| {err:.2e} "
-              f"({tol})", flush=True)
-        del got, want
+              f"{out[-1]['dtype']}: {timing} (plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms{extra}), max |err| {max(errs.values()):.2e}"
+              f" ({tol})" + ("; sorted route bit-identical across calls"
+                             if identical else ""), flush=True)
+        del want
     torch.cuda.empty_cache()
     return out
 
@@ -620,13 +730,12 @@ def check_fig9(res, stats, ref, label):
 
 def main_path_phase(torch, rows=FULL_ROWS, device=None):
     """Fig-9 at ``rows`` per table; returns (kernel launches per run, radix
-    launches per route per run, wall times), each keyed by
-    ``"<mode>/<first|cached>"``, and the radix kernel's call layouts of one
-    more ``bsp`` run (``radix_layouts``).  ``device=None`` is the card, as
-    a user calling the port gets it."""
+    launches per route per run, segmented-sum launches per route per run,
+    wall times), each keyed by ``"<mode>/<first|cached>"``, and the radix
+    kernel's call layouts of one more ``bsp`` run (``radix_layouts``).
+    ``device=None`` is the card, as a user calling the port gets it."""
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
-    from repro_torch.kernels import (CUDA_KERNELS, radix_partition_cuda,
-                                     reset_launches)
+    from repro_torch.kernels import radix_partition_cuda
     from repro_torch.planner import compile_plan
     t0 = time.perf_counter()
     ld, rd = make_table_data(rows, 0), make_table_data(rows, 1)
@@ -643,25 +752,26 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
     plan = fig9_plan(Plan, cap)
     print(plan.explain(tables), flush=True)
     pplan = compile_plan(plan, tables)
-    walls, launches, route_launches = {}, {}, {}
+    walls, launches, route_launches, segsum_routes = {}, {}, {}, {}
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     for mode in ("bsp", "bsp_staged", "amt"):
         for run in ("first", "cached"):
             env.synchronize()
-            reset_launches()
+            reset_counts()
             routes0 = dict(radix_partition_cuda.route_launches)
             t = time.perf_counter()
             res, st = execute(plan, env, tables, mode=mode,
                               collect_stats=True)
             env.synchronize()
             wall = time.perf_counter() - t
-            counts = {k.name: k.launches for k in CUDA_KERNELS}
+            counts = launch_counts()
             routes = {r: radix_partition_cuda.route_launches[r] - routes0[r]
                       for r in routes0}
             walls[f"{mode}/{run}"] = wall
             launches[f"{mode}/{run}"] = counts
             route_launches[f"{mode}/{run}"] = routes
+            segsum_routes[f"{mode}/{run}"] = dict(SEGSUM_ROUTES)
             check_launches(counts, pplan, mode, st, on_card, f"{mode}/{run}",
                            routes if on_card else None)
             if on_card and mode != "amt":
@@ -700,7 +810,7 @@ def main_path_phase(torch, rows=FULL_ROWS, device=None):
     if on_card:
         profile_run(env, lambda: execute(plan, env, tables, mode="bsp"),
                     "bsp (cached run under the profiler)")
-    return launches, route_launches, walls, layouts
+    return launches, route_launches, segsum_routes, walls, layouts
 
 
 def detection_overhead(env, plan, tables, walls, reps=5):
@@ -771,7 +881,6 @@ def frontend_phase(torch, rows=FULL_ROWS, device=None):
     wall times) by ``"<mode>/<run>"``."""
     import repro_torch.df as rdf
     from repro_torch.core import Plan, execute
-    from repro_torch.kernels import CUDA_KERNELS, reset_launches
     from repro_torch.planner import compile_plan
     t0 = time.perf_counter()
     ld, rd = make_table_data(rows, 0), make_table_data(rows, 1)
@@ -798,12 +907,12 @@ def frontend_phase(torch, rows=FULL_ROWS, device=None):
         for mode in ("bsp", "bsp_staged", "amt"):
             for run in ("first", "cached"):
                 env.synchronize()
-                reset_launches()
+                reset_counts()
                 t = time.perf_counter()
                 res, st = front.collect(mode=mode, collect_stats=True)
                 env.synchronize()
                 wall = time.perf_counter() - t
-                counts = {k.name: k.launches for k in CUDA_KERNELS}
+                counts = launch_counts()
                 label = f"frontend {mode}/{run}"
                 walls[f"{mode}/{run}"], launches[f"{mode}/{run}"] = \
                     wall, counts
@@ -856,7 +965,6 @@ def strings_phase(torch, rows=1 << 22, vocab=1 << 18, device=None):
     sum and count, sorted, and held to numpy on the host.  Returns
     (launches, wall times) by run."""
     import repro_torch.df as rdf
-    from repro_torch.kernels import CUDA_KERNELS, reset_launches
     from repro_torch.planner import compile_plan
     rng = np.random.default_rng(5)
     words = np.array([f"w{i:011d}" for i in range(vocab)])
@@ -894,12 +1002,12 @@ def strings_phase(torch, rows=1 << 22, vocab=1 << 18, device=None):
         pplan = compile_plan(q.plan, q.sources)
         for run in ("first", "cached"):
             env.synchronize()
-            reset_launches()
+            reset_counts()
             t = time.perf_counter()
             res, st = q.collect(collect_stats=True)
             env.synchronize()
             wall = time.perf_counter() - t
-            counts = {k.name: k.launches for k in CUDA_KERNELS}
+            counts = launch_counts()
             walls[run], launches[run] = wall, counts
             label = f"strings bsp/{run}"
             check_launches(counts, pplan, "bsp", st, on_card, label)
@@ -1144,8 +1252,7 @@ def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
     the peak device memory beside the in-core run's; one cached run is
     profiled.  Returns the numbers for the JSON lines."""
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
-    from repro_torch.kernels import (CUDA_KERNELS, radix_partition_cuda,
-                                     reset_launches)
+    from repro_torch.kernels import radix_partition_cuda
     from repro_torch.planner import compile_plan
     t_phase = time.perf_counter()
     ld, rd = make_exact_data(rows, 0, "v0"), make_exact_data(rows, 1, "w")
@@ -1183,7 +1290,7 @@ def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
     walls, launches, peaks = {}, {}, {"in-core": peak_in}
     for run in ("first", "cached"):
         reset_peak()
-        reset_launches()
+        reset_counts()
         routes0 = dict(radix_partition_cuda.route_launches)
         t = time.perf_counter()
         out, st = execute(plan, env, tables, mode="bsp", collect_stats=True,
@@ -1191,7 +1298,7 @@ def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
         env.synchronize()
         wall = time.perf_counter() - t
         peaks[run] = peak()
-        counts = {k.name: k.launches for k in CUDA_KERNELS}
+        counts = launch_counts()
         routes = {r: radix_partition_cuda.route_launches[r] - routes0[r]
                   for r in routes0}
         walls[run], launches[run] = wall, counts
@@ -1301,7 +1408,9 @@ def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
             layouts.setdefault(f"ooc:n={dest.shape[1]}-layout", (
                 dest.shape[1], (dest < nb - 1).sum(dim=1).tolist()))
 
-        def note_sum(ids, vals, s):
+        def note_sum(ids, vals, s, sorted_ids=False):
+            check(sorted_ids, "out-of-core: a groupby sum not on the "
+                  "sorted route")
             sums.setdefault(f"ooc:n={ids.shape[1]},S={s}",
                             (ids.clone(), vals.clone(), s))
         recording(env, lambda: execute(
@@ -1417,8 +1526,7 @@ def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
     from repro_torch.core import CylonEnv
     from repro_torch.io import DictionaryCache, have_pyarrow
     from repro_torch.io.parquet import DEFAULT_BATCH_ROWS
-    from repro_torch.kernels import (CUDA_KERNELS, radix_partition_cuda,
-                                     reset_launches)
+    from repro_torch.kernels import radix_partition_cuda
     from repro_torch.obs import METRICS
     from repro_torch.planner import compile_plan
     t_phase = time.perf_counter()
@@ -1520,13 +1628,13 @@ def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
         for name, kw in runs:
             for run in ("first", "cached"):
                 env.synchronize()
-                reset_launches()
+                reset_counts()
                 routes0 = dict(radix_partition_cuda.route_launches)
                 t = time.perf_counter()
                 res, st = files_q.collect(collect_stats=True, **kw)
                 env.synchronize()
                 wall = time.perf_counter() - t
-                counts = {k.name: k.launches for k in CUDA_KERNELS}
+                counts = launch_counts()
                 routes = {r: radix_partition_cuda.route_launches[r]
                           - routes0[r] for r in routes0}
                 label = f"ingest {name}/{run}"
@@ -1608,7 +1716,6 @@ def analyze_phase(env, files_q, cap, nbytes, want, peaks=None):
     cached run with tracing off and on, three times each, alternating
     (host wall around the collect, and ``ExecStats.wall_time_s``, which
     leaves out the host scatter of the spills)."""
-    from repro_torch.kernels import CUDA_KERNELS, reset_launches
     from repro_torch.obs import METRICS
     kw = dict(mode="bsp_staged", scan_capacity=cap)
     files_q.collect(collect_stats=True, **kw)   # builds the stages
@@ -1659,14 +1766,14 @@ def analyze_phase(env, files_q, cap, nbytes, want, peaks=None):
     results = {}
     for trace in ("off", "on", "on", "off", "off", "on"):
         env.synchronize()
-        reset_launches()
+        reset_counts()
         t = time.perf_counter()
         res, s = files_q.collect(collect_stats=True,
                                  trace=(trace == "on"), **kw)
         env.synchronize()
         timed[trace].append(time.perf_counter() - t)
         exec_s[trace].append(s.wall_time_s)
-        counts = {k.name: k.launches for k in CUDA_KERNELS}
+        counts = launch_counts()
         check(s.cache_misses == 0, f"trace {trace}: {s.cache_misses} "
               f"cache misses")
         got = res.to_numpy()
@@ -2064,18 +2171,17 @@ def skew_run(torch, env, plan, tables, kw, routed=False):
     the run's shuffles (the radix kernel's destinations, recorded on the
     device) come back beside the result."""
     from repro_torch.core import execute
-    from repro_torch.kernels import CUDA_KERNELS, reset_launches
     got = []
 
     def run():
         env.synchronize()
-        reset_launches()
+        reset_counts()
         t = time.perf_counter()
         res, st = execute(plan, env, tables, optimize=False,
                           collect_stats=True, **kw)
         env.synchronize()
         got.append((res, st, time.perf_counter() - t,
-                    {k.name: k.launches for k in CUDA_KERNELS}))
+                    launch_counts()))
 
     if not routed:
         run()
@@ -2751,14 +2857,13 @@ def instrument(torch, engine, rec):
     reset just before each call and read just after it; the prefill is
     timed to its end on the device (time to first token) and its logits
     are checked finite."""
-    from repro_torch.kernels import CUDA_KERNELS, reset_launches
     prefill, decode = engine.prefill, engine.decode_step
 
     def counts():
-        return {k.name: k.launches for k in CUDA_KERNELS}
+        return launch_counts()
 
     def counted_prefill(tokens):
-        reset_launches()
+        reset_counts()
         t = time.perf_counter()
         logits, caches = prefill(tokens)
         torch.cuda.synchronize()
@@ -2769,7 +2874,7 @@ def instrument(torch, engine, rec):
         return logits, caches
 
     def counted_decode(caches, tokens, pos):
-        reset_launches()
+        reset_counts()
         logits = decode(caches, tokens, pos)
         rec["decode"].append(counts())
         rec["last_logits"] = logits
@@ -2903,7 +3008,6 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
     versions.  Prefill logits within 1e-3, greedy tokens equal."""
     import copy
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels import CUDA_KERNELS, reset_launches
     from repro_torch.models import transformer
     for arch, _, _, _ in SERVE_CASES:
         cfg = get_smoke_config(arch)
@@ -2914,12 +3018,12 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
         logits, tokens = {}, {}
         for device in devices:
             model = copy.deepcopy(base).to(device)
-            reset_launches()
+            reset_counts()
             lg, caches = transformer.prefill(
                 model, torch.as_tensor(prompts, dtype=torch.long,
                                        device=device),
                 prompt + new, KERNEL_IMPL[arch])
-            counts = {k.name: k.launches for k in CUDA_KERNELS}
+            counts = launch_counts()
             want = cfg.num_layers if device != "cpu" else 0
             check(counts[SERVE_KERNEL[arch]] == want, f"parity {arch} "
                   f"{device}: {counts} launches, want {want}")
@@ -3092,8 +3196,7 @@ def query_serving_phase(torch, rows=1 << 24, device=None, fig9_rows=None,
     (``serving_kernel_inputs``)."""
     import repro_torch.df as rdf
     from repro_torch.core import CylonEnv, DevicePool, DistTable
-    from repro_torch.kernels import (CUDA_KERNELS, radix_partition_cuda,
-                                     reset_launches)
+    from repro_torch.kernels import radix_partition_cuda
     from repro_torch.planner import compile_plan
     from repro_torch.serve import ProgramCache, QueryScheduler
     t_phase = time.perf_counter()
@@ -3168,7 +3271,7 @@ def query_serving_phase(torch, rows=1 << 24, device=None, fig9_rows=None,
                                max_queue=SERVE_QUERIES, program_cache=shared,
                                name=f"serve-x{inflight}")
         sync()
-        reset_launches()
+        reset_counts()
         routes0 = dict(radix_partition_cuda.route_launches)
         base = torch.cuda.memory_allocated() if on_card else 0
         if on_card:
@@ -3199,7 +3302,7 @@ def query_serving_phase(torch, rows=1 << 24, device=None, fig9_rows=None,
             # allocations that had to free the cached blocks and retry
             rec["alloc_retries"] = (torch.cuda.memory_stats()
                                     ["num_alloc_retries"] - retries0)
-        counts = {k.name: k.launches for k in CUDA_KERNELS}
+        counts = launch_counts()
         routes = {r: radix_partition_cuda.route_launches[r] - routes0[r]
                   for r in routes0}
         label = f"serving sweep x{inflight}" + (" profiled" if profiled
@@ -3298,7 +3401,9 @@ def serving_kernel_inputs(env, queries, kinds, pplans):
             if k not in seen[0]:
                 seen[0].append(k)
 
-        def note_sum(ids, vals, s, k=k, calls=calls):
+        def note_sum(ids, vals, s, k=k, calls=calls, sorted_ids=False):
+            check(sorted_ids, f"serving {k}: a groupby sum not on the "
+                  f"sorted route")
             calls["segmented_sum"] += 1
             seen = sums.setdefault((ids.shape[1], s, vals.dtype),
                                    ([], ids.clone(), vals.clone(), s))
@@ -3611,7 +3716,8 @@ def main():
     ssd_cases = ssd_phase(torch, flush)
     del flush
     phase_done("kernels")
-    launches, route_launches, walls, layouts = main_path_phase(torch)
+    launches, route_launches, segsum_routes, walls, layouts = \
+        main_path_phase(torch)
     for k in ("radix_partition", "segmented_sum"):
         check(launches["bsp/first"][k] > 0, f"{k} never launched on the "
               f"Fig-9 path")
@@ -3672,8 +3778,11 @@ def main():
                        for run, c in ingest["launches"].items()},
                       {sw: serving[sw]["launches"][rp.name]
                        for sw in ("serial", "concurrent")}),
+        # every segmented-sum launch of every main path took the sorted
+        # route (launch_counts checks it at each read)
         kernel_record(ss, segsum_cases, launches["bsp/first"][ss.name],
                       {run: c[ss.name] for run, c in launches.items()},
+                      segsum_routes["bsp/first"],
                       launches_out_of_core={
                           run: c[ss.name]
                           for run, c in ooc["launches"].items()},

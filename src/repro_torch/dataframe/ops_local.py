@@ -249,7 +249,10 @@ def groupby_local(table: Table, keys: Sequence[str],
 
     Sum, count and size reduce with ``kernels.segmented_sum`` (the CUDA
     kernel on the card, its plain version on the CPU) over int32 segment
-    ids that are sorted within each rank; min and max stay
+    ids that are sorted within each rank (valid rows' ids count up from 0,
+    padding rows take ``cap - 1``, at or above every valid id), so they
+    pass ``sorted_ids=True`` and take the kernel's sorted route; min and
+    max stay
     ``scatter_reduce_``, as JAX's ``segment_min/max`` are no Pallas kernel.
     """
     table = drop_null_keys(table, keys)
@@ -287,11 +290,13 @@ def groupby_local(table: Table, keys: Sequence[str],
                 sv = signed_view(v)
                 r = segmented_sum(
                     seg32, torch.where(eff, sv, torch.zeros_like(sv)).view(
-                        v.dtype), cap)
+                        v.dtype), cap, sorted_ids=True)
             elif agg == "count":
-                r = segmented_sum(seg32, eff.to(torch.int32), cap)
+                r = segmented_sum(seg32, eff.to(torch.int32), cap,
+                                  sorted_ids=True)
             elif agg == "size":
-                r = segmented_sum(seg32, valid.to(torch.int32), cap)
+                r = segmented_sum(seg32, valid.to(torch.int32), cap,
+                                  sorted_ids=True)
             elif agg in ("min", "max"):
                 # unsigned values reduce widened (identities of their own
                 # dtype, so empty segments match jax.ops.segment_min/max)

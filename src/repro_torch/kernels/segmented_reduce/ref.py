@@ -13,10 +13,13 @@ import torch
 
 
 def segmented_sum_ref(seg_ids: torch.Tensor, values: torch.Tensor,
-                      num_segments: int) -> torch.Tensor:
+                      num_segments: int, *, sorted_ids: bool = False
+                      ) -> torch.Tensor:
     """Per-rank segment sums.  ``seg_ids`` (p, n) integer; ``values``
     (p, n) or (p, n, C) -> (p, num_segments) or (p, num_segments, C) in
-    ``values``' dtype.  Empty segments hold 0."""
+    ``values``' dtype.  Empty segments hold 0.  ``sorted_ids`` (the
+    kernel's route) is taken and ignored: the scatter is right for ids in
+    any order."""
     if seg_ids.dim() != 2 or values.shape[:2] != seg_ids.shape \
             or values.dim() not in (2, 3):
         raise ValueError(f"segmented_sum needs seg_ids (p, n) and values "

@@ -372,8 +372,11 @@ def test_groupby_local_sums_go_through_the_kernel(cuda):
     t = Table({"k": k, "v": v},
               torch.tensor([300, 250, 0, 17], dtype=torch.int32, device=cuda))
     before = segmented_sum_cuda.launches
+    sorted0 = segmented_sum_cuda.route_launches["sorted"]
     out = groupby_local(t, ["k"], {"v": ["sum", "count", "size", "max"]})
     assert segmented_sum_cuda.launches == before + 3
+    # the groupby's ids are sorted per rank: all three on the sorted route
+    assert segmented_sum_cuda.route_launches["sorted"] == sorted0 + 3
     cpu = groupby_local(Table({n: c.cpu() for n, c in t.columns.items()},
                               t.row_count.cpu()),
                         ["k"], {"v": ["sum", "count", "size", "max"]})
@@ -381,6 +384,156 @@ def test_groupby_local_sums_go_through_the_kernel(cuda):
         assert torch.equal(out.columns[name].cpu(), cpu.columns[name]), name
     torch.testing.assert_close(out.columns["v_sum"].cpu(),
                                cpu.columns["v_sum"], rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------- #
+# The segmented sum's sorted route (single-pass reduce-by-key)
+# ---------------------------------------------------------------------- #
+def _sorted_check(seg, vals, s):
+    """One sorted-route launch held to the plain version (integers exact,
+    floats to 1e-5 as above) and bit-identical to a second call."""
+    from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
+    from repro_torch.kernels.segmented_reduce.cuda import route_for
+    assert route_for(True) == "sorted" and route_for(False) == "atomic"
+    before = dict(segmented_sum_cuda.route_launches)
+    got = segmented_sum_cuda(seg, vals, s, sorted_ids=True)
+    again = segmented_sum_cuda(seg, vals, s, sorted_ids=True)
+    torch.cuda.synchronize()
+    assert segmented_sum_cuda.route_launches == {
+        "atomic": before["atomic"], "sorted": before["sorted"] + 2}
+    want = segmented_sum_ref(seg, vals, s)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if vals.dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+
+
+def _sorted_values(rng, shape, dtype, cuda, exact=False):
+    # ``exact``: integer-valued floats, whose sums of millions of rows are
+    # exact in any order (random float32 sums of 9 M rows differ beyond
+    # 1e-5 between orders)
+    vals = (rng.integers(-50, 50, shape) if dtype.startswith("int") or exact
+            else rng.random(shape)).astype(dtype)
+    return torch.as_tensor(vals, device=cuda)
+
+
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int32", "int64"])
+def test_segmented_sum_sorted_route_equals_plain(cuda, dtype, c):
+    # several tiles a rank, a ragged n (no 16-byte loads) and an aligned
+    # one, ids sorted per rank as the groupby hands them over
+    rng = np.random.default_rng(len(dtype) * 10 + c)
+    for p, n, s in ((3, 50_003, 7_000), (2, 40_960, 9_000)):
+        ids = np.sort(rng.integers(0, s, (p, n)), axis=1).astype(np.int32)
+        shape = (p, n) if c == 1 else (p, n, c)
+        _sorted_check(torch.as_tensor(ids, device=cuda),
+                      _sorted_values(rng, shape, dtype, cuda), s)
+
+
+def _edge_ids(case, rows):
+    """(p, n) sorted int32 ids and S for one layout; ``rows`` is a tile of
+    the sorted route."""
+    n = 6 * rows
+    i = np.arange(n)
+    if case == "tile-boundary":     # every run ends exactly on a tile edge
+        return np.stack([i // rows * 3, i // rows * 3 + 1]), 20
+    if case == "one-run":           # one run spans every tile
+        return np.full((2, n), 5), 9
+    if case == "hot":               # 99% of the rows in one run
+        rng = np.random.default_rng(5)
+        ids = np.where(rng.random((2, n)) < 0.99, 7,
+                       rng.integers(0, n, (2, n)))
+        return np.sort(ids, axis=1), n
+    if case == "gaps":              # at the start, a long one, at the end
+        row = np.where(i < n // 2, 9_000 + i // 3, 60_000 + i // 2)
+        return np.stack([row, row + 1]), 60_000 + n
+    if case == "out-of-range":      # ids below 0 and at or above S, sorted
+        rng = np.random.default_rng(6)
+        return np.sort(rng.integers(-300, 5_300, (2, n)), axis=1), 5_000
+    if case == "padding":           # the groupby: dense ids, then cap - 1
+        return np.stack([np.where(i < 5_000 + r, i // 2, n - 1)
+                         for r in range(2)]), n
+    if case == "long-padding":      # a padding run over 2,196 tiles: its
+        # last tile looks back in four rounds (32, then 1,024 a round)
+        n = 2_200 * rows
+        i = np.arange(n)
+        return np.stack([np.where(i < 3 * rows + 17 + r, i // 2, n - 1)
+                         for r in range(2)]), n
+    if case == "sparse":            # n far below S: gaps of every length
+        rng = np.random.default_rng(7)
+        return np.sort(rng.integers(0, 3_000_000, (2, n)), axis=1), 3_000_000
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int32", "int64"])
+@pytest.mark.parametrize("case", ["tile-boundary", "one-run", "hot", "gaps",
+                                  "out-of-range", "padding", "long-padding",
+                                  "sparse"])
+def test_segmented_sum_sorted_route_edges(cuda, case, dtype):
+    from repro_torch.kernels import segmented_sum_cuda
+    rows = segmented_sum_cuda.kernel_constants()[
+        0 if np.dtype(dtype).itemsize == 4 else 1]
+    ids, s = _edge_ids(case, rows)
+    rng = np.random.default_rng(8)
+    exact = case == "long-padding"
+    _sorted_check(torch.as_tensor(ids.astype(np.int32), device=cuda),
+                  _sorted_values(rng, ids.shape, dtype, cuda, exact), s)
+    if case in ("gaps", "long-padding"):  # C > 1 too
+        _sorted_check(torch.as_tensor(ids.astype(np.int32), device=cuda),
+                      _sorted_values(rng, ids.shape + (3,), dtype, cuda,
+                                     exact), s)
+
+
+@pytest.mark.parametrize("p,n,s", [(1, 1, 1), (2, 64, 5), (4, 3, 9_000),
+                                   (1, 300, 1), (3, 4_097, 4_096)])
+def test_segmented_sum_sorted_route_small(cuda, p, n, s):
+    # one row, one segment, S above n, a tile plus one row
+    rng = np.random.default_rng(p + n + s)
+    ids = np.sort(rng.integers(0, s, (p, n)), axis=1).astype(np.int32)
+    for dtype in ("float32", "int64"):
+        _sorted_check(torch.as_tensor(ids, device=cuda),
+                      _sorted_values(rng, (p, n), dtype, cuda), s)
+
+
+def test_segmented_sum_sorted_route_on_four_streams(cuda):
+    # four threads, each on a stream of its own, call the sorted route at
+    # once (scratch per call): each result exact, every launch counted
+    import threading
+    from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
+    rng = np.random.default_rng(9)
+    inputs = []
+    for t in range(4):
+        n = 60_000 + 4 * t
+        ids = np.sort(rng.integers(0, 20_000 * (t + 1), (2, n)), axis=1)
+        inputs.append((torch.as_tensor(ids.astype(np.int32), device=cuda),
+                       torch.as_tensor(rng.integers(-9, 9, (2, n)).astype(
+                           np.int32), device=cuda), 20_000 * (t + 1)))
+    wants = [segmented_sum_ref(*x) for x in inputs]
+    s0 = segmented_sum_cuda.route_launches["sorted"]
+    barrier = threading.Barrier(4)
+    errors = []
+
+    def worker(t):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                barrier.wait()
+                for _ in range(50):
+                    got = segmented_sum_cuda(*inputs[t], sorted_ids=True)
+                    torch.cuda.current_stream(cuda).synchronize()
+                    if not torch.equal(got, wants[t]):
+                        errors.append(f"thread {t}: sums differ")
+                        return
+        except Exception as e:  # pragma: no cover - failure path
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    assert segmented_sum_cuda.route_launches["sorted"] - s0 == 200
 
 
 # narrow value dtypes: the dispatcher sums them wider on the card (int32,

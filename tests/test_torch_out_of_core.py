@@ -771,9 +771,9 @@ def test_morsel_calls_match_the_launch_counts_chip_smoke_expects(
     calls = {"radix_partition": 0, "segmented_sum": 0}
     for mod, name in ((shuffle_mod, "radix_partition"),
                       (ops_local, "segmented_sum")):
-        def counted(*args, _real=getattr(mod, name), _name=name):
+        def counted(*args, _real=getattr(mod, name), _name=name, **kw):
             calls[_name] += 1
-            return _real(*args)
+            return _real(*args, **kw)
         monkeypatch.setattr(mod, name, counted)
     rows, p = 4000, 8
     ld, rd = cs.make_exact_data(rows, 0, "v0"), cs.make_exact_data(rows, 1,

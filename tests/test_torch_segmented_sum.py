@@ -236,10 +236,11 @@ def test_groupby_calls_match_the_launch_count_chip_smoke_expects(
     calls = []
     real = ops_local.segmented_sum
 
-    def counted(seg, vals, s):
+    def counted(seg, vals, s, **kw):
         assert seg.dtype == torch.int32      # the kernel's id type
+        assert kw == {"sorted_ids": True}    # the kernel's sorted route
         calls.append(s)
-        return real(seg, vals, s)
+        return real(seg, vals, s, **kw)
 
     monkeypatch.setattr(ops_local, "segmented_sum", counted)
     env = CylonEnv(4, device="cpu")
@@ -260,3 +261,128 @@ def test_groupby_calls_match_the_launch_count_chip_smoke_expects(
                 execute(plan, env, tables, mode=mode, optimize=opt)
                 assert len(calls) == cs.segsum_launches_expected(
                     pplan, mode) > 0, (plan, opt, mode)
+
+
+# ---------------------------------------------------------------------- #
+# The kernel's two routes: the groupby states that its ids are sorted
+# ---------------------------------------------------------------------- #
+def test_route_follows_the_callers_word():
+    from repro_torch.kernels.segmented_reduce.cuda import ROUTES, route_for
+    assert route_for(True) == "sorted" and route_for(False) == "atomic"
+    assert set(ROUTES) == set(segmented_sum_cuda.route_launches)
+
+
+@pytest.mark.parametrize("n,segs,cols", [(64, 5, 1), (500, 37, 3),
+                                         (1024, 512, 2), (300, 1, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_plain_version_ignores_sorted_ids(n, segs, cols, dtype):
+    # on the CPU the flag changes nothing: both words give the plain
+    # version's sums, bit for bit, and those match the JAX package's
+    rng = np.random.default_rng(n + segs + cols)
+    seg = np.sort(rng.integers(0, segs, n)).astype(np.int32)
+    vals = (rng.random((n, cols)) if dtype == "float32"
+            else rng.integers(-50, 50, (n, cols))).astype(dtype)
+    t_seg, t_vals = torch.as_tensor(seg[None]), torch.as_tensor(vals[None])
+    got = segmented_sum(t_seg, t_vals, segs, sorted_ids=True)
+    assert torch.equal(got, segmented_sum(t_seg, t_vals, segs))
+    assert torch.equal(got, segmented_sum_ref(t_seg, t_vals, segs,
+                                              sorted_ids=True))
+    _check(got[0], np.asarray(jax_segmented_sum(jnp.asarray(seg),
+                                                jnp.asarray(vals), segs)),
+           dtype == "int32")
+
+
+def _sorted_spy(monkeypatch):
+    """Wraps ``ops_local.segmented_sum``; returns the list of (ids, kw) of
+    every call."""
+    from repro_torch.dataframe import ops_local
+    seen = []
+    real = ops_local.segmented_sum
+
+    def spy(seg, vals, s, **kw):
+        seen.append((seg.clone(), s, kw))
+        return real(seg, vals, s, **kw)
+    monkeypatch.setattr(ops_local, "segmented_sum", spy)
+    return seen
+
+
+def _assert_sorted_calls(seen, want_calls):
+    assert len(seen) == want_calls > 0
+    for seg, s, kw in seen:
+        assert kw == {"sorted_ids": True}
+        assert seg.dtype == torch.int32
+        # non-decreasing within each rank: the sorted route's contract
+        assert bool((seg[:, 1:] >= seg[:, :-1]).all())
+        assert int(seg.min()) >= 0 and int(seg.max()) <= s - 1
+
+
+def test_groupby_plans_hand_the_kernel_sorted_ids(monkeypatch):
+    # every sum, count and size of the chip_smoke plans, in every mode,
+    # optimized or not, goes to the sorted route with sorted ids
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    from repro_torch.planner import compile_plan
+    cs = _chip_smoke()
+    seen = _sorted_spy(monkeypatch)
+    env = CylonEnv(4, device="cpu")
+    cap = 2 * cs.capacity_for(600, 4)
+    tables = {n: DistTable.from_numpy(cs.make_table_data(600, seed), 4,
+                                      capacity=cap, device="cpu")
+              for n, seed in (("l", 0), ("r", 1))}
+    plans = [cs.fig9_plan(Plan, cap), cs.fig9_with_plan(Plan, cap),
+             Plan.scan("l").groupby(["k"], {"v0": ["sum", "mean", "size",
+                                                   "max"]},
+                                    pre_aggregate=True)]
+    for plan in plans:
+        for opt in (True, False):
+            pplan = compile_plan(plan, tables, opt)
+            for mode in ("bsp", "bsp_staged", "amt"):
+                seen.clear()
+                execute(plan, env, tables, mode=mode, optimize=opt)
+                _assert_sorted_calls(seen, cs.segsum_launches_expected(
+                    pplan, mode))
+
+
+def _groupby_table(keys, vals, counts, key_mask=None):
+    from repro_torch.dataframe import Table
+    from repro_torch.nulls import mask_name
+    cols = {"k": torch.as_tensor(keys), "v": torch.as_tensor(vals)}
+    if key_mask is not None:
+        cols[mask_name("k")] = torch.as_tensor(key_mask)
+    return Table(cols, torch.as_tensor(counts, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case", ["null-keys", "full-capacity",
+                                  "empty-rank"])
+def test_groupby_local_ids_are_sorted(monkeypatch, case):
+    # a null-keyed table (its null rows dropped first), a table filled to
+    # capacity with one group per row (the last id is cap - 1, the padding
+    # id) and ranks with no rows: the kernel still gets sorted ids, and the
+    # sums match numpy
+    from repro_torch.dataframe import groupby_local
+    rng = np.random.default_rng(len(case))
+    p, cap = 3, 40
+    if case == "full-capacity":
+        keys = np.stack([rng.permutation(cap) for _ in range(p)])
+        counts = [cap] * p
+        mask = None
+    else:
+        keys = rng.integers(0, 9, (p, cap))
+        counts = [cap, 17, 0] if case == "empty-rank" else [cap, 25, 31]
+        mask = rng.random((p, cap)) > 0.3 if case == "null-keys" else None
+    keys = keys.astype(np.int32)
+    vals = rng.integers(-20, 20, (p, cap)).astype(np.int32)
+    seen = _sorted_spy(monkeypatch)
+    out = groupby_local(_groupby_table(keys, vals, counts, mask), ["k"],
+                        {"v": ["sum", "count", "size", "max"]})
+    _assert_sorted_calls(seen, 3)
+    for r in range(p):
+        valid = np.arange(cap) < counts[r]
+        if mask is not None:
+            valid &= mask[r]
+        want = {}
+        for k, v in zip(keys[r][valid], vals[r][valid]):
+            want[k] = want.get(k, 0) + int(v)
+        g = int(out.row_count[r])
+        got = dict(zip(out.columns["k"][r, :g].tolist(),
+                       out.columns["v_sum"][r, :g].tolist()))
+        assert got == want
