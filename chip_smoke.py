@@ -27,7 +27,8 @@ ends the run with a non-zero exit code if it fails:
    sorted bucketize (stable sort, ``searchsorted``, ``scatter_add_``); the
    SSD scan's three kernels (chunk state, state pass, chunk scan) are also
    timed one by one under ``torch.profiler`` at the mamba2-780m prefill's
-   shape,
+   shape, and it is also held and timed at the mamba2-780m train step's
+   shape (BH 384, T 1,024),
    and its strong-decay case is also held to the float64 recurrence; the
    radix kernel and the segmented sum are also held and timed on skewed
    traffic (one bucket, one segment with 99% of the rows);
@@ -145,10 +146,35 @@ ends the run with a non-zero exit code if it fails:
    rows over 8 ranks with each communicator (``xla``, ``ring``,
    ``bruck``): bit-identical to ``xla``, stage keys distinct, each run's
    wall and its data all-to-alls' device time.
+12. training (ROADMAP item 13.1; after serving parity): the §IV-C
+   preprocessing application (``repro_torch.data.preprocess``: dedup by a
+   groupby ``min`` joined back, the quality filter, the weights join, a
+   balancing repartition at ``capacity_factor`` 4) over 2**17 documents of
+   1,024 tokens on a gang of 8 stacked ranks, ``put`` into a
+   ``CylonStore`` and ``get`` at 4 ranks, held to
+   ``tests/md_scripts/data_pipeline.py``'s numpy oracle (no drop, payloads
+   and weights intact, ranks within 2x of the mean), its radix launches
+   derived from the dataframe operators the application ran (a groupby
+   shuffles once, a join both sides, a repartition once: 6); then mamba2-780m at full width and depth in
+   float32 trained on batches of 8 x 1,024 tokens from that table (AdamW
+   as ``repro.launch.train`` sets it, remat on, CE chunk 64): one warm-up
+   and 4 timed steps, finite losses and gradient norms, parameters
+   changed, the SSD kernel's forward launches (96: every layer's forward
+   and its recomputation) and the plain backward passes (48) counted per
+   step; step time, tokens/s, peak memory, and one step profiled (busy
+   share, top operators, the SSD backward's device time); the SMOKE
+   configs trained 3 steps on the card and on the CPU from one state
+   (losses and gradient norms within 1e-3), a checkpoint resumed bit for
+   bit on the card; the SSD scan's autograd path at the training shape
+   (BH 384, T 1,024, P 64, N 128): the kernel's y and final state held to
+   ``ssd_scan_chunked`` within 3e-3, and the Function's gradients to the
+   plain version's (its backward is the plain version recomputed, so this
+   checks the Function's wiring, not the kernel's accuracy), its forward
+   and backward timed.
 
-The last lines are the query-serving JSON line, the card's ``nvidia-smi``
-name and power limit, one JSON object describing each kernel, and
-``{"ok": true, "device": ...}``.
+The last lines are the training JSON line, the query-serving JSON line,
+the card's ``nvidia-smi`` name and power limit, one JSON object
+describing each kernel, and ``{"ok": true, "device": ...}``.
 """
 
 import json
@@ -1078,7 +1104,7 @@ def report_profile(prof, wall_ms, title, top=10):
     if not busy:
         print(f"profile {title}: the profiler recorded no device time; "
               f"device busy share not measured", flush=True)
-        return
+        return None
     print(f"profile {title}: wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%, idle "
           f"{100 - 100 * busy / wall_ms:.1f}%), {sum(e.count for e in kernels)}"
@@ -1088,6 +1114,7 @@ def report_profile(prof, wall_ms, title, top=10):
         for e in sorted(rows, key=dev_ms, reverse=True)[:top]:
             print(f"  {dev_ms(e):9.2f} ms {100 * dev_ms(e) / busy:5.1f}% "
                   f"{e.count:5d}x  {e.key[:100]}")
+    return busy
 
 
 def profile_serve(torch, engine, prompts, arch, steps=8, top=8):
@@ -2785,7 +2812,9 @@ def ssd_phase(torch, flush):
              ("short", 48, 13, 64, 128, 128, None),      # T < chunk, off 8
              ("smoke", 8, 100, 16, 16, 32, None),        # the SMOKE dims
              ("chunk32", 192, 4096, 64, 128, 32, None),  # 128 chunks deep
-             ("decay", 192, 4096, 64, 128, 128, -8.0)]   # exp(total) -> 0
+             ("decay", 192, 4096, 64, 128, 128, -8.0),   # exp(total) -> 0
+             # the mamba2-780m train step: B 8 x 48 heads, 1,024 tokens
+             ("train", TRAIN_BATCH * 48, TRAIN_SEQ, 64, 128, 128, None)]
     out = []
     for name, bh, t, p, n, chunk, a_fix in cases:
         x = torch.randn(bh, t, p, generator=gen, device=dev)
@@ -3634,6 +3663,373 @@ def communicator_fig9(torch, rows, device):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# Training fed by the §IV-C pipeline (mamba2-780m at full width)
+# ---------------------------------------------------------------------- #
+#: the preprocessing application's corpus: 2**17 documents of 1,024 tokens
+TRAIN_CORPUS = dict(num_docs=1 << 17, payload_tokens=1024, vocab_size=50280,
+                    dup_rate=0.3, num_sources=8, seed=0)
+#: batch, sequence, timed steps (after one warm-up step), CE chunk
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CE_CHUNK = 8, 1024, 4, 64
+#: radix launches of each dataframe operator of the preprocessing
+#: application (``data/pipeline.py``): a groupby shuffles its input on the
+#: keys, a join both of its sides, a balanced repartition its input once;
+#: the store's host-staged re-split launches no kernel
+RADIX_PER_OPERATOR = {"groupby": 1, "join": 2, "repartition_balanced": 1}
+#: the aggregations that ``groupby_local`` sums with the segmented sum
+SEGSUM_AGGS = ("sum", "count", "size", "mean")
+
+
+def pipeline_oracle(raw, weights):
+    """``tests/md_scripts/data_pipeline.py``'s numpy oracle: the kept
+    doc ids (the minimum id of each dup group, quality >= 0.2), sorted,
+    and each source's weight."""
+    _, first = np.unique(raw["dup_group"], return_index=True)
+    min_id = np.full(raw["dup_group"].max() + 1, -1, np.int64)
+    min_id[raw["dup_group"][first]] = raw["doc_id"][first]
+    keep = (min_id[raw["dup_group"]] == raw["doc_id"]) & \
+        (raw["quality"] >= 0.2)
+    return np.sort(raw["doc_id"][keep]), dict(zip(
+        weights["source"].tolist(), weights["weight"].tolist()))
+
+
+def check_pipeline_result(res, raw, ids, wmap, counts, label):
+    """The preprocessed rows against the oracle: ids, payloads, weights,
+    balance, no drop."""
+    check(np.array_equal(np.sort(res["doc_id"]), ids),
+          f"{label}: kept doc ids differ from the numpy oracle")
+    check(int(counts.sum()) == len(ids), f"{label}: {int(counts.sum())} "
+          f"rows, want {len(ids)} (rows dropped)")
+    check(np.array_equal(res["tokens"], raw["tokens"][res["doc_id"]]),
+          f"{label}: a document's token payload changed")
+    want_w = np.asarray([wmap[s] for s in res["source"].tolist()],
+                        np.float32)
+    check(np.array_equal(res["weight"], want_w), f"{label}: wrong weights")
+    check(counts.max() <= 2.0 * max(counts.mean(), 1),
+          f"{label}: ranks unbalanced {counts.tolist()}")
+
+
+def train_pipeline(torch, smi):
+    """The §IV-C preprocessing application on a gang of ``P`` stacked
+    ranks on the card, ``put`` into a ``CylonStore`` and ``get`` at 4
+    ranks; returns the training table and the phase's record."""
+    from types import SimpleNamespace
+    from repro_torch.core import CylonExecutor, CylonStore
+    from repro_torch.data import (CorpusConfig, preprocess, source_weights,
+                                  synth_corpus)
+    from repro_torch.dataframe.shuffle import default_bucket_capacity
+    dev = torch.device("cuda")
+    cfg = CorpusConfig(**TRAIN_CORPUS)
+    t = time.perf_counter()
+    docs = synth_corpus(cfg, P, device=dev)
+    weights = source_weights(cfg.num_sources, P, device=dev)
+    made_s = time.perf_counter() - t
+    cap = docs.capacity
+    slots = P * P * min(default_bucket_capacity(cap, P, 4.0), cap)
+    row_bytes = 4 * (cfg.payload_tokens + 7)    # + 7 one-word columns
+    print(f"train pipeline: {cfg.num_docs} documents x {cfg.payload_tokens} "
+          f"tokens on {P} ranks (capacity {cap}), made in {made_s:.2f} s; "
+          f"the balancing shuffle's buffers: {slots} slots x {row_bytes} B "
+          f"= {slots * row_bytes / 2**30:.2f} GiB each way", flush=True)
+    gang = CylonExecutor(parallelism=P, device=dev)
+    store = CylonStore()
+    # the operators the application runs, each call with its arguments:
+    # the kernels' launches are derived from them
+    ops, outs = [], []
+
+    def note(op):
+        return lambda *a, **kw: ops.append((op, kw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    recording(SimpleNamespace(synchronize=torch.cuda.synchronize),
+              lambda: outs.append(preprocess(gang, docs, weights,
+                                             store=store)),
+              [("repro_torch.data.pipeline", op, note(op))
+               for op in RADIX_PER_OPERATOR])
+    wall = time.perf_counter() - t
+    out, = outs
+    counts = launch_counts()
+    want = {"radix_partition": sum(RADIX_PER_OPERATOR[op] for op, _ in ops),
+            "sum_aggs": [a for op, kw in ops if op == "groupby"
+                         for aggs in kw["aggs"].values() for a in aggs
+                         if a in SEGSUM_AGGS]}
+    # the derivation of segmented-sum launches covers groupbys without a
+    # summed aggregate (the dedup takes a min): none is expected
+    check(not want["sum_aggs"], f"train pipeline: groupby aggregates "
+          f"{want['sum_aggs']} need a segmented-sum derivation")
+    check(counts["radix_partition"] == want["radix_partition"]
+          and counts["segmented_sum"] == 0,
+          f"train pipeline: launches {counts}, derived "
+          f"{want['radix_partition']} radix from {[op for op, _ in ops]} "
+          f"and 0 segmented-sum")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    raw, wts = docs.to_numpy(), weights.to_numpy()
+    ids, wmap = pipeline_oracle(raw, wts)
+    check_pipeline_result(out.to_numpy(), raw, ids, wmap,
+                          out.row_counts.cpu().numpy(), "train pipeline")
+    t = time.perf_counter()
+    got = store.get("train_corpus", target_parallelism=4)
+    handoff = time.perf_counter() - t
+    check_pipeline_result(got.to_numpy(), raw, ids, wmap,
+                          got.row_counts.cpu().numpy(),
+                          "train pipeline hand-off")
+    rec = dict(wall_s=wall, handoff_s=handoff, rows_in=cfg.num_docs,
+               rows_out=int(len(ids)), peak_gib=peak, launches=counts,
+               operators=[op for op, _ in ops],
+               derived_radix=want["radix_partition"],
+               rows_per_rank=out.row_counts.cpu().tolist())
+    print(f"train pipeline: preprocess {wall:.3f} s ({len(ids)} of "
+          f"{cfg.num_docs} documents kept, rows per rank "
+          f"{rec['rows_per_rank']}, 0 dropped), CylonStore hand-off to 4 "
+          f"ranks {handoff:.3f} s, peak device memory {peak:.2f} GiB, "
+          f"launches {counts} (radix derived {want['radix_partition']} "
+          f"from {rec['operators']}) [{smi}]", flush=True)
+    store.delete("train_corpus")
+    del docs, weights, out, raw
+    return got, rec
+
+
+def ssd_train_counts(cfg):
+    """SSD kernel forward launches and plain backward passes of one train
+    step with remat: one forward per layer and again in each layer's
+    recomputation; one backward per layer."""
+    return 2 * cfg.num_layers, cfg.num_layers
+
+
+def train_phase(torch, smi, arch="mamba2-780m", seed=0):
+    """mamba2-780m at full width and depth in float32 on the card, fed by
+    ``train_pipeline``: one warm-up step and ``TRAIN_STEPS`` timed steps,
+    then one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import batches_from_table
+    from repro_torch.kernels import ssd_scan_backward
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    dev = torch.device("cuda")
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    table, pipe = train_pipeline(torch, smi)
+    batches = batches_from_table(table, batch, seq, seed=seed)
+    first = next(batches)                 # copies the table to the host
+    del table
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = init_train_state(cfg, gen, torch.float32, dev)
+    n_params = sum(t.numel() for t in state["params"].values())
+    steps = TRAIN_STEPS + 1
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=max(steps // 10, 1),
+                          total_steps=steps)
+    step_fn = make_train_step(cfg, opt_cfg, "auto", True, TRAIN_CE_CHUNK)
+    probe = {n: state["params"][n].clone()
+             for n in ("embed", "blocks.0.mixer.w_in",
+                       f"blocks.{cfg.num_layers - 1}.mixer.a_log")}
+    fwd, bwd = ssd_train_counts(cfg)
+    recs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        reset_counts()
+        b0 = ssd_scan_backward.launches
+        t = time.perf_counter()
+        state, m = step_fn(state, first if i == 0 else next(batches))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        wall = time.perf_counter() - t
+        got = (launch_counts()["ssd_scan"], ssd_scan_backward.launches - b0)
+        check(got == (fwd, bwd), f"train step {i}: SSD forward launches and "
+              f"backward passes {got}, derived {(fwd, bwd)}")
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"train step {i}: loss {loss}, grad norm {gnorm}")
+        recs.append(dict(step_s=wall, loss=loss, grad_norm=gnorm,
+                         lr=float(m["lr"]), ssd=got))
+        print(f"train {cfg.name} step {i}{' (warm-up)' if i == 0 else ''}: "
+              f"{wall:.3f} s, loss {loss:.4f}, grad norm {gnorm:.3f}, lr "
+              f"{recs[-1]['lr']:.2e}; ssd_scan forward launches {got[0]}, "
+              f"backward passes {got[1]} [{smi}]", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for n, before in probe.items():
+        check(not torch.equal(before, state["params"][n]),
+              f"train: parameter {n} did not change")
+    timed = [r["step_s"] for r in recs[1:]]
+    step_s = float(np.median(timed))
+    tokens = batch * seq
+    rec = dict(arch=cfg.name, params=n_params, batch=batch, seq=seq,
+               step_s=step_s, steps_s=timed, tokens_per_s=tokens / step_s,
+               peak_gib=peak, warmup_step_s=recs[0]["step_s"],
+               losses=[r["loss"] for r in recs],
+               grad_norms=[r["grad_norm"] for r in recs],
+               # as read in each timed step, beside their derivation
+               ssd_launches_per_step={
+                   "forward": [r["ssd"][0] for r in recs[1:]],
+                   "backward": [r["ssd"][1] for r in recs[1:]],
+                   "derived": {"forward": fwd, "backward": bwd}},
+               pipeline=pipe)
+    # one more step under the profiler: busy share, top operators and the
+    # device time under the SSD scan's backward (the recomputation)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step_fn(state, next(batches))
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t) * 1e3
+    busy = report_profile(prof, wall_ms, f"train {arch} step", top=12)
+    back = max(((getattr(e, "device_time_total", 0)
+                 or getattr(e, "cuda_time_total", 0)) / 1e3
+                for e in prof.key_averages()
+                if e.key.endswith("SsdScanKernelBackward")), default=0)
+    rec.update(profiled_wall_ms=wall_ms, busy_ms=busy,
+               busy_share=busy / wall_ms if busy else None,
+               ssd_backward_ms=back or None,
+               ssd_backward_share=back / busy if busy and back else None)
+    share = rec["ssd_backward_share"]
+    print(f"train {cfg.name}: {n_params / 1e9:.3f} B float32 parameters, "
+          f"batch {batch} x {seq}: step {step_s:.3f} s (median of "
+          f"{len(timed)}: {', '.join(f'{s:.3f}' for s in timed)}), "
+          f"{tokens / step_s:.0f} tokens/s, peak device memory "
+          f"{peak:.2f} GiB; profiled step: busy "
+          + (f"{100 * rec['busy_share']:.1f}%" if rec["busy_share"]
+             else "not measured")
+          + ", SSD backward recomputation "
+          + (f"{rec['ssd_backward_ms']:.1f} ms ({100 * share:.1f}% of "
+             f"device time)" if share else "not measured")
+          + f" [{smi}]", flush=True)
+    del state, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_parity_phase(torch, steps=3, seed=3):
+    """The SMOKE configs from one state on the card and on the CPU: three
+    steps with the kernels on the card and the plain versions on the CPU,
+    losses and gradient norms within 1e-3 relative; then, on the card, a
+    save by ``AsyncCheckpointer`` after step 2, ``restore`` and step 3
+    equal to the uninterrupted step 3 bit for bit."""
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train import (AdamWConfig, AsyncCheckpointer,
+                                   init_train_state, make_train_step,
+                                   restore)
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev, copy=True)
+
+    for arch, _, _, _ in SERVE_CASES:
+        cfg = get_smoke_config(arch)
+        base = init_train_state(cfg, torch.Generator().manual_seed(seed),
+                                torch.float32, "cpu")
+        rng = np.random.default_rng(seed)
+        batches = []
+        for _ in range(steps):
+            toks = rng.integers(0, cfg.vocab_size, (2, 161)).astype(np.int32)
+            batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        ocfg = AdamWConfig(warmup_steps=1, total_steps=steps)
+        metrics, states = {}, {}
+        for device in ("cuda", "cpu"):
+            impl = "chunked" if device == "cpu" else "auto"
+            step = make_train_step(cfg, ocfg, impl, True, 32)
+            state, ms = to(base, device), []
+            for i, b in enumerate(batches):
+                if i == steps - 1:
+                    states[device] = (state, step)
+                state, m = step(state, b)
+                ms.append((float(m["loss"]), float(m["grad_norm"])))
+            metrics[device] = np.asarray(ms)
+            states[device] += (state,)
+        a, b = metrics["cuda"], metrics["cpu"]
+        err = float(np.max(np.abs(a - b) / np.abs(b)))
+        check(err <= 1e-3, f"train parity {arch}: card {a.tolist()} vs cpu "
+              f"{b.tolist()}")
+        before, step, after = states["cuda"]
+        with tempfile.TemporaryDirectory() as d:
+            ck = AsyncCheckpointer()
+            ck.save(os.path.join(d, "ckpt_2"), before, 2)
+            ck.wait()
+            resumed, _ = step(restore(os.path.join(d, "ckpt_2"), before),
+                              batches[-1])
+        same = all(torch.equal(resumed["params"][n], t)
+                   for n, t in after["params"].items()) and all(
+            torch.equal(resumed["opt"][k][n], t)
+            for k in ("m", "v") for n, t in after["opt"][k].items())
+        check(same, f"train parity {arch}: the resumed step 3 differs from "
+              f"the uninterrupted one")
+        print(f"train parity {arch} smoke, {steps} steps: card == cpu "
+              f"(loss and grad norm max rel err {err:.2e}); checkpoint "
+              f"after step 2, restore, step 3 == uninterrupted, bit for bit "
+              f"on the card", flush=True)
+
+
+def ssd_grad_phase(torch, flush, bh=TRAIN_BATCH * 48, t=TRAIN_SEQ, p=64,
+                   n=128, chunk=128):
+    """The SSD scan's autograd path at the training shape: the kernel's
+    forward (y and the final state) against ``ssd_scan_chunked`` within
+    3e-3; the Function's gradients against autograd through the plain
+    version (its backward is that recomputation, so this checks the
+    Function's wiring, not the kernel's accuracy); the kernel's forward,
+    the plain forward and the backward timed."""
+    from repro_torch.kernels import (ssd_scan, ssd_scan_backward,
+                                     ssd_scan_chunked)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    args = [torch.randn(bh, t, p, generator=gen, device=dev),
+            torch.rand(bh, t, 1, generator=gen, device=dev) * 0.1 + 0.01,
+            -torch.rand(bh, 1, generator=gen, device=dev) - 0.05,
+            torch.randn(bh, t, n, generator=gen, device=dev),
+            torch.randn(bh, t, n, generator=gen, device=dev)]
+    gy = torch.randn(bh, t, p, generator=gen, device=dev)
+    outs = {}
+    for name, fn in (("kernel", ssd_scan), ("plain", ssd_scan_chunked)):
+        ins = [v.clone().requires_grad_(True) for v in args]
+        y, h = fn(*ins, chunk=chunk)
+        grads = torch.autograd.grad(y, ins, gy, retain_graph=True)
+        fwd_ms = time_cuda(torch, lambda: fn(*args, chunk=chunk), 5, flush)
+        bwd_ms = time_cuda(torch, lambda: torch.autograd.grad(
+            y, ins, gy, retain_graph=True), 3, flush)
+        outs[name] = (grads, fwd_ms, bwd_ms, (y.detach(), h.detach()))
+        del y, h
+    fwd_err = max(float((g - w).abs().max()) for g, w in
+                  zip(outs["kernel"][3], outs["plain"][3]))
+    check(bool(all(torch.isfinite(v).all() for v in outs["kernel"][3])),
+          "ssd_scan at the training shape: output not finite")
+    check(fwd_err <= 3e-3, f"ssd_scan CUDA != plain at the training shape: "
+          f"y / final state differ by {fwd_err} > 3e-3")
+    b0 = ssd_scan_backward.launches
+    ins = [v.clone().requires_grad_(True) for v in args]
+    torch.autograd.grad(ssd_scan(*ins, chunk=chunk)[0], ins, gy)
+    check(ssd_scan_backward.launches == b0 + 1,
+          "ssd_scan backward passes not counted")
+    err = max(float((g - w).abs().max()) for g, w in
+              zip(outs["kernel"][0], outs["plain"][0]))
+    names = ("x", "dt", "a", "b", "c")
+    scale = {k: float(w.abs().max()) for k, w in zip(names,
+                                                     outs["plain"][0])}
+    for k, g, w in zip(names, outs["kernel"][0], outs["plain"][0]):
+        # the kernel's tolerance, as torch.testing.assert_close reads it
+        check(bool(((g - w).abs() <= 3e-3 + 3e-3 * w.abs()).all()),
+              f"ssd_scan gradient of {k} differs from the plain version's "
+              f"by {float((g - w).abs().max())}")
+    rec = dict(shape=[bh, t, p, n, chunk], forward_max_abs_err=fwd_err,
+               grad_max_abs_err=err,
+               kernel_fwd_ms=outs["kernel"][1],
+               plain_fwd_ms=outs["plain"][1],
+               kernel_bwd_ms=outs["kernel"][2],
+               plain_bwd_ms=outs["plain"][2], grad_scale=scale)
+    print(f"ssd_scan autograd at the training shape bh={bh} t={t} p={p} "
+          f"n={n} chunk={chunk}: kernel forward (y, final state) within "
+          f"{fwd_err:.2e} of ssd_scan_chunked; the Function's gradients "
+          f"within {err:.2e} of the plain version's (the same "
+          f"recomputation: a check of the wiring; largest |grad| "
+          f"{max(scale.values()):.3g}); forward: kernel "
+          f"{rec['kernel_fwd_ms']:.3f} ms, plain {rec['plain_fwd_ms']:.3f} "
+          f"ms; backward (plain recomputation): {rec['kernel_bwd_ms']:.3f} "
+          f"ms through the Function, {rec['plain_bwd_ms']:.3f} ms through "
+          f"the plain version", flush=True)
+    return rec
+
+
 def build_all():
     """Build every kernel: one nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3765,6 +4161,14 @@ def main():
     phase_done("serve bf16")
     serve_parity_phase(torch)
     phase_done("serve parity")
+    train = train_phase(torch, smi)
+    phase_done("train")
+    train_parity_phase(torch)
+    phase_done("train parity")
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    ssd_autograd = ssd_grad_phase(torch, flush)
+    del flush
+    phase_done("ssd autograd")
 
     rp, ss = radix_partition_cuda, segmented_sum_cuda
     kernels = [
@@ -3798,6 +4202,11 @@ def main():
         kernel_record(ssd_scan_cuda, ssd_cases,
                       served["mamba2-780m"]["first"]["launches"]),
     ]
+    # the SSD scan also runs in every mamba2-780m train step (forward and
+    # remat recomputation; the counts read in each timed step); its
+    # gradient is the plain version's
+    kernels[-1]["launches_train_step"] = train["ssd_launches_per_step"]
+    kernels[-1]["train_shape"] = ssd_autograd
     print(json.dumps({"fig9_wall_s": walls}))
     print(json.dumps({"skew": skew}))
     print(json.dumps({"faults_wall_s": fault_walls}))
@@ -3812,6 +4221,7 @@ def main():
                                        for run, r in runs.items()}
                                 for arch, runs in served.items()},
                       "serve_bf16_prefill": {"qwen3-8b": served_bf16}}))
+    print(json.dumps({"train": train, "ssd_autograd": ssd_autograd}))
     print(json.dumps({"query_serving": serving}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,9 +5,10 @@ axis of every tensor on one device.  ``df`` is the lazy DataFrame
 frontend, over numeric and dictionary-encoded string columns.  The
 shuffle's bucketize and the groupby's sums run as hand-written Hopper
 kernels (``kernels.radix_partition``, ``kernels.segmented_reduce``).  The
-model stack
-serves the dense and SSM families (``models``, ``serve``,
-``launch.serve``) with hand-written flash-attention and SSD-scan kernels.
+model stack serves the dense and SSM families (``models``, ``serve``,
+``launch.serve``) with hand-written flash-attention and SSD-scan kernels,
+and trains them (``train``, ``launch.train``) on batches that the §IV-C
+preprocessing application (``data``) hands over through a ``CylonStore``.
 Entry points run on ``cuda`` unless the caller asks for the CPU.  This
 package imports neither ``jax`` nor ``repro``.
 """

@@ -1,9 +1,10 @@
-"""Architecture configs the port serves (one module per arch + smoke variants).
+"""Architecture configs the port serves and trains (one module per arch +
+smoke variants).
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` resolve the public arch
 ids as the JAX package does; each module's ``CONFIG`` and ``SMOKE`` are
-copied verbatim from it.  The port serves the ``dense`` and ``ssm``
-families so far: any other arch of the JAX package raises
+copied verbatim from it.  The port serves and trains the ``dense`` and
+``ssm`` families so far: any other arch of the JAX package raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
@@ -19,7 +20,7 @@ _MODULES: Dict[str, str] = {
     "mamba2-780m": "mamba2_780m",
 }
 
-#: archs of the JAX package that the port does not serve yet
+#: archs of the JAX package that the port does not serve or train yet
 _LATER = ("llama3.2-3b", "qwen3-32b", "gemma-7b", "deepseek-v2-lite-16b",
           "olmoe-1b-7b", "llava-next-34b", "jamba-v0.1-52b",
           "musicgen-large")
@@ -31,7 +32,7 @@ def _module(arch: str):
     if arch in _LATER:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 13: "
-            f"the port serves {ARCHS} so far)")
+            f"the port serves and trains {ARCHS} so far)")
     try:
         name = _MODULES[arch]
     except KeyError:

@@ -6,11 +6,13 @@ from .ops_local import (
     add_scalar,
     drop_null_keys,
     filter_expr,
+    filter_rows,
     groupby_local,
     hash_columns,
     hash_columns_np,
     join_local,
     join_overflow,
+    map_columns,
     recode,
     sort_local,
     with_columns,
@@ -24,9 +26,9 @@ from .sort import repartition_balanced, sort
 
 __all__ = [
     "Table", "concat_tables",
-    "add_scalar", "drop_null_keys", "filter_expr", "groupby_local",
-    "hash_columns", "hash_columns_np", "join_local", "join_overflow",
-    "recode", "sort_local", "with_columns",
+    "add_scalar", "drop_null_keys", "filter_expr", "filter_rows",
+    "groupby_local", "hash_columns", "hash_columns_np", "join_local",
+    "join_overflow", "map_columns", "recode", "sort_local", "with_columns",
     "ShuffleStats", "default_bucket_capacity", "replicate_hot_rows",
     "shuffle", "combine_groupby_partials", "finalize_groupby", "groupby",
     "groupby_partial", "groupby_salted", "join", "repartition_balanced",

@@ -17,7 +17,7 @@ ints and row counts stay on the device.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -160,6 +160,14 @@ def drop_null_keys(table: Table, keys: Sequence[str]) -> Table:
 # ---------------------------------------------------------------------- #
 # Filter / projection / elementwise
 # ---------------------------------------------------------------------- #
+def filter_rows(table: Table,
+                pred: Callable[[Table], torch.Tensor]) -> Table:
+    """Keep rows where ``pred(table)`` ((p, capacity) bool) holds; a
+    stable compaction, as the reference's argsort of ``where(keep, 0,
+    1)``."""
+    return _compact(table, pred(table))
+
+
 def filter_expr(table: Table, expr) -> Table:
     """Keep rows where the boolean ``repro_torch.expr`` expression holds
     (a null predicate keeps nothing, SQL ``WHERE``)."""
@@ -216,6 +224,15 @@ def add_scalar(table: Table, value, cols: Optional[Sequence[str]] = None
     for n in names:
         v = table.columns[n]
         out[n] = v + torch.as_tensor(value, dtype=v.dtype, device=v.device)
+    return Table(out, table.row_count)
+
+
+def map_columns(table: Table, fn: Callable[[torch.Tensor], torch.Tensor],
+                cols: Sequence[str]) -> Table:
+    """Replace each of ``cols`` by ``fn`` of it."""
+    out = dict(table.columns)
+    for n in cols:
+        out[n] = fn(table.columns[n])
     return Table(out, table.row_count)
 
 

@@ -57,13 +57,11 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-#: skew headroom of the default send bucket over the balanced share
-CAPACITY_FACTOR = 2.0
-
-
-def default_bucket_capacity(capacity: int, p: int) -> int:
-    """Per-destination bucket size: balanced share × skew headroom, 8-aligned."""
-    return max(8, _round_up(int(-(-capacity // p) * CAPACITY_FACTOR), 8))
+def default_bucket_capacity(capacity: int, p: int,
+                            factor: float = 2.0) -> int:
+    """Per-destination bucket size: balanced share × skew headroom
+    ``factor``, 8-aligned."""
+    return max(8, _round_up(int(-(-capacity // p) * factor), 8))
 
 
 #: column dtypes that travel in the packed 32-bit buffer
@@ -147,6 +145,8 @@ def shuffle(
     dest: Optional[torch.Tensor] = None,
     bucket_capacity: Optional[int] = None,
     out_capacity: Optional[int] = None,
+    capacity_factor: float = 2.0,
+    pack: bool = True,
     impl: str = "radix",
     a2a_chunks: int = 1,
     debug_overflow: bool = False,
@@ -154,7 +154,11 @@ def shuffle(
 ) -> Tuple[Table, ShuffleStats]:
     """Repartition rows across ranks by key hash or explicit ``dest``.
 
-    ``impl`` selects the sort-free ``"radix"`` path or the ``"sorted"``
+    Without ``bucket_capacity`` each destination bucket holds the balanced
+    share times ``capacity_factor``.  ``pack`` sends the 1-D 4-byte columns
+    as one packed 32-bit buffer (``pack=False``: one collective per
+    column); other columns, vector columns included, travel on their own
+    either way.  ``impl`` selects the sort-free ``"radix"`` path or the ``"sorted"``
     baseline; ``a2a_chunks`` splits the data collective into k pieces.
     Dropped rows are always counted in the stats.  ``debug_overflow``
     additionally warns, once per (``label``, rank) per query, naming the
@@ -165,7 +169,8 @@ def shuffle(
     p = comm.size()
     cap = table.capacity
     dev = table.device
-    bucket_cap = bucket_capacity or default_bucket_capacity(cap, p)
+    bucket_cap = bucket_capacity or default_bucket_capacity(
+        cap, p, capacity_factor)
     out_cap = out_capacity or cap
     # the output keeps the capacity the requested buckets give it
     out_size = min(p * bucket_cap, out_cap)
@@ -207,7 +212,7 @@ def shuffle(
     names = table.column_names
     dtypes = {n: table.columns[n].dtype for n in names}
     packables = [n for n in names if dtypes[n] in PACKABLE
-                 and table.columns[n].dim() == 2]
+                 and table.columns[n].dim() == 2] if pack else []
     singles = [n for n in names if n not in packables]
 
     def _send(col: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,11 @@ Where the JAX package runs ``p`` ranks as ``p`` devices under
 stacked on one device: every column is ``(p, capacity, ...)`` and
 ``row_count`` is ``(p,)`` int32.  Every local operator is written batched
 over that leading rank axis, so one launch covers all ranks.
+
+A column may carry trailing dims: a *vector column* is ``(p, capacity,
+W)`` (the training corpus's token payload is one), and every structural
+op below (``take``, ``mask_padding``, ``gather_rows`` / ``scatter_rows``,
+``concat_tables``) moves its rows whole.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..dtypes import signed_view
@@ -76,6 +82,61 @@ class Table:
     columns: Dict[str, torch.Tensor]
     row_count: torch.Tensor  # (p,) int32
 
+    # ------------------------------------------------------------------ #
+    # constructors
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def from_arrays(cls, data: Mapping[str, object],
+                    capacity: Optional[int] = None,
+                    row_count=None, device=None) -> "Table":
+        """Build a table from equal-length dense ``(p, n, ...)`` arrays
+        (numpy or tensors; the reference takes one rank's ``(n, ...)``),
+        padding axis 1 to ``capacity``.  ``row_count``: ``(p,)`` or one
+        count for every rank (default ``n``).  Numpy input lands on
+        ``device`` (None: the card); tensors stay where they are unless
+        ``device`` is given."""
+        for k, v in data.items():
+            if isinstance(v, np.ndarray) and v.dtype.kind in ("O", "U", "S"):
+                raise TypeError(
+                    f"column {k!r} holds strings; device Tables carry int32 "
+                    f"dictionary codes: encode driver-side with "
+                    f"dataframe.schema.encode_strings (or ingest through "
+                    f"DistTable.from_numpy / repro_torch.df)")
+        if device is not None or any(isinstance(v, np.ndarray)
+                                     for v in data.values()):
+            from ..core.env import resolve_device
+            device = resolve_device(device)
+        cols = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+        p, n = next(iter(cols.values())).shape[:2]
+        for k, v in cols.items():
+            if tuple(v.shape[:2]) != (p, n):
+                raise ValueError(
+                    f"column {k!r} shape {tuple(v.shape[:2])} != {(p, n)}")
+        capacity = capacity or n
+        if capacity < n:
+            raise ValueError(f"capacity {capacity} < rows {n}")
+        for k, v in cols.items():
+            if capacity > n:
+                pad = torch.zeros((p, capacity - n) + v.shape[2:],
+                                  dtype=v.dtype, device=v.device)
+                cols[k] = torch.cat([v, pad], dim=1)
+        dev = next(iter(cols.values())).device
+        rc = torch.as_tensor(n if row_count is None else row_count,
+                             dtype=torch.int32, device=dev)
+        return cls(cols, rc.expand(p).clone() if rc.dim() == 0 else rc)
+
+    @classmethod
+    def empty_like(cls, other: "Table", capacity: Optional[int] = None
+                   ) -> "Table":
+        """No rows, ``other``'s columns (and ranks) at ``capacity``."""
+        cap = capacity or other.capacity
+        p = other.parallelism
+        cols = {k: torch.zeros((p, cap) + v.shape[2:], dtype=v.dtype,
+                               device=v.device)
+                for k, v in other.columns.items()}
+        return cls(cols, torch.zeros((p,), dtype=torch.int32,
+                                     device=other.device))
+
     @property
     def parallelism(self) -> int:
         return self.row_count.shape[0]
@@ -98,11 +159,19 @@ class Table:
                            device=self.device)
         return idx[None, :] < self.row_count[:, None]
 
+    def col(self, name: str) -> torch.Tensor:
+        return self.columns[name]
+
     # ------------------------------------------------------------------ #
     # structural ops (no communication)
     # ------------------------------------------------------------------ #
     def select(self, names: Sequence[str]) -> "Table":
         return Table({n: self.columns[n] for n in names}, self.row_count)
+
+    def with_column(self, name: str, values: torch.Tensor) -> "Table":
+        cols = dict(self.columns)
+        cols[name] = values
+        return Table(cols, self.row_count)
 
     def rename(self, mapping: Mapping[str, str]) -> "Table":
         cols = {mapping.get(k, k): v for k, v in self.columns.items()}
@@ -126,6 +195,19 @@ class Table:
                                                       device=v.device)
                                   ).view(v.dtype)
         return Table(cols, self.row_count)
+
+    # ------------------------------------------------------------------ #
+    # host-side conversion
+    # ------------------------------------------------------------------ #
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """Each rank's valid rows, rank after rank (the reference's
+        ``to_numpy`` of one rank, concatenated over the stacked ranks)."""
+        counts = self.row_count.cpu().tolist()
+        out = {}
+        for k, v in self.columns.items():
+            a = v.cpu().numpy()
+            out[k] = np.concatenate([a[r, :n] for r, n in enumerate(counts)])
+        return out
 
 
 def concat_tables(tables: Sequence[Table], capacity: Optional[int] = None

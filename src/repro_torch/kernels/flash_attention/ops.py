@@ -36,6 +36,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"sees a key), got Sq={q.shape[2]}, "
                          f"Sk={k.shape[2]}")
     if q.is_cuda:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            # the kernel's output has no grad_fn: autograd would fail later
+            # with an error that names neither the kernel nor the gap
+            raise NotImplementedError(
+                "flash_attention has no backward on the card (ROADMAP item "
+                "13.1, still open): train with impl='dense' or 'chunked'; "
+                "impl='auto' picks flash above 2048 keys")
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal, scale)
     if q.device.type != "cpu":

@@ -14,6 +14,13 @@ algorithm written with batched einsums: the model's ``chunked`` path, the
 CPU path of ``ssd_scan`` and the kernel's plain version on the card.
 Both return ``(y, h_final)``; ``h_final`` (BH, N, P) is the state after
 the last step, the prefill -> decode hand-off.
+
+On the card ``ssd_scan`` is differentiable through ``SsdScanKernel``, a
+``torch.autograd.Function``: its forward is the kernel; its backward
+recomputes the same function with ``ssd_scan_chunked`` under autograd and
+returns the gradients of x, dt, a, b and c (the JAX package has only the
+forward kernel, and differentiates its plain version).
+``ssd_scan_backward.launches`` counts those backward passes.
 """
 
 from __future__ import annotations
@@ -23,8 +30,39 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..common import round_up
+from ..common import LaunchCounter, round_up
 from .cuda import ssd_scan_cuda
+
+#: counts ``SsdScanKernel``'s backward passes (plain PyTorch, no kernel)
+ssd_scan_backward = LaunchCounter()
+
+
+class SsdScanKernel(torch.autograd.Function):
+    """The SSD scan on the card with a gradient: the CUDA kernel forward,
+    a backward through ``ssd_scan_chunked``'s recomputation."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.chunk = chunk
+        return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        ssd_scan_backward._count()
+        need = ctx.needs_input_grad[:5]
+        if not any(need) or (gy is None and gh is None):
+            return (None,) * 6
+        ins = [v.detach().requires_grad_(n)
+               for v, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            outs = ssd_scan_chunked(*ins, chunk=ctx.chunk)
+        used = [(o, g) for o, g in zip(outs, (gy, gh)) if g is not None]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in used], [v for v in ins if v.requires_grad],
+            [g for _, g in used], allow_unused=True))
+        return tuple(next(got) if n else None for n in need) + (None,)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -37,8 +75,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError("ssd_scan needs at least one time step")
     ch = min(chunk, round_up(t, 8))
     if x.is_cuda:
-        return ssd_scan_cuda(*(v.contiguous() for v in (x, dt, a, b, c)),
-                             chunk=ch)
+        return SsdScanKernel.apply(
+            *(v.contiguous() for v in (x, dt, a, b, c)), ch)
     if x.device.type != "cpu":
         raise ValueError(f"ssd_scan runs on cuda or cpu, got {x.device}")
     return ssd_scan_chunked(x, dt, a, b, c, chunk=ch)

@@ -1,13 +1,15 @@
-"""Model stack of the port (ports ``repro/models`` for serving).
+"""Model stack of the port (ports ``repro/models`` for serving and
+training).
 
 ``config``      -- ModelConfig / MoEConfig / MLAConfig / SSMConfig + SHAPES
                    (a copy of the JAX package's)
-``layers``      -- RMSNorm, RoPE, gated MLP, initializers
+``layers``      -- RMSNorm, RoPE, gated MLP, initializers, cross-entropy
 ``attention``   -- GQA (+qk-norm), full-sequence (dense / chunked / flash)
                    and decode
 ``mamba2``      -- SSD mixer, full-sequence (chunked / kernel) and decode
-``transformer`` -- stack assembly, prefill / decode, weights carried
-                   across from the JAX package
+``transformer`` -- stack assembly, prefill / decode, the training
+                   forward and chunked CE loss, weights and train states
+                   carried across from the JAX package
 """
 
 from .config import MLAConfig, ModelConfig, MoEConfig, SHAPES, SSMConfig

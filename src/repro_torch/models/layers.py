@@ -95,3 +95,19 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         raise ValueError(act)
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------- #
+# Cross-entropy (float32 logits, optional z-loss)
+# ---------------------------------------------------------------------- #
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          z_loss: float = 1e-4) -> torch.Tensor:
+    """logits (..., V) any float dtype; labels (...) integer.  Mean over
+    all positions of ``lse - logit[label]`` (+ ``z_loss * lse**2``)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss.mean()

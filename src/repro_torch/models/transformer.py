@@ -1,5 +1,5 @@
-"""Decoder stack and its serving path for the ``dense`` and ``ssm`` families
-(ports the serving half of ``repro/models/transformer.py``).
+"""Decoder stack, its serving path and its training loss for the
+``dense`` and ``ssm`` families (ports ``repro/models/transformer.py``).
 
 The JAX package stacks the body's layer params along a leading
 ``(n_periods,)`` axis and runs them under ``lax.scan``; here each layer is
@@ -7,15 +7,20 @@ one ``Block`` (an ``nn.Module``) in a ``ModuleList``, run by a Python
 loop.  Caches are plain tensors, one dict per layer, that ``decode_step``
 updates in place: the counterpart of the JAX engine's donated buffers.
 ``params_from_numpy`` carries a JAX ``init_params`` tree (as numpy) into
-a ``Transformer``, unstacking the body.
+a ``Transformer``, unstacking the body; ``train_state_from_numpy`` carries
+a JAX train state (params and AdamW moments) the same way.
 
 Mapping to the reference: ``block_init`` / ``block_apply`` /
 ``block_decode`` are ``block_init`` / ``Block.forward`` /
-``Block.decode``; ``init_params``, ``embed_tokens``, ``forward`` (no
-remat: inference only), ``init_caches``, ``prefill``, ``decode_step`` and
-``_mask_pad_logits`` keep their names.  MoE, MLA and the VLM / audio
-frontends raise ``NotImplementedError`` (ROADMAP queue 1, item 13);
-training (``loss_fn``, ``chunked_ce_loss``) is not ported yet.
+``Block.decode``; ``init_params``, ``embed_tokens``, ``init_caches``,
+``prefill``, ``decode_step``, ``_mask_pad_logits``, ``chunked_ce_loss``
+and ``loss_fn`` keep their names.  ``forward`` is the inference forward
+(no autograd); ``forward_train`` is the reference's ``forward`` with
+autograd on and per-layer rematerialisation (``torch.utils.checkpoint``
+where the reference checkpoints its layer scan).  Parameters are
+trainable; the serving entry points run under ``torch.no_grad``.  MoE,
+MLA and the VLM / audio frontends raise ``NotImplementedError`` (ROADMAP
+queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.env import resolve_device
 from .attention import gqa_attention, gqa_decode, gqa_init
@@ -39,7 +45,7 @@ Cache = Dict[str, torch.Tensor]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not serve yet."""
+    """Raise for what the port does not serve or train yet."""
     later = [what for what, on in (("MoE", cfg.moe is not None),
                                    ("MLA", cfg.mla is not None),
                                    (f"the {cfg.family} frontend",
@@ -48,7 +54,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet (ROADMAP "
-            f"queue 1, item 13); the port serves the dense and ssm families")
+            f"queue 1, item 13); the port serves and trains the dense and "
+            f"ssm families")
 
 
 # ---------------------------------------------------------------------- #
@@ -68,7 +75,7 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 # ---------------------------------------------------------------------- #
@@ -265,6 +272,46 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     return Transformer(cfg, params)
 
 
+def named_params(model: Transformer) -> Dict[str, torch.Tensor]:
+    """The model's parameters by name (``blocks.3.mixer.w_in``), as plain
+    tensors that share their storage."""
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def model_from_named(cfg: ModelConfig,
+                     named: Dict[str, torch.Tensor]) -> Transformer:
+    """The ``Transformer`` whose parameters are the tensors of ``named``
+    (``named_params``' layout; storage shared, not copied)."""
+    tree: Dict[str, Any] = {"layers": [{} for _ in range(cfg.num_layers)]}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            tree[name] = t
+            continue
+        d = tree["layers"][int(parts[1])]
+        for k in parts[2:-1]:
+            d = d.setdefault(k, {})
+        d[parts[-1]] = t
+    return Transformer(cfg, tree)
+
+
+def train_state_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                           device=None) -> Dict[str, Any]:
+    """Load the JAX package's train state ``{"params", "opt": {"step",
+    "m", "v"}}`` (``repro.train.init_train_state``, leaves as numpy) on
+    ``device``: the params and both moments unstacked as
+    ``params_from_numpy`` unstacks them, by ``named_params``' names."""
+    opt = tree["opt"]
+    return {"params": named_params(params_from_numpy(tree["params"], cfg,
+                                                     device)),
+            "opt": {"step": torch.tensor(np.asarray(opt["step"]),
+                                         device=resolve_device(device)),
+                    "m": named_params(params_from_numpy(opt["m"], cfg,
+                                                        device)),
+                    "v": named_params(params_from_numpy(opt["v"], cfg,
+                                                        device))}}
+
+
 # ---------------------------------------------------------------------- #
 # Forward and serving
 # ---------------------------------------------------------------------- #
@@ -290,6 +337,23 @@ def forward(model: Transformer, tokens: torch.Tensor, impl: str = "auto",
         caches.append(cache)
     h = rmsnorm(model.final_norm, x, model.cfg.norm_eps)
     return (h, caches) if collect_cache else h
+
+
+def forward_train(model: Transformer, tokens: torch.Tensor,
+                  impl: str = "auto", remat: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward with autograd (the reference's ``forward``
+    without caches).  Returns (h (B, S, D), aux), aux the float32 MoE
+    load-balancing loss (0: the port has no MoE).  With ``remat`` each
+    layer's activations are recomputed in the backward pass from its
+    input, as the reference's ``jax.checkpoint`` over its layer scan."""
+    x, positions = embed_tokens(model, tokens)
+    for blk in model.blocks:
+        def run(x, blk=blk):
+            return blk(x, positions, impl)[0]
+        x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+    h = rmsnorm(model.final_norm, x, model.cfg.norm_eps)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def init_caches(cfg: ModelConfig, batch_size: int, cache_len: int,
@@ -336,3 +400,57 @@ def decode_step(model: Transformer, caches: List[Cache],
         x = blk.decode(x, cache, pos)
     h = rmsnorm(model.final_norm, x, model.cfg.norm_eps)[:, 0]
     return _logits(model, h)
+
+
+# ---------------------------------------------------------------------- #
+# Training loss: chunked cross-entropy
+# ---------------------------------------------------------------------- #
+def _ce_chunk(hs: torch.Tensor, ls: torch.Tensor, w: torch.Tensor,
+              cfg: ModelConfig, z_loss: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the token losses, count) over one chunk of positions; w is
+    the bfloat16 unembedding, contracted in h's dtype and read in
+    float32."""
+    logits = _mask_pad_logits((hs @ w.to(hs.dtype).T).float(), cfg)
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    valid = ls >= 0
+    ll = torch.gather(logits, -1, ls.clamp(min=0)[..., None].long())[..., 0]
+    tok_loss = lse - ll + z_loss * lse ** 2
+    return (torch.where(valid, tok_loss, 0.0).sum(),
+            valid.sum(dtype=torch.int32))
+
+
+def chunked_ce_loss(model: Transformer, h: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512,
+                    z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean CE (+ z-loss) over labels >= 0.  h: (B, S, D); labels (B, S).
+
+    The sequence is processed in chunks of ``chunk`` positions, each
+    rematerialised, so the full (B, S, V) logits are never resident.  As
+    the reference: the unembedding is rounded to bfloat16 before the
+    product, padded-vocab logits are -1e30, and the max that stabilises
+    the log-sum-exp carries no gradient."""
+    w = model.unembed().to(torch.bfloat16)
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.int32, device=h.device)
+    for s0 in range(0, s, chunk):
+        part, n = checkpoint(_ce_chunk, h[:, s0:s0 + chunk],
+                             labels[:, s0:s0 + chunk], w, model.cfg,
+                             z_loss, use_reentrant=False)
+        loss_sum = loss_sum + part
+        count = count + n
+    return loss_sum / torch.clamp(count, min=1).float()
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
+            impl: str = "auto", remat: bool = True, ce_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training loss = chunked CE + MoE aux; ``batch`` carries ``tokens``
+    and ``labels`` (B, S) on the model's device.  Returns (loss, {"ce",
+    "aux"})."""
+    h, aux = forward_train(model, batch["tokens"], impl, remat)
+    ce = chunked_ce_loss(model, h, batch["labels"], ce_chunk)
+    return ce + aux, {"ce": ce, "aux": aux}

@@ -468,7 +468,9 @@ def test_fig9_frontend_8_ranks_matches_jax(reference, mode):
 # ---------------------------------------------------------------------- #
 def test_repro_torch_df_imports_no_jax_or_repro():
     # import the frontend and run a string pipeline through it on the CPU
-    # (the planner imports some modules lazily), then look at sys.modules
+    # (the planner imports some modules lazily), import the training
+    # slice (data pipeline, train, the train driver, the loss), then look at
+    # sys.modules
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -482,6 +484,9 @@ def test_repro_torch_df_imports_no_jax_or_repro():
         "           .groupby('s').agg(v=['sum', 'count']).sort_values('s')\n"
         "           .to_numpy())\n"
         "assert list(out['s']) == ['a'], out\n"
+        "import repro_torch.data, repro_torch.train\n"
+        "import repro_torch.launch.train\n"
+        "from repro_torch.models.transformer import loss_fn\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -1378,3 +1378,130 @@ def test_wall_is_not_inflated_by_another_gangs_work(cuda):
     assert busy, "the other stream finished before the query did"
     assert other_s > 0.5
     assert h.stats["wall_s"] < other_s / 2, (h.stats["wall_s"], other_s)
+
+
+# ---------------------------------------------------------------------- #
+# The training slice: the SSD scan's gradient, a train step, the §IV-C
+# pipeline
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("bh,t,p,n,chunk", [(8, 1024, 64, 128, 128),
+                                            (6, 200, 16, 16, 32)])
+def test_ssd_autograd_function_equals_plain_gradient(cuda, bh, t, p, n,
+                                                     chunk):
+    # the Function's forward is the kernel (one launch): y and the final
+    # state within the kernel's 3e-3 of the plain version.  Its backward
+    # is the plain version recomputed (one backward pass), so the gradients
+    # check the Function's wiring: every input's within 3e-3
+    from repro_torch.kernels import (ssd_scan, ssd_scan_backward,
+                                     ssd_scan_chunked, ssd_scan_cuda)
+    args = _ssd_inputs(cuda, bh, t, p, n)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    gy = torch.randn(bh, t, p, generator=g, device=cuda)
+    grads, outs = [], []
+    for fn in (ssd_scan, ssd_scan_chunked):
+        ins = [v.clone().requires_grad_(True) for v in args]
+        f0, b0 = ssd_scan_cuda.launches, ssd_scan_backward.launches
+        y, h = fn(*ins, chunk=chunk)
+        (y * gy).sum().backward()
+        torch.cuda.synchronize()
+        kernel = fn is ssd_scan
+        assert ssd_scan_cuda.launches - f0 == int(kernel)
+        assert ssd_scan_backward.launches - b0 == int(kernel)
+        grads.append([v.grad for v in ins])
+        outs.append((y.detach(), h.detach()))
+    for got, want in zip(*outs):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, atol=3e-3, rtol=3e-3)
+    for got, want in zip(*grads):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, atol=3e-3, rtol=3e-3)
+
+
+def test_flash_attention_refuses_gradients_on_card(cuda):
+    # the kernel has no backward: a grad-enabled call raises at once, and a
+    # dense train step whose keys exceed 2048 (impl='auto' -> flash) says so
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention, flash_attention_cuda
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    q = torch.randn(1, 2, 64, 32, device=cuda, requires_grad=True)
+    before = flash_attention_cuda.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention(q, q, q)
+    with torch.no_grad():
+        assert flash_attention(q, q, q).shape == q.shape
+    assert flash_attention_cuda.launches == before + 1
+    cfg = get_smoke_config("qwen3-8b")
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             torch.float32, cuda)
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=1),
+                           "auto", True, 64)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2050))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13.1"):
+        step(state, {"tokens": toks[:, :-1].astype(np.int32),
+                     "labels": toks[:, 1:].astype(np.int32)})
+
+
+def test_mamba2_smoke_train_step_card_equals_cpu(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan_cuda
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    cfg = get_smoke_config("mamba2-780m")
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+    card = {"params": {k: v.to(cuda) for k, v in cpu["params"].items()},
+            "opt": {"step": cpu["opt"]["step"].to(cuda),
+                    "m": {k: v.to(cuda) for k, v in cpu["opt"]["m"].items()},
+                    "v": {k: v.to(cuda)
+                          for k, v in cpu["opt"]["v"].items()}}}
+    ocfg = AdamWConfig(warmup_steps=1, total_steps=3)
+    step_card = make_train_step(cfg, ocfg, "kernel", True, 16)
+    step_cpu = make_train_step(cfg, ocfg, "chunked", True, 16)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 97))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    before = ssd_scan_cuda.launches
+    card, m_card = step_card(card, batch)
+    torch.cuda.synchronize()
+    # 2 layers: the forward and the recomputation under remat
+    assert ssd_scan_cuda.launches - before == 2 * cfg.num_layers
+    cpu, m_cpu = step_cpu(cpu, batch)
+    for k in ("loss", "grad_norm"):
+        assert float(m_card[k]) == pytest.approx(float(m_cpu[k]), rel=1e-3)
+    for k, v in cpu["params"].items():
+        torch.testing.assert_close(card["params"][k].cpu(), v, atol=1e-4,
+                                   rtol=1e-3)
+
+
+def test_data_pipeline_card_equals_cpu(cuda):
+    from repro_torch.core import CylonExecutor, CylonStore
+    from repro_torch.data import (CorpusConfig, batches_from_table,
+                                  preprocess, source_weights, synth_corpus)
+    from repro_torch.kernels import radix_partition_cuda
+    cfg = CorpusConfig(num_docs=4096, payload_tokens=64, vocab_size=1000,
+                       dup_rate=0.4, seed=3)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        store = CylonStore()
+        gang = CylonExecutor(parallelism=8, device=dev)
+        before = radix_partition_cuda.launches
+        preprocess(gang, synth_corpus(cfg, 8, device=dev),
+                   source_weights(cfg.num_sources, 8, device=dev),
+                   store=store)
+        got = store.get("train_corpus", target_parallelism=4, device=dev)
+        if dev is cuda:
+            torch.cuda.synchronize()
+            # the dedup groupby, two shuffles per join, the repartition
+            assert radix_partition_cuda.launches - before == 6
+        batch = next(batches_from_table(got, 4, 32))
+        runs[str(dev)] = (store.get("train_corpus").to_reference(),
+                          got.to_reference(), batch)
+    (a_out, a_got, a_b), (b_out, b_got, b_b) = runs.values()
+    for (ca, na), (cb, nb) in ((a_out, b_out), (a_got, b_got)):
+        np.testing.assert_array_equal(na, nb)
+        assert sorted(ca) == sorted(cb)
+        for k in ca:
+            np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
+    for k in a_b:
+        np.testing.assert_array_equal(a_b[k], b_b[k])
