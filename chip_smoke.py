@@ -28,10 +28,16 @@ ends the run with a non-zero exit code if it fails:
    SSD scan's three kernels (chunk state, state pass, chunk scan) are also
    timed one by one under ``torch.profiler`` at the mamba2-780m prefill's
    shape, and it is also held and timed at the mamba2-780m train step's
-   shape (BH 384, T 1,024),
+   shape (BH 384, T 1,024) and at the jamba-v0.1-52b prefill's (BH 512,
+   state N 16),
    and its strong-decay case is also held to the float64 recurrence; the
    radix kernel and the segmented sum are also held and timed on skewed
-   traffic (one bucket, one segment with 99% of the rows);
+   traffic (one bucket, one segment with 99% of the rows); the radix
+   kernel also at the MoE dispatch's shapes (olmoe-1b-7b and
+   jamba-v0.1-52b prefill and decode, the shuffle dispatch's two shuffles
+   and local group), beside the reference's stable sort and
+   ``searchsorted``; flash attention also at the olmoe-1b-7b prefill's
+   shape (16 heads, no grouping), beside ``scaled_dot_product_attention``;
 3. Fig-9: the paper's pipeline (join -> groupby(sum) -> sort ->
    add_scalar) through ``execute`` at 2 x 2**25 rows over 8 ranks stacked
    on the card, in ``bsp``, ``bsp_staged`` and ``amt``, twice each, with
@@ -97,8 +103,8 @@ ends the run with a non-zero exit code if it fails:
    uint32 columns, card == CPU slot for slot;
 8. skew: the salted operators (``benchmarks/bench_skew.py``'s keys:
    uniform, Zipf(1.5), 99% one key; ``skew_parity.py``'s raw groupby +
-   sort and join) on 8 ranks, in-core at 2**24 rows and out-of-core at
-   2**25 rows (``morsel_rows`` 524,288, capacity_factor 2), adaptive on
+   sort and join) on 8 ranks, in-core and out-of-core at 2**24 rows
+   (``morsel_rows`` 262,144, capacity_factor 2), adaptive on
    and off, first and cached: held to numpy (join placement included), no
    drop with adaptive on, the kernels' launches, degrade attempts and
    morsels equal to their derivation from the plan and the data, rows
@@ -107,20 +113,32 @@ ends the run with a non-zero exit code if it fails:
    (2 x 2**25 rows, ``bsp`` and ``bsp_staged``) and each out-of-core site
    (2 x 2**23 rows), ``corrupt-capacity``, three ``random_plan`` seeds and
    a ``hang`` fenced by ``timeout=``;
-9. serving: qwen3-8b and mamba2-780m at full width (float32 weights from
-   a seeded generator, batch 4, prompt 4096, 32 new tokens, greedy)
-   through ``ServeEngine``, twice each; launch counts reset just before
-   each prefill and each decode step and read just after it (flash
-   attention once per qwen3-8b layer in prefill, the SSD scan once per
-   mamba2 layer, neither in decode); time to first token, decode time per
-   step, tokens per second and peak device memory;
+9. serving: qwen3-8b, mamba2-780m, olmoe-1b-7b and jamba-v0.1-52b (cut
+   to 8 of its 32 layers, one layout period) at full width (float32
+   weights from a seeded generator, batch 4, prompt 4096, 32 new tokens,
+   greedy) through ``ServeEngine``, twice each; launch counts reset just
+   before each prefill and each decode step and read just after it, each
+   equal to its derivation from the layers (flash attention once per
+   attention layer in prefill, the SSD scan once per mamba layer, neither
+   in decode; the radix kernel once per MoE layer in prefill and in every
+   decode step); time to first token, decode time per step, tokens per
+   second and peak device memory; a profiled prefill and 8 decode steps
+   per arch, with the MoE layers' device time (CUDA events) and their
+   dispatch ranks' (the radix kernel);
    then a qwen3-8b prefill at the same width with bfloat16 weights,
    twice: finite logits, first tokens in the vocab, 36 flash launches,
    all on the kernel's bf16 tensor-core (wgmma) route; time to first
    token;
-10. serving parity: both SMOKE configs with the same weights on the card
-   (kernels forced, prompts longer than a tile) and on the CPU (plain
-   versions): prefill logits within 1e-3, greedy tokens equal;
+10. serving parity: the four SMOKE configs with the same weights on the
+   card (kernels forced, prompts longer than a tile; jamba's at 2,100
+   tokens, past the flash threshold, with ``auto``) and on the CPU (plain
+   versions), launches as derived: prefill logits within 1e-3, greedy
+   tokens equal; then one olmoe-1b-7b MoE layer at full width on x (4,
+   4,096, 2,048) at capacity factor 8 through ``moe_apply_shuffle`` (the
+   dataframe shuffle over 8 stacked ranks, ``xla``) and through
+   ``moe_apply_grouped``: y within atol 2e-4 / rtol 1e-3 and aux within
+   1e-4 of each other, no row dropped (derived from the routing), 3 and 1
+   radix launches, both timed (median of 5) with their peak memory;
 11. query serving (run after the faults phase; ``benchmarks/
    bench_pipeline.py:383-472``): a ``DevicePool`` of 8 rank slots on the
    card, 4 gangs of 2 stacked ranks, each query gang on its worker's CUDA
@@ -162,7 +180,11 @@ ends the run with a non-zero exit code if it fails:
    changed, the SSD kernel's forward launches (96: every layer's forward
    and its recomputation) and the plain backward passes (48) counted per
    step; step time, tokens/s, peak memory, and one step profiled (busy
-   share, top operators, the SSD backward's device time); the SMOKE
+   share, top operators, the SSD backward's device time); then
+   olmoe-1b-7b at full width cut to 4 of 16 layers, trained the same way
+   on a second run of the pipeline (8 radix launches a step: the forward
+   and the recomputation of every MoE layer; the aux term printed; the
+   MoE layers' device time in the profiled step); the four SMOKE
    configs trained 3 steps on the card and on the CPU from one state
    (losses and gradient norms within 1e-3), a checkpoint resumed bit for
    bit on the card; the SSD scan's autograd path at the training shape
@@ -177,6 +199,7 @@ the card's ``nvidia-smi`` name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -188,7 +211,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULL_ROWS = 1 << 25      # rows per input table on the main path
 PARITY_ROWS = 1 << 16
-SKEW_ROWS = 1 << 25      # rows of each skewed table (skew phase)
+#: rows of each skewed table (skew phase): out-of-core at 2**25 until the
+#: script's run grew past half its time limit, in-core 2**24 at most
+SKEW_ROWS = 1 << 24
 HOT_KEY = 7              # the one-key table's hot key
 P = 8                    # ranks stacked on the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -196,11 +221,18 @@ F32_FLOPS = 67e12           # float32 outside the tensor cores, H100 SXM
 BF16_FLOPS = 989e12         # dense bf16 tensor cores, H100 SXM
 L2_BYTES = 50 * 1024 * 1024
 #: the serving phase's full-width cases: arch, batch, prompt, new tokens
-SERVE_CASES = (("qwen3-8b", 4, 4096, 32), ("mamba2-780m", 4, 4096, 32))
-#: the CUDA kernel each served arch's prefill must launch once per layer
-SERVE_KERNEL = {"qwen3-8b": "flash_attention", "mamba2-780m": "ssd_scan"}
-#: the impl that forces that kernel in the serving parity phase
-KERNEL_IMPL = {"qwen3-8b": "flash", "mamba2-780m": "kernel"}
+SERVE_CASES = (("qwen3-8b", 4, 4096, 32), ("mamba2-780m", 4, 4096, 32),
+               ("olmoe-1b-7b", 4, 4096, 32), ("jamba-v0.1-52b", 4, 4096, 32))
+#: layers kept of a served arch that does not fit the card whole:
+#: jamba-v0.1-52b's 49.3 B parameters (197 GB in float32) cut to one
+#: layout period, 8 of 32 layers (13.27 B, 49.4 GiB)
+SERVE_LAYERS = {"jamba-v0.1-52b": 8}
+#: the serving parity phase's impl and prompt per SMOKE config: the
+#: kernels forced (``flash`` / ``kernel``), or reached by a prompt past
+#: 2,048 keys where one ``impl`` serves both layer kinds (the hybrid)
+PARITY_CASES = {"qwen3-8b": ("flash", 160), "mamba2-780m": ("kernel", 160),
+                "olmoe-1b-7b": ("flash", 160),
+                "jamba-v0.1-52b": ("auto", 2100)}
 
 
 def check(cond, msg):
@@ -314,8 +346,23 @@ def sorted_bucketize(torch, dest, nb):
     return srt.indices, row_rank, counts
 
 
+#: the radix kernel's MoE dispatch shapes (case, p, n, nb): the
+#: olmoe-1b-7b prefill (4 rows of 4,096 tokens, top-8 of 64 experts) and
+#: decode step (one token a row), jamba-v0.1-52b's (top-2 of 16), and the
+#: shuffle dispatch at olmoe width over 8 stacked ranks
+#: (``moe_shuffle_phase``): its outbound shuffle, its return shuffle and
+#: its local group-by-expert (8 local experts and the padding bucket)
+MOE_RADIX_CASES = (("moe:olmoe-prefill", 4, 32_768, 64),
+                   ("moe:olmoe-decode", 4, 8, 64),
+                   ("moe:jamba-prefill", 4, 8_192, 16),
+                   ("moe:jamba-decode", 4, 2, 16),
+                   ("moe:shuffle-out", 8, 16_384, 9),
+                   ("moe:shuffle-back", 8, 131_072, 9),
+                   ("moe:local-group", 8, 131_072, 9))
+
+
 def radix_phase(torch, cap, flush, layouts=None, skewed=False,
-                recorded=None):
+                recorded=None, moe=False):
     """Radix kernel vs ``radix_partition_ref`` on the card, each case
     labelled with its route.  Without ``layouts``: the main path's shapes
     with uniform buckets, a wide case, a large bucket count (the threepass
@@ -325,15 +372,19 @@ def radix_phase(torch, cap, flush, layouts=None, skewed=False,
     ``skewed``: the salted shuffles' traffic, ``onepass`` at (8,
     4,194,304, 9) with 99% of every rank's rows in one bucket, so the
     in-bucket ranks reach about 4.15 M.  With ``recorded`` ([(case, dest,
-    nb)], the inputs a run handed the kernel), those cases alone.  The
-    main and skewed shapes are also timed through the shuffle's sorted
-    bucketize."""
+    nb)], the inputs a run handed the kernel), those cases alone.  With
+    ``moe``, ``MOE_RADIX_CASES`` with uniform experts.  The main, skewed
+    and MoE shapes are also timed through the shuffle's sorted bucketize
+    (for the MoE dispatch: the reference's stable ``argsort`` and
+    ``searchsorted``)."""
     from repro_torch.kernels import radix_partition_cuda, radix_partition_ref
     from repro_torch.kernels.radix_partition.cuda import route_for
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     if recorded is not None:
         cases = [(name, *dest.shape, nb, dest) for name, dest, nb in recorded]
+    elif moe:
+        cases = [(name, p, n, nb, None) for name, p, n, nb in MOE_RADIX_CASES]
     elif skewed:
         cases = [("skew:one-bucket", P, 4_194_304, P + 1, "hot")]
     elif layouts is None:
@@ -385,7 +436,8 @@ def radix_phase(torch, cap, flush, layouts=None, skewed=False,
                              3, flush)
         sorted_ms = (time_cuda(torch, lambda: sorted_bucketize(torch, dest,
                                                                nb), 5, flush)
-                     if name.startswith(("main:", "skew:")) else None)
+                     if name.startswith(("main:", "skew:", "moe:"))
+                     else None)
         # bytes the function must move: dest read once, ranks and the
         # histogram written once; it does no arithmetic worth counting
         nbytes = 4 * p * n * 2 + 4 * p * nb
@@ -1125,14 +1177,17 @@ def profile_serve(torch, engine, prompts, arch, steps=8, top=8):
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     tokens = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    spans = []
+    with moe_timed(torch, spans), profile(activities=acts) as prof:
         t = time.perf_counter()
         logits, caches = engine.prefill(tokens)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     report_profile(prof, wall_ms, f"{arch} prefill", top)
+    moe = {"prefill": moe_split(prof, spans)} if engine.cfg.moe else None
     s0 = tokens.shape[1]
-    with profile(activities=acts) as prof:
+    spans = []
+    with moe_timed(torch, spans), profile(activities=acts) as prof:
         t = time.perf_counter()
         for step in range(steps):
             tok = torch.argmax(logits, dim=-1)
@@ -1142,6 +1197,58 @@ def profile_serve(torch, engine, prompts, arch, steps=8, top=8):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     report_profile(prof, wall_ms, f"{arch} decode x{steps}", top)
+    if moe is None:
+        return None
+    moe[f"decode_x{steps}"] = moe_split(prof, spans)
+    for window, split in moe.items():
+        print(f"profile {arch} {window}: {split['moe_layer_calls']} MoE "
+              f"layer calls {split['moe_layer_ms']:.3f} ms on the device, "
+              f"their dispatch ranks (radix kernel) "
+              f"{split['dispatch_ms']:.3f} ms", flush=True)
+    return moe
+
+
+#: the radix-partition kernels' names in ``radix_partition.cu``
+RADIX_KERNELS = ("rp_onepass", "rp_count", "rp_scan", "rp_rank")
+
+
+@contextlib.contextmanager
+def moe_timed(torch, spans):
+    """While the block lasts, every MoE layer's forward (router, dispatch,
+    expert FFNs and combine) runs between two CUDA events, whose pair
+    lands in ``spans`` when the call returns.  (A recomputation under
+    remat returns no pair: torch's non-reentrant checkpoint stops it once
+    the tensors the backward needs are rebuilt.)"""
+    from repro_torch.models import transformer
+    real = transformer.moe_apply
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+    transformer.moe_apply = timed
+    try:
+        yield
+    finally:
+        transformer.moe_apply = real
+
+
+def moe_split(prof, spans):
+    """A profiled window's MoE layers: their time on the device (the CUDA
+    events of ``moe_timed``, summed; the caller has synchronized) and the
+    device time of their dispatch ranks (the radix kernels)."""
+    from torch.autograd import DeviceType
+    radix = sum((getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)) / 1e3
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(k in e.key for k in RADIX_KERNELS))
+    return {"moe_layer_ms": sum(a.elapsed_time(b) for a, b in spans),
+            "moe_layer_calls": len(spans), "dispatch_ms": radix}
 
 
 def parity_phase(devices=("cuda", "cpu")):
@@ -2290,11 +2397,12 @@ def skew_phase(torch, rows=SKEW_ROWS, device=None, morsel=None,
     rank, default ``rows / 8 / 8``, capacity_factor 2), adaptive on and
     off, first and cached (in-core a third, recorded run gives the rows
     each rank received; out-of-core the first run is recorded).  In-core
-    runs take the first ``in_core_rows`` rows (default ``rows / 2``): at
-    skew_parity.py's capacities every shuffle of a table whose capacity is
-    ``rows + 8192`` per rank stacks p × p × that many slots on the one
-    card, and at 2**25 rows the unsalted run's sort shuffle alone asked
-    for more than the 80 GB (a 16 GiB receive index on top of 66 GiB).  Each run
+    runs take the first ``in_core_rows`` rows (default all of them, at
+    most 2**24): at skew_parity.py's capacities every shuffle of a table
+    whose capacity is ``rows + 8192`` per rank stacks p × p × that many
+    slots on the one card, and at 2**25 rows the unsalted run's sort
+    shuffle alone asked for more than the 80 GB (a 16 GiB receive index
+    on top of 66 GiB).  Each run
     is held to numpy (``check_skew_result``), its kernel launches to
     their derivation, adaptive on drops no row, and on uniform keys the
     default salts nothing, builds no stage ``adaptive=False`` does not
@@ -2306,13 +2414,13 @@ def skew_phase(torch, rows=SKEW_ROWS, device=None, morsel=None,
     build = {"k": np.arange(64, dtype=np.int32),
              "w": rng.integers(0, 100, 64).astype(np.float32)}
     morsel = morsel or -(-(rows // P // 8) // 8) * 8
-    n_in = in_core_rows or rows // 2
+    n_in = in_core_rows or min(rows, 1 << 24)
     cap = 2 * (n_in // P)
     on_card = resolve_on_card(device)
     results = {"in_core_rows": n_in, "out_of_core_rows": rows,
                "morsel_rows": morsel}
     run_s = 0.0
-    print(f"skew: {n_in} rows in-core ({rows} cut to fit the card: see "
+    print(f"skew: {n_in} rows in-core (at most 2**24 fit the card: see "
           f"skew_phase), capacity {cap}/rank (shuffle capacities "
           f"{n_in + 8192}); {rows} rows out-of-core, morsel_rows {morsel}, "
           f"capacity_factor 2.0; {P} stacked ranks", flush=True)
@@ -2684,7 +2792,9 @@ def flash_phase(torch, flush):
              ("ragged", 2, 32, 8, 4000, 4000, 128, True, f32),
              ("ragged:bf16", 2, 32, 8, 4000, 4000, 128, True, bf16),
              ("noncausal", 2, 32, 8, 1000, 3001, 128, False, f32),
-             ("noncausal:bf16", 2, 32, 8, 1000, 3001, 128, False, bf16)]
+             ("noncausal:bf16", 2, 32, 8, 1000, 3001, 128, False, bf16),
+             # the olmoe-1b-7b prefill: 16 heads, no grouping
+             ("olmoe", 4, 16, 16, 4096, 4096, 128, True, f32)]
     out = []
     for name, b, hq, hkv, sq, sk, d, causal, dt in cases:
         q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dt)
@@ -2716,7 +2826,7 @@ def flash_phase(torch, flush):
         plain_ms = time_cuda(torch, lambda: attention_ref(q, k, v, causal),
                              3, flush)
         lib_ms = None
-        if name.startswith("main"):
+        if name.startswith(("main", "olmoe")):
             lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), 10, flush)
         flops = flash_flops(sq, sk, d, b * hq, causal)
@@ -2814,7 +2924,10 @@ def ssd_phase(torch, flush):
              ("chunk32", 192, 4096, 64, 128, 32, None),  # 128 chunks deep
              ("decay", 192, 4096, 64, 128, 128, -8.0),   # exp(total) -> 0
              # the mamba2-780m train step: B 8 x 48 heads, 1,024 tokens
-             ("train", TRAIN_BATCH * 48, TRAIN_SEQ, 64, 128, 128, None)]
+             ("train", TRAIN_BATCH * 48, TRAIN_SEQ, 64, 128, 128, None),
+             # the jamba-v0.1-52b prefill: B 4 x 128 heads, state N = 16
+             # (half of the kernel's 32-column slice of B and C)
+             ("jamba", 4 * 128, 4096, 64, 16, 128, None)]
     out = []
     for name, bh, t, p, n, chunk, a_fix in cases:
         x = torch.randn(bh, t, p, generator=gen, device=dev)
@@ -2881,6 +2994,36 @@ def ssd_phase(torch, flush):
     return out
 
 
+def serve_config(arch, smoke=False):
+    """The served config of ``arch``, cut to ``SERVE_LAYERS`` at full
+    width."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    if smoke:
+        return get_smoke_config(arch)
+    cfg = get_config(arch)
+    if arch in SERVE_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_LAYERS[arch])
+    return cfg
+
+
+def serve_launches(cfg, impl, prompt):
+    """Kernel launches of one prefill and of one decode step on the card,
+    derived from the layers: flash attention once per attention layer
+    when ``impl`` picks it (``flash``, or ``auto`` past 2,048 keys), the
+    SSD scan once per mamba layer (``kernel`` or ``auto``), the radix
+    partition once per MoE layer (the dispatch ranks of each batch row)
+    in prefill and in every decode step, the segmented sum never."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    flash = impl == "flash" or (impl == "auto" and prompt > 2048)
+    prefill = {"radix_partition": moe, "segmented_sum": 0,
+               "flash_attention": kinds.count("a") if flash else 0,
+               "ssd_scan": (kinds.count("m") if impl in ("kernel", "auto")
+                            else 0)}
+    return prefill, dict(prefill, flash_attention=0, ssd_scan=0)
+
+
 def instrument(torch, engine, rec):
     """Wrap the engine's prefill and decode step: kernel launch counts are
     reset just before each call and read just after it; the prefill is
@@ -2913,27 +3056,27 @@ def instrument(torch, engine, rec):
 
 
 def serve_phase(torch, smi, seed=0):
-    """qwen3-8b and mamba2-780m at full width through ``ServeEngine``;
-    returns per-arch records of the first and the cached run."""
-    from repro_torch.configs import get_config
+    """``SERVE_CASES`` at full width (jamba cut to ``SERVE_LAYERS``)
+    through ``ServeEngine``; returns per-arch records of the first and the
+    cached run."""
     from repro_torch.models import transformer
     from repro_torch.serve import ServeEngine
     dev = torch.device("cuda")
     results = {}
     for arch, batch, prompt, new in SERVE_CASES:
-        cfg = get_config(arch)
+        cfg = serve_config(arch)
         t = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(seed)
         model = transformer.init_params(cfg, gen, torch.float32, dev)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in model.parameters())
-        print(f"serve {arch}: {n_params / 1e9:.3f} B float32 parameters "
-              f"({n_params * 4 / 2**30:.2f} GiB) made on the card in "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
+        print(f"serve {arch}: {cfg.num_layers} layers, {n_params / 1e9:.3f}"
+              f" B float32 parameters ({n_params * 4 / 2**30:.2f} GiB) made "
+              f"on the card in {time.perf_counter() - t:.1f} s", flush=True)
         engine = ServeEngine(cfg, model, cache_len=prompt + new)
         prompts = np.random.default_rng(seed).integers(
             0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
-        kname = SERVE_KERNEL[arch]
+        want_pre, want_dec = serve_launches(cfg, "auto", prompt)
         runs = {}
         for run in ("first", "cached"):
             rec = {"decode": []}
@@ -2953,33 +3096,39 @@ def serve_phase(torch, smi, seed=0):
             check(bool(torch.isfinite(
                 rec["last_logits"][:, :cfg.vocab_size]).all()),
                 f"{arch}/{run}: decode logits are not finite")
-            pre = rec["prefill"][kname]
-            check(pre == cfg.num_layers, f"{arch}/{run}: {kname} launched "
-                  f"{pre} times in prefill, want {cfg.num_layers}")
-            dec = [c[kname] for c in rec["decode"]]
-            check(len(dec) == new and not any(dec), f"{arch}/{run}: "
-                  f"{kname} launched in decode: {dec}")
+            pre = rec["prefill"]
+            check(pre == want_pre, f"{arch}/{run}: prefill launches {pre}, "
+                  f"derived {want_pre}")
+            dec = rec["decode"]
+            check(len(dec) == new and all(c == want_dec for c in dec),
+                  f"{arch}/{run}: decode launches {dec}, derived {want_dec} "
+                  f"a step")
             decode_s = total - rec["prefill_s"]
+            dec_sum = {k: sum(c[k] for c in dec) for k in want_dec}
             r = dict(ttft_s=rec["prefill_s"], total_s=total,
                      decode_ms_per_step=decode_s / len(dec) * 1e3,
                      tok_per_s=batch * res.steps / total,
                      decode_tok_per_s=batch * len(dec) / decode_s,
-                     peak_gib=peak / 2**30, prefill_launches=rec["prefill"],
-                     decode_launches=sum(c[kname] for c in rec["decode"]),
-                     launches=pre + sum(dec))
+                     peak_gib=peak / 2**30, prefill_launches=pre,
+                     decode_launches=dec_sum,
+                     launches={k: pre[k] + dec_sum[k] for k in pre})
             runs[run] = r
+            shown = {k: (v, dec_sum[k]) for k, v in pre.items()
+                     if v or dec_sum[k]}
             print(f"serve {arch} {run:6s} batch={batch} prompt={prompt} "
                   f"new={new}: time to first token {r['ttft_s']:.3f} s, "
                   f"decode {r['decode_ms_per_step']:.2f} ms/step "
                   f"({r['decode_tok_per_s']:.1f} tok/s), overall "
                   f"{r['tok_per_s']:.1f} tok/s, peak device memory "
-                  f"{r['peak_gib']:.2f} GiB; {kname} launches: prefill "
-                  f"{pre}, decode {sum(dec)} over {len(dec)} steps [{smi}]",
+                  f"{r['peak_gib']:.2f} GiB; launches (prefill, decode over "
+                  f"{len(dec)} steps): {shown}, as derived [{smi}]",
                   flush=True)
             print(f"serve {arch} {run} first sequence: "
                   f"{toks[0, :12].tolist()}...", flush=True)
         results[arch] = runs
-        profile_serve(torch, engine, prompts, arch)
+        moe_ms = profile_serve(torch, engine, prompts, arch)
+        if cfg.moe:
+            runs["first"]["moe_profile_ms"] = moe_ms
         del engine, model
         torch.cuda.empty_cache()
     return results
@@ -3030,16 +3179,18 @@ def serve_bf16_phase(torch, smi, seed=0, arch="qwen3-8b", batch=4,
     return runs
 
 
-def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
+def serve_parity_phase(torch, devices=("cuda", "cpu"), new=8):
     """The SMOKE configs with the same weights on ``devices``: the card
-    forces the kernels (``flash`` / ``kernel``) at a prompt longer than
-    the flash tile (64) and the smoke chunk (32); the CPU runs the plain
-    versions.  Prefill logits within 1e-3, greedy tokens equal."""
+    runs the kernels (``PARITY_CASES``: forced, or reached past 2,048
+    keys) at a prompt longer than the flash tile (64) and the smoke chunk
+    (32), with launches as derived; the CPU runs the plain versions.
+    Prefill logits within 1e-3, greedy tokens equal."""
     import copy
-    from repro_torch.configs import get_smoke_config
     from repro_torch.models import transformer
     for arch, _, _, _ in SERVE_CASES:
-        cfg = get_smoke_config(arch)
+        cfg = serve_config(arch, smoke=True)
+        impl, prompt = PARITY_CASES[arch]
+        card = serve_launches(cfg, impl, prompt)[0]
         base = transformer.init_params(cfg, torch.Generator().manual_seed(3),
                                        torch.float32, "cpu")
         prompts = np.random.default_rng(3).integers(
@@ -3051,11 +3202,11 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
             lg, caches = transformer.prefill(
                 model, torch.as_tensor(prompts, dtype=torch.long,
                                        device=device),
-                prompt + new, KERNEL_IMPL[arch])
+                prompt + new, impl)
             counts = launch_counts()
-            want = cfg.num_layers if device != "cpu" else 0
-            check(counts[SERVE_KERNEL[arch]] == want, f"parity {arch} "
-                  f"{device}: {counts} launches, want {want}")
+            want = card if device != "cpu" else dict.fromkeys(card, 0)
+            check(counts == want, f"parity {arch} {device}: {counts} "
+                  f"launches, derived {want}")
             logits[device] = lg.cpu()
             # greedy decoding after the forced-kernel prefill, as
             # ServeEngine.generate does after its own
@@ -3072,9 +3223,117 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), prompt=160, new=8):
         check(err <= 1e-3, f"parity {arch}: prefill logits differ by {err}")
         check(np.array_equal(tokens[devices[0]], tokens[devices[-1]]),
               f"parity {arch}: greedy tokens differ")
-        print(f"serve parity {arch} smoke, prompt {prompt}, impl "
-              f"{KERNEL_IMPL[arch]}: card == cpu (prefill logits max |err| "
-              f"{err:.2e}, {new} greedy tokens equal)", flush=True)
+        print(f"serve parity {arch} smoke, prompt {prompt}, impl {impl}: "
+              f"card == cpu (prefill logits max |err| {err:.2e}, {new} "
+              f"greedy tokens equal; card launches {card})", flush=True)
+
+
+#: the shuffle-dispatch phase: one olmoe-1b-7b MoE layer at full width on
+#: x (batch, seq, d_model) over stacked ranks, at the capacity factor of
+#: ``tests/md_scripts/moe_shuffle_parity.py`` (ample: nothing drops)
+MOE_SHUFFLE = dict(arch="olmoe-1b-7b", batch=4, seq=4096, ranks=8,
+                   capacity_factor=8.0, reps=5)
+
+
+def moe_shuffle_phase(torch, smi, seed=0):
+    """One MoE layer through ``moe_apply_shuffle`` (the dataframe shuffle
+    over ``MOE_SHUFFLE["ranks"]`` stacked ranks, ``xla``) and through
+    ``moe_apply_grouped``: y within atol 2e-4 / rtol 1e-3 and aux within
+    rtol 1e-4 of each other (``moe_shuffle_parity.py``'s tolerances), no
+    row dropped (derived from the routing at the reference's capacities),
+    radix launches as derived (2 shuffles + 1 local group; 1 grouped),
+    both timed (CUDA events, median of ``reps``), peak memory."""
+    import dataclasses
+    from repro_torch.models import moe
+    o = MOE_SHUFFLE
+    dev = torch.device("cuda")
+    base = serve_config(o["arch"])
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, capacity_factor=o["capacity_factor"], communicator="xla"))
+    m, b, s, ms = cfg.moe, o["batch"], o["seq"], o["ranks"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = moe.moe_init(gen, cfg, torch.float32, dev)
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev)
+    # the reference's capacities (repro/models/moe.py:242-260): a rank's
+    # rows t * k, its send bucket, its receive capacity and each local
+    # expert's; the grouped dispatch's per-row expert capacity
+    e, k = m.num_experts, m.top_k
+    e_loc, tk = e // ms, b * s // ms * m.top_k
+    cap_send = max(8, -(-int(m.capacity_factor * tk) // (8 * ms)) * 8)
+    rcap = ms * cap_send
+    cap2 = min(max(8, -(-int(rcap * 2) // (8 * e_loc)) * 8),
+               -(-rcap // 8) * 8)
+    cap = moe.expert_capacity(cfg, s)
+    # drops derived from the routing: rows each rank sends each rank, rows
+    # each rank receives, rows each expert gets (all on its owning rank),
+    # rows each batch row sends each expert in the grouped dispatch
+    topi = moe._route(params, x, cfg)[1]
+    flat = topi.reshape(b, ms, s // ms, k).transpose(0, 1).reshape(ms, tk)
+    sent = torch.zeros((ms, ms), dtype=torch.int64, device=dev).scatter_add_(
+        1, flat // e_loc, torch.ones_like(flat))
+    kept = sent.clamp(max=cap_send)
+    per_expert = torch.bincount(flat.reshape(-1), minlength=e)
+    per_row = torch.zeros((b, e), dtype=torch.int64, device=dev).scatter_add_(
+        1, topi.reshape(b, -1), torch.ones_like(topi.reshape(b, -1)))
+    drops = {"send": int((sent - kept).sum()),
+             "receive": int((kept.sum(0) - rcap).clamp(min=0).sum()),
+             "local_expert": int((per_expert - cap2).clamp(min=0).sum()),
+             "grouped": int((per_row - cap).clamp(min=0).sum())}
+    check(not any(drops.values()), f"moe shuffle: rows dropped {drops} at "
+          f"capacities send {cap_send}, receive {rcap}, local expert "
+          f"{cap2}, grouped {cap}")
+    del topi, flat
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=dev)
+    out, res = {}, {}
+    for name, fn, radix in (
+            ("grouped", lambda: moe.moe_apply_grouped(params, x, cfg), 1),
+            ("shuffle", lambda: moe.moe_apply_shuffle(params, x, cfg, ms),
+             3)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        y, aux = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {"radix_partition": radix, "segmented_sum": 0,
+                "flash_attention": 0, "ssd_scan": 0}
+        check(counts == want, f"moe {name}: launches {counts}, derived "
+              f"{want}")
+        check(tuple(y.shape) == (b, s, cfg.d_model)
+              and bool(torch.isfinite(y).all()), f"moe {name}: y "
+              f"{tuple(y.shape)} not finite or misshapen")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[name] = (y, float(aux))
+        times = time_cuda_samples(torch, fn, o["reps"], flush)
+        out[name] = dict(ms=float(np.median(times)), samples_ms=times,
+                         peak_gib=peak, radix_launches=counts[
+                             "radix_partition"], aux=float(aux))
+    (y_g, aux_g), (y_s, aux_s) = res["grouped"], res["shuffle"]
+    diff = (y_s - y_g).abs()
+    err = float(diff.max())
+    check(bool((diff <= 2e-4 + 1e-3 * y_g.abs()).all()), f"moe shuffle != "
+          f"grouped: max |err| {err}")
+    check(abs(aux_s - aux_g) <= 1e-4 * abs(aux_g), f"moe shuffle aux "
+          f"{aux_s} != grouped {aux_g}")
+    rec = dict(shape=[b, s, cfg.d_model], experts=e, top_k=k,
+               d_ff_expert=m.d_ff_expert, ranks=ms,
+               capacity_factor=m.capacity_factor,
+               capacities={"send": cap_send, "receive": rcap,
+                           "local_expert": cap2, "grouped": cap},
+               drops=drops, max_abs_err=err, **out)
+    print(f"moe shuffle dispatch: olmoe layer (d {cfg.d_model}, {e} experts "
+          f"of {m.d_ff_expert}, top-{k}) on x {rec['shape']} over {ms} "
+          f"stacked ranks (xla), capacity factor {m.capacity_factor}: "
+          f"shuffle {out['shuffle']['ms']:.2f} ms (peak "
+          f"{out['shuffle']['peak_gib']:.2f} GiB, 3 radix launches), "
+          f"grouped {out['grouped']['ms']:.2f} ms (peak "
+          f"{out['grouped']['peak_gib']:.2f} GiB, 1 radix launch); y max "
+          f"|err| {err:.2e}, aux {aux_s:.6f} vs {aux_g:.6f}; 0 rows dropped "
+          f"[{smi}]", flush=True)
+    del params, x, res, y_g, y_s, flush
+    torch.cuda.empty_cache()
+    return rec
 
 
 #: the query-serving phase: rank slots in the pool, gangs, queries a sweep
@@ -3793,15 +4052,36 @@ def train_pipeline(torch, smi):
 
 def ssd_train_counts(cfg):
     """SSD kernel forward launches and plain backward passes of one train
-    step with remat: one forward per layer and again in each layer's
-    recomputation; one backward per layer."""
-    return 2 * cfg.num_layers, cfg.num_layers
+    step with remat: one forward per mamba layer and again in each such
+    layer's recomputation; one backward per mamba layer."""
+    mamba = sum(cfg.layer_kind(i) == "m" for i in range(cfg.num_layers))
+    return 2 * mamba, mamba
+
+
+def radix_train_counts(cfg):
+    """Radix launches of one train step with remat: each MoE layer ranks
+    its dispatch in the forward and again in its recomputation (the
+    backward launches none)."""
+    return 2 * sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+
+
+#: layers a trained arch keeps at full width: olmoe-1b-7b's full-width
+#: state (16 bytes a parameter, 111 GB) needs the sharding of ROADMAP
+#: item 13.6, so 4 of 16 layers (1.88 B parameters, ~30 GB of state)
+TRAIN_LAYERS = {"olmoe-1b-7b": 4}
+#: parameters each trained arch's run checks for a change
+TRAIN_PROBES = {"mamba2-780m": ("embed", "blocks.0.mixer.w_in",
+                                "blocks.47.mixer.a_log"),
+                "olmoe-1b-7b": ("embed", "blocks.0.moe.router",
+                                "blocks.3.moe.experts.w_down")}
 
 
 def train_phase(torch, smi, arch="mamba2-780m", seed=0):
-    """mamba2-780m at full width and depth in float32 on the card, fed by
+    """``arch`` at full width in float32 on the card (mamba2-780m at full
+    depth, olmoe-1b-7b cut to ``TRAIN_LAYERS``), fed by
     ``train_pipeline``: one warm-up step and ``TRAIN_STEPS`` timed steps,
     then one profiled step."""
+    import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data import batches_from_table
@@ -3816,6 +4096,8 @@ def train_phase(torch, smi, arch="mamba2-780m", seed=0):
     del table
     torch.cuda.empty_cache()
     cfg = get_config(arch)
+    if arch in TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS[arch])
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = init_train_state(cfg, gen, torch.float32, dev)
     n_params = sum(t.numel() for t in state["params"].values())
@@ -3823,10 +4105,9 @@ def train_phase(torch, smi, arch="mamba2-780m", seed=0):
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=max(steps // 10, 1),
                           total_steps=steps)
     step_fn = make_train_step(cfg, opt_cfg, "auto", True, TRAIN_CE_CHUNK)
-    probe = {n: state["params"][n].clone()
-             for n in ("embed", "blocks.0.mixer.w_in",
-                       f"blocks.{cfg.num_layers - 1}.mixer.a_log")}
+    probe = {n: state["params"][n].clone() for n in TRAIN_PROBES[arch]}
     fwd, bwd = ssd_train_counts(cfg)
+    radix = radix_train_counts(cfg)
     recs = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3837,17 +4118,23 @@ def train_phase(torch, smi, arch="mamba2-780m", seed=0):
         state, m = step_fn(state, first if i == 0 else next(batches))
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         wall = time.perf_counter() - t
-        got = (launch_counts()["ssd_scan"], ssd_scan_backward.launches - b0)
+        counts = launch_counts()
+        got = (counts["ssd_scan"], ssd_scan_backward.launches - b0)
         check(got == (fwd, bwd), f"train step {i}: SSD forward launches and "
               f"backward passes {got}, derived {(fwd, bwd)}")
+        check(counts["radix_partition"] == radix, f"train step {i}: "
+              f"{counts['radix_partition']} radix launches, derived {radix}")
         check(np.isfinite(loss) and np.isfinite(gnorm),
               f"train step {i}: loss {loss}, grad norm {gnorm}")
         recs.append(dict(step_s=wall, loss=loss, grad_norm=gnorm,
-                         lr=float(m["lr"]), ssd=got))
+                         aux=float(m["aux"]), lr=float(m["lr"]), ssd=got,
+                         radix=counts["radix_partition"]))
         print(f"train {cfg.name} step {i}{' (warm-up)' if i == 0 else ''}: "
-              f"{wall:.3f} s, loss {loss:.4f}, grad norm {gnorm:.3f}, lr "
-              f"{recs[-1]['lr']:.2e}; ssd_scan forward launches {got[0]}, "
-              f"backward passes {got[1]} [{smi}]", flush=True)
+              f"{wall:.3f} s, loss {loss:.4f} (MoE aux {recs[-1]['aux']:.4f})"
+              f", grad norm {gnorm:.3f}, lr {recs[-1]['lr']:.2e}; ssd_scan "
+              f"forward launches {got[0]}, backward passes {got[1]}, "
+              f"radix_partition launches {counts['radix_partition']} "
+              f"[{smi}]", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for n, before in probe.items():
         check(not torch.equal(before, state["params"][n]),
@@ -3855,11 +4142,16 @@ def train_phase(torch, smi, arch="mamba2-780m", seed=0):
     timed = [r["step_s"] for r in recs[1:]]
     step_s = float(np.median(timed))
     tokens = batch * seq
-    rec = dict(arch=cfg.name, params=n_params, batch=batch, seq=seq,
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, params=n_params,
+               batch=batch, seq=seq,
                step_s=step_s, steps_s=timed, tokens_per_s=tokens / step_s,
                peak_gib=peak, warmup_step_s=recs[0]["step_s"],
                losses=[r["loss"] for r in recs],
+               aux=[r["aux"] for r in recs],
                grad_norms=[r["grad_norm"] for r in recs],
+               radix_launches_per_step={
+                   "read": [r["radix"] for r in recs[1:]],
+                   "derived": radix},
                # as read in each timed step, beside their derivation
                ssd_launches_per_step={
                    "forward": [r["ssd"][0] for r in recs[1:]],
@@ -3868,8 +4160,9 @@ def train_phase(torch, smi, arch="mamba2-780m", seed=0):
                pipeline=pipe)
     # one more step under the profiler: busy share, top operators and the
     # device time under the SSD scan's backward (the recomputation)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    spans = []
+    with moe_timed(torch, spans), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         state, m = step_fn(state, next(batches))
         float(m["loss"])
@@ -3884,16 +4177,24 @@ def train_phase(torch, smi, arch="mamba2-780m", seed=0):
                ssd_backward_ms=back or None,
                ssd_backward_share=back / busy if busy and back else None)
     share = rec["ssd_backward_share"]
-    print(f"train {cfg.name}: {n_params / 1e9:.3f} B float32 parameters, "
-          f"batch {batch} x {seq}: step {step_s:.3f} s (median of "
-          f"{len(timed)}: {', '.join(f'{s:.3f}' for s in timed)}), "
+    if cfg.moe:
+        rec["moe_profile_ms"] = moe_split(prof, spans)
+    print(f"train {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f}"
+          f" B float32 parameters, batch {batch} x {seq}: step "
+          f"{step_s:.3f} s (median of {len(timed)}: "
+          f"{', '.join(f'{s:.3f}' for s in timed)}), "
           f"{tokens / step_s:.0f} tokens/s, peak device memory "
           f"{peak:.2f} GiB; profiled step: busy "
           + (f"{100 * rec['busy_share']:.1f}%" if rec["busy_share"]
              else "not measured")
-          + ", SSD backward recomputation "
-          + (f"{rec['ssd_backward_ms']:.1f} ms ({100 * share:.1f}% of "
-             f"device time)" if share else "not measured")
+          + (", SSD backward recomputation "
+             + (f"{rec['ssd_backward_ms']:.1f} ms ({100 * share:.1f}% of "
+                f"device time)" if share else "not measured") if fwd else "")
+          + (f", {rec['moe_profile_ms']['moe_layer_calls']} MoE layer "
+             f"forwards {rec['moe_profile_ms']['moe_layer_ms']:.1f} ms on the"
+             f" device, the dispatch ranks of the forwards and "
+             f"recomputations {rec['moe_profile_ms']['dispatch_ms']:.3f} ms"
+             if cfg.moe else "")
           + f" [{smi}]", flush=True)
     del state, batches
     torch.cuda.empty_cache()
@@ -4106,6 +4407,7 @@ def main():
     cap = capacity_for(FULL_ROWS, P)
     radix_cases = radix_phase(torch, cap, flush)
     radix_cases += radix_phase(torch, cap, flush, skewed=True)
+    radix_cases += radix_phase(torch, cap, flush, moe=True)
     segsum_cases = segsum_phase(torch, cap, flush)
     segsum_cases += segsum_phase(torch, cap, flush, skewed=True)
     flash_cases = flash_phase(torch, flush)
@@ -4161,8 +4463,12 @@ def main():
     phase_done("serve bf16")
     serve_parity_phase(torch)
     phase_done("serve parity")
+    moe_shuffle = moe_shuffle_phase(torch, smi)
+    phase_done("moe shuffle dispatch")
     train = train_phase(torch, smi)
     phase_done("train")
+    train_moe = train_phase(torch, smi, arch="olmoe-1b-7b")
+    phase_done("train olmoe")
     train_parity_phase(torch)
     phase_done("train parity")
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
@@ -4198,10 +4504,23 @@ def main():
                           for sw in ("serial", "concurrent")}),
         # the serving paths are the first run of each arch
         kernel_record(flash_attention_cuda, flash_cases,
-                      served["qwen3-8b"]["first"]["launches"]),
+                      served["qwen3-8b"]["first"]["launches"][
+                          flash_attention_cuda.name]),
         kernel_record(ssd_scan_cuda, ssd_cases,
-                      served["mamba2-780m"]["first"]["launches"]),
+                      served["mamba2-780m"]["first"]["launches"][
+                          ssd_scan_cuda.name]),
     ]
+    # every served arch's first run (prefill and 32 decode steps), beside
+    # the Fig-9 count above: radix on the MoE archs' dispatch, flash on the
+    # attention layers, the SSD scan on the mamba layers
+    for rec in kernels:
+        rec["launches_model_serving"] = {
+            arch: runs["first"]["launches"][rec["name"]]
+            for arch, runs in served.items()}
+    kernels[0]["launches_moe"] = {
+        "shuffle_dispatch": moe_shuffle["shuffle"]["radix_launches"],
+        "grouped_dispatch": moe_shuffle["grouped"]["radix_launches"],
+        "olmoe_train_step": train_moe["radix_launches_per_step"]}
     # the SSD scan also runs in every mamba2-780m train step (forward and
     # remat recomputation; the counts read in each timed step); its
     # gradient is the plain version's
@@ -4221,7 +4540,9 @@ def main():
                                        for run, r in runs.items()}
                                 for arch, runs in served.items()},
                       "serve_bf16_prefill": {"qwen3-8b": served_bf16}}))
-    print(json.dumps({"train": train, "ssd_autograd": ssd_autograd}))
+    print(json.dumps({"moe_shuffle": moe_shuffle}))
+    print(json.dumps({"train": train, "train_olmoe": train_moe,
+                      "ssd_autograd": ssd_autograd}))
     print(json.dumps({"query_serving": serving}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -35,7 +35,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..comm import Communicator
-from ..dtypes import signed_view
+from ..dtypes import bits_as, signed_view
 from ..kernels import radix_partition
 from .ops_local import hash_columns
 from .table import Table, gather_rows, scatter_rows, stable_partition_order
@@ -231,7 +231,8 @@ def shuffle(
             _send(_pack_u32(table.columns, packables)), packables, dtypes))
     for n in singles:
         # unsigned columns travel as bits (dtypes.signed_view)
-        recv_cols[n] = _send(signed_view(table.columns[n])).view(dtypes[n])
+        recv_cols[n] = bits_as(_send(signed_view(table.columns[n])),
+                               dtypes[n])
 
     recv_counts = comm.exchange_counts(sent_counts)
     total_recv = recv_counts.sum(dim=1, dtype=torch.int32)

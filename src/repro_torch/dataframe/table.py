@@ -24,7 +24,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..dtypes import signed_view
+from ..dtypes import bits_as, signed_view
 
 
 def _sentinel_for(dtype: torch.dtype):
@@ -191,9 +191,8 @@ class Table:
             mm = m.reshape(m.shape + (1,) * (v.dim() - 2))
             # as bits: CUDA has no torch.where for uint16/32
             sv = signed_view(v)
-            cols[k] = torch.where(mm, sv, torch.zeros((), dtype=sv.dtype,
-                                                      device=v.device)
-                                  ).view(v.dtype)
+            cols[k] = bits_as(torch.where(mm, sv, torch.zeros(
+                (), dtype=sv.dtype, device=v.device)), v.dtype)
         return Table(cols, self.row_count)
 
     # ------------------------------------------------------------------ #

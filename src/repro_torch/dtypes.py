@@ -69,6 +69,13 @@ def signed_view(v: torch.Tensor) -> torch.Tensor:
     return v if s is None else v.view(s)
 
 
+def bits_as(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``v``'s bits as ``dtype``: the inverse of ``signed_view``, and ``v``
+    itself when it has that dtype already (a view to the same dtype would
+    cut the autograd graph of the float columns that move through it)."""
+    return v if v.dtype == dtype else v.view(dtype)
+
+
 def order_view(v: torch.Tensor) -> torch.Tensor:
     """``v`` in a dtype that compares and sorts as ``v``'s values do:
     uint16 widens to int32 and uint32 to int64; other dtypes pass

@@ -1,5 +1,6 @@
 """Decoder stack, its serving path and its training loss for the
-``dense`` and ``ssm`` families (ports ``repro/models/transformer.py``).
+``dense``, ``ssm``, ``moe`` and ``hybrid`` families (ports
+``repro/models/transformer.py``).
 
 The JAX package stacks the body's layer params along a leading
 ``(n_periods,)`` axis and runs them under ``lax.scan``; here each layer is
@@ -18,9 +19,11 @@ and ``loss_fn`` keep their names.  ``forward`` is the inference forward
 (no autograd); ``forward_train`` is the reference's ``forward`` with
 autograd on and per-layer rematerialisation (``torch.utils.checkpoint``
 where the reference checkpoints its layer scan).  Parameters are
-trainable; the serving entry points run under ``torch.no_grad``.  MoE,
-MLA and the VLM / audio frontends raise ``NotImplementedError`` (ROADMAP
-queue 1, item 13).
+trainable; the serving entry points run under ``torch.no_grad``.  A
+layer's feed-forward is a dense ``mlp`` or, on the config's MoE layers,
+``moe`` (``models/moe.py``), whose load-balancing loss each block returns
+and ``forward_train`` sums.  MLA and the VLM / audio frontends raise
+``NotImplementedError`` (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -40,22 +43,22 @@ from .config import ModelConfig
 from .layers import embed_init, mlp, mlp_init, rmsnorm
 from .mamba2 import dims as mamba_dims, mamba_decode, mamba_forward, \
     mamba_init
+from .moe import moe_apply, moe_init
 
 Cache = Dict[str, torch.Tensor]
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not serve or train yet."""
-    later = [what for what, on in (("MoE", cfg.moe is not None),
-                                   ("MLA", cfg.mla is not None),
+    later = [what for what, on in (("MLA", cfg.mla is not None),
                                    (f"the {cfg.family} frontend",
                                     cfg.family in ("vlm", "audio")))
              if on]
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} not ported yet (ROADMAP "
-            f"queue 1, item 13); the port serves and trains the dense and "
-            f"ssm families")
+            f"queue 1, item 13); the port serves and trains the dense, "
+            f"ssm, moe and hybrid families")
 
 
 # ---------------------------------------------------------------------- #
@@ -74,12 +77,27 @@ def layer_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
     return n_prefix, period, body // period
 
 
+def _layer_ff(cfg: ModelConfig, i: int) -> Optional[int]:
+    """d_ff of the dense FF at layer ``i`` (None if the layer has no FF)."""
+    if cfg.is_moe_layer(i):
+        return None  # MoE instead
+    if cfg.moe and cfg.moe.first_dense_d_ff and i == 0:
+        return cfg.moe.first_dense_d_ff
+    return cfg.d_ff if cfg.d_ff else None
+
+
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t)
 
 
+def _param_dict(tree: Dict[str, Any]) -> nn.ParameterDict:
+    """A (nested) dict of tensors as a (nested) ``nn.ParameterDict``."""
+    return nn.ParameterDict({k: _param_dict(v) if isinstance(v, dict)
+                             else _param(v) for k, v in tree.items()})
+
+
 # ---------------------------------------------------------------------- #
-# One block: (attention | mamba) + optional mlp, pre-norm residual
+# One block: (attention | mamba) + optional (mlp | moe), pre-norm residual
 # ---------------------------------------------------------------------- #
 def block_init(gen: torch.Generator, cfg: ModelConfig, i: int,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
@@ -89,9 +107,13 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, i: int,
         p["attn"] = gqa_init(gen, cfg, dtype, device)
     else:
         p["mixer"] = mamba_init(gen, cfg, dtype, device)
-    if cfg.d_ff:  # a dense FF on every layer (MoE is not ported)
+    ff = _layer_ff(cfg, i)
+    if cfg.is_moe_layer(i):
         p["norm2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
-        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        p["moe"] = moe_init(gen, cfg, dtype, device)
+    elif ff:
+        p["norm2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+        p["mlp"] = mlp_init(gen, cfg.d_model, ff, dtype, device)
     return p
 
 
@@ -104,26 +126,32 @@ class Block(nn.Module):
         self.kind = cfg.layer_kind(i)
         self.norm1 = _param(params["norm1"])
         mixer = "attn" if self.kind == "a" else "mixer"
-        setattr(self, mixer, nn.ParameterDict(
-            {k: _param(v) for k, v in params[mixer].items()}))
-        self.has_mlp = "mlp" in params
-        if self.has_mlp:
+        setattr(self, mixer, _param_dict(params[mixer]))
+        #: the layer's feed-forward: "mlp", "moe" or None
+        self.ff = next((f for f in ("moe", "mlp") if f in params), None)
+        if self.ff:
             self.norm2 = _param(params["norm2"])
-            self.mlp = nn.ParameterDict(
-                {k: _param(v) for k, v in params["mlp"].items()})
+            setattr(self, self.ff, _param_dict(params[self.ff]))
 
-    def _ff(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.has_mlp:
-            return x
+    def _ff(self, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The residual feed-forward: (x, the MoE aux loss, None on a
+        layer without MoE)."""
+        if self.ff is None:
+            return x, None
         h2 = rmsnorm(self.norm2, x, self.cfg.norm_eps)
-        return x + mlp(self.mlp, h2, act=self.cfg.act)
+        if self.ff == "moe":
+            y, aux = moe_apply(self.moe, h2, self.cfg)
+            return x + y, aux
+        return x + mlp(self.mlp, h2, act=self.cfg.act), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 impl: str = "auto", collect_cache: bool = False,
                 cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """Full-sequence block (``block_apply``).  Returns (x, cache entry
-        or None)."""
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                           Optional[Cache]]:
+        """Full-sequence block (``block_apply``).  Returns (x, the MoE aux
+        loss or None, cache entry or None)."""
         cfg = self.cfg
         h = rmsnorm(self.norm1, x, cfg.norm_eps)
         cache = None
@@ -140,12 +168,14 @@ class Block(nn.Module):
             cache = {"ssm": ssm, "conv": conv}
         else:
             a = mamba_forward(self.mixer, h, cfg, impl)
-        return self._ff(x + a), cache
+        x, aux = self._ff(x + a)
+        return x, aux, cache
 
     def decode(self, x: torch.Tensor, cache: Cache,
                pos: torch.Tensor) -> torch.Tensor:
         """One-token block step (``block_decode``).  x: (B, 1, D); the
-        cache entry is updated in place."""
+        cache entry is updated in place.  A MoE layer dispatches the token
+        with each batch row a group, as ``moe_apply`` does."""
         h = rmsnorm(self.norm1, x, self.cfg.norm_eps)
         if self.kind == "a":
             a = gqa_decode(self.attn, h, cache["k"], cache["v"], pos,
@@ -153,7 +183,7 @@ class Block(nn.Module):
         else:
             a = mamba_decode(self.mixer, h, cache["ssm"], cache["conv"],
                              self.cfg)
-        return self._ff(x + a)
+        return self._ff(x + a)[0]
 
 
 def _attn_cache_from_seq(k: torch.Tensor, v: torch.Tensor,
@@ -333,7 +363,7 @@ def forward(model: Transformer, tokens: torch.Tensor, impl: str = "auto",
     x, positions = embed_tokens(model, tokens)
     caches: List[Cache] = []
     for blk in model.blocks:
-        x, cache = blk(x, positions, impl, collect_cache, cache_len)
+        x, _, cache = blk(x, positions, impl, collect_cache, cache_len)
         caches.append(cache)
     h = rmsnorm(model.final_norm, x, model.cfg.norm_eps)
     return (h, caches) if collect_cache else h
@@ -344,16 +374,20 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward with autograd (the reference's ``forward``
     without caches).  Returns (h (B, S, D), aux), aux the float32 MoE
-    load-balancing loss (0: the port has no MoE).  With ``remat`` each
-    layer's activations are recomputed in the backward pass from its
-    input, as the reference's ``jax.checkpoint`` over its layer scan."""
+    load-balancing loss summed over the layers (0 without MoE).  With
+    ``remat`` each layer's activations are recomputed in the backward
+    pass from its input, as the reference's ``jax.checkpoint`` over its
+    layer scan."""
     x, positions = embed_tokens(model, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.blocks:
         def run(x, blk=blk):
-            return blk(x, positions, impl)[0]
-        x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+            return blk(x, positions, impl)[:2]
+        x, a = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        if a is not None:
+            aux = aux + a
     h = rmsnorm(model.final_norm, x, model.cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def init_caches(cfg: ModelConfig, batch_size: int, cache_len: int,

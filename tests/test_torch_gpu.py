@@ -1505,3 +1505,115 @@ def test_data_pipeline_card_equals_cpu(cuda):
             np.testing.assert_array_equal(ca[k], cb[k], err_msg=k)
     for k in a_b:
         np.testing.assert_array_equal(a_b[k], b_b[k])
+
+
+# ---------------------------------------------------------------------- #
+# Mixture-of-Experts (models/moe.py): the dispatch ranks from the kernel
+# ---------------------------------------------------------------------- #
+# (p, n, nb) of the MoE paths: olmoe prefill (4 rows of 4,096 tokens x
+# top-8 over 64 experts) and decode (one token), jamba prefill (top-2
+# over 16) and decode; the shuffle dispatch's shuffles and its local
+# group-by-expert at olmoe width over 8 stacked ranks
+MOE_RADIX_CASES = [(4, 32_768, 64), (4, 8, 64), (4, 8_192, 16), (4, 2, 16),
+                   (8, 16_384, 9), (8, 131_072, 9)]
+
+
+@pytest.mark.parametrize("p,n,nb", MOE_RADIX_CASES)
+def test_radix_partition_cuda_at_moe_shapes(cuda, p, n, nb):
+    rng = np.random.default_rng(p * 31 + n + nb)
+    dest = torch.as_tensor(rng.integers(0, nb, (p, n), dtype=np.int32),
+                           device=cuda)
+    _radix_check(dest, nb, "onepass")
+
+
+def test_ssd_scan_cuda_at_jamba_state_size(cuda):
+    # jamba's mamba layers: N = 16 fills half of the kernel's 32-column
+    # slice of the state
+    _check_ssd(*_ssd_inputs(cuda, 8, 300, 64, 16), 128)
+
+
+def _moe_smoke(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe import moe_init
+    cfg = get_smoke_config("olmoe-1b-7b")
+    params = moe_init(torch.Generator().manual_seed(5), cfg, torch.float32,
+                      "cpu")
+    return cfg, params
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("cf", [None, 1.0])
+def test_moe_grouped_card_equals_cpu(cuda, cf):
+    import dataclasses
+    from repro_torch.models import moe
+    cfg, params = _moe_smoke(cuda)
+    if cf is not None:           # tokens drop at capacity factor 1
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    x = torch.randn(4, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(6))
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    cap = moe.expert_capacity(cfg, 64)
+    slots, outs = {}, {}
+    for dev in (cuda, "cpu"):
+        p, xd = _to(params, dev), x.to(dev)
+        _, topi, _ = moe._route(p, xd, cfg)
+        before = radix_partition_cuda.launches
+        slots[str(dev)] = moe.dispatch_slots(
+            topi.reshape(4, -1).to(torch.int32), e, cap).cpu()
+        outs[str(dev)] = [t.cpu() for t in moe.moe_apply_grouped(p, xd, cfg)]
+        if dev is cuda:
+            torch.cuda.synchronize()
+            # dispatch_slots, then moe_apply_grouped: one launch each
+            assert radix_partition_cuda.launches - before == 2
+    assert torch.equal(slots["cuda"], slots["cpu"])
+    assert bool((slots["cpu"] == e * cap).any()) == (cf is not None)
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], atol=1e-6,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("comm", ["xla", "ring", "bruck"])
+def test_moe_shuffle_dispatch_card_equals_cpu(cuda, comm):
+    import dataclasses
+    from repro_torch.models import moe
+    cfg, params = _moe_smoke(cuda)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0, communicator=comm))
+    x = torch.randn(4, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(7))
+    outs = {}
+    for dev in (cuda, "cpu"):
+        before = radix_partition_cuda.launches
+        outs[str(dev)] = [t.cpu() for t in moe.moe_apply_shuffle(
+            _to(params, dev), x.to(dev), cfg, 4)]
+        if dev is cuda:
+            torch.cuda.synchronize()
+            # two shuffles and the local group-by-expert
+            assert radix_partition_cuda.launches - before == 3
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], atol=1e-6,
+                               rtol=1e-5)
+    # and the grouped dispatch at this ample capacity
+    y_g, _ = moe.moe_apply_grouped(_to(params, cuda), x.to(cuda), cfg)
+    torch.testing.assert_close(outs["cuda"][0], y_g.cpu(), atol=2e-4,
+                               rtol=1e-3)
+
+
+def test_olmoe_smoke_transformer_refuses_cpu_fallback(monkeypatch):
+    # built with no device named and no card, the model raises instead of
+    # falling back to the CPU, as the other archs' constructors do
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("olmoe-1b-7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_caches(cfg, 1, 8)

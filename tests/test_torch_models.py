@@ -148,3 +148,46 @@ def test_mamba_decode():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     np.testing.assert_allclose(ssm_t.numpy(), np.asarray(ssm_j), atol=1e-5)
     np.testing.assert_allclose(conv_t.numpy(), np.asarray(conv_j), atol=1e-6)
+
+
+@pytest.mark.parametrize("arch,i", [("olmoe-1b-7b", 0),
+                                    ("jamba-v0.1-52b", 1),
+                                    ("jamba-v0.1-52b", 4)])
+def test_block_with_moe(arch, i):
+    # a full-sequence MoE block (attention or mamba mixer, then the MoE
+    # feed-forward) and its one-token decode step against the reference's
+    # block_apply / block_decode; jamba's layer 4 is its attention layer,
+    # with a dense mlp
+    from repro.models import transformer as jt
+    from repro.models.layers import NO_SHARDING
+    from repro_torch.models import transformer as tt
+    cfg_j, cfg = jax_smoke(arch), get_smoke_config(arch)
+    p = _np(jt.block_init(jax.random.PRNGKey(13), cfg_j, i, jnp.float32))
+    assert ("moe" in p) == cfg.is_moe_layer(i) and ("mlp" in p) != ("moe" in p)
+    blk = tt.Block(cfg, i, tree_from_numpy(p, "cpu"))
+    assert blk.ff == ("moe" if cfg.is_moe_layer(i) else "mlp")
+    b, s = 2, 40
+    x = _rand((b, s, cfg.d_model), seed=14)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
+    want, aux_j, cache_j = jt.block_apply(p, jnp.asarray(x), cfg_j, i,
+                                          jnp.asarray(pos), NO_SHARDING,
+                                          "chunked", collect_cache=True,
+                                          cache_len=s + 1)
+    with torch.no_grad():
+        got, aux, cache = blk(torch.from_numpy(x),
+                              torch.from_numpy(pos.copy()), "chunked",
+                              collect_cache=True, cache_len=s + 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    if cfg.is_moe_layer(i):
+        assert float(aux) == pytest.approx(float(aux_j), rel=1e-5)
+    else:
+        assert aux is None and float(aux_j) == 0.0
+    # decode the next token from the full-sequence cache on both sides
+    x1 = _rand((b, 1, cfg.d_model), seed=15)
+    pos1 = np.full((b,), s, np.int32)
+    want1, _ = jt.block_decode(p, jnp.asarray(x1), cache_j, cfg_j, i,
+                               jnp.asarray(pos1), NO_SHARDING)
+    with torch.no_grad():
+        got1 = blk.decode(torch.from_numpy(x1), cache,
+                          torch.from_numpy(pos1))
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), atol=1e-4)

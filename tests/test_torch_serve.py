@@ -1,7 +1,9 @@
 """The port's serving path (prefill -> decode) against the JAX package's.
 
-qwen3-8b (dense GQA, qk-norm, untied head) and mamba2-780m (SSD, tied
-head) at their SMOKE sizes: the JAX ``init_params`` tree goes to the port
+qwen3-8b (dense GQA, qk-norm, untied head), mamba2-780m (SSD, tied
+head), olmoe-1b-7b (MoE on every layer) and jamba-v0.1-52b (the hybrid:
+mamba and attention layers, MoE on every other layer) at their SMOKE
+sizes: the JAX ``init_params`` tree goes to the port
 through ``params_from_numpy``, the same numpy prompts go through both
 ``prefill`` / ``decode_step`` and both ``ServeEngine``s, on the CPU (the
 port's plain kernels; JAX's Pallas kernels in interpret mode where the
@@ -24,11 +26,14 @@ from repro_torch.models import transformer as tt
 from repro_torch.serve import ServeEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["qwen3-8b", "mamba2-780m"]
+ARCHS = ["qwen3-8b", "mamba2-780m", "olmoe-1b-7b", "jamba-v0.1-52b"]
 #: the port's name of its kernel path for each arch (the reference uses
-#: the same names); a prompt of 160 is longer than the smoke chunk (32),
-#: the JAX kernel's 128-row block and the CUDA kernel's 64-row tile
-KERNEL_IMPL = {"qwen3-8b": "flash", "mamba2-780m": "kernel"}
+#: the same names; one ``impl`` serves both layer kinds of the hybrid,
+#: whose mamba layers run chunked under ``flash``); a prompt of 160 is
+#: longer than the smoke chunk (32), the JAX kernel's 128-row block and
+#: the CUDA kernel's 64-row tile
+KERNEL_IMPL = {"qwen3-8b": "flash", "mamba2-780m": "kernel",
+               "olmoe-1b-7b": "flash", "jamba-v0.1-52b": "flash"}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -159,12 +164,30 @@ def test_launch_serve_smoke_on_cpu(capsys):
 
 def test_unported_archs_and_families_raise():
     with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("olmoe-1b-7b")
+        get_config("deepseek-v2-lite-16b")
     from repro.configs import get_smoke_config as jax_cfg
-    for arch in ("olmoe-1b-7b", "deepseek-v2-lite-16b", "musicgen-large"):
+    for arch in ("deepseek-v2-lite-16b", "musicgen-large", "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="item 13"):
             tt.init_params(jax_cfg(arch), torch.Generator().manual_seed(0),
                            torch.float32, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b"])
+def test_moe_archs_resolve_and_build(arch):
+    from repro.configs import get_config as jax_config
+    from dataclasses import asdict
+    assert asdict(get_config(arch)) == asdict(jax_config(arch))
+    assert asdict(get_smoke_config(arch)) == asdict(jax_smoke(arch))
+    cfg = get_smoke_config(arch)
+    model = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+    ffs = [blk.ff for blk in model.blocks]
+    assert ffs == ["moe" if cfg.is_moe_layer(i) else "mlp"
+                   for i in range(cfg.num_layers)]
+    assert "moe" in ffs
+    # every olmoe layer is MoE; jamba's odd layers are, its even ones dense
+    want = ["moe"] * 2 if arch == "olmoe-1b-7b" else ["mlp", "moe"] * 4
+    assert ffs == want
 
 
 def test_model_constructors_refuse_cpu_fallback(monkeypatch, pair):
@@ -197,6 +220,9 @@ def test_serving_modules_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.launch.serve", "repro_torch.configs.qwen3_8b",
             "repro_torch.configs.mamba2_780m",
             "repro_torch.kernels.flash_attention.cuda",
+            # Mixture-of-Experts and its two archs
+            "repro_torch.models.moe", "repro_torch.configs.olmoe_1b_7b",
+            "repro_torch.configs.jamba_v0_1_52b",
             "repro_torch.kernels.ssd_scan.cuda",
             # query serving: the scheduler, the stage cache, the actor
             # gang and the stacked ring / Bruck communicators
