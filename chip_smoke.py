@@ -37,7 +37,10 @@ ends the run with a non-zero exit code if it fails:
    jamba-v0.1-52b prefill and decode, the shuffle dispatch's two shuffles
    and local group), beside the reference's stable sort and
    ``searchsorted``; flash attention also at the olmoe-1b-7b prefill's
-   shape (16 heads, no grouping), beside ``scaled_dot_product_attention``;
+   shape (16 heads, no grouping), beside ``scaled_dot_product_attention``,
+   and at gemma-7b's head dim 256 (its prefill's shape, ragged queries
+   and non-causal over ragged keys, each in f32 and bf16, all on the simt
+   route), beside ``scaled_dot_product_attention`` at the prefill's;
 3. Fig-9: the paper's pipeline (join -> groupby(sum) -> sort ->
    add_scalar) through ``execute`` at 2 x 2**25 rows over 8 ranks stacked
    on the card, in ``bsp``, ``bsp_staged`` and ``amt``, twice each, with
@@ -113,15 +116,19 @@ ends the run with a non-zero exit code if it fails:
    (2 x 2**25 rows, ``bsp`` and ``bsp_staged``) and each out-of-core site
    (2 x 2**23 rows), ``corrupt-capacity``, three ``random_plan`` seeds and
    a ``hang`` fenced by ``timeout=``;
-9. serving: qwen3-8b, mamba2-780m, olmoe-1b-7b and jamba-v0.1-52b (cut
-   to 8 of its 32 layers, one layout period) at full width (float32
-   weights from a seeded generator, batch 4, prompt 4096, 32 new tokens,
-   greedy) through ``ServeEngine``, twice each; launch counts reset just
-   before each prefill and each decode step and read just after it, each
-   equal to its derivation from the layers (flash attention once per
-   attention layer in prefill, the SSD scan once per mamba layer, neither
-   in decode; the radix kernel once per MoE layer in prefill and in every
-   decode step); time to first token, decode time per step, tokens per
+9. serving: qwen3-8b, mamba2-780m, olmoe-1b-7b, jamba-v0.1-52b (cut
+   to 8 of its 32 layers, one layout period), llama3.2-3b, gemma-7b (head
+   dim 256), qwen3-32b (cut to 16 of its 64 layers) and
+   deepseek-v2-lite-16b (MLA, a dense prefix layer, 64 experts with 2
+   shared) at full width (float32 weights from a seeded generator, batch
+   4, prompt 4096, 32 new tokens, greedy) through ``ServeEngine``, twice
+   each; launch counts reset just before each prefill and each decode
+   step and read just after it, each equal to its derivation from the
+   layers (flash attention once per GQA attention layer in prefill, on
+   the route its head dim takes, never for MLA; the SSD scan once per
+   mamba layer, neither in decode; the radix kernel once per MoE layer in
+   prefill and in every decode step); time to first token, decode time
+   per step, tokens per
    second and peak device memory; a profiled prefill and 8 decode steps
    per arch, with the MoE layers' device time (CUDA events) and their
    dispatch ranks' (the radix kernel);
@@ -129,11 +136,13 @@ ends the run with a non-zero exit code if it fails:
    twice: finite logits, first tokens in the vocab, 36 flash launches,
    all on the kernel's bf16 tensor-core (wgmma) route; time to first
    token;
-10. serving parity: the four SMOKE configs with the same weights on the
-   card (kernels forced, prompts longer than a tile; jamba's at 2,100
-   tokens, past the flash threshold, with ``auto``) and on the CPU (plain
-   versions), launches as derived: prefill logits within 1e-3, greedy
-   tokens equal; then one olmoe-1b-7b MoE layer at full width on x (4,
+10. serving parity: the eight SMOKE configs with the same weights on the
+   card (kernels forced, prompts longer than a tile; gemma's widened to
+   head dim 256; jamba's and deepseek's at 2,100 tokens with ``auto``,
+   past the flash threshold and, for MLA, on its chunked branch) and on
+   the CPU (plain versions), launches as derived: prefill logits within
+   1e-3, greedy tokens equal; then one olmoe-1b-7b MoE layer at full
+   width on x (4,
    4,096, 2,048) at capacity factor 8 through ``moe_apply_shuffle`` (the
    dataframe shuffle over 8 stacked ranks, ``xla``) and through
    ``moe_apply_grouped``: y within atol 2e-4 / rtol 1e-3 and aux within
@@ -184,7 +193,7 @@ ends the run with a non-zero exit code if it fails:
    olmoe-1b-7b at full width cut to 4 of 16 layers, trained the same way
    on a second run of the pipeline (8 radix launches a step: the forward
    and the recomputation of every MoE layer; the aux term printed; the
-   MoE layers' device time in the profiled step); the four SMOKE
+   MoE layers' device time in the profiled step); the eight SMOKE
    configs trained 3 steps on the card and on the CPU from one state
    (losses and gradient norms within 1e-3), a checkpoint resumed bit for
    bit on the card; the SSD scan's autograd path at the training shape
@@ -222,17 +231,29 @@ BF16_FLOPS = 989e12         # dense bf16 tensor cores, H100 SXM
 L2_BYTES = 50 * 1024 * 1024
 #: the serving phase's full-width cases: arch, batch, prompt, new tokens
 SERVE_CASES = (("qwen3-8b", 4, 4096, 32), ("mamba2-780m", 4, 4096, 32),
-               ("olmoe-1b-7b", 4, 4096, 32), ("jamba-v0.1-52b", 4, 4096, 32))
+               ("olmoe-1b-7b", 4, 4096, 32), ("jamba-v0.1-52b", 4, 4096, 32),
+               ("llama3.2-3b", 4, 4096, 32), ("gemma-7b", 4, 4096, 32),
+               ("qwen3-32b", 4, 4096, 32),
+               ("deepseek-v2-lite-16b", 4, 4096, 32))
 #: layers kept of a served arch that does not fit the card whole:
 #: jamba-v0.1-52b's 49.3 B parameters (197 GB in float32) cut to one
-#: layout period, 8 of 32 layers (13.27 B, 49.4 GiB)
-SERVE_LAYERS = {"jamba-v0.1-52b": 8}
+#: layout period, 8 of 32 layers (13.27 B, 49.4 GiB); qwen3-32b's 32.76 B
+#: (122 GiB) cut to 16 of 64 layers (9.36 B, 34.9 GiB)
+SERVE_LAYERS = {"jamba-v0.1-52b": 8, "qwen3-32b": 16}
 #: the serving parity phase's impl and prompt per SMOKE config: the
 #: kernels forced (``flash`` / ``kernel``), or reached by a prompt past
-#: 2,048 keys where one ``impl`` serves both layer kinds (the hybrid)
+#: 2,048 keys where one ``impl`` serves both layer kinds (the hybrid) or
+#: where MLA takes its chunked branch (it never reaches flash)
 PARITY_CASES = {"qwen3-8b": ("flash", 160), "mamba2-780m": ("kernel", 160),
                 "olmoe-1b-7b": ("flash", 160),
-                "jamba-v0.1-52b": ("auto", 2100)}
+                "jamba-v0.1-52b": ("auto", 2100),
+                "llama3.2-3b": ("flash", 160), "qwen3-32b": ("flash", 160),
+                "gemma-7b": ("flash", 160),
+                "deepseek-v2-lite-16b": ("auto", 2100)}
+#: SMOKE fields the parity phase widens: gemma-7b's head dim to its full
+#: config's 256, so that the flash kernel's D = 256 instance runs inside
+#: a model
+PARITY_WIDEN = {"gemma-7b": dict(head_dim=256)}
 
 
 def check(cond, msg):
@@ -2783,7 +2804,8 @@ def flash_phase(torch, flush):
     # (b, hq, hkv, sq, sk, d, causal, dtype): the qwen3-8b prefill at a
     # 4096-token prompt in f32 and bf16, Sq != Sk, a length off the 64-
     # and 128-row tiles, non-causal over ragged keys, each in both dtypes
-    # (f32 takes the simt route, bf16 at D = 128 the wgmma route)
+    # (f32 takes the simt route, bf16 at D = 128 the wgmma route); then
+    # the same at gemma-7b's head dim 256, simt in both dtypes
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("main", 4, 32, 8, 4096, 4096, 128, True, f32),
              ("main:bf16", 4, 32, 8, 4096, 4096, 128, True, bf16),
@@ -2794,7 +2816,15 @@ def flash_phase(torch, flush):
              ("noncausal", 2, 32, 8, 1000, 3001, 128, False, f32),
              ("noncausal:bf16", 2, 32, 8, 1000, 3001, 128, False, bf16),
              # the olmoe-1b-7b prefill: 16 heads, no grouping
-             ("olmoe", 4, 16, 16, 4096, 4096, 128, True, f32)]
+             ("olmoe", 4, 16, 16, 4096, 4096, 128, True, f32),
+             # the gemma-7b prefill: 16 heads of 256, no grouping
+             ("gemma", 4, 16, 16, 4096, 4096, 256, True, f32),
+             ("gemma:bf16", 4, 16, 16, 4096, 4096, 256, True, bf16),
+             ("ragged:d256", 2, 16, 16, 4000, 4000, 256, True, f32),
+             ("ragged:d256:bf16", 2, 16, 16, 4000, 4000, 256, True, bf16),
+             ("noncausal:d256", 2, 16, 16, 1000, 3001, 256, False, f32),
+             ("noncausal:d256:bf16", 2, 16, 16, 1000, 3001, 256, False,
+              bf16)]
     out = []
     for name, b, hq, hkv, sq, sk, d, causal, dt in cases:
         q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dt)
@@ -2826,7 +2856,7 @@ def flash_phase(torch, flush):
         plain_ms = time_cuda(torch, lambda: attention_ref(q, k, v, causal),
                              3, flush)
         lib_ms = None
-        if name.startswith(("main", "olmoe")):
+        if name.startswith(("main", "olmoe", "gemma")):
             lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), 10, flush)
         flops = flash_flops(sq, sk, d, b * hq, causal)
@@ -2843,7 +2873,7 @@ def flash_phase(torch, flush):
                               else "bf16 dense 989 TFLOP/s"),
                         library_ms=lib_ms, max_abs_err=err))
         lib = f", sdpa {lib_ms:.3f} ms" if lib_ms is not None else ""
-        print(f"kernel flash_attention {name:14s} {out[-1]['dtype']} "
+        print(f"kernel flash_attention {name:19s} {out[-1]['dtype']} "
               f"route={route} "
               f"b={b} hq={hq} hkv={hkv} sq={sq} sk={sk} d={d} "
               f"causal={causal}: {ms:.3f} ms (plain {plain_ms:.3f} ms, "
@@ -3009,14 +3039,16 @@ def serve_config(arch, smoke=False):
 
 def serve_launches(cfg, impl, prompt):
     """Kernel launches of one prefill and of one decode step on the card,
-    derived from the layers: flash attention once per attention layer
-    when ``impl`` picks it (``flash``, or ``auto`` past 2,048 keys), the
-    SSD scan once per mamba layer (``kernel`` or ``auto``), the radix
-    partition once per MoE layer (the dispatch ranks of each batch row)
-    in prefill and in every decode step, the segmented sum never."""
+    derived from the layers: flash attention once per GQA attention layer
+    when ``impl`` picks it (``flash``, or ``auto`` past 2,048 keys; MLA
+    takes dense or chunked attention, never flash), the SSD scan once per
+    mamba layer (``kernel`` or ``auto``), the radix partition once per MoE
+    layer (the dispatch ranks of each batch row) in prefill and in every
+    decode step, the segmented sum never."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
     moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
-    flash = impl == "flash" or (impl == "auto" and prompt > 2048)
+    flash = cfg.mla is None and (
+        impl == "flash" or (impl == "auto" and prompt > 2048))
     prefill = {"radix_partition": moe, "segmented_sum": 0,
                "flash_attention": kinds.count("a") if flash else 0,
                "ssd_scan": (kinds.count("m") if impl in ("kernel", "auto")
@@ -3029,18 +3061,24 @@ def instrument(torch, engine, rec):
     reset just before each call and read just after it; the prefill is
     timed to its end on the device (time to first token) and its logits
     are checked finite."""
+    from repro_torch.kernels import flash_attention_cuda
     prefill, decode = engine.prefill, engine.decode_step
 
     def counts():
         return launch_counts()
 
     def counted_prefill(tokens):
+        routes = dict(flash_attention_cuda.route_launches)
         reset_counts()
         t = time.perf_counter()
         logits, caches = prefill(tokens)
         torch.cuda.synchronize()
         rec["prefill_s"] = time.perf_counter() - t
         rec["prefill"] = counts()
+        rec["flash_routes"] = {
+            r: c - routes[r]
+            for r, c in flash_attention_cuda.route_launches.items()
+            if c > routes[r]}
         check(bool(torch.isfinite(logits[:, :engine.cfg.vocab_size]).all()),
               "prefill logits are not finite")
         return logits, caches
@@ -3056,9 +3094,10 @@ def instrument(torch, engine, rec):
 
 
 def serve_phase(torch, smi, seed=0):
-    """``SERVE_CASES`` at full width (jamba cut to ``SERVE_LAYERS``)
-    through ``ServeEngine``; returns per-arch records of the first and the
-    cached run."""
+    """``SERVE_CASES`` at full width (jamba and qwen3-32b cut to
+    ``SERVE_LAYERS``) through ``ServeEngine``; returns per-arch records of
+    the first and the cached run."""
+    from repro_torch.kernels.flash_attention.cuda import route_for
     from repro_torch.models import transformer
     from repro_torch.serve import ServeEngine
     dev = torch.device("cuda")
@@ -3077,6 +3116,10 @@ def serve_phase(torch, smi, seed=0):
         prompts = np.random.default_rng(seed).integers(
             0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
         want_pre, want_dec = serve_launches(cfg, "auto", prompt)
+        # f32 weights: the simt route at every head dim
+        route = route_for(torch.float32, cfg.resolved_head_dim)
+        want_routes = ({route: want_pre["flash_attention"]}
+                       if want_pre["flash_attention"] else {})
         runs = {}
         for run in ("first", "cached"):
             rec = {"decode": []}
@@ -3099,6 +3142,9 @@ def serve_phase(torch, smi, seed=0):
             pre = rec["prefill"]
             check(pre == want_pre, f"{arch}/{run}: prefill launches {pre}, "
                   f"derived {want_pre}")
+            check(rec["flash_routes"] == want_routes, f"{arch}/{run}: "
+                  f"flash launches by route {rec['flash_routes']}, derived "
+                  f"{want_routes}")
             dec = rec["decode"]
             check(len(dec) == new and all(c == want_dec for c in dec),
                   f"{arch}/{run}: decode launches {dec}, derived {want_dec} "
@@ -3111,6 +3157,7 @@ def serve_phase(torch, smi, seed=0):
                      decode_tok_per_s=batch * len(dec) / decode_s,
                      peak_gib=peak / 2**30, prefill_launches=pre,
                      decode_launches=dec_sum,
+                     flash_routes=rec["flash_routes"],
                      launches={k: pre[k] + dec_sum[k] for k in pre})
             runs[run] = r
             shown = {k: (v, dec_sum[k]) for k, v in pre.items()
@@ -3121,7 +3168,9 @@ def serve_phase(torch, smi, seed=0):
                   f"({r['decode_tok_per_s']:.1f} tok/s), overall "
                   f"{r['tok_per_s']:.1f} tok/s, peak device memory "
                   f"{r['peak_gib']:.2f} GiB; launches (prefill, decode over "
-                  f"{len(dec)} steps): {shown}, as derived [{smi}]",
+                  f"{len(dec)} steps): {shown}, flash by route "
+                  f"{rec['flash_routes']} (head dim "
+                  f"{cfg.resolved_head_dim}), as derived [{smi}]",
                   flush=True)
             print(f"serve {arch} {run} first sequence: "
                   f"{toks[0, :12].tolist()}...", flush=True)
@@ -3186,9 +3235,11 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), new=8):
     (32), with launches as derived; the CPU runs the plain versions.
     Prefill logits within 1e-3, greedy tokens equal."""
     import copy
+    import dataclasses
     from repro_torch.models import transformer
     for arch, _, _, _ in SERVE_CASES:
-        cfg = serve_config(arch, smoke=True)
+        cfg = dataclasses.replace(serve_config(arch, smoke=True),
+                                  **PARITY_WIDEN.get(arch, {}))
         impl, prompt = PARITY_CASES[arch]
         card = serve_launches(cfg, impl, prompt)[0]
         base = transformer.init_params(cfg, torch.Generator().manual_seed(3),
@@ -3223,7 +3274,8 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), new=8):
         check(err <= 1e-3, f"parity {arch}: prefill logits differ by {err}")
         check(np.array_equal(tokens[devices[0]], tokens[devices[-1]]),
               f"parity {arch}: greedy tokens differ")
-        print(f"serve parity {arch} smoke, prompt {prompt}, impl {impl}: "
+        print(f"serve parity {arch} smoke (head dim "
+              f"{cfg.resolved_head_dim}), prompt {prompt}, impl {impl}: "
               f"card == cpu (prefill logits max |err| {err:.2e}, {new} "
               f"greedy tokens equal; card launches {card})", flush=True)
 

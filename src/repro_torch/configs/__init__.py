@@ -3,10 +3,12 @@ smoke variants).
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` resolve the public arch
 ids as the JAX package does; each module's ``CONFIG`` and ``SMOKE`` are
-copied verbatim from it.  The port serves and trains qwen3-8b (dense),
-mamba2-780m (ssm), olmoe-1b-7b (MoE) and jamba-v0.1-52b (hybrid MoE) so
-far: any other arch of the JAX package raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+copied verbatim from it.  The port serves and trains every text arch of
+the JAX package: llama3.2-3b, qwen3-8b, qwen3-32b and gemma-7b (dense),
+mamba2-780m (ssm), olmoe-1b-7b and deepseek-v2-lite-16b (MoE; deepseek
+with MLA attention) and jamba-v0.1-52b (hybrid MoE).  The VLM and audio
+archs (llava-next-34b, musicgen-large) raise ``NotImplementedError``
+naming ROADMAP item 13.5, which brings their frontends.
 """
 
 from __future__ import annotations
@@ -17,15 +19,18 @@ from typing import Dict, List
 from ..models.config import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "llama3.2-3b": "llama3_2_3b",
+    "qwen3-32b": "qwen3_32b",
+    "gemma-7b": "gemma_7b",
     "qwen3-8b": "qwen3_8b",
     "mamba2-780m": "mamba2_780m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 #: archs of the JAX package that the port does not serve or train yet
-_LATER = ("llama3.2-3b", "qwen3-32b", "gemma-7b", "deepseek-v2-lite-16b",
-          "llava-next-34b", "musicgen-large")
+_LATER = ("llava-next-34b", "musicgen-large")
 
 ARCHS: List[str] = list(_MODULES)
 
@@ -33,8 +38,9 @@ ARCHS: List[str] = list(_MODULES)
 def _module(arch: str):
     if arch in _LATER:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 13: "
-            f"the port serves and trains {ARCHS} so far)")
+            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 13.5: "
+            f"the VLM and audio frontends; the port serves and trains "
+            f"{ARCHS})")
     try:
         name = _MODULES[arch]
     except KeyError:

@@ -22,7 +22,7 @@ from ..build import load
 from ..common import LaunchCounter
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: route name -> the kernel's route code
 ROUTES = {"simt": 0, "wgmma": 1}
@@ -48,7 +48,8 @@ class Geometry(NamedTuple):
 
 def route_for(dtype: torch.dtype, d: int) -> str:
     """``wgmma`` (tensor cores, TMA) for bf16 at D = 64 or 128; ``simt``
-    (IEEE f32 on CUDA cores) for f32, and for bf16 at D = 16 or 32."""
+    (IEEE f32 on CUDA cores) for f32, and for bf16 at D = 16, 32 or 256
+    (whose ring of 128-key tiles would not fit shared memory)."""
     return ("wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
             else "simt")
 
@@ -63,7 +64,8 @@ def smem_bytes(route: str, d: int) -> int:
         return (1024 + _WGMMA_BQ * tile
                 + 2 * _WGMMA_STAGES * _WGMMA_BK * tile
                 + 8 * (1 + 3 * _WGMMA_STAGES))
-    # Q, K and V tiles of 64 rows and the 64 x 64 P tile, float32
+    # Q, K and V tiles of 64 rows and the 64 x 64 P tile, float32: two
+    # blocks an SM up to D = 128, one at D = 256 (212,992 bytes)
     return 4 * (3 * _SIMT_BQ * d + _SIMT_BQ * _SIMT_BK)
 
 

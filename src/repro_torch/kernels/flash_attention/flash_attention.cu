@@ -44,17 +44,20 @@
 //   accumulator (D/2) fit the 240 registers a consumer thread holds, and
 //   three stages of K and V (192 KB at D = 128) plus Q (32 KB) fit shared
 //   memory, so n128 wgmmas halve the instruction count of 64-key tiles.
-// * simt (f32, and bf16 at D = 16 or 32, whose 32- and 64-byte rows the
-//   128-byte swizzle does not fit; both in IEEE f32 on CUDA cores, no
-//   TF32).  A block of 256 threads owns 64 queries; each thread holds a
-//   4 x 4 score tile and a 4 x D/16 output tile in registers, fed by
-//   16-byte shared loads (8 FMAs per load in Q K^T) from tiles kept
-//   d-contiguous with a 16-byte XOR swizzle (no padding, no bank
-//   conflicts), whose XOR the inner loops take from compile-time and
-//   per-thread parts with no index arithmetic.  Q, K, V and P take 112 KB
-//   at D = 128, so two blocks (16 warps) fit an SM.  K and V of tile t+1
-//   are copied with cp.async while tile t computes: K(t+1) during the
-//   softmax and P V of tile t, V(t+1) during the Q K^T of tile t+1.
+// * simt (f32, and bf16 at D = 16, 32 or 256: the 32- and 64-byte rows
+//   of D = 16 and 32 do not fill the 128-byte swizzle, and the wgmma
+//   route's ring of 128-key tiles does not fit shared memory at D = 256;
+//   both dtypes in IEEE f32 on CUDA cores, no TF32).  A block of 256
+//   threads owns 64 queries; each thread holds a 4 x 4 score tile and a
+//   4 x D/16 output tile in registers, fed by 16-byte shared loads (8
+//   FMAs per load in Q K^T) from tiles kept d-contiguous with a 16-byte
+//   XOR swizzle (no padding, no bank conflicts), whose XOR the inner loops
+//   take from compile-time and per-thread parts with no index arithmetic.
+//   Q, K, V and P take 112 KB at D = 128, so two blocks (16 warps) fit an
+//   SM; at D = 256 they take 208 KB, one block an SM, which may then use
+//   up to 255 registers a thread for its 4 x 16 output tile.  K and V of
+//   tile t+1 are copied with cp.async while tile t computes: K(t+1) during
+//   the softmax and P V of tile t, V(t+1) during the Q K^T of tile t+1.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -81,6 +84,14 @@ constexpr int kSThreads = 256;   // 16 row groups (ty) x 16 lanes (tx)
 template <int D>
 constexpr int simt_smem_bytes() {
   return (3 * kSBQ * D + kSBQ * kSBK) * (int)sizeof(float);
+}
+
+// blocks an SM holds at once, by shared memory (233,472 bytes an SM, of
+// which the system reserves 1,024 a block): two up to D = 128, one at
+// D = 256; the launch bound asks for as many
+template <int D>
+constexpr int simt_blocks_per_sm() {
+  return 2 * (simt_smem_bytes<D>() + 1024) <= 233472 ? 2 : 1;
 }
 
 // [row][D] f32 tiles: the 16-byte chunk d/4 of row r is stored at chunk
@@ -113,7 +124,7 @@ __device__ __forceinline__ void cp_async_wait1() {
 
 // rows [row0, row0 + 64) of a (rows, D) matrix into a swizzled f32 tile;
 // rows >= nrows are zero-filled.  f32 goes by cp.async (waited for by the
-// caller); bf16 (D = 16, 32 only) is converted by plain loads.
+// caller); bf16 (D = 16, 32 and 256) is converted by plain loads.
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int row0, int nrows, int tid) {
@@ -146,7 +157,7 @@ __device__ __forceinline__ void load_tile(float* dst,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kSThreads, 2)
+__global__ void __launch_bounds__(kSThreads, simt_blocks_per_sm<D>())
 flash_simt(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ o, int bhq, int hq,
            int hkv, int sq, int sk, int n_qtiles, float scale_log2,
@@ -946,6 +957,7 @@ int smem_bytes(int route, int d) {
     case 32: return simt_smem_bytes<32>();
     case 64: return simt_smem_bytes<64>();
     case 128: return simt_smem_bytes<128>();
+    case 256: return simt_smem_bytes<256>();
     default: return -1;
   }
 }
@@ -992,8 +1004,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// f32 at every head dim; bf16 only at D = 16 and 32 (the wgmma route
-// takes 64 and 128)
+// f32 at every head dim; bf16 only at D = 16, 32 and 256 (the wgmma
+// route takes 64 and 128)
 template <typename T>
 cudaError_t launch_simt_d(const void* q, const void* k, const void* v,
                           void* o, int bhq, int hq, int hkv, int sq, int sk,
@@ -1002,6 +1014,7 @@ cudaError_t launch_simt_d(const void* q, const void* k, const void* v,
   switch (d) {
     case 16: return launch_simt<T, 16>(q, k, v, o, bhq, hq, hkv, sq, sk, n_qt, causal, sl2, s);
     case 32: return launch_simt<T, 32>(q, k, v, o, bhq, hq, hkv, sq, sk, n_qt, causal, sl2, s);
+    case 256: return launch_simt<T, 256>(q, k, v, o, bhq, hq, hkv, sq, sk, n_qt, causal, sl2, s);
     default: break;
   }
   if constexpr (sizeof(T) == 4) {
@@ -1030,9 +1043,10 @@ extern "C" int flash_attention_geometry(int route, int d, int* out) {
 
 // q (b*hq, sq, d), k and v (b*hkv, sk, d), o like q; all contiguous, all
 // float32 (bf16 = 0) or all bfloat16 (bf16 = 1).  route 1 (wgmma) takes
-// bf16 at d = 64 or 128; route 0 (simt) takes f32 at d = 16, 32, 64 or
-// 128 and bf16 at d = 16 or 32.  hq is a multiple of hkv; sq >= 1, sk >= 1, and sq <= sk when
-// causal.  Returns a cudaError_t code (0 on success).
+// bf16 at d = 64 or 128; route 0 (simt) takes f32 at d = 16, 32, 64, 128
+// or 256 and bf16 at d = 16, 32 or 256.  hq is a multiple of hkv; sq >= 1,
+// sk >= 1, and sq <= sk when causal.  Returns a cudaError_t code (0 on
+// success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int hq,
                                       int hkv, int sq, int sk, int d,

@@ -1,7 +1,8 @@
-"""GQA attention (+qk-norm): full-sequence and decode paths, impl selection.
+"""GQA attention (+qk-norm) and MLA: full-sequence and decode paths, impl
+selection.
 
-Ports the GQA half of ``repro/models/attention.py``.  Three
-interchangeable implementations of full-sequence attention:
+Ports ``repro/models/attention.py``.  Three interchangeable
+implementations of full-sequence attention:
 
   * ``dense``   -- quadratic plain version (``kernels.attention_ref``);
   * ``chunked`` -- online softmax over key blocks in plain PyTorch,
@@ -12,7 +13,14 @@ interchangeable implementations of full-sequence attention:
 ``auto`` keeps the reference's rule: ``dense`` up to 2048 keys, above
 that ``flash`` on ``cuda`` (the reference's ``tpu``) and ``chunked``
 elsewhere.  Decode (one query against the cache) is plain PyTorch, as in
-the reference.  MLA (DeepSeek) is not ported yet.
+the reference.
+
+MLA (DeepSeek-V2) caches one compressed latent a token, ``c_kv`` (the
+kv_lora_rank values, RMS-normed) and the rotated ``k_rope``.  Its value
+head dim differs from its qk head dim, so, as in the reference, it never
+reaches the flash kernel: ``auto`` and ``flash`` both take ``dense`` up to
+2048 keys and ``chunked`` above.  Its decode is the absorbed form,
+scored in the latent space.
 """
 
 from __future__ import annotations
@@ -168,3 +176,99 @@ def gqa_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float()).to(x.dtype)
     return o.reshape(b, 1, hq * hd) @ params["wo"]
+
+
+# ---------------------------------------------------------------------- #
+# MLA block (DeepSeek-V2): compressed-latent KV
+# ---------------------------------------------------------------------- #
+def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
+             device=None) -> dict:
+    m = cfg.mla
+    d, hq = cfg.d_model, cfg.num_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": dense_init(gen, (d, hq * qd), 0, dtype, device),
+        "w_dkv": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                            0, dtype, device),
+        "w_uk": dense_init(gen, (m.kv_lora_rank, hq * m.qk_nope_head_dim),
+                           0, dtype, device),
+        "w_uv": dense_init(gen, (m.kv_lora_rank, hq * m.v_head_dim), 0,
+                           dtype, device),
+        "wo": dense_init(gen, (hq * m.v_head_dim, d), 0, dtype, device),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=device),
+    }
+
+
+def mla_latent(params: Params, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    """The cache entry of each position: ``[c_kv, k_rope]`` (B, S, lora +
+    rope), c_kv RMS-normed and k_rope rotated.  x: (B, S, D); positions
+    broadcast to (B, S)."""
+    lora = cfg.mla.kv_lora_rank
+    ckv = x @ params["w_dkv"]
+    c_kv = rmsnorm(params["kv_norm"], ckv[..., :lora], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., lora:], positions, cfg.rope_theta)
+    return torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, impl: str = "auto",
+                  return_latent: bool = False):
+    """Full-sequence MLA.  x: (B, S, D); positions: (B, S).  With
+    ``return_latent`` also returns the latent it attended from, the
+    (B, S, lora + rope) rows of the decode cache."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    hq = cfg.num_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    lora = m.kv_lora_rank
+
+    q = (x @ params["wq"]).reshape(b, s, hq, nope + rope_d).transpose(1, 2)
+    q_rope = apply_rope(q[..., nope:], positions[:, None, :], cfg.rope_theta)
+    latent = mla_latent(params, x, cfg, positions)
+    c_kv, k_rope = latent[..., :lora], latent[..., lora:]
+    k_nope = (c_kv @ params["w_uk"]).reshape(b, s, hq, nope).transpose(1, 2)
+    v = (c_kv @ params["w_uv"]).reshape(b, s, hq, vd).transpose(1, 2)
+
+    qq = torch.cat([q[..., :nope], q_rope], dim=-1)
+    kk = torch.cat([k_nope, k_rope[:, None].expand(b, hq, s, rope_d)],
+                   dim=-1)
+    # the value head dim differs from the qk one: never the flash kernel
+    if impl in ("auto", "flash"):
+        impl = "chunked" if s > DENSE_MAX_KEYS else "dense"
+    o = attention_impl(qq, kk, v, causal=True,
+                       scale=1.0 / math.sqrt(nope + rope_d), impl=impl)
+    out = o.transpose(1, 2).reshape(b, s, hq * vd) @ params["wo"]
+    return (out, latent) if return_latent else out
+
+
+def mla_decode(params: Params, x: torch.Tensor, ckv_cache: torch.Tensor,
+               pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Absorbed-MLA decode: W_uk is folded into the query and W_uv applied
+    after the softmax, so scores and context stay in the latent space (in
+    float32).  x: (B, 1, D); ckv_cache: (B, S, lora + rope), written in
+    place at ``pos[0]``; pos: (B,).  Returns the block output (B, 1, D)."""
+    m = cfg.mla
+    b = x.shape[0]
+    hq = cfg.num_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    lora = m.kv_lora_rank
+
+    q = (x @ params["wq"]).reshape(b, hq, nope + rope_d)
+    q_rope = apply_rope(q[..., nope:], pos[:, None], cfg.rope_theta)
+    new = mla_latent(params, x, cfg, pos[:, None])          # (B, 1, .)
+    ckv_cache.index_copy_(1, pos[:1].long(), new.to(ckv_cache.dtype))
+
+    c_all = ckv_cache[..., :lora].float()                   # (B, S, lora)
+    r_all = ckv_cache[..., lora:].float()                   # (B, S, rope)
+    w_uk = params["w_uk"].reshape(lora, hq, nope).float()
+    q_lat = torch.einsum("bhn,lhn->bhl", q[..., :nope].float(), w_uk)
+    scores = torch.einsum("bhl,bsl->bhs", q_lat, c_all)
+    scores = scores + torch.einsum("bhr,bsr->bhs", q_rope.float(), r_all)
+    scores = scores / math.sqrt(nope + rope_d)
+    mask = torch.arange(ckv_cache.shape[1], device=x.device) <= pos[0]
+    p = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+    ctx = torch.einsum("bhs,bsl->bhl", p, c_all)            # (B, Hq, lora)
+    w_uv = params["w_uv"].reshape(lora, hq, vd).float()
+    o = torch.einsum("bhl,lhv->bhv", ctx, w_uv).to(x.dtype)
+    return o.reshape(b, 1, hq * vd) @ params["wo"]

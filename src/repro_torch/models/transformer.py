@@ -1,6 +1,6 @@
 """Decoder stack, its serving path and its training loss for the
-``dense``, ``ssm``, ``moe`` and ``hybrid`` families (ports
-``repro/models/transformer.py``).
+``dense``, ``ssm``, ``moe`` and ``hybrid`` families, GQA or MLA attention
+(ports ``repro/models/transformer.py``).
 
 The JAX package stacks the body's layer params along a leading
 ``(n_periods,)`` axis and runs them under ``lax.scan``; here each layer is
@@ -22,8 +22,10 @@ where the reference checkpoints its layer scan).  Parameters are
 trainable; the serving entry points run under ``torch.no_grad``.  A
 layer's feed-forward is a dense ``mlp`` or, on the config's MoE layers,
 ``moe`` (``models/moe.py``), whose load-balancing loss each block returns
-and ``forward_train`` sums.  MLA and the VLM / audio frontends raise
-``NotImplementedError`` (ROADMAP queue 1, item 13).
+and ``forward_train`` sums.  An attention layer is GQA, or MLA when the
+config has ``mla`` (deepseek-v2-lite-16b), whose cache is one latent row
+a token.  The VLM / audio frontends raise ``NotImplementedError``
+(ROADMAP queue 1, item 13.5).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.env import resolve_device
-from .attention import gqa_attention, gqa_decode, gqa_init
+from .attention import (gqa_attention, gqa_decode, gqa_init,
+                        mla_attention, mla_decode, mla_init)
 from .config import ModelConfig
 from .layers import embed_init, mlp, mlp_init, rmsnorm
 from .mamba2 import dims as mamba_dims, mamba_decode, mamba_forward, \
@@ -50,15 +53,11 @@ Cache = Dict[str, torch.Tensor]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not serve or train yet."""
-    later = [what for what, on in (("MLA", cfg.mla is not None),
-                                   (f"the {cfg.family} frontend",
-                                    cfg.family in ("vlm", "audio")))
-             if on]
-    if later:
+    if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} not ported yet (ROADMAP "
-            f"queue 1, item 13); the port serves and trains the dense, "
-            f"ssm, moe and hybrid families")
+            f"{cfg.name}: the {cfg.family} frontend is not ported yet "
+            f"(ROADMAP queue 1, item 13.5); the port serves and trains the "
+            f"dense, ssm, moe and hybrid families")
 
 
 # ---------------------------------------------------------------------- #
@@ -104,7 +103,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, i: int,
     p: Dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), dtype=dtype,
                                              device=device)}
     if cfg.layer_kind(i) == "a":
-        p["attn"] = gqa_init(gen, cfg, dtype, device)
+        p["attn"] = (mla_init if cfg.mla else gqa_init)(gen, cfg, dtype,
+                                                         device)
     else:
         p["mixer"] = mamba_init(gen, cfg, dtype, device)
     ff = _layer_ff(cfg, i)
@@ -155,7 +155,14 @@ class Block(nn.Module):
         cfg = self.cfg
         h = rmsnorm(self.norm1, x, cfg.norm_eps)
         cache = None
-        if self.kind == "a":
+        if self.kind == "a" and cfg.mla:
+            if collect_cache:
+                a, latent = mla_attention(self.attn, h, cfg, positions, impl,
+                                          return_latent=True)
+                cache = _mla_cache_from_seq(latent, cache_len)
+            else:
+                a = mla_attention(self.attn, h, cfg, positions, impl)
+        elif self.kind == "a":
             if collect_cache:
                 a, k, v = gqa_attention(self.attn, h, cfg, positions, impl,
                                         return_kv=True)
@@ -177,7 +184,9 @@ class Block(nn.Module):
         cache entry is updated in place.  A MoE layer dispatches the token
         with each batch row a group, as ``moe_apply`` does."""
         h = rmsnorm(self.norm1, x, self.cfg.norm_eps)
-        if self.kind == "a":
+        if self.kind == "a" and self.cfg.mla:
+            a = mla_decode(self.attn, h, cache["ckv"], pos, self.cfg)
+        elif self.kind == "a":
             a = gqa_decode(self.attn, h, cache["k"], cache["v"], pos,
                            self.cfg)
         else:
@@ -196,8 +205,21 @@ def _attn_cache_from_seq(k: torch.Tensor, v: torch.Tensor,
     return {"k": F.pad(k, (0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, pad))}
 
 
+def _mla_cache_from_seq(latent: torch.Tensor, cache_len: int) -> Cache:
+    """The MLA cache of a full sequence: its latent rows ``[c_kv, k_rope]``
+    (B, S, lora + rope), padded with zeros to ``cache_len`` positions.  As
+    for K/V, the block hands over the latent its attention just used,
+    which is the one the reference recomputes from the block input."""
+    return {"ckv": F.pad(latent, (0, 0, 0, cache_len - latent.shape[1]))}
+
+
 def block_cache_init(cfg: ModelConfig, i: int, batch: int, cache_len: int,
                      dtype=torch.bfloat16, device=None) -> Cache:
+    if cfg.layer_kind(i) == "a" and cfg.mla:
+        m = cfg.mla
+        return {"ckv": torch.zeros(
+            (batch, cache_len, m.kv_lora_rank + m.qk_rope_head_dim),
+            dtype=dtype, device=device)}
     if cfg.layer_kind(i) == "a":
         shape = (batch, cfg.num_kv_heads, cache_len, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -25,6 +25,7 @@ SWEEP = [
     (1, 4, 1, 128, 128, 128),   # MQA
     (1, 2, 2, 100, 100, 32),    # non-multiple seq (padding path)
     (1, 4, 2, 128, 384, 64),    # cross lengths (kv longer)
+    (1, 2, 1, 128, 192, 256),   # gemma-7b's head dim, MQA, kv longer
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-3),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -101,16 +102,18 @@ SM_SHARED_BYTES = 233_472     # an H100 SM's shared memory (228 KB)
 BLOCK_RESERVED_BYTES = 1_024  # reserved by the system for each block
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_route_by_dtype_and_head_dim(d, dtype):
     from repro_torch.kernels.flash_attention.cuda import route_for
-    want = "wgmma" if dtype == "bfloat16" and d >= 64 else "simt"
+    # bf16 at D = 256 stays on simt: the wgmma ring would not fit
+    want = "wgmma" if dtype == "bfloat16" and d in (64, 128) else "simt"
     assert route_for(getattr(torch, dtype), d) == want
 
 
 @pytest.mark.parametrize("route,d", [("simt", 16), ("simt", 32),
                                      ("simt", 64), ("simt", 128),
+                                     ("simt", 256),
                                      ("wgmma", 64), ("wgmma", 128)])
 def test_shared_memory_fits(route, d):
     from repro_torch.kernels.flash_attention.cuda import (SMEM_LIMIT,
@@ -118,8 +121,10 @@ def test_shared_memory_fits(route, d):
     smem = smem_bytes(route, d)
     assert 0 < smem <= SMEM_LIMIT == 232_448
     if route == "simt":
-        # two blocks of 8 warps (16 warps) fit on an SM at every head dim
-        assert 2 * (smem + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+        # two blocks of 8 warps (16 warps) fit on an SM up to D = 128;
+        # at D = 256 one block does
+        blocks = 2 if d <= 128 else 1
+        assert blocks * (smem + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
 
 
 def test_shared_memory_of_the_main_shapes():
@@ -129,13 +134,25 @@ def test_shared_memory_of_the_main_shapes():
     assert smem_bytes("wgmma", 128) == 1024 + 32_768 + 196_608 + 80
     assert smem_bytes("wgmma", 64) == 1024 + 16_384 + 98_304 + 80
     assert smem_bytes("simt", 128) == 3 * 32_768 + 16_384
+    assert smem_bytes("simt", 256) == 3 * 65_536 + 16_384 == 212_992
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_geometry_at_head_dim_256(dtype):
+    # gemma-7b's prefill: (B, Hq, S) = (4, 16, 4096) at D = 256 on the
+    # simt route in both dtypes, 64-query tiles, one 8-warp block an SM
+    from repro_torch.kernels.flash_attention.cuda import (HEAD_DIMS,
+                                                          launch_geometry)
+    assert 256 in HEAD_DIMS
+    geo = launch_geometry(4, 16, 4096, 256, getattr(torch, dtype))
+    assert geo == ("simt", 64, 256, 212_992, 64, 64 * 4 * 16)
 
 
 @pytest.mark.parametrize("sq,dtype,d,want_tiles", [
     (4096, "bfloat16", 128, 32), (4000, "bfloat16", 128, 32),
     (4000, "float32", 128, 63), (70, "bfloat16", 64, 1),
     (70, "float32", 64, 2), (1, "bfloat16", 128, 1), (1, "float32", 16, 1),
-    (129, "bfloat16", 128, 2)])
+    (129, "bfloat16", 128, 2), (4000, "bfloat16", 256, 63)])
 def test_grid_covers_ragged_queries(sq, dtype, d, want_tiles):
     from repro_torch.kernels.flash_attention.cuda import launch_geometry
     geo = launch_geometry(4, 32, sq, d, getattr(torch, dtype))

@@ -151,7 +151,13 @@ FLASH_CASES = [(1, 4, 4, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
                (1, 16, 4, 256, 256, 128, True), (1, 8, 2, 260, 600, 64, True),
                (1, 8, 1, 200, 520, 64, True), (1, 8, 1, 300, 700, 128, True),
                (1, 4, 2, 190, 700, 64, False),
-               (1100, 64, 8, 4, 4, 64, True)]
+               (1100, 64, 8, 4, 4, 64, True),
+               # gemma-7b's head dim 256, simt in both dtypes: causal,
+               # ragged with GQA, MQA with Sq < Sk, non-causal ragged keys
+               (1, 4, 4, 256, 256, 256, True),
+               (1, 4, 2, 333, 333, 256, True),
+               (2, 4, 1, 70, 1000, 256, True),
+               (1, 2, 2, 100, 301, 256, False)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", FLASH_CASES)
@@ -174,7 +180,7 @@ def test_flash_attention_cuda_equals_plain(cuda, b, hq, hkv, sq, sk, d,
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == before + 1
     assert flash_attention_cuda.route_launches[route] == before_route + 1
-    assert route == ("wgmma" if dtype == torch.bfloat16 and d >= 64
+    assert route == ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
                      else "simt")
     assert got.dtype == dtype and got.shape == q.shape
     want = attention_ref(q, k, v, causal)
@@ -184,6 +190,7 @@ def test_flash_attention_cuda_equals_plain(cuda, b, hq, hkv, sq, sk, d,
 
 @pytest.mark.parametrize("route,d", [("simt", 16), ("simt", 32),
                                      ("simt", 64), ("simt", 128),
+                                     ("simt", 256),
                                      ("wgmma", 64), ("wgmma", 128)])
 def test_flash_attention_geometry_matches_kernel(cuda, route, d):
     # the wrapper's mirror of the launch geometry is the kernel's own
@@ -1617,3 +1624,87 @@ def test_olmoe_smoke_transformer_refuses_cpu_fallback(monkeypatch):
         transformer.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_caches(cfg, 1, 8)
+
+
+# ---------------------------------------------------------------------- #
+# The remaining text archs: MLA (deepseek-v2-lite-16b) and the flash
+# kernel at head dim 256 inside a model (gemma-7b)
+# ---------------------------------------------------------------------- #
+def _smoke_pair(cuda, cfg, seed=3):
+    import copy
+    from repro_torch.models import transformer
+    base = transformer.init_params(cfg, torch.Generator().manual_seed(seed),
+                                   torch.float32, "cpu")
+    return {"cpu": base, "cuda": copy.deepcopy(base).to(cuda)}
+
+
+def _prefill_decode(model, prompts, impl, steps, dev):
+    # prefill, then greedy decode; the radix launches of each decode step
+    from repro_torch.models import transformer
+    b, s = prompts.shape
+    logits, caches = transformer.prefill(
+        model, torch.as_tensor(prompts, device=dev), s + steps, impl)
+    out, radix = [logits.cpu()], []
+    for step in range(steps):
+        tok = torch.argmax(logits, dim=-1)
+        before = radix_partition_cuda.launches
+        logits = transformer.decode_step(
+            model, caches, tok[:, None],
+            torch.full((b,), s + step, dtype=torch.int32, device=dev))
+        radix.append(radix_partition_cuda.launches - before)
+        out.append(logits.cpu())
+    return out, [{k: v.cpu() for k, v in c.items()} for c in caches], radix
+
+
+@pytest.mark.parametrize("s", [40, 2100])
+def test_mla_smoke_prefill_and_decode_card_equals_cpu(cuda, s):
+    # deepseek-v2-lite-16b SMOKE: MLA dense (40 keys) and chunked (2,100)
+    # in prefill, the absorbed decode, the latent caches; card == CPU
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    models = _smoke_pair(cuda, cfg)
+    prompts = torch.as_tensor(np.random.default_rng(s).integers(
+        0, cfg.vocab_size, (2, s)))
+    got = {dev: _prefill_decode(models[str(dev)], prompts, "auto", 4, dev)
+           for dev in (cuda, "cpu")}
+    for a, b in zip(got[cuda][0], got["cpu"][0]):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    for ca, cb in zip(got[cuda][1], got["cpu"][1]):
+        assert sorted(ca) == ["ckv"]
+        torch.testing.assert_close(ca["ckv"], cb["ckv"], atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_deepseek_smoke_radix_launches_per_decode_step(cuda):
+    # one radix launch per MoE layer in every decode step (the dense
+    # prefix layer launches none)
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    assert moe_layers == cfg.num_layers - 1 == 2
+    model = _smoke_pair(cuda, cfg)["cuda"]
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)))
+    before = radix_partition_cuda.launches
+    _, _, radix = _prefill_decode(model, prompts, "auto", 3, cuda)
+    assert radix == [moe_layers] * 3
+    assert radix_partition_cuda.launches - before == 4 * moe_layers
+
+
+def test_gemma_smoke_at_head_dim_256_card_equals_cpu(cuda):
+    # gemma-7b SMOKE widened to head dim 256: every attention layer's
+    # prefill goes through the flash kernel's D = 256 simt route
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention_cuda
+    cfg = dataclasses.replace(get_smoke_config("gemma-7b"), head_dim=256)
+    models = _smoke_pair(cuda, cfg)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 160)))
+    before = flash_attention_cuda.route_launches["simt"]
+    got = {dev: _prefill_decode(models[str(dev)], prompts, "flash", 4, dev)
+           for dev in (cuda, "cpu")}
+    assert (flash_attention_cuda.route_launches["simt"] - before
+            == cfg.num_layers)
+    for a, b in zip(got[cuda][0], got["cpu"][0]):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)

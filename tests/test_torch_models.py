@@ -152,12 +152,15 @@ def test_mamba_decode():
 
 @pytest.mark.parametrize("arch,i", [("olmoe-1b-7b", 0),
                                     ("jamba-v0.1-52b", 1),
-                                    ("jamba-v0.1-52b", 4)])
+                                    ("jamba-v0.1-52b", 4),
+                                    ("deepseek-v2-lite-16b", 0),
+                                    ("deepseek-v2-lite-16b", 1)])
 def test_block_with_moe(arch, i):
     # a full-sequence MoE block (attention or mamba mixer, then the MoE
     # feed-forward) and its one-token decode step against the reference's
     # block_apply / block_decode; jamba's layer 4 is its attention layer,
-    # with a dense mlp
+    # with a dense mlp; deepseek's are MLA, its layer 0 the dense prefix
+    # (d_ff 96) and its layer 1 MoE with two shared experts
     from repro.models import transformer as jt
     from repro.models.layers import NO_SHARDING
     from repro_torch.models import transformer as tt

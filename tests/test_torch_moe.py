@@ -4,8 +4,9 @@ the JAX package's (``repro.models.moe``).
 Weights come from the JAX ``moe_init`` and go to the port as numpy;
 inputs are made with numpy from a seed; everything runs on the CPU in
 float32, where ``radix_partition`` is its plain version.  The grouped
-dispatch is held to the reference's at the SMOKE configs of olmoe-1b-7b
-and jamba-v0.1-52b, at their capacity factor and at 1.0 (tokens drop):
+dispatch is held to the reference's at the SMOKE configs of olmoe-1b-7b,
+jamba-v0.1-52b and deepseek-v2-lite-16b (two shared experts beside the
+routed ones), at their capacity factor and at 1.0 (tokens drop):
 the dispatch slots exactly (the reference's ``argsort`` / ``searchsorted``
 formula on its own top-k ids), y within 1e-4, aux within 1e-5.  The
 shuffle dispatch fails in the reference on this jax (``ROADMAP.md`` §3),
@@ -33,7 +34,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.transformer import tree_from_numpy
 
-ARCHS = ["olmoe-1b-7b", "jamba-v0.1-52b"]
+ARCHS = ["olmoe-1b-7b", "jamba-v0.1-52b", "deepseek-v2-lite-16b"]
 B, S = 2, 32
 
 
@@ -171,7 +172,8 @@ def test_moe_init_tree_matches_reference():
         got = tmoe.moe_init(torch.Generator().manual_seed(0), ct,
                             torch.bfloat16, "cpu")
         flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
-        assert len(flat_w) == 4
+        # router and three expert stacks, and a shared expert's MLP
+        assert len(flat_w) == 4 + 3 * bool(ct.moe.num_shared)
         for path, w in flat_w:
             g = got
             for key in path:

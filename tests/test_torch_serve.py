@@ -1,9 +1,12 @@
 """The port's serving path (prefill -> decode) against the JAX package's.
 
 qwen3-8b (dense GQA, qk-norm, untied head), mamba2-780m (SSD, tied
-head), olmoe-1b-7b (MoE on every layer) and jamba-v0.1-52b (the hybrid:
-mamba and attention layers, MoE on every other layer) at their SMOKE
-sizes: the JAX ``init_params`` tree goes to the port
+head), olmoe-1b-7b (MoE on every layer), jamba-v0.1-52b (the hybrid:
+mamba and attention layers, MoE on every other layer), llama3.2-3b (GQA,
+tied head), qwen3-32b, gemma-7b (GeGLU, tied head) and
+deepseek-v2-lite-16b (MLA with its latent cache; a dense prefix layer,
+then MoE with shared experts) at their SMOKE sizes: the JAX
+``init_params`` tree goes to the port
 through ``params_from_numpy``, the same numpy prompts go through both
 ``prefill`` / ``decode_step`` and both ``ServeEngine``s, on the CPU (the
 port's plain kernels; JAX's Pallas kernels in interpret mode where the
@@ -26,14 +29,18 @@ from repro_torch.models import transformer as tt
 from repro_torch.serve import ServeEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["qwen3-8b", "mamba2-780m", "olmoe-1b-7b", "jamba-v0.1-52b"]
+ARCHS = ["qwen3-8b", "mamba2-780m", "olmoe-1b-7b", "jamba-v0.1-52b",
+         "llama3.2-3b", "qwen3-32b", "gemma-7b", "deepseek-v2-lite-16b"]
 #: the port's name of its kernel path for each arch (the reference uses
 #: the same names; one ``impl`` serves both layer kinds of the hybrid,
-#: whose mamba layers run chunked under ``flash``); a prompt of 160 is
+#: whose mamba layers run chunked under ``flash``; MLA takes ``dense``
+#: under ``flash`` up to 2048 keys in both packages); a prompt of 160 is
 #: longer than the smoke chunk (32), the JAX kernel's 128-row block and
 #: the CUDA kernel's 64-row tile
 KERNEL_IMPL = {"qwen3-8b": "flash", "mamba2-780m": "kernel",
-               "olmoe-1b-7b": "flash", "jamba-v0.1-52b": "flash"}
+               "olmoe-1b-7b": "flash", "jamba-v0.1-52b": "flash",
+               "llama3.2-3b": "flash", "qwen3-32b": "flash",
+               "gemma-7b": "flash", "deepseek-v2-lite-16b": "flash"}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -163,16 +170,33 @@ def test_launch_serve_smoke_on_cpu(capsys):
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("deepseek-v2-lite-16b")
+    # the VLM and audio archs wait for their frontends (item 13.5);
+    # deepseek-v2-lite-16b (MLA) is served since item 13.4
     from repro.configs import get_smoke_config as jax_cfg
-    for arch in ("deepseek-v2-lite-16b", "musicgen-large", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    for arch in ("musicgen-large", "llava-next-34b"):
+        with pytest.raises(NotImplementedError, match="item 13.5"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match="item 13.5"):
             tt.init_params(jax_cfg(arch), torch.Generator().manual_seed(0),
                            torch.float32, "cpu")
+    assert get_config("deepseek-v2-lite-16b").mla is not None
+    model = tt.init_params(jax_cfg("deepseek-v2-lite-16b"),
+                           torch.Generator().manual_seed(0), torch.float32,
+                           "cpu")
+    assert "kv_norm" in dict(model.blocks[0].attn)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen3-32b", "gemma-7b"])
+def test_dense_archs_resolve_to_the_reference_configs(arch):
+    # deepseek-v2-lite-16b's configs are held in the MoE test below
+    from dataclasses import asdict
+    from repro.configs import get_config as jax_config
+    assert asdict(get_config(arch)) == asdict(jax_config(arch))
+    assert asdict(get_smoke_config(arch)) == asdict(jax_smoke(arch))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b",
+                                  "deepseek-v2-lite-16b"])
 def test_moe_archs_resolve_and_build(arch):
     from repro.configs import get_config as jax_config
     from dataclasses import asdict
@@ -185,8 +209,10 @@ def test_moe_archs_resolve_and_build(arch):
     assert ffs == ["moe" if cfg.is_moe_layer(i) else "mlp"
                    for i in range(cfg.num_layers)]
     assert "moe" in ffs
-    # every olmoe layer is MoE; jamba's odd layers are, its even ones dense
-    want = ["moe"] * 2 if arch == "olmoe-1b-7b" else ["mlp", "moe"] * 4
+    # every olmoe layer is MoE; jamba's odd layers are, its even ones
+    # dense; deepseek's dense prefix layer comes before its MoE layers
+    want = {"olmoe-1b-7b": ["moe"] * 2, "jamba-v0.1-52b": ["mlp", "moe"] * 4,
+            "deepseek-v2-lite-16b": ["mlp", "moe", "moe"]}[arch]
     assert ffs == want
 
 
@@ -228,7 +254,12 @@ def test_serving_modules_and_chip_smoke_import_no_jax_or_repro():
             # gang and the stacked ring / Bruck communicators
             "repro_torch.serve.cache", "repro_torch.serve.scheduler",
             "repro_torch.core.actor", "repro_torch.comm.ring",
-            "repro_torch.comm.bruck", "chip_smoke"]
+            "repro_torch.comm.bruck",
+            # the remaining text archs and MLA
+            "repro_torch.configs.llama3_2_3b",
+            "repro_torch.configs.qwen3_32b", "repro_torch.configs.gemma_7b",
+            "repro_torch.configs.deepseek_v2_lite_16b",
+            "repro_torch.models.attention", "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

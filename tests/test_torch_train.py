@@ -34,9 +34,10 @@ from repro_torch.models import transformer as tt
 from repro_torch.models.layers import softmax_cross_entropy as t_ce
 from repro_torch import train as ttrain
 
-ARCHS = ["qwen3-8b", "mamba2-780m", "olmoe-1b-7b", "jamba-v0.1-52b"]
+ARCHS = ["qwen3-8b", "mamba2-780m", "olmoe-1b-7b", "jamba-v0.1-52b",
+         "llama3.2-3b", "qwen3-32b", "gemma-7b", "deepseek-v2-lite-16b"]
 #: archs whose loss carries the MoE load-balancing term
-MOE_ARCHS = ("olmoe-1b-7b", "jamba-v0.1-52b")
+MOE_ARCHS = ("olmoe-1b-7b", "jamba-v0.1-52b", "deepseek-v2-lite-16b")
 #: a vocab that pads (to 256 rows): the padded logits must be masked
 VOCAB = 250
 CE_CHUNK = 16
@@ -183,13 +184,21 @@ def test_weight_decay_follows_the_reference_stacked_tree(arch):
     params = _named(tree, ct)
     got = ttrain.weight_decay_mask(ct, params)
     assert got == want
-    assert not got["final_norm"] and got["blocks.0.norm1"]
+    # a prefix layer's norms (deepseek's dense layer 0) are 1-D on the
+    # stacked tree too and take no decay; body norms do
+    n_prefix = tt.layer_layout(ct)[0]
+    assert not got["final_norm"] and got[f"blocks.{n_prefix}.norm1"]
+    if arch == "deepseek-v2-lite-16b":
+        assert n_prefix == 1
+        assert not got["blocks.0.norm1"] and not got["blocks.0.attn.kv_norm"]
+        assert got["blocks.1.attn.kv_norm"] and got["blocks.0.mlp.w_up"]
     if arch == "mamba2-780m":
         assert got["blocks.1.mixer.a_log"] and params[
             "blocks.1.mixer.a_log"].dim() == 1
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-780m", "llama3.2-3b",
+                                  "gemma-7b"])
 def test_three_train_steps_match_reference(arch):
     cj, ct = _cfgs(arch)
     state_j = jtrain.init_train_state(jax.random.PRNGKey(0), cj, jnp.float32)
