@@ -40,7 +40,9 @@ ends the run with a non-zero exit code if it fails:
    shape (16 heads, no grouping), beside ``scaled_dot_product_attention``,
    and at gemma-7b's head dim 256 (its prefill's shape, ragged queries
    and non-causal over ragged keys, each in f32 and bf16, all on the simt
-   route), beside ``scaled_dot_product_attention`` at the prefill's;
+   route), beside ``scaled_dot_product_attention`` at the prefill's, and
+   at the musicgen-large (32 heads of 64) and llava-next-34b (56 q heads
+   over 8: GQA group 7) prefills' shapes in f32, beside it;
 3. Fig-9: the paper's pipeline (join -> groupby(sum) -> sort ->
    add_scalar) through ``execute`` at 2 x 2**25 rows over 8 ranks stacked
    on the card, in ``bsp``, ``bsp_staged`` and ``amt``, twice each, with
@@ -118,11 +120,15 @@ ends the run with a non-zero exit code if it fails:
    a ``hang`` fenced by ``timeout=``;
 9. serving: qwen3-8b, mamba2-780m, olmoe-1b-7b, jamba-v0.1-52b (cut
    to 8 of its 32 layers, one layout period), llama3.2-3b, gemma-7b (head
-   dim 256), qwen3-32b (cut to 16 of its 64 layers) and
+   dim 256), qwen3-32b (cut to 16 of its 64 layers),
    deepseek-v2-lite-16b (MLA, a dense prefix layer, 64 experts with 2
-   shared) at full width (float32 weights from a seeded generator, batch
-   4, prompt 4096, 32 new tokens, greedy) through ``ServeEngine``, twice
-   each; launch counts reset just before each prefill and each decode
+   shared) and musicgen-large (audio: prompts of 4 codebook ids a
+   position, 4 logit heads) at full width (float32 weights from a seeded
+   generator, batch 4, prompt 4096, 32 new tokens, greedy) through
+   ``ServeEngine``, and llava-next-34b (cut to 15 of its 60 layers; 576
+   patch embeddings from the seed ahead of 3,520 text tokens) through
+   ``VlmServe``'s loop over ``transformer.prefill`` / ``decode_step``,
+   twice each; launch counts reset just before each prefill and each decode
    step and read just after it, each equal to its derivation from the
    layers (flash attention once per GQA attention layer in prefill, on
    the route its head dim takes, never for MLA; the SSD scan once per
@@ -131,13 +137,16 @@ ends the run with a non-zero exit code if it fails:
    per step, tokens per
    second and peak device memory; a profiled prefill and 8 decode steps
    per arch, with the MoE layers' device time (CUDA events) and their
-   dispatch ranks' (the radix kernel);
+   dispatch ranks' (the radix kernel); each prefill's model FLOPs
+   (``launch/roofline.py::model_flops``) over its time and the card's f32
+   peak;
    then a qwen3-8b prefill at the same width with bfloat16 weights,
    twice: finite logits, first tokens in the vocab, 36 flash launches,
    all on the kernel's bf16 tensor-core (wgmma) route; time to first
    token;
-10. serving parity: the eight SMOKE configs with the same weights on the
-   card (kernels forced, prompts longer than a tile; gemma's widened to
+10. serving parity: the ten SMOKE configs with the same weights on the
+   card (kernels forced, prompts longer than a tile; llava's 160
+   positions 8 patch embeddings and 152 tokens; gemma's widened to
    head dim 256; jamba's and deepseek's at 2,100 tokens with ``auto``,
    past the flash threshold and, for MLA, on its chunked branch) and on
    the CPU (plain versions), launches as derived: prefill logits within
@@ -193,7 +202,7 @@ ends the run with a non-zero exit code if it fails:
    olmoe-1b-7b at full width cut to 4 of 16 layers, trained the same way
    on a second run of the pipeline (8 radix launches a step: the forward
    and the recomputation of every MoE layer; the aux term printed; the
-   MoE layers' device time in the profiled step); the eight SMOKE
+   MoE layers' device time in the profiled step); the ten SMOKE
    configs trained 3 steps on the card and on the CPU from one state
    (losses and gradient norms within 1e-3), a checkpoint resumed bit for
    bit on the card; the SSD scan's autograd path at the training shape
@@ -234,12 +243,18 @@ SERVE_CASES = (("qwen3-8b", 4, 4096, 32), ("mamba2-780m", 4, 4096, 32),
                ("olmoe-1b-7b", 4, 4096, 32), ("jamba-v0.1-52b", 4, 4096, 32),
                ("llama3.2-3b", 4, 4096, 32), ("gemma-7b", 4, 4096, 32),
                ("qwen3-32b", 4, 4096, 32),
-               ("deepseek-v2-lite-16b", 4, 4096, 32))
+               ("deepseek-v2-lite-16b", 4, 4096, 32),
+               ("musicgen-large", 4, 4096, 32))
+#: the served vlm: ``ServeEngine`` takes token prompts only, so its
+#: prompt's patch embeddings (``vlm_patches``: 576 of its 4,096
+#: positions) go through ``transformer.prefill`` in ``VlmServe``'s loop
+VLM_CASES = (("llava-next-34b", 4, 4096, 32),)
 #: layers kept of a served arch that does not fit the card whole:
 #: jamba-v0.1-52b's 49.3 B parameters (197 GB in float32) cut to one
 #: layout period, 8 of 32 layers (13.27 B, 49.4 GiB); qwen3-32b's 32.76 B
-#: (122 GiB) cut to 16 of 64 layers (9.36 B, 34.9 GiB)
-SERVE_LAYERS = {"jamba-v0.1-52b": 8, "qwen3-32b": 16}
+#: (122 GiB) cut to 16 of 64 layers (9.36 B, 34.9 GiB); llava-next-34b's
+#: 34.39 B (128.1 GiB) cut to 15 of 60 layers (9.285 B, 34.59 GiB)
+SERVE_LAYERS = {"jamba-v0.1-52b": 8, "qwen3-32b": 16, "llava-next-34b": 15}
 #: the serving parity phase's impl and prompt per SMOKE config: the
 #: kernels forced (``flash`` / ``kernel``), or reached by a prompt past
 #: 2,048 keys where one ``impl`` serves both layer kinds (the hybrid) or
@@ -249,7 +264,12 @@ PARITY_CASES = {"qwen3-8b": ("flash", 160), "mamba2-780m": ("kernel", 160),
                 "jamba-v0.1-52b": ("auto", 2100),
                 "llama3.2-3b": ("flash", 160), "qwen3-32b": ("flash", 160),
                 "gemma-7b": ("flash", 160),
-                "deepseek-v2-lite-16b": ("auto", 2100)}
+                "deepseek-v2-lite-16b": ("auto", 2100),
+                "musicgen-large": ("flash", 160),
+                "llava-next-34b": ("flash", 160)}
+#: patch embeddings ahead of a SMOKE vlm prompt (parity phases): 8 of
+#: its 160 positions
+SMOKE_PATCHES = 8
 #: SMOKE fields the parity phase widens: gemma-7b's head dim to its full
 #: config's 256, so that the flash kernel's D = 256 instance runs inside
 #: a model
@@ -1190,10 +1210,11 @@ def report_profile(prof, wall_ms, title, top=10):
     return busy
 
 
-def profile_serve(torch, engine, prompts, arch, steps=8, top=8):
+def profile_serve(torch, engine, prompts, arch, steps=8, top=8, offset=0):
     """One prefill, then ``steps`` greedy decode steps, each window under
     ``torch.profiler``: where the device time goes and how much of the
-    wall time the device is idle."""
+    wall time the device is idle.  ``offset``: positions ahead of the
+    prompts (a vlm's patch embeddings)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     tokens = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
@@ -1206,7 +1227,7 @@ def profile_serve(torch, engine, prompts, arch, steps=8, top=8):
         wall_ms = (time.perf_counter() - t) * 1e3
     report_profile(prof, wall_ms, f"{arch} prefill", top)
     moe = {"prefill": moe_split(prof, spans)} if engine.cfg.moe else None
-    s0 = tokens.shape[1]
+    s0 = offset + tokens.shape[1]
     spans = []
     with moe_timed(torch, spans), profile(activities=acts) as prof:
         t = time.perf_counter()
@@ -2824,7 +2845,11 @@ def flash_phase(torch, flush):
              ("ragged:d256:bf16", 2, 16, 16, 4000, 4000, 256, True, bf16),
              ("noncausal:d256", 2, 16, 16, 1000, 3001, 256, False, f32),
              ("noncausal:d256:bf16", 2, 16, 16, 1000, 3001, 256, False,
-              bf16)]
+              bf16),
+             # the musicgen-large prefill: 32 heads of 64, no grouping;
+             # the llava-next-34b prefill: 56 q heads over 8, group 7
+             ("musicgen", 4, 32, 32, 4096, 4096, 64, True, f32),
+             ("llava", 4, 56, 8, 4096, 4096, 128, True, f32)]
     out = []
     for name, b, hq, hkv, sq, sk, d, causal, dt in cases:
         q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(dt)
@@ -2856,7 +2881,8 @@ def flash_phase(torch, flush):
         plain_ms = time_cuda(torch, lambda: attention_ref(q, k, v, causal),
                              3, flush)
         lib_ms = None
-        if name.startswith(("main", "olmoe", "gemma")):
+        if name.startswith(("main", "olmoe", "gemma", "musicgen",
+                            "llava")):
             lib_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), 10, flush)
         flops = flash_flops(sq, sk, d, b * hq, causal)
@@ -3037,6 +3063,55 @@ def serve_config(arch, smoke=False):
     return cfg
 
 
+def serve_prompts(cfg, batch, positions, patches, rng):
+    """Token prompts of a sequence of ``positions`` from ``rng``: (batch,
+    positions) ids, (batch, positions, K) for audio; a vlm's ``patches``
+    patch embeddings take the first positions."""
+    k = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+    return rng.integers(0, cfg.vocab_size,
+                        (batch, positions - patches) + k).astype(np.int32)
+
+
+class VlmServe:
+    """A vlm's greedy serving loop: ``ServeEngine`` takes token prompts
+    only, so the patch embeddings ``patches`` (B, P, D) go ahead of the
+    token prompt (B, S0) through ``transformer.prefill``, and decoding
+    runs at positions P + S0, P + S0 + 1, ...  It has the engine's
+    ``prefill``, ``decode_step`` and ``generate`` (a decode step after
+    every new token, the last one's logits unused, as the engine's), so
+    ``instrument`` and ``profile_serve`` take it as an engine."""
+
+    def __init__(self, cfg, model, cache_len, patches):
+        self.cfg, self.model, self.cache_len = cfg, model, cache_len
+        self.patches = patches
+
+    def prefill(self, tokens):
+        from repro_torch.models import transformer
+        return transformer.prefill(self.model, tokens, self.cache_len,
+                                   patch_embeds=self.patches)
+
+    def decode_step(self, caches, tokens, pos):
+        from repro_torch.models import transformer
+        return transformer.decode_step(self.model, caches, tokens, pos)
+
+    def generate(self, prompts, max_new_tokens):
+        import torch
+        from repro_torch.serve.engine import GenerationResult
+        tokens = torch.as_tensor(prompts, dtype=torch.long,
+                                 device=self.model.device)
+        b, s0 = tokens.shape[0], self.patches.shape[1] + tokens.shape[1]
+        logits, caches = self.prefill(tokens)
+        out = []
+        for step in range(max_new_tokens):
+            tok = torch.argmax(logits, dim=-1)
+            out.append(tok)
+            pos = torch.full((b,), s0 + step, dtype=torch.int32,
+                             device=tokens.device)
+            logits = self.decode_step(caches, tok[:, None], pos)
+        toks = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        return GenerationResult(tokens=toks, steps=len(out), prefill_len=s0)
+
+
 def serve_launches(cfg, impl, prompt):
     """Kernel launches of one prefill and of one decode step on the card,
     derived from the layers: flash attention once per GQA attention layer
@@ -3079,8 +3154,9 @@ def instrument(torch, engine, rec):
             r: c - routes[r]
             for r, c in flash_attention_cuda.route_launches.items()
             if c > routes[r]}
-        check(bool(torch.isfinite(logits[:, :engine.cfg.vocab_size]).all()),
-              "prefill logits are not finite")
+        check(bool(torch.isfinite(
+            logits[..., :engine.cfg.vocab_size]).all()),
+            "prefill logits are not finite")
         return logits, caches
 
     def counted_decode(caches, tokens, pos):
@@ -3094,15 +3170,21 @@ def instrument(torch, engine, rec):
 
 
 def serve_phase(torch, smi, seed=0):
-    """``SERVE_CASES`` at full width (jamba and qwen3-32b cut to
-    ``SERVE_LAYERS``) through ``ServeEngine``; returns per-arch records of
-    the first and the cached run."""
+    """``SERVE_CASES`` at full width (jamba, qwen3-32b and llava cut to
+    ``SERVE_LAYERS``) through ``ServeEngine``, and ``VLM_CASES`` through
+    ``VlmServe`` (their patch embeddings standard normals from the seed);
+    returns per-arch records of the first and the cached run, with the
+    model FLOPs of a prefill (``launch/roofline.py::model_flops``) over
+    its time and the card's f32 peak."""
     from repro_torch.kernels.flash_attention.cuda import route_for
+    from repro_torch.launch.roofline import device_peaks, model_flops
+    from repro_torch.launch.shapes import vlm_patches
     from repro_torch.models import transformer
     from repro_torch.serve import ServeEngine
     dev = torch.device("cuda")
+    f32_peak = device_peaks().f32_flops_per_s
     results = {}
-    for arch, batch, prompt, new in SERVE_CASES:
+    for arch, batch, prompt, new in SERVE_CASES + VLM_CASES:
         cfg = serve_config(arch)
         t = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3112,9 +3194,15 @@ def serve_phase(torch, smi, seed=0):
         print(f"serve {arch}: {cfg.num_layers} layers, {n_params / 1e9:.3f}"
               f" B float32 parameters ({n_params * 4 / 2**30:.2f} GiB) made "
               f"on the card in {time.perf_counter() - t:.1f} s", flush=True)
-        engine = ServeEngine(cfg, model, cache_len=prompt + new)
-        prompts = np.random.default_rng(seed).integers(
-            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+        patches = 0
+        if cfg.family == "vlm":
+            patches = vlm_patches(cfg, prompt)
+            engine = VlmServe(cfg, model, prompt + new, torch.randn(
+                (batch, patches, cfg.d_model), generator=gen, device=dev))
+        else:
+            engine = ServeEngine(cfg, model, cache_len=prompt + new)
+        prompts = serve_prompts(cfg, batch, prompt, patches,
+                                np.random.default_rng(seed))
         want_pre, want_dec = serve_launches(cfg, "auto", prompt)
         # f32 weights: the simt route at every head dim
         route = route_for(torch.float32, cfg.resolved_head_dim)
@@ -3132,12 +3220,14 @@ def serve_phase(torch, smi, seed=0):
             del engine.prefill, engine.decode_step   # the unwrapped methods
             peak = torch.cuda.max_memory_allocated()
             toks = res.tokens
-            check(res.steps == new and toks.shape == (batch, new),
-                  f"{arch}/{run}: {toks.shape} tokens in {res.steps} steps")
+            check(res.steps == new and res.prefill_len == prompt
+                  and toks.shape == (batch, new) + prompts.shape[2:],
+                  f"{arch}/{run}: {toks.shape} tokens in {res.steps} steps "
+                  f"after {res.prefill_len} positions")
             check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
                   f"{arch}/{run}: token ids outside [0, {cfg.vocab_size})")
             check(bool(torch.isfinite(
-                rec["last_logits"][:, :cfg.vocab_size]).all()),
+                rec["last_logits"][..., :cfg.vocab_size]).all()),
                 f"{arch}/{run}: decode logits are not finite")
             pre = rec["prefill"]
             check(pre == want_pre, f"{arch}/{run}: prefill launches {pre}, "
@@ -3174,8 +3264,17 @@ def serve_phase(torch, smi, seed=0):
                   flush=True)
             print(f"serve {arch} {run} first sequence: "
                   f"{toks[0, :12].tolist()}...", flush=True)
+        flops = model_flops(cfg, "prefill", batch, prompt)
+        for run, r in runs.items():
+            r["model_flops_share"] = flops / r["ttft_s"] / f32_peak
+        print(f"serve {arch} model FLOPs a prefill {flops / 1e12:.1f} T "
+              f"(2 x {cfg.active_param_count() / 1e9:.3f} B active "
+              f"parameters x {batch} x {prompt} positions): first / "
+              f"cached {runs['first']['model_flops_share']:.1%} / "
+              f"{runs['cached']['model_flops_share']:.1%} of the f32 peak "
+              f"{f32_peak / 1e12:.0f} TFLOP/s [{smi}]", flush=True)
         results[arch] = runs
-        moe_ms = profile_serve(torch, engine, prompts, arch)
+        moe_ms = profile_serve(torch, engine, prompts, arch, offset=patches)
         if cfg.moe:
             runs["first"]["moe_profile_ms"] = moe_ms
         del engine, model
@@ -3233,19 +3332,24 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), new=8):
     runs the kernels (``PARITY_CASES``: forced, or reached past 2,048
     keys) at a prompt longer than the flash tile (64) and the smoke chunk
     (32), with launches as derived; the CPU runs the plain versions.
-    Prefill logits within 1e-3, greedy tokens equal."""
+    Prefill logits within 1e-3, greedy tokens equal.  A vlm's prompt is
+    ``SMOKE_PATCHES`` patch embeddings and the text after them."""
     import copy
     import dataclasses
     from repro_torch.models import transformer
-    for arch, _, _, _ in SERVE_CASES:
+    for arch, _, _, _ in SERVE_CASES + VLM_CASES:
         cfg = dataclasses.replace(serve_config(arch, smoke=True),
                                   **PARITY_WIDEN.get(arch, {}))
         impl, prompt = PARITY_CASES[arch]
         card = serve_launches(cfg, impl, prompt)[0]
         base = transformer.init_params(cfg, torch.Generator().manual_seed(3),
                                        torch.float32, "cpu")
-        prompts = np.random.default_rng(3).integers(
-            0, cfg.vocab_size, (2, prompt)).astype(np.int32)
+        rng = np.random.default_rng(3)
+        n_patch = SMOKE_PATCHES if cfg.family == "vlm" else 0
+        prompts = serve_prompts(cfg, 2, prompt, n_patch, rng)
+        patches = (torch.from_numpy(rng.standard_normal(
+            (2, n_patch, cfg.d_model)).astype(np.float32)) if n_patch
+            else None)
         logits, tokens = {}, {}
         for device in devices:
             model = copy.deepcopy(base).to(device)
@@ -3253,7 +3357,8 @@ def serve_parity_phase(torch, devices=("cuda", "cpu"), new=8):
             lg, caches = transformer.prefill(
                 model, torch.as_tensor(prompts, dtype=torch.long,
                                        device=device),
-                prompt + new, impl)
+                prompt + new, impl,
+                None if patches is None else patches.to(device))
             counts = launch_counts()
             want = card if device != "cpu" else dict.fromkeys(card, 0)
             check(counts == want, f"parity {arch} {device}: {counts} "
@@ -4270,15 +4375,19 @@ def train_parity_phase(torch, steps=3, seed=3):
             return {k: to(v, dev) for k, v in tree.items()}
         return tree.to(dev, copy=True)
 
-    for arch, _, _, _ in SERVE_CASES:
+    for arch, _, _, _ in SERVE_CASES + VLM_CASES:
         cfg = get_smoke_config(arch)
         base = init_train_state(cfg, torch.Generator().manual_seed(seed),
                                 torch.float32, "cpu")
         rng = np.random.default_rng(seed)
+        n_patch = SMOKE_PATCHES if cfg.family == "vlm" else 0
         batches = []
         for _ in range(steps):
-            toks = rng.integers(0, cfg.vocab_size, (2, 161)).astype(np.int32)
+            toks = serve_prompts(cfg, 2, 161, n_patch, rng)
             batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+            if n_patch:
+                batches[-1]["patch_embeds"] = rng.standard_normal(
+                    (2, n_patch, cfg.d_model)).astype(np.float32)
         ocfg = AdamWConfig(warmup_steps=1, total_steps=steps)
         metrics, states = {}, {}
         for device in ("cuda", "cpu"):

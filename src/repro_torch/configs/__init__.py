@@ -3,12 +3,12 @@ smoke variants).
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` resolve the public arch
 ids as the JAX package does; each module's ``CONFIG`` and ``SMOKE`` are
-copied verbatim from it.  The port serves and trains every text arch of
-the JAX package: llama3.2-3b, qwen3-8b, qwen3-32b and gemma-7b (dense),
+copied verbatim from it.  The port serves and trains every arch of the
+JAX package: llama3.2-3b, qwen3-8b, qwen3-32b and gemma-7b (dense),
 mamba2-780m (ssm), olmoe-1b-7b and deepseek-v2-lite-16b (MoE; deepseek
-with MLA attention) and jamba-v0.1-52b (hybrid MoE).  The VLM and audio
-archs (llava-next-34b, musicgen-large) raise ``NotImplementedError``
-naming ROADMAP item 13.5, which brings their frontends.
+with MLA attention), jamba-v0.1-52b (hybrid MoE), llava-next-34b (vlm:
+precomputed patch embeddings ahead of the text) and musicgen-large
+(audio: K codebooks summed in, K logit heads out).
 """
 
 from __future__ import annotations
@@ -26,21 +26,15 @@ _MODULES: Dict[str, str] = {
     "mamba2-780m": "mamba2_780m",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "llava-next-34b": "llava_next_34b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "musicgen-large": "musicgen_large",
 }
-
-#: archs of the JAX package that the port does not serve or train yet
-_LATER = ("llava-next-34b", "musicgen-large")
 
 ARCHS: List[str] = list(_MODULES)
 
 
 def _module(arch: str):
-    if arch in _LATER:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 13.5: "
-            f"the VLM and audio frontends; the port serves and trains "
-            f"{ARCHS})")
     try:
         name = _MODULES[arch]
     except KeyError:

@@ -1,5 +1,7 @@
 """Launchers of the port: ``serve`` (batched serving from the command
 line), ``train`` (the §IV-C preprocessing application feeding a training
-loop) and ``roofline`` (the card's bound of a measured query stage).  The
-JAX package's mesh, dry-run, shapes and report launchers and the model
-half of its roofline are not ported yet (ROADMAP queue 1, item 13.7)."""
+loop), ``shapes`` (the assigned input-shape cells and their input specs)
+and ``roofline`` (the card's bound of a measured query stage, a model's
+FLOPs per step).  The JAX package's mesh, dry-run and report launchers and
+the HLO half of its roofline are not ported yet (ROADMAP queue 1, item
+13.7: they lower onto a mesh, item 13.6)."""

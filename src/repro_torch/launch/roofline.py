@@ -1,10 +1,12 @@
-"""Roofline terms of a measured query stage, on the card the env runs on.
+"""Roofline terms of a measured query stage, on the card the env runs on,
+and a model's FLOPs per step.
 
-The torch counterpart of ``repro.launch.roofline``'s ``roofline_terms``
-and ``stage_roofline`` (the HLO parser and the model half of that module
-belong to the model stack, ROADMAP queue 1, item 13.7).  The JAX package
-bounds a stage with one TPU chip per rank; the port stacks every rank of
-a gang on one card, so two things change:
+The torch counterpart of ``repro.launch.roofline``'s ``roofline_terms``,
+``stage_roofline`` and ``model_flops`` (its HLO half, ``analyze``,
+``parse_collectives`` and ``format_table``, reads the dry-run's lowered
+programs and waits with it for ROADMAP queue 1, item 13.7).  The JAX
+package bounds a stage with one TPU chip per rank; the port stacks every
+rank of a gang on one card, so two things change:
 
 * **Peaks** are the card's own, from ``DEVICE_PEAKS`` keyed by the name
   ``torch.cuda.get_device_properties`` gives.  A device missing from the
@@ -28,7 +30,7 @@ import dataclasses
 from typing import Dict, Optional
 
 __all__ = ["DevicePeaks", "DEVICE_PEAKS", "peaks_for", "device_peaks",
-           "roofline_terms", "stage_roofline"]
+           "roofline_terms", "stage_roofline", "model_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,3 +119,13 @@ def stage_roofline(wire_bytes: float, elapsed_s: Optional[float],
         terms["step_s_lower_bound"] / float(elapsed_s)
         if elapsed_s else 0.0)
     return terms
+
+
+def model_flops(cfg, kind: str, global_batch: int, seq_len: int) -> float:
+    """6·N_active·tokens (train) or 2·N_active·tokens (inference)."""
+    n = cfg.active_param_count()
+    if kind == "train":
+        return 6.0 * n * global_batch * seq_len
+    if kind == "prefill":
+        return 2.0 * n * global_batch * seq_len
+    return 2.0 * n * global_batch  # decode: one token per sequence

@@ -6,7 +6,10 @@
       --batch 4 --prompt-len 4096 --max-new 32
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
-``--smoke`` there: the full-width configs need tens of GB).
+``--smoke`` there: the full-width configs need tens of GB).  An audio
+arch (musicgen-large) gets prompts of K codebook ids a position; a vlm
+(llava-next-34b) exits, as in the reference: its patch embeddings come
+through ``transformer.prefill``, not through token prompts.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "vlm":
+        raise SystemExit("serve driver covers token-LM archs")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = transformer.init_params(cfg, gen, torch.float32, dev)
@@ -45,17 +50,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     engine = ServeEngine(cfg, model, cache_len)
 
     rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           (args.batch, args.prompt_len)).astype(np.int32)
+    shape = ((args.batch, args.prompt_len, cfg.num_codebooks)
+             if cfg.family == "audio" else (args.batch, args.prompt_len))
+    prompts = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
 
     t0 = time.time()
     res = engine.generate(prompts, max_new_tokens=args.max_new,
                           temperature=args.temperature, seed=args.seed)
     dt = time.time() - t0
+    toks = res.tokens.reshape(args.batch, res.steps, -1)
     print(f"[serve] arch={cfg.name} batch={args.batch} "
           f"prefill={res.prefill_len} decoded={res.steps} tokens "
           f"in {dt:.2f}s ({args.batch * res.steps / dt:.1f} tok/s)")
-    print("first sequence:", res.tokens[0].tolist())
+    print("first sequence:", toks[0, :, 0].tolist())
 
 
 if __name__ == "__main__":

@@ -9,8 +9,10 @@ and ``--resume``.
       --steps 50 --batch 8 --seq 1024 --ckpt-dir /tmp/ckpt --resume
 
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
-``--smoke`` there).  The reference's ``--model-axis`` and its mesh wait
-for ROADMAP item 13.6.
+``--smoke`` there).  As in the reference, the driver trains the token-LM
+archs and exits for the vlm and audio ones, whose batches the §IV-C
+corpus does not make (``train.make_train_step`` takes them).  The
+reference's ``--model-axis`` and its mesh wait for ROADMAP item 13.6.
 """
 
 from __future__ import annotations
@@ -52,6 +54,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in ("vlm", "audio"):
+        raise SystemExit("train driver covers token-LM archs; see the "
+                         "smoke tests for vlm/audio steps")
     dev = resolve_device(args.device)
 
     # ---- DDF preprocessing application (paper §IV-C) ------------------ #

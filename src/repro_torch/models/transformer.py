@@ -24,8 +24,11 @@ layer's feed-forward is a dense ``mlp`` or, on the config's MoE layers,
 ``moe`` (``models/moe.py``), whose load-balancing loss each block returns
 and ``forward_train`` sums.  An attention layer is GQA, or MLA when the
 config has ``mla`` (deepseek-v2-lite-16b), whose cache is one latent row
-a token.  The VLM / audio frontends raise ``NotImplementedError``
-(ROADMAP queue 1, item 13.5).
+a token.  The frontends are the reference's: the ``vlm`` family puts
+precomputed patch embeddings ``(B, P, D)`` (``patch_embeds``) ahead of
+the text embeddings, and the ``audio`` family sums its K codebooks'
+embeddings over tokens ``(B, S, K)`` and has K logit heads; both keep
+their vision tower or codec outside the model, as the reference does.
 """
 
 from __future__ import annotations
@@ -49,15 +52,6 @@ from .mamba2 import dims as mamba_dims, mamba_decode, mamba_forward, \
 from .moe import moe_apply, moe_init
 
 Cache = Dict[str, torch.Tensor]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not serve or train yet."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} frontend is not ported yet "
-            f"(ROADMAP queue 1, item 13.5); the port serves and trains the "
-            f"dense, ssm, moe and hybrid families")
 
 
 # ---------------------------------------------------------------------- #
@@ -237,11 +231,11 @@ def block_cache_init(cfg: ModelConfig, i: int, batch: int, cache_len: int,
 class Transformer(nn.Module):
     """Embedding, ``blocks`` (one per layer), final norm and, unless tied,
     the LM head.  ``params`` is the port's tree: ``embed``, optional
-    ``lm_head``, ``layers`` (one dict per layer) and ``final_norm``."""
+    ``lm_head`` (each (Vp, D), or (K, Vp, D) for the audio family's K
+    codebooks), ``layers`` (one dict per layer) and ``final_norm``."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any]):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.embed = _param(params["embed"])
         if not cfg.tie_embeddings:
@@ -266,13 +260,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     """A randomly initialised model, drawn from ``gen`` (a generator on
     ``device``) with the reference's initializers and shapes.  ``device``
     None means ``cuda``, which raises without a card."""
-    check_supported(cfg)
     device = resolve_device(device)
-    vp = cfg.padded_vocab
-    params: Dict[str, Any] = {
-        "embed": embed_init(gen, (vp, cfg.d_model), dtype, device)}
+    table = (cfg.padded_vocab, cfg.d_model)
+    if cfg.family == "audio":
+        table = (cfg.num_codebooks,) + table
+    params: Dict[str, Any] = {"embed": embed_init(gen, table, dtype, device)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(gen, (vp, cfg.d_model), dtype, device)
+        params["lm_head"] = embed_init(gen, table, dtype, device)
     params["layers"] = [block_init(gen, cfg, i, dtype, device)
                         for i in range(cfg.num_layers)]
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
@@ -313,7 +307,6 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     """Load the JAX package's ``init_params(key, cfg, dtype)`` tree, with
     every leaf converted to numpy, into a ``Transformer`` on ``device``
     (None means ``cuda``, which raises without a card)."""
-    check_supported(cfg)
     device = resolve_device(device)
     params = {"embed": tree_from_numpy(tree["embed"], device),
               "layers": [tree_from_numpy(lp, device)
@@ -367,11 +360,32 @@ def train_state_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
 # ---------------------------------------------------------------------- #
 # Forward and serving
 # ---------------------------------------------------------------------- #
-def embed_tokens(model: Transformer, tokens: torch.Tensor
+def _lookup(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings: ``embed[tokens]`` (B, S, D), or for the audio
+    family the sum over codebooks i of ``embed[i][tokens[..., i]]`` with
+    tokens (B, S, K), added from codebook 0 up as the reference adds."""
+    if model.cfg.family != "audio":
+        return model.embed[tokens]
+    x = model.embed[0][tokens[..., 0]]
+    for i in range(1, model.cfg.num_codebooks):
+        x = x + model.embed[i][tokens[..., i]]
+    return x
+
+
+def embed_tokens(model: Transformer, tokens: torch.Tensor,
+                 patch_embeds: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (x (B, S, D), positions (B, S))."""
-    b, s = tokens.shape
-    x = model.embed[tokens]
+    """tokens (B, S), or (B, S, K) for audio -> (x (B, S, D), positions
+    (B, S)).  A vlm model takes ``patch_embeds`` (B, P, D), cast to the
+    embedding's dtype and put ahead of the text: x is (B, P + S, D), at
+    positions 0 ... P + S - 1."""
+    if (patch_embeds is not None) != (model.cfg.family == "vlm"):
+        raise ValueError(f"{model.cfg.name}: a vlm model takes "
+                         f"patch_embeds (B, P, D), and no other family does")
+    x = _lookup(model, tokens)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(model.embed.dtype), x], dim=1)
+    b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     return x, positions
@@ -379,10 +393,11 @@ def embed_tokens(model: Transformer, tokens: torch.Tensor
 
 @torch.no_grad()
 def forward(model: Transformer, tokens: torch.Tensor, impl: str = "auto",
-            collect_cache: bool = False, cache_len: Optional[int] = None):
-    """Full-sequence forward.  Returns h (B, S, D), or (h, caches) with
-    ``collect_cache``."""
-    x, positions = embed_tokens(model, tokens)
+            collect_cache: bool = False, cache_len: Optional[int] = None,
+            patch_embeds: Optional[torch.Tensor] = None):
+    """Full-sequence forward.  Returns h (B, S, D) (S counts a vlm's
+    patches), or (h, caches) with ``collect_cache``."""
+    x, positions = embed_tokens(model, tokens, patch_embeds)
     caches: List[Cache] = []
     for blk in model.blocks:
         x, _, cache = blk(x, positions, impl, collect_cache, cache_len)
@@ -392,7 +407,8 @@ def forward(model: Transformer, tokens: torch.Tensor, impl: str = "auto",
 
 
 def forward_train(model: Transformer, tokens: torch.Tensor,
-                  impl: str = "auto", remat: bool = True
+                  impl: str = "auto", remat: bool = True,
+                  patch_embeds: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward with autograd (the reference's ``forward``
     without caches).  Returns (h (B, S, D), aux), aux the float32 MoE
@@ -400,7 +416,7 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
     ``remat`` each layer's activations are recomputed in the backward
     pass from its input, as the reference's ``jax.checkpoint`` over its
     layer scan."""
-    x, positions = embed_tokens(model, tokens)
+    x, positions = embed_tokens(model, tokens, patch_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.blocks:
         def run(x, blk=blk):
@@ -428,30 +444,42 @@ def _mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
+def _unembed(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h (..., D) against the unembedding w: (..., V) for w (V, D), or
+    (..., K, V) for the audio family's (K, V, D)."""
+    if w.dim() == 3:
+        return torch.einsum("...d,kvd->...kv", h, w)
+    return h @ w.T
+
+
 def _logits(model: Transformer, h: torch.Tensor) -> torch.Tensor:
-    """(B, D) -> masked float32 logits (B, V).  As the reference, the
-    unembedding is rounded to bfloat16 and contracted in h's dtype (JAX
-    promotes the bf16 x f32 product to f32)."""
+    """(B, D) -> masked float32 logits (B, V), or (B, K, V) for audio.  As
+    the reference, the unembedding is rounded to bfloat16 and contracted
+    in h's dtype (JAX promotes the bf16 x f32 product to f32)."""
     w = model.unembed().to(torch.bfloat16).to(h.dtype)
-    return _mask_pad_logits((h @ w.T).float(), model.cfg)
+    return _mask_pad_logits(_unembed(h, w).float(), model.cfg)
 
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor, cache_len: int,
-            impl: str = "auto") -> Tuple[torch.Tensor, List[Cache]]:
-    """Process a full prompt (B, S); returns (last-position logits (B, V),
-    caches with ``cache_len`` positions)."""
+            impl: str = "auto", patch_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, List[Cache]]:
+    """Process a full prompt (B, S), or (B, S, K) for audio, after a vlm's
+    ``patch_embeds`` (B, P, D); returns (last-position logits (B, V) or
+    (B, K, V), caches with ``cache_len`` positions, the patches' first)."""
     h, caches = forward(model, tokens, impl, collect_cache=True,
-                        cache_len=cache_len)
+                        cache_len=cache_len, patch_embeds=patch_embeds)
     return _logits(model, h[:, -1]), caches
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, caches: List[Cache],
                 tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """One decode step.  tokens: (B, 1); pos: (B,), the same position for
-    every row.  Returns logits (B, V); ``caches`` are updated in place."""
-    x = model.embed[tokens]
+    """One decode step.  tokens: (B, 1), or (B, 1, K) for audio; pos:
+    (B,), the same position for every row (a vlm's counts its patches).
+    Returns logits (B, V) or (B, K, V); ``caches`` are updated in
+    place."""
+    x = _lookup(model, tokens)
     for blk, cache in zip(model.blocks, caches):
         x = blk.decode(x, cache, pos)
     h = rmsnorm(model.final_norm, x, model.cfg.norm_eps)[:, 0]
@@ -464,10 +492,10 @@ def decode_step(model: Transformer, caches: List[Cache],
 def _ce_chunk(hs: torch.Tensor, ls: torch.Tensor, w: torch.Tensor,
               cfg: ModelConfig, z_loss: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the token losses, count) over one chunk of positions; w is
-    the bfloat16 unembedding, contracted in h's dtype and read in
-    float32."""
-    logits = _mask_pad_logits((hs @ w.to(hs.dtype).T).float(), cfg)
+    """(sum of the token losses, count) over one chunk of positions (of
+    (position, codebook) pairs for audio); w is the bfloat16 unembedding,
+    contracted in h's dtype and read in float32."""
+    logits = _mask_pad_logits(_unembed(hs, w.to(hs.dtype)).float(), cfg)
     m = logits.amax(dim=-1, keepdim=True).detach()
     lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
     valid = ls >= 0
@@ -480,7 +508,8 @@ def _ce_chunk(hs: torch.Tensor, ls: torch.Tensor, w: torch.Tensor,
 def chunked_ce_loss(model: Transformer, h: torch.Tensor,
                     labels: torch.Tensor, chunk: int = 512,
                     z_loss: float = 1e-4) -> torch.Tensor:
-    """Mean CE (+ z-loss) over labels >= 0.  h: (B, S, D); labels (B, S).
+    """Mean CE (+ z-loss) over labels >= 0.  h: (B, S, D); labels (B, S),
+    or (B, S, K) for audio, where each (position, codebook) counts once.
 
     The sequence is processed in chunks of ``chunk`` positions, each
     rematerialised, so the full (B, S, V) logits are never resident.  As
@@ -505,8 +534,12 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor],
             impl: str = "auto", remat: bool = True, ce_chunk: int = 512
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss = chunked CE + MoE aux; ``batch`` carries ``tokens``
-    and ``labels`` (B, S) on the model's device.  Returns (loss, {"ce",
-    "aux"})."""
-    h, aux = forward_train(model, batch["tokens"], impl, remat)
+    and ``labels`` (B, S) ((B, S, K) for audio) on the model's device, and
+    a vlm's ``patch_embeds`` (B, P, D), whose positions take no loss.
+    Returns (loss, {"ce", "aux"})."""
+    patches = batch.get("patch_embeds")
+    h, aux = forward_train(model, batch["tokens"], impl, remat, patches)
+    if patches is not None:
+        h = h[:, patches.shape[1]:]
     ce = chunked_ce_loss(model, h, batch["labels"], ce_chunk)
     return ce + aux, {"ce": ce, "aux": aux}

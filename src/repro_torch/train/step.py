@@ -52,8 +52,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     ce_chunk: int = 512
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """``train_step(state, batch)``: ``batch`` holds ``tokens`` and
-    ``labels`` (B, S), numpy or tensors; they move to the parameters'
-    device.  Metrics: ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``
+    ``labels`` (B, S) ((B, S, K) for audio) and a vlm's ``patch_embeds``
+    (B, P, D), numpy or tensors; they move to the parameters' device.  Metrics: ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``
     (0-d tensors on that device)."""
     def train_step(state: TrainState, batch: Dict[str, Any]):
         params = state["params"]

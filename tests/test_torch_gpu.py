@@ -157,7 +157,11 @@ FLASH_CASES = [(1, 4, 4, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
                (1, 4, 4, 256, 256, 256, True),
                (1, 4, 2, 333, 333, 256, True),
                (2, 4, 1, 70, 1000, 256, True),
-               (1, 2, 2, 100, 301, 256, False)]
+               (1, 2, 2, 100, 301, 256, False),
+               # llava-next-34b's GQA group 7 (56 q heads over 8) and
+               # musicgen-large's MHA at head dim 64, off the tiles
+               (1, 56, 8, 300, 300, 128, True),
+               (1, 32, 32, 300, 300, 64, True)]
 
 
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", FLASH_CASES)
@@ -1708,3 +1712,76 @@ def test_gemma_smoke_at_head_dim_256_card_equals_cpu(cuda):
             == cfg.num_layers)
     for a, b in zip(got[cuda][0], got["cpu"][0]):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------- #
+# The VLM and audio frontends (llava-next-34b, musicgen-large)
+# ---------------------------------------------------------------------- #
+def _frontend_inputs(cfg, s, seed, labels=False):
+    # audio: (2, s, K) tokens; vlm: 8 patch embeddings and s - 8 tokens
+    rng = np.random.default_rng(seed)
+    k = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+    n = s - 8 if cfg.family == "vlm" else s
+    toks = rng.integers(0, cfg.vocab_size, (2, n + 1) + k).astype(np.int32)
+    batch = {"tokens": toks[:, :-1]}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal(
+            (2, 8, cfg.d_model)).astype(np.float32)
+    if labels:
+        batch["labels"] = toks[:, 1:]
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["llava-next-34b", "musicgen-large"])
+def test_frontend_smoke_serve_and_train_step_card_equals_cpu(cuda, arch):
+    # prefill through the flash kernel (one launch a layer), 4 greedy
+    # decode steps (none), then one train step; card == CPU
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention_cuda
+    from repro_torch.models import transformer
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step)
+    cfg = get_smoke_config(arch)
+    models = _smoke_pair(cuda, cfg)
+    s, steps = 160, 4
+    batch = _frontend_inputs(cfg, s, seed=5)
+    got = {}
+    for dev in (cuda, "cpu"):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        before = flash_attention_cuda.route_launches["simt"]
+        logits, caches = transformer.prefill(
+            models[str(dev)], t["tokens"].long(), s + steps, "flash",
+            t.get("patch_embeds"))
+        launched = flash_attention_cuda.route_launches["simt"] - before
+        assert launched == (cfg.num_layers if dev == cuda else 0)
+        out = [logits.cpu()]
+        for step in range(steps):
+            tok = torch.argmax(logits, dim=-1)
+            logits = transformer.decode_step(
+                models[str(dev)], caches, tok[:, None],
+                torch.full((2,), s + step, dtype=torch.int32, device=dev))
+            out.append(logits.cpu())
+        assert flash_attention_cuda.route_launches["simt"] - before \
+            == launched
+        got[str(dev)] = out
+    for a, b in zip(got[str(cuda)], got["cpu"]):
+        if cfg.family == "audio":
+            assert a.shape == (2, cfg.num_codebooks, cfg.padded_vocab)
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+    # one train step from one state: dense attention on both (160 keys)
+    cpu = init_train_state(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+    card = {"params": {k: v.to(cuda) for k, v in cpu["params"].items()},
+            "opt": {"step": cpu["opt"]["step"].to(cuda),
+                    "m": {k: v.to(cuda) for k, v in cpu["opt"]["m"].items()},
+                    "v": {k: v.to(cuda)
+                          for k, v in cpu["opt"]["v"].items()}}}
+    ocfg = AdamWConfig(warmup_steps=1, total_steps=3)
+    batch = _frontend_inputs(cfg, 96, seed=6, labels=True)
+    card, m_card = make_train_step(cfg, ocfg, "auto", True, 32)(card, batch)
+    cpu, m_cpu = make_train_step(cfg, ocfg, "chunked", True, 32)(cpu, batch)
+    for k in ("loss", "grad_norm"):
+        assert float(m_card[k]) == pytest.approx(float(m_cpu[k]), rel=1e-3)
+    for k, v in cpu["params"].items():
+        torch.testing.assert_close(card["params"][k].cpu(), v, atol=1e-4,
+                                   rtol=1e-3)

@@ -170,17 +170,16 @@ def test_launch_serve_smoke_on_cpu(capsys):
 
 
 def test_unported_archs_and_families_raise():
-    # the VLM and audio archs wait for their frontends (item 13.5);
-    # deepseek-v2-lite-16b (MLA) is served since item 13.4
-    from repro.configs import get_smoke_config as jax_cfg
-    for arch in ("musicgen-large", "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="item 13.5"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 13.5"):
-            tt.init_params(jax_cfg(arch), torch.Generator().manual_seed(0),
-                           torch.float32, "cpu")
+    # every arch of the JAX package resolves (the VLM and audio frontends
+    # since item 13.5, tests/test_torch_frontends.py); an unknown one
+    # raises as in the reference; deepseek-v2-lite-16b (MLA) is served
+    # since item 13.4
+    from repro.configs import get_config as jax_get_config
+    for get in (get_config, get_smoke_config, jax_get_config):
+        with pytest.raises(ValueError, match="unknown arch 'gpt-2'"):
+            get("gpt-2")
     assert get_config("deepseek-v2-lite-16b").mla is not None
-    model = tt.init_params(jax_cfg("deepseek-v2-lite-16b"),
+    model = tt.init_params(jax_smoke("deepseek-v2-lite-16b"),
                            torch.Generator().manual_seed(0), torch.float32,
                            "cpu")
     assert "kv_norm" in dict(model.blocks[0].attn)
@@ -259,7 +258,12 @@ def test_serving_modules_and_chip_smoke_import_no_jax_or_repro():
             "repro_torch.configs.llama3_2_3b",
             "repro_torch.configs.qwen3_32b", "repro_torch.configs.gemma_7b",
             "repro_torch.configs.deepseek_v2_lite_16b",
-            "repro_torch.models.attention", "chip_smoke"]
+            "repro_torch.models.attention",
+            # the VLM and audio archs, the shape cells and model_flops
+            "repro_torch.configs.llava_next_34b",
+            "repro_torch.configs.musicgen_large",
+            "repro_torch.launch.shapes", "repro_torch.launch.roofline",
+            "chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
