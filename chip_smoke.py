@@ -31,8 +31,9 @@ ends the run with a non-zero exit code if it fails:
    shape (BH 384, T 1,024) and at the jamba-v0.1-52b prefill's (BH 512,
    state N 16),
    and its strong-decay case is also held to the float64 recurrence; the
-   radix kernel and the segmented sum are also held and timed on skewed
-   traffic (one bucket, one segment with 99% of the rows); the radix
+   radix kernel and the segmented sum are also held and timed at the
+   shapes one process of a process group hands them (one rank: (1,
+   4,718,592, 9) and (1, 18,874,368)) and on skewed traffic (one bucket, one segment with 99% of the rows); the radix
    kernel also at the MoE dispatch's shapes (olmoe-1b-7b and
    jamba-v0.1-52b prefill and decode, the shuffle dispatch's two shuffles
    and local group), beside the reference's stable sort and
@@ -63,6 +64,19 @@ ends the run with a non-zero exit code if it fails:
    ``adaptive`` (hot-key detection on, nothing salted on these keys), and
    ``adaptive=False`` runs once more per mode: the same stage-cache keys,
    no miss, and five alternating ``bsp`` pairs give the detection's cost;
+   then Fig-9 over a ``torch.distributed`` process group, one rank per
+   process (ROADMAP item 12): 8 gloo processes spawned on the one card,
+   meeting through a ``file://`` rendezvous in a temporary directory,
+   loading the kernels built above (never rebuilding them), at 2 x 2**25
+   rows in ``bsp`` (first and cached) and ``amt``, and with ``ring`` and
+   ``bruck`` at 2 x 2**22 rows; each process's result equal slot for
+   slot to rank r of the stacked ``xla`` run, its radix and
+   segmented-sum launches equal to their derivation (3 and 1 a ``bsp``
+   run); then NCCL at world size 1 (NCCL takes one rank per device) at
+   2 x 2**22 rows, equal to the stacked one-rank run; each wall, the
+   share of it spent in host-staged collectives (gloo stages every
+   collective through pinned host buffers) and the phase's time printed
+   beside the card's name and power limit;
 4. frontend: the same pipeline with a mean, written against
    ``repro_torch.df`` on the same data, in every mode, twice each, with
    the same launch checks; held to the host reference and to the
@@ -435,6 +449,8 @@ def radix_phase(torch, cap, flush, layouts=None, skewed=False,
         cases = [("main:join", P, cap, P + 1, None),
                  ("main:sort", P, 4 * cap, P + 1, None),
                  ("p8", P, 4_194_304, P + 1, None),
+                 # one rank per process: the join's shuffle of each process
+                 ("process:join", 1, cap, P + 1, None),
                  ("nb4096", 1, 1_000_003, 4096, None),
                  ("empty", P, 0, P + 1, None)]
     else:
@@ -614,6 +630,9 @@ def segsum_phase(torch, cap, flush, recorded=None, skewed=False):
     # int32 (exact), a row count off the 8192-row tile, n = 0, ids outside
     # [0, S), and the small sweep of tests/test_kernels.py:17-37
     cases = [("main", main_seg, main_vals, 4 * cap),
+             # one rank per process: each process's groupby call
+             ("process:main", main_seg[:1].contiguous(),
+              main_vals[:1].contiguous(), 4 * cap),
              ("unsorted", torch.randint(0, 1 << 20, (P, 1 << 22),
                                         generator=gen, device=dev,
                                         dtype=torch.int32),
@@ -656,7 +675,7 @@ def segsum_cases(torch, cases, flush):
     timed in turns in this run (atomic, sorted, sorted, atomic; as
     ``time_cuda`` times every kernel) with each route's host time a call
     beside it, the bound, the plain version and, for the main,
-    hot-segment, fixed-cost, out-of-core and served cases, one
+    hot-segment, fixed-cost, out-of-core, served and per-process cases, one
     ``scatter_add_`` and one ``index_add_`` call."""
     from repro_torch.kernels import segmented_sum_cuda, segmented_sum_ref
     dev = torch.device("cuda")
@@ -699,7 +718,7 @@ def segsum_cases(torch, cases, flush):
                 del again
             del got
         main = name in ("main", "unsorted", "int32", "skew:hot-segment") \
-            or name.startswith(("ooc:", "serve:", "fixed:"))
+            or name.startswith(("ooc:", "serve:", "fixed:", "process:"))
         iters = 10 if main else 3
         samples = {r: [] for r in routes}
         for route in (("atomic", "sorted", "sorted", "atomic") if ordered
@@ -726,7 +745,7 @@ def segsum_cases(torch, cases, flush):
             3 if main else 2, flush)))
         lib = None
         if name in ("main", "skew:hot-segment") or name.startswith(
-                ("ooc:", "serve:", "fixed:")):
+                ("ooc:", "serve:", "fixed:", "process:")):
             # one PyTorch call each over the same inputs (zero-filled
             # output included)
             idx = seg.to(torch.int64)
@@ -4080,6 +4099,211 @@ def communicator_fig9(torch, rows, device):
 
 
 # ---------------------------------------------------------------------- #
+# Fig-9 over a process group: one rank per process (ROADMAP item 12)
+# ---------------------------------------------------------------------- #
+#: rows per table of the ring and Bruck runs and of the NCCL group of one
+PG_SMALL_ROWS = 1 << 22
+#: seconds a group may take before the phase fails
+PG_TIMEOUT_S = 400
+
+
+def result_digests(res):
+    """sha1 of each rank's row count and of every slot of each column of
+    ``res``: equal digests are equal slots."""
+    import hashlib
+    counts = res.row_counts.cpu().numpy()
+    cols = {n: v.cpu().numpy() for n, v in sorted(res.columns.items())}
+    return [dict({"__count": int(counts[r])},
+                 **{n: hashlib.sha1(np.ascontiguousarray(v[r]).tobytes())
+                    .hexdigest() for n, v in cols.items()})
+            for r in range(len(counts))]
+
+
+def stacked_digests(torch, rows, p, device=None):
+    """Fig-9 ``bsp`` over ``p`` ranks stacked on the card: each rank's
+    digests, held to the host reference first."""
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    ld, rd = make_table_data(rows, 0), make_table_data(rows, 1)
+    cap = capacity_for(rows, p)
+    tables = {n: DistTable.from_numpy(d, p, capacity=cap, device=device)
+              for n, d in (("l", ld), ("r", rd))}
+    res, st = execute(fig9_plan(Plan, cap), CylonEnv(p, device=device),
+                      tables, mode="bsp", collect_stats=True)
+    check_fig9(res, st, host_reference(ld, rd), f"stacked p={p}")
+    out = result_digests(res)
+    del res, tables
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pg_child(rank, world, d, backend, runs, device):
+    """One process of a group: Fig-9 through ``execute`` on the one rank
+    it holds, for each ``(communicator, mode, rows, label)`` of ``runs``;
+    writes its digests, walls, staged seconds and launch counts to
+    ``d/report<rank>.json``.  On the CPU no kernel launches."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    from repro_torch.core import CylonEnv, Plan, execute
+    from repro_torch.kernels import CUDA_KERNELS
+    from repro_torch.kernels.build import BUILD_DIR, library_path
+    from repro_torch.planner import compile_plan
+    # the kernels come from the builds phase 1 made, never from nvcc here
+    libs = {k.name: library_path(k.name) for k in CUDA_KERNELS
+            if k.name in ("radix_partition", "segmented_sum")
+            and device != "cpu"}
+    for name, lib in libs.items():
+        check(os.path.exists(lib), f"{name}: no build at {lib}")
+    logs = {n: os.path.getmtime(os.path.join(BUILD_DIR, f"{n}.log"))
+            for n in libs}
+    dist.init_process_group(backend, init_method=f"file://{d}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=120))
+    report = {}
+    on_card = device != "cpu"
+    try:
+        data = {}
+        for comm_name, mode, rows, label in runs:
+            if rows not in data:
+                data[rows] = (make_table_data(rows, 0),
+                              make_table_data(rows, 1))
+            env = CylonEnv(communicator=comm_name,
+                           process_group=dist.group.WORLD, device=device)
+            cap = capacity_for(rows, world)
+            tables = {n: env.from_numpy(x, capacity=cap)
+                      for n, x in zip("lr", data[rows])}
+            plan = fig9_plan(Plan, cap)
+            pplan = compile_plan(plan, tables)
+            staged0 = env.comm.stats["staged_s"]
+            env.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            res, st = execute(plan, env, tables, mode=mode,
+                              collect_stats=True)
+            env.synchronize()
+            wall = time.perf_counter() - t
+            counts = launch_counts()
+            report[label] = {
+                "wall_s": wall,
+                "staged_s": env.comm.stats["staged_s"] - staged0,
+                "launches": counts,
+                "radix_want": (3 if mode != "amt" else 0) * on_card,
+                "segsum_want": segsum_launches_expected(pplan, mode)
+                * on_card,
+                "rows_dropped": st.rows_dropped,
+                "rows_shuffled": st.rows_shuffled,
+                "digests": result_digests(res)[0]}
+            del res, tables
+            if on_card:
+                torch.cuda.empty_cache()
+        for n, t in logs.items():
+            check(os.path.getmtime(os.path.join(BUILD_DIR, f"{n}.log")) == t,
+                  f"{n} was rebuilt in a group process")
+        with open(os.path.join(d, f"report{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_group(world, backend, runs, device="cuda:0"):
+    """Spawn ``world`` processes of a ``backend`` group that meet through
+    a ``file://`` rendezvous in a temporary directory; a child's exception
+    or the timeout fails the phase.  Returns each rank's report."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    d = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    try:
+        ctx = mp.start_processes(_pg_child,
+                                 args=(world, d, backend, runs, device),
+                                 nprocs=world, start_method="spawn",
+                                 join=False)
+        deadline = time.perf_counter() + PG_TIMEOUT_S
+        while not ctx.join(timeout=2):
+            if time.perf_counter() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise RuntimeError(f"{backend} group of {world}: no end "
+                                   f"after {PG_TIMEOUT_S} s")
+        reports = []
+        for r in range(world):
+            with open(os.path.join(d, f"report{r}.json")) as f:
+                reports.append(json.load(f))
+        return reports
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def process_group_phase(torch, smi, rows=FULL_ROWS, small=PG_SMALL_ROWS,
+                        device=None):
+    """Fig-9 over a ``torch.distributed`` process group, one rank per
+    process: 8 gloo processes on the card at 2 x ``rows`` (``bsp`` first
+    and cached, then ``amt``; ``ring`` and ``bruck`` at 2 x ``small``),
+    each process's result equal slot for slot to rank r of the stacked
+    ``xla`` run, with 3 radix and 1 segmented-sum launches a ``bsp`` run
+    per process; then NCCL at world size 1 (NCCL takes one rank per
+    device) at 2 x ``small``, equal to the stacked one-rank run.  Every
+    collective of the gloo group is staged through pinned host buffers;
+    the share of each run's wall spent there is printed.  ``device="cpu"``
+    rehearses the gloo group on the CPU (no NCCL, no launches)."""
+    t_phase = time.perf_counter()
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.empty_cache()
+    want = {rows: stacked_digests(torch, rows, P, device),
+            small: stacked_digests(torch, small, P, device)}
+    want_one = stacked_digests(torch, small, 1, device) if on_card else None
+    runs = [("xla", "bsp", rows, "gloo xla bsp first"),
+            ("xla", "bsp", rows, "gloo xla bsp cached"),
+            ("xla", "amt", rows, "gloo xla amt"),
+            ("ring", "bsp", small, "gloo ring bsp"),
+            ("bruck", "bsp", small, "gloo bruck bsp")]
+    t = time.perf_counter()
+    gloo = run_group(P, "gloo", runs, "cuda:0" if on_card else "cpu")
+    gloo_s = time.perf_counter() - t
+    nccl_runs = [("xla", "bsp", small, "nccl xla bsp")] if on_card else []
+    t = time.perf_counter()
+    nccl = run_group(1, "nccl", nccl_runs) if on_card else None
+    nccl_s = time.perf_counter() - t
+    out = {"gloo_group_s": gloo_s, "nccl_group_s": nccl_s, "runs": {}}
+    for (comm_name, mode, n, label) in runs + nccl_runs:
+        reports = nccl if label.startswith("nccl") else gloo
+        stacked = want_one if label.startswith("nccl") else want[n]
+        walls, shares = [], []
+        for r, rep in enumerate(reports):
+            got = rep[label]
+            check(got["digests"] == stacked[r], f"{label}: rank {r} differs "
+                  f"from rank {r} of the stacked run")
+            check(got["rows_dropped"] == 0, f"{label}: rows dropped")
+            c = got["launches"]
+            check(c["radix_partition"] == got["radix_want"]
+                  and c["segmented_sum"] == got["segsum_want"],
+                  f"{label}: rank {r} launches {c}, want radix "
+                  f"{got['radix_want']}, segmented sum {got['segsum_want']}")
+            walls.append(got["wall_s"])
+            shares.append(got["staged_s"] / max(got["wall_s"], 1e-9))
+        out["runs"][label] = {
+            "rows": n, "processes": len(reports), "wall_s": max(walls),
+            "staged_share": float(np.mean(shares)),
+            "launches_per_process": reports[0][label]["launches"],
+            "rows_shuffled": reports[0][label]["rows_shuffled"]}
+        print(f"process group {label}: 2 x {n} rows over {len(reports)} "
+              f"processes, wall {max(walls):.3f} s (per process "
+              f"{min(walls):.3f}-{max(walls):.3f} s), host-staged "
+              f"collectives {100 * float(np.mean(shares)):.1f}% of it, "
+              f"launches a process {reports[0][label]['launches']}, equal "
+              f"to the stacked run slot for slot [{smi}]", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"process group phase: gloo group {gloo_s:.1f} s, NCCL group "
+          f"{nccl_s:.1f} s, phase {out['phase_s']:.1f} s [{smi}]",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # Training fed by the §IV-C pipeline (mamba2-780m at full width)
 # ---------------------------------------------------------------------- #
 #: the preprocessing application's corpus: 2**17 documents of 1,024 tokens
@@ -4585,6 +4809,8 @@ def main():
     radix_cases += radix_phase(torch, cap, flush, layouts)
     del flush
     phase_done("radix layouts")
+    process_group = process_group_phase(torch, smi)
+    phase_done("process group")
     front_launches, front_walls = frontend_phase(torch)
     phase_done("frontend")
     str_launches, str_walls = strings_phase(torch)
@@ -4685,6 +4911,11 @@ def main():
     # the SSD scan also runs in every mamba2-780m train step (forward and
     # remat recomputation; the counts read in each timed step); its
     # gradient is the plain version's
+    # one rank per process: each process's launches in each group run
+    for rec in kernels[:2]:
+        rec["launches_process_group"] = {
+            label: r["launches_per_process"][rec["name"]]
+            for label, r in process_group["runs"].items()}
     kernels[-1]["launches_train_step"] = train["ssd_launches_per_step"]
     kernels[-1]["train_shape"] = ssd_autograd
     print(json.dumps({"fig9_wall_s": walls}))
@@ -4704,6 +4935,7 @@ def main():
     print(json.dumps({"moe_shuffle": moe_shuffle}))
     print(json.dumps({"train": train, "train_olmoe": train_moe,
                       "ssd_autograd": ssd_autograd}))
+    print(json.dumps({"process_group": process_group}))
     print(json.dumps({"query_serving": serving}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

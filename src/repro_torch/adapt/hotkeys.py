@@ -93,22 +93,35 @@ def _sample_index(n: int, limit: Optional[int]) -> np.ndarray:
 
 def _dist_rows(table: Any, want: Sequence[str], limit: Optional[int]
                ) -> Dict[str, List[np.ndarray]]:
-    """A ``DistTable``'s sampled rows: the JAX package's flat indices
-    ``r * cap + (arange(take) * n) // take`` over each rank's valid
-    prefix, computed on the host from the row counts, gathered on the
-    table's device, and only those rows copied to the host."""
-    counts = table.row_counts.cpu().numpy()
+    """A ``DistTable``'s sampled rows: the JAX package's positions
+    ``(arange(take) * n) // take`` within each rank's valid prefix,
+    computed on the host from the row counts, gathered on the table's
+    device (padded to the longest sample of any rank), and only those
+    rows copied to the host.  Over a process group (``table.comm``) each
+    process samples the ranks it holds and every rank's sample is
+    gathered, so each process reads the rows of the stacked table, in
+    rank order."""
+    comm = getattr(table, "comm", None)
+    counts = table.row_counts if comm is None else comm.world(table.row_counts)
+    counts = counts.cpu().numpy()
+    held = range(len(counts)) if comm is None else comm.rank().tolist()
+    lens = [len(_sample_index(int(n), limit)) for n in counts]
+    width = max(lens, default=0)
+    out: Dict[str, List[np.ndarray]] = {c: [] for c in want}
+    if not width:
+        return out
     cap = table.capacity
-    idx = np.concatenate(
-        [r * cap + _sample_index(int(n), limit) for r, n in enumerate(counts)]
-        + [np.zeros((0,), np.int64)])
-    at = torch.from_numpy(idx).to(table.device)
-    out: Dict[str, List[np.ndarray]] = {}
+    idx = np.zeros((table.parallelism, width), np.int64)
+    for j, r in enumerate(held):
+        idx[j, :lens[r]] = j * cap + _sample_index(int(counts[r]), limit)
+    at = torch.from_numpy(idx.reshape(-1)).to(table.device)
     for c in want:
         v = table.columns[c]
         flat = signed_view(v).reshape((-1,) + tuple(v.shape[2:]))
-        got = flat.index_select(0, at).view(v.dtype)
-        out[c] = [got.cpu().numpy()] if len(idx) else []
+        got = flat.index_select(0, at).reshape(idx.shape + tuple(v.shape[2:]))
+        every = (got if comm is None else comm.world(got)).view(v.dtype)
+        every = every.cpu().numpy()
+        out[c] = [np.concatenate([every[r, :n] for r, n in enumerate(lens)])]
     return out
 
 

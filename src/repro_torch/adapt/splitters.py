@@ -25,6 +25,10 @@ invariant (early morsels were routed by the old splitters), so the
 driver MUST host-re-route the output spill by the *final* splitters
 whenever ``refreshes > 0`` before the per-rank local sort.  The
 estimator only decides; the driver owns the re-route.
+
+Over a process group (``comm``) each process observes the routed rows of
+the ranks it holds; ``observe`` gathers every rank's before it judges,
+so every process takes the same refresh decision.
 """
 
 from __future__ import annotations
@@ -51,8 +55,9 @@ class SplitterEstimator:
                  sample_fn: Callable[[int], np.ndarray],
                  samples: int, cfg: AdaptiveConfig,
                  events: Optional[List[Dict[str, Any]]] = None,
-                 label: str = ""):
+                 label: str = "", comm: Any = None):
         self.splitters = splitters
+        self._comm = comm
         self._sample_fn = sample_fn
         self._samples = samples
         self._cfg = cfg
@@ -73,8 +78,13 @@ class SplitterEstimator:
         return float(self._routed.max()) / max(mean, 1.0)
 
     def observe(self, row_counts: np.ndarray) -> bool:
-        """Feed one morsel's per-rank routed rows; True iff this call
-        triggered a refresh (so the driver can log / count it)."""
+        """Feed one morsel's per-rank routed rows (of the ranks held, with
+        a ``comm``); True iff this call triggered a refresh (so the morsel
+        executor can log / count it)."""
+        if self._comm is not None:
+            import torch
+            row_counts = self._comm.world(
+                torch.as_tensor(np.asarray(row_counts, np.int64))).numpy()
         self._routed += np.asarray(row_counts, np.int64)
         if (not self.enabled
                 or self.refreshes >= self._cfg.max_refreshes

@@ -12,9 +12,9 @@ schedules otherwise.
 On one card these schedules have no links to use: each round's roll and
 copy is one more pass over device memory, so ``bruck`` is slower than
 ``xla`` and has no performance role here.  It exists so that
-``communicator=`` and the stage-cache keys match the JAX package; keep it
-off every default path until a communicator across processes gives it
-real links.
+``communicator=`` and the stage-cache keys match the JAX package.  Over a
+process group (``comm.process_group``) each round is one send and one
+receive per process.
 """
 
 from __future__ import annotations
@@ -72,8 +72,8 @@ class BruckCommunicator(StackedCommunicator):
             # buf[r, m] = block of rank r ^ m
             buf = torch.cat([buf, self._xor(buf, dist)], dim=1)
             dist <<= 1
-        r = torch.arange(p, device=x.device)
-        return self._reorder(buf, r[:, None] ^ r[None, :])
+        j = torch.arange(p, device=x.device)
+        return self._reorder(buf, self._ranks(x.device)[:, None] ^ j[None, :])
 
     # ------------------------------------------------------------------ #
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,4 +95,4 @@ class BruckCommunicator(StackedCommunicator):
         if p == 1:
             return x[:, 0]
         full = self.all_reduce(x)
-        return self._per_rank(full, torch.arange(p, device=x.device))
+        return self._per_rank(full, self._ranks(x.device))

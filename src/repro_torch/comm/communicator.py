@@ -1,13 +1,17 @@
-"""Modular communicator abstraction (the paper's §IV-B), for stacked ranks.
+"""Modular communicator abstraction (the paper's §IV-B).
 
 The torch counterpart of ``repro.comm.communicator``.  DDF communication
 routines are written against this interface; backends plug in below it.
 
 Layout convention.  Every tensor a communicator takes or returns carries
-a leading axis over the ranks the calling process holds.  The stacked
-communicator (``comm.stacked``) holds all ``p`` ranks on one device, so
-that axis has length ``p``; a communicator with one rank per process
-would hold one.  Below, shapes are written per rank, after that axis:
+a leading axis over the ranks the calling process holds
+(``ranks_held()``; ``rank(device)`` gives their global indices).  The
+stacked communicator (``comm.stacked``) holds all ``p`` ranks on one
+device, so that axis has length ``p``; a process-group communicator
+(``comm.process_group``) holds one rank per process, so it has length 1.
+Operators take ``p = size()`` for buckets and destinations and
+``ranks_held()`` for the leading axis.  Below, shapes are written per
+rank, after that axis:
 
 Block-major ``all_to_all``: rank ``i`` passes ``(p, m, ...)`` where block
 ``j`` is destined to rank ``j``; output block ``j`` is the block received
@@ -23,6 +27,9 @@ package: a registry maps names to communicator classes
                 (``comm.ring``);
   * ``bruck`` — ceil(log2 p)-step Bruck all-to-all, recursive doubling
                 for the rest when p is a power of two (``comm.bruck``).
+
+``get_communicator(name, p, group=...)`` gives the same schedule over the
+processes of a ``torch.distributed`` process group instead.
 """
 
 from __future__ import annotations
@@ -47,6 +54,18 @@ class Communicator(abc.ABC):
     # ------------------------------------------------------------------ #
     def size(self) -> int:
         return self.parallelism
+
+    def ranks_held(self) -> int:
+        """How many ranks the calling process holds: the length of the
+        leading axis of every tensor it passes."""
+        return self.parallelism
+
+    def world(self, x: torch.Tensor) -> torch.Tensor:
+        """(ranks held, ...) -> (p, ...): every rank's ``x`` on each
+        process, for host-side reads every process must agree on (stats,
+        drop counts, detection samples).  ``x`` itself when this process
+        holds every rank."""
+        return x
 
     @abc.abstractmethod
     def rank(self, device=None) -> torch.Tensor:
@@ -151,16 +170,22 @@ def register_communicator(cls: Type[Communicator]) -> Type[Communicator]:
     return cls
 
 
-def get_communicator(name: str, parallelism: int) -> Communicator:
+def get_communicator(name: str, parallelism: int,
+                     group=None) -> Communicator:
     """Instantiate a communicator by registry name over ``parallelism``
-    ranks."""
-    try:
-        cls = _REGISTRY[name]
-    except KeyError:
+    ranks: stacked on one device, or, with a ``torch.distributed``
+    process ``group``, one rank per process of it."""
+    if name not in _REGISTRY:
         raise ValueError(
-            f"unknown communicator {name!r}; available: {sorted(_REGISTRY)}"
-        ) from None
-    return cls(parallelism)
+            f"unknown communicator {name!r}; available: {sorted(_REGISTRY)}")
+    if group is None:
+        return _REGISTRY[name](parallelism)
+    from .process_group import process_group_communicator
+    comm = process_group_communicator(name, group)
+    if comm.size() != parallelism:
+        raise ValueError(f"the process group has {comm.size()} ranks, "
+                         f"not {parallelism}")
+    return comm
 
 
 def available_communicators() -> List[str]:

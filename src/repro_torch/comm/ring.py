@@ -11,8 +11,9 @@ the last bits, as in the JAX package.
 On one card these schedules have no links to use: each roll is one more
 pass over device memory, so ``ring`` is slower than ``xla`` and has no
 performance role here.  It exists so that ``communicator=`` and the
-stage-cache keys match the JAX package; keep it off every default path
-until a communicator across processes gives it real links.
+stage-cache keys match the JAX package.  Over a process group
+(``comm.process_group``) every roll is a send to the next process and a
+receive from the one before: the schedule on real links.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ class RingCommunicator(StackedCommunicator):
         p = self.parallelism
         if p == 1:
             return x[:, 0]
-        r = torch.arange(p, device=x.device)
+        r = self._ranks(x.device)
         # the token for chunk j starts at rank (j + 1) % p and travels the
         # whole ring, adding each rank's contribution to chunk j
         v = self._per_rank(x, (r - 1) % p)
@@ -63,14 +64,15 @@ class RingCommunicator(StackedCommunicator):
         p = self.parallelism
         if p == 1:
             return x
-        flat = x.reshape(p, -1)
+        h = x.shape[0]
+        flat = x.reshape(h, -1)
         n = flat.shape[1]
         chunk = -(-n // p)
         pad = chunk * p - n
         if pad:
-            flat = torch.cat([flat, flat.new_zeros((p, pad))], dim=1)
-        mine = self.reduce_scatter(flat.reshape(p, p, chunk))  # (p, chunk)
-        full = self.all_gather(mine).reshape(p, p * chunk)
+            flat = torch.cat([flat, flat.new_zeros((h, pad))], dim=1)
+        mine = self.reduce_scatter(flat.reshape(h, p, chunk))  # (h, chunk)
+        full = self.all_gather(mine).reshape(h, p * chunk)
         return full[:, :n].reshape(x.shape)
 
     # ------------------------------------------------------------------ #
@@ -81,7 +83,7 @@ class RingCommunicator(StackedCommunicator):
         p = self.parallelism
         if p == 1:
             return x
-        r = torch.arange(p, device=x.device)
+        r = self._ranks(x.device)
         rel = [self._per_rank(x, r)]  # rel[k][d] = block from (d - k) % p
         for k in range(1, p):
             rel.append(self._shift(self._per_rank(x, (r + k) % p), k))
@@ -98,7 +100,7 @@ class RingCommunicator(StackedCommunicator):
         x, m, csz = self._chunk_split(x, chunks)
         if csz is None or p == 1:
             return self.all_to_all(x[:, :, :m])
-        r = torch.arange(p, device=x.device)
+        r = self._ranks(x.device)
         xs = [x[:, :, c * csz:(c + 1) * csz] for c in range(chunks)]
         rel = [[self._per_rank(xc, r)] for xc in xs]
         for k in range(1, p):

@@ -8,6 +8,12 @@ in the tests) with the JAX package's collective semantics.  It is the
 registry's ``xla`` communicator: one reshuffle per collective, as XLA's
 native collectives are one HLO op each.  ``ring`` and ``bruck`` subclass
 it and replace the reshuffles with their step schedules.
+
+The step primitives below serve those schedules for any number of ranks
+held: ``_per_rank``, ``_reorder`` and ``_rel`` index the ranks this
+process holds (all ``p`` here), so the process-group communicators
+(``comm.process_group``) reuse them and replace only ``_shift`` and
+``_xor``, the steps that cross ranks.
 """
 
 from __future__ import annotations
@@ -26,12 +32,13 @@ class StackedCommunicator(Communicator):
                             device=device)
 
     def _check(self, x: torch.Tensor, block_major: bool = False) -> None:
-        p = self.parallelism
-        if x.shape[0] != p or (block_major and (x.dim() < 2
+        p, h = self.parallelism, self.ranks_held()
+        if x.shape[0] != h or (block_major and (x.dim() < 2
                                                 or x.shape[1] != p)):
-            want = "(p, p, ...)" if block_major else "(p, ...)"
-            raise ValueError(f"stacked communicator over {p} ranks "
-                             f"needs {want}, got {tuple(x.shape)}")
+            want = f"({h}, {p}, ...)" if block_major else f"({h}, ...)"
+            raise ValueError(f"{self.name} communicator over {p} ranks "
+                             f"({h} held here) needs {want}, got "
+                             f"{tuple(x.shape)}")
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x, block_major=True)
@@ -77,20 +84,26 @@ class StackedCommunicator(Communicator):
         idx = torch.arange(self.parallelism, device=x.device) ^ dist
         return x.index_select(0, idx)
 
+    def _ranks(self, device) -> torch.Tensor:
+        """(ranks held,) int64: the held ranks' global indices."""
+        return self.rank(device).to(torch.int64)
+
     def _per_rank(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """``out[r] = x[r, idx[r]]``: each rank picks one block of its
-        own (p, ...) buffer, ``idx`` (p,) int64."""
-        return x[torch.arange(self.parallelism, device=x.device), idx]
+        """``out[r] = x[r, idx[r]]``: each held rank picks one block of
+        its own (p, ...) buffer, ``idx`` (ranks held,) int64."""
+        return x[torch.arange(self.ranks_held(), device=x.device), idx]
 
     def _reorder(self, stacked: torch.Tensor, idx: torch.Tensor
                  ) -> torch.Tensor:
         """``out[r, j] = stacked[r, idx[r, j]]`` over the block axis 1,
-        ``idx`` (p, p) int64."""
-        p = self.parallelism
-        rows = torch.arange(p, device=stacked.device)[:, None].expand(p, p)
+        ``idx`` (ranks held, p) int64."""
+        h, p = self.ranks_held(), self.parallelism
+        rows = torch.arange(h, device=stacked.device)[:, None].expand(h, p)
         return stacked[rows, idx]
 
     def _rel(self, device, sign: int) -> torch.Tensor:
-        """(p, p) int64: ``(r + sign * j) % p`` at [r, j]."""
-        r = torch.arange(self.parallelism, device=device)
-        return (r[:, None] + sign * r[None, :]) % self.parallelism
+        """(ranks held, p) int64: ``(r + sign * j) % p`` at [r, j], ``r``
+        a held rank's global index."""
+        j = torch.arange(self.parallelism, device=device)
+        return (self._ranks(device)[:, None] + sign * j[None, :]) \
+            % self.parallelism

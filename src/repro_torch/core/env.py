@@ -8,9 +8,12 @@ so repeated submissions reuse them, with the JAX package's cache key and
 
 Ranks are stacked: a ``DistTable`` holds ``(p, capacity, ...)`` columns
 and ``(p,)`` row counts on one device, and the callable a stage runs sees
-them as one batched ``dataframe.Table``.  Entry points run on ``cuda``
-unless the caller asks for the CPU; with no card they raise rather than
-fall back.
+them as one batched ``dataframe.Table``.  Over a ``torch.distributed``
+process group (``CylonEnv(process_group=...)``) each process holds one
+rank: its tables hold ``(1, capacity, ...)`` columns, the rows that rank
+holds when stacked, and the communicator moves rows between processes.
+Entry points run on ``cuda`` unless the caller asks for the CPU; with no
+card they raise rather than fall back.
 
 Serving (``DevicePool``, ``Lease``): a pool slot is one *rank slot* on a
 device (``RankSlot``).  A gang of ``g`` slots leased from the pool is a
@@ -22,6 +25,7 @@ overlap where the card has room.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -54,8 +58,9 @@ def resolve_device(device=None) -> torch.device:
 # ---------------------------------------------------------------------- #
 @dataclasses.dataclass
 class DistTable:
-    """All ranks of a distributed table: (p, cap, ...) columns + (p,)
-    counts, on one device."""
+    """The ranks of a distributed table this process holds: (h, cap, ...)
+    columns + (h,) counts on one device; ``h`` is every rank when they
+    are stacked, one over a process group."""
 
     columns: Dict[str, torch.Tensor]
     row_counts: torch.Tensor  # (p,) int32
@@ -70,9 +75,15 @@ class DistTable:
     #: memory.  Host-side only — EXPLAIN ANALYZE attributes scan work
     #: from it.
     provenance: Optional[Any] = None
+    #: the process group's communicator when this process holds only some
+    #: of the table's ranks (``comm.rank()``); None when it holds all.
+    #: ``total_rows`` then counts every rank's rows, a collective every
+    #: process of the group must call.
+    comm: Optional[Communicator] = None
 
     @property
     def parallelism(self) -> int:
+        """The ranks held here (the leading axis)."""
         return self.row_counts.shape[0]
 
     @property
@@ -87,14 +98,21 @@ class DistTable:
         return Table(dict(self.columns), self.row_counts)
 
     @classmethod
-    def from_table(cls, t: Table) -> "DistTable":
-        return cls(dict(t.columns), t.row_count, t.capacity)
+    def from_table(cls, t: Table, comm: Optional[Communicator] = None
+                   ) -> "DistTable":
+        return cls(dict(t.columns), t.row_count, t.capacity, comm=comm)
 
     @classmethod
     def from_numpy(cls, data: Dict[str, np.ndarray], parallelism: int,
                    capacity: Optional[int] = None,
-                   device=None) -> "DistTable":
+                   device=None, comm: Optional[Communicator] = None
+                   ) -> "DistTable":
         """Block-distribute host rows over ``parallelism`` ranks.
+
+        With ``comm``, a process-group communicator, only the ranks this
+        process holds (``comm.rank()``) are built: each holds the block
+        it holds when every rank is stacked, so ``data`` is the whole
+        table on every process.
 
         String columns (object / unicode numpy arrays) are dictionary-
         encoded on the host: the device gets int32 codes, the sorted
@@ -116,16 +134,24 @@ class DistTable:
             capacity = max(8, -(-per // 8) * 8)
         if per > capacity:
             raise ValueError(f"rows/shard {per} exceeds capacity {capacity}")
-        counts = np.clip(n - np.arange(parallelism) * per, 0,
+        held = list(range(parallelism))
+        if comm is not None:
+            if comm.size() != parallelism:
+                raise ValueError(f"a communicator over {comm.size()} ranks "
+                                 f"for {parallelism}")
+            held = comm.rank().tolist()
+            comm = comm if len(held) < parallelism else None
+        counts = np.clip(n - np.asarray(held) * per, 0,
                          per).astype(np.int32)
         cols = {}
         for name, arr in data.items():
-            buf = np.zeros((parallelism, capacity) + arr.shape[1:], arr.dtype)
-            for r in range(parallelism):
+            buf = np.zeros((len(held), capacity) + arr.shape[1:], arr.dtype)
+            for j, r in enumerate(held):
                 chunk = arr[r * per:(r + 1) * per]
-                buf[r, :len(chunk)] = chunk
+                buf[j, :len(chunk)] = chunk
             cols[name] = torch.from_numpy(buf).to(dev)
-        return cls(cols, torch.from_numpy(counts).to(dev), capacity, dicts)
+        return cls(cols, torch.from_numpy(counts).to(dev), capacity, dicts,
+                   comm=comm)
 
     @classmethod
     def from_reference(cls, columns: Dict[str, np.ndarray],
@@ -173,7 +199,25 @@ class DistTable:
         return out
 
     def total_rows(self) -> int:
-        return int(self.row_counts.sum())
+        """Every rank's rows (over a process group: a collective)."""
+        counts = self.row_counts
+        if self.comm is not None:
+            counts = self.comm.world(counts)
+        return int(counts.sum())
+
+    def gather_numpy(self, decode: bool = True, nulls: str = "pandas"
+                     ) -> Dict[str, np.ndarray]:
+        """``to_numpy`` of every rank, on every process of the group (a
+        collective): what ``to_numpy`` gives when the ranks are stacked.
+        For tests and checks; ``to_numpy`` alone gives this process's
+        rows."""
+        if self.comm is None:
+            return self.to_numpy(decode=decode, nulls=nulls)
+        whole = DistTable({n: self.comm.world(v)
+                           for n, v in self.columns.items()},
+                          self.comm.world(self.row_counts), self.capacity,
+                          dict(self.dictionaries))
+        return whole.to_numpy(decode=decode, nulls=nulls)
 
 
 # ---------------------------------------------------------------------- #
@@ -360,7 +404,8 @@ class EnvContext:
 
 class CylonEnv:
     """A pseudo-BSP environment of ``parallelism`` ranks stacked on one
-    device, joined by a communicator from the registry.
+    device, or of one rank per process of a process group, joined by a
+    communicator from the registry.
 
     Parameters
     ----------
@@ -376,6 +421,15 @@ class CylonEnv:
                    passes one per process, so a freshly carved gang reuses
                    every stage an earlier gang over the same slots built).
                    Default: a private cache.
+    process_group: a ``torch.distributed`` process group (e.g.
+                   ``dist.group.WORLD``): the env holds the one rank
+                   ``group.rank()`` of ``group.size()`` ranks, on the
+                   process's card ``cuda:LOCAL_RANK`` unless ``device`` is
+                   given (``device="cpu"`` for a gloo group on the CPU).
+                   The communicator runs its schedule over the group
+                   (``comm.process_group``): NCCL or gloo, as the group
+                   was created.  Tables come from ``env.from_numpy`` (or
+                   ``DistTable.from_numpy(comm=env.comm)``).
 
     Thread safety: ``run`` may be called from many threads.  Stage
     lookups and builds go through the (locked, single-flight) program
@@ -386,11 +440,22 @@ class CylonEnv:
     def __init__(self, parallelism: int = 1, device=None, *,
                  devices: Optional[Sequence["RankSlot"]] = None,
                  communicator: str = "xla",
-                 program_cache: Optional[Any] = None):
+                 program_cache: Optional[Any] = None,
+                 process_group: Any = None):
         # deferred import: serve.cache stands alone, but the serve package
         # must not be entered while core.env is still importing
         from ..serve.cache import ProgramCache
-        if devices is not None:
+        if process_group is not None:
+            import torch.distributed as dist
+            if devices is not None or parallelism != 1:
+                raise TypeError("process_group= sets the parallelism (the "
+                                "group's size); pass neither parallelism= "
+                                "nor devices= beside it")
+            parallelism = dist.get_world_size(process_group)
+            if device is None:
+                device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+            slot_ids = (dist.get_rank(process_group),)
+        elif devices is not None:
             slots = list(devices)
             devs = {str(resolve_device(d.device)) for d in slots}
             if len(devs) != 1:
@@ -407,7 +472,11 @@ class CylonEnv:
         if parallelism < 1:
             raise ValueError(f"parallelism must be >= 1, got {parallelism}")
         self.device = resolve_device(device)
-        self.comm: Communicator = get_communicator(communicator, parallelism)
+        self.comm: Communicator = get_communicator(
+            communicator, parallelism, group=process_group)
+        if self.device.type == "cuda" and process_group is not None:
+            # NCCL and the pinned staging of gloo run on the process's card
+            torch.cuda.set_device(self.device)
         self.communicator_name = communicator
         self.slot_ids = slot_ids
         self.programs = (program_cache if program_cache is not None
@@ -429,7 +498,20 @@ class CylonEnv:
 
     @property
     def parallelism(self) -> int:
+        """Ranks in all (the group's size over a process group)."""
         return self.comm.size()
+
+    @property
+    def ranks_held(self) -> int:
+        """Ranks this process holds: the tables' leading axis."""
+        return self.comm.ranks_held()
+
+    def from_numpy(self, data: Dict[str, np.ndarray],
+                   capacity: Optional[int] = None) -> DistTable:
+        """``DistTable.from_numpy`` onto this env's ranks and device (over
+        a process group, the ranks this process holds)."""
+        return DistTable.from_numpy(data, self.parallelism, capacity,
+                                    device=self.device, comm=self.comm)
 
     def close(self) -> None:
         """Drop this env's local stage memo (shared ``programs`` entries
@@ -461,10 +543,10 @@ class CylonEnv:
         for a in args:
             if isinstance(a, DistTable) and (
                     a.device != self.device
-                    or a.parallelism != self.parallelism):
+                    or a.parallelism != self.ranks_held):
                 raise ValueError(
                     f"table on {a.device} with {a.parallelism} ranks given "
-                    f"to an env on {self.device} with {self.parallelism}")
+                    f"to an env on {self.device} with {self.ranks_held}")
         cache_key = key if key is not None else (
             fn, tuple(sorted(static_kwargs)),
             tuple(self._arg_sig(a) for a in args))
@@ -501,10 +583,12 @@ class CylonEnv:
 
     def _build(self, fn: Callable, static_kwargs: dict) -> Callable:
         ctx = EnvContext(self.comm, self.device)
+        comm = (self.comm if self.comm.ranks_held() < self.comm.size()
+                else None)
 
         def conv(x):
             if isinstance(x, Table):
-                return DistTable.from_table(x)
+                return DistTable.from_table(x, comm)
             if isinstance(x, (tuple, list)):
                 return type(x)(conv(v) for v in x)
             if isinstance(x, dict):

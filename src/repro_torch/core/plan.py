@@ -162,11 +162,12 @@ class Plan:
 
     def explain(self, tables: Optional[Mapping[str, Any]] = None,
                 optimize: bool = True, mode: str = "bsp",
-                shuffle_impl: str = "radix", a2a_chunks: int = 1) -> str:
+                shuffle_impl: str = "radix", a2a_chunks: int = 1,
+                morsel_rows: Optional[int] = None) -> str:
         from ..planner import explain as planner_explain
         return planner_explain(self, tables, optimize_plan=optimize, mode=mode,
                                shuffle_impl=shuffle_impl,
-                               a2a_chunks=a2a_chunks)
+                               a2a_chunks=a2a_chunks, morsel_rows=morsel_rows)
 
 
 def execute(plan: Plan, env, tables: Dict[str, Any], mode: str = "bsp",

@@ -1,7 +1,8 @@
 """Distributed shuffle: capacity-based all-to-all (the paper's core comm op).
 
-The torch counterpart of ``repro.dataframe.shuffle``, batched over stacked
-ranks.  The MoE-capacity idiom:
+The torch counterpart of ``repro.dataframe.shuffle``, batched over the
+ranks this process holds (all ``p`` when stacked, one over a process
+group: ``Communicator.ranks_held``).  The MoE-capacity idiom:
 
   1. hash keys -> destination rank (or take explicit destinations),
   2. counts exchange (tiny all_to_all) for the receive counts,
@@ -43,12 +44,13 @@ from .table import Table, gather_rows, scatter_rows, stable_partition_order
 
 @dataclasses.dataclass
 class ShuffleStats:
-    """Per-rank observability for one shuffle (tensors + static tags)."""
+    """Per-rank observability for one shuffle (tensors + static tags), for
+    the ``h`` ranks held here."""
 
-    sent_counts: torch.Tensor   # (p, p) rows sent to each rank
-    recv_counts: torch.Tensor   # (p, p) rows received from each rank
-    send_dropped: torch.Tensor  # (p,) rows dropped by send-bucket capacity
-    recv_dropped: torch.Tensor  # (p,) rows dropped by receive capacity
+    sent_counts: torch.Tensor   # (h, p) rows sent to each rank
+    recv_counts: torch.Tensor   # (h, p) rows received from each rank
+    send_dropped: torch.Tensor  # (h,) rows dropped by send-bucket capacity
+    recv_dropped: torch.Tensor  # (h,) rows dropped by receive capacity
     shuffle_impl: str = "radix"   # static: which bucketize path ran
     a2a_chunks: int = 1           # static: all-to-all pipeline depth
 
@@ -166,7 +168,7 @@ def shuffle(
     """
     if impl not in ("radix", "sorted"):
         raise ValueError(f"unknown shuffle impl {impl!r}")
-    p = comm.size()
+    p, h = comm.size(), comm.ranks_held()
     cap = table.capacity
     dev = table.device
     bucket_cap = bucket_capacity or default_bucket_capacity(
@@ -198,7 +200,7 @@ def shuffle(
         order, row_dest = srt.indices, srt.values
         pos = torch.arange(cap, device=dev)
         row_rank = pos - torch.searchsorted(row_dest, row_dest, side="left")
-        raw_counts = torch.zeros((p, p + 1), dtype=torch.int32,
+        raw_counts = torch.zeros((h, p + 1), dtype=torch.int32,
                                  device=dev).scatter_add_(
             1, dest.to(torch.int64), torch.ones_like(dest))[:, :p]
 
@@ -221,9 +223,9 @@ def shuffle(
         if order is not None:
             col = gather_rows(col, order)
         buf = scatter_rows(p * bucket_cap, slot, col)
-        buf = buf.reshape((p, p, bucket_cap) + col.shape[2:])
+        buf = buf.reshape((h, p, bucket_cap) + col.shape[2:])
         got = comm.all_to_all_chunked(buf, chunks=a2a_chunks)
-        return got.reshape((p, p * bucket_cap) + col.shape[2:])
+        return got.reshape((h, p * bucket_cap) + col.shape[2:])
 
     recv_cols: Dict[str, torch.Tensor] = {}
     if packables:
@@ -258,7 +260,8 @@ def shuffle(
 
     recv_dropped = torch.clamp(total_recv - out_cap, min=0)
     if debug_overflow:
-        _overflow_warn(send_dropped, recv_dropped, label)
+        _overflow_warn(comm.world(send_dropped), comm.world(recv_dropped),
+                       label)
     out = Table(out_cols, new_count).mask_padding()
     stats = ShuffleStats(sent_counts, recv_counts, send_dropped,
                          recv_dropped, shuffle_impl=impl,
@@ -285,7 +288,7 @@ def replicate_hot_rows(
     (the decision layer sizes ``hot_cap`` from an exact host count
     precisely so this stays zero).
     """
-    p = comm.size()
+    p, h = comm.size(), comm.ranks_held()
     cap = table.capacity
     dev = table.device
     k = min(int(hot_cap), cap)  # per-rank slots, the same on every rank
@@ -295,7 +298,7 @@ def replicate_hot_rows(
     dropped = n_hot - sent
 
     order = stable_partition_order(hot)[:, :k]
-    counts = comm.all_gather(sent)                      # (p, p) everywhere
+    counts = comm.all_gather(sent)                      # (h, p) everywhere
     offsets = torch.cumsum(counts, dim=1) - counts      # exclusive
     total = counts.sum(dim=1, dtype=torch.int32)
 
@@ -316,14 +319,14 @@ def replicate_hot_rows(
     singles = [n for n in names if n not in packables]
 
     def _gather(col: torch.Tensor) -> torch.Tensor:
-        got = comm.all_gather(gather_rows(col, order))  # (p, p, k, ...)
-        return got.reshape((p, p * k) + col.shape[2:])
+        got = comm.all_gather(gather_rows(col, order))  # (h, p, k, ...)
+        return got.reshape((h, p * k) + col.shape[2:])
 
     def _append(n: str, flat: torch.Tensor) -> torch.Tensor:
         # base rows first, then the gathered hot rows past row_count; slot
         # new_cap is the trash slot of JAX's mode="drop"
         b = signed_view(base.columns[n])
-        out = torch.zeros((p, new_cap + 1) + b.shape[2:], dtype=b.dtype,
+        out = torch.zeros((h, new_cap + 1) + b.shape[2:], dtype=b.dtype,
                           device=dev)
         out[:, :base_cap] = b
         at = pos.reshape(pos.shape + (1,) * (flat.dim() - 2)).expand(
@@ -343,7 +346,7 @@ def replicate_hot_rows(
     out = Table(out_cols, new_count).mask_padding()
     # this rank sends its ``sent`` hot rows to every rank and receives
     # each rank's contribution once — the honest wire accounting
-    stats = ShuffleStats(sent[:, None].expand(p, p).contiguous(), counts,
-                         dropped, torch.zeros((p,), dtype=torch.int32,
+    stats = ShuffleStats(sent[:, None].expand(h, p).contiguous(), counts,
+                         dropped, torch.zeros((h,), dtype=torch.int32,
                                               device=dev))
     return out, stats

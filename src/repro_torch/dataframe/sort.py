@@ -55,7 +55,7 @@ def _sample_splitters(key: torch.Tensor, valid: torch.Tensor,
     idx = torch.minimum(idx, torch.clamp(n_valid - 1, min=0)[:, None])
     local = torch.where(ar[None, :] < n_local[:, None],
                         torch.gather(skey, 1, idx), sentinel)
-    allsamp = comm.all_gather(local).reshape(p, -1)       # (p, p*samples)
+    allsamp = comm.all_gather(local).reshape(comm.ranks_held(), p * samples)
     total_valid = comm.all_reduce(n_local)
     ssorted = torch.sort(allsamp, dim=1).values
     qpos = (torch.arange(1, p, device=dev)[None, :]

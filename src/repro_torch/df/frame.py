@@ -313,11 +313,11 @@ class DataFrame:
             # host spills, so it is exempt)
             for sname, t in self.sources.items():
                 if (isinstance(t, DistTable)
-                        and t.parallelism != env.parallelism):
+                        and t.parallelism != env.ranks_held):
                     raise ValueError(
                         f"source {sname!r} is partitioned for "
                         f"{t.parallelism} ranks but the resolved env has "
-                        f"{env.parallelism}; pass collect(env=<ingest "
+                        f"{env.ranks_held}; pass collect(env=<ingest "
                         f"env>) or re-ingest under this session")
         if analyze:
             from ..obs.analyze import run_analyzed
@@ -455,7 +455,7 @@ def read_numpy(data: Mapping[str, np.ndarray], *,
     pool's device, so the frame can run on *any* gang the scheduler
     carves.
     """
-    p, device = _resolve_target(env)
+    p, device, comm = _resolve_target(env)
     if spill:
         if capacity is not None:
             raise TypeError("capacity only applies to device tables "
@@ -464,20 +464,22 @@ def read_numpy(data: Mapping[str, np.ndarray], *,
     else:
         if chunk_rows is not None:
             raise TypeError("chunk_rows only applies with spill=True")
-        table = DistTable.from_numpy(dict(data), p, capacity, device=device)
+        table = DistTable.from_numpy(dict(data), p, capacity, device=device,
+                                     comm=comm)
     return from_table(table, name, env)
 
 
 def _resolve_target(env: Optional[CylonEnv]):
-    """(ranks, device) an ingest partitions for: the explicit env's, else
-    the active scheduler's gang size on its pool's device, else the
-    active env's."""
+    """(ranks, device, communicator) an ingest partitions for: the
+    explicit env's, else the active scheduler's gang size on its pool's
+    device, else the active env's.  Over a process group the process
+    builds only the ranks it holds (the communicator says which)."""
     if env is None:
         sched = get_active_scheduler()
         if sched is not None:
-            return sched.gang_size, sched.device
+            return sched.gang_size, sched.device, None
         env = get_env()
-    return env.parallelism, env.device
+    return env.parallelism, env.device, env.comm
 
 
 def read_parquet(source, *, env: Optional[CylonEnv] = None,

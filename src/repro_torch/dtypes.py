@@ -8,9 +8,10 @@ complex128 as complex64.  Every other dtype is kept.  The port applies
 the same rule wherever host data enters it, so its device columns have
 the reference's dtypes and values, slot for slot.
 
-It also holds the numpy <-> torch dtype mapping and how the port handles
+It also holds the numpy <-> torch dtype mapping, how the port handles
 the unsigned dtypes torch supports only in part (``signed_view``,
-``order_view``).
+``order_view``), and its own copy of JAX's dtype promotion lattice with
+64-bit types off (``result_dtype``), which the expression AST follows.
 """
 
 from __future__ import annotations
@@ -83,3 +84,72 @@ def order_view(v: torch.Tensor) -> torch.Tensor:
     up."""
     w = _WIDER.get(v.dtype)
     return v if w is None else v.to(w)
+
+
+# ---------------------------------------------------------------------- #
+# JAX's dtype promotion with 64-bit types off
+# ---------------------------------------------------------------------- #
+# The JAX package's expressions promote as ``jnp`` does: a lattice over the
+# dtypes and three *weak* kinds (``i*``, ``f*``, ``c*``: Python ints,
+# floats and complexes, which take the other operand's dtype where it can
+# hold their kind), and the least upper bound of the operands' nodes.
+# With 64-bit types off no 64-bit node is ever formed from narrower ones,
+# so the 64-bit nodes are left out and their edges joined up (int32 and
+# the unsigned types reach ``f*`` through them; float32 reaches complex64).
+_LATTICE = {
+    "bool": ("i*",),
+    "i*": ("uint8", "int8"),
+    "uint8": ("int16", "uint16"),
+    "uint16": ("int32", "uint32"),
+    "uint32": ("int32",),
+    "int8": ("int16",),
+    "int16": ("int32",),
+    "int32": ("f*",),
+    "f*": ("bfloat16", "float16", "c*"),
+    "bfloat16": ("float32",),
+    "float16": ("float32",),
+    "float32": ("complex64",),
+    "c*": ("complex64",),
+    "complex64": (),
+}
+#: a weak kind's dtype when the result stays weak
+WEAK_DEFAULT = {"i*": torch.int32, "f*": torch.float32,
+                "c*": torch.complex64}
+_NODE = {getattr(torch, n): n for n in _LATTICE if "*" not in n}
+
+
+def _upper_bounds(node: str) -> frozenset:
+    seen, todo = set(), [node]
+    while todo:
+        n = todo.pop()
+        if n not in seen:
+            seen.add(n)
+            todo.extend(_LATTICE[n])
+    return frozenset(seen)
+
+
+_UB = {n: _upper_bounds(n) for n in _LATTICE}
+
+
+def lattice_node(dtype: torch.dtype) -> str:
+    """The promotion-lattice node of a device dtype (64-bit dtypes have
+    none: the port's columns never hold them)."""
+    try:
+        return _NODE[dtype]
+    except KeyError:
+        raise TypeError(f"{dtype} takes no part in the JAX package's "
+                        f"promotion with 64-bit types off") from None
+
+
+def result_dtype(*nodes: str) -> torch.dtype:
+    """``jnp.result_type`` of operands given by their lattice nodes (a
+    dtype's name, or ``i*`` / ``f*`` / ``c*`` for Python scalars): the
+    least upper bound, a weak result taking its kind's default dtype."""
+    if all("*" in n for n in nodes):
+        # only weak operands: the bound of their strong defaults, as jnp
+        nodes = tuple(lattice_node(WEAK_DEFAULT[n]) for n in nodes)
+    todo = set(nodes)
+    common = frozenset.intersection(*(_UB[n] for n in todo))
+    lub = (common & todo) or {c for c in common if common <= _UB[c]}
+    (node,) = lub
+    return WEAK_DEFAULT[node] if node in WEAK_DEFAULT else getattr(torch, node)

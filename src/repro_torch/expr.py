@@ -37,13 +37,12 @@ fingerprints by bytecode + captured values, the best a callable allows.
 from __future__ import annotations
 
 import hashlib
-import operator
 from typing import Any, Callable, FrozenSet, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .dtypes import order_view, to_x32
+from .dtypes import lattice_node, order_view, result_dtype, to_x32
 from .nulls import mask_name
 
 __all__ = ["Expr", "Col", "Lit", "BinOp", "UnaryOp", "OpaqueExpr", "IsNull",
@@ -98,36 +97,264 @@ def _to_numpy(v) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------- #
-# Operator tables
+# Operators, computed as the JAX package's jnp functions compute them
 # ---------------------------------------------------------------------- #
-# Python operators, so a scalar on either side works; on tensors they are
-# torch's, whose promotion of Python scalars matches jnp's weak typing
-# (int32 column + 1 stays int32, int32 column + 1.0 becomes float32) and
-# whose // and % round toward -inf like jnp.floor_divide / jnp.mod.
+# Operands promote as jnp promotes them, with 64-bit types off
+# (``dtypes.result_dtype``): a Python scalar is weak (``int8 column + 1``
+# stays int8, ``float16 column * 70000`` is float16: inf), a numpy scalar
+# literal pins its dtype (``uint8 column + np.int8(3)`` is int16), a bool
+# joins an int literal as int32.  Each operator then follows its jnp
+# definition in the promoted dtype, division by zero included; nothing
+# is left to what a device does with it.  Integer division and anything
+# torch lacks for uint16 / uint32 run in int64 and wrap back.
+_WIDE = (torch.uint16, torch.uint32)
+
+
+def _node(v) -> str:
+    if isinstance(v, torch.Tensor):
+        return lattice_node(v.dtype)
+    if isinstance(v, (bool, np.bool_)):
+        return "bool"
+    if isinstance(v, int):
+        return "i*"
+    if isinstance(v, float):
+        return "f*"
+    if isinstance(v, complex):
+        return "c*"
+    raise TypeError(f"cannot use {type(v).__name__} in a column expression")
+
+
+def _convert(v, dtype: torch.dtype, device) -> torch.Tensor:
+    """``v`` in ``dtype``, wrapping integers as jnp's conversion does.  A
+    Python float reaches it through float32, as jnp's weak float does."""
+    if not isinstance(v, torch.Tensor):
+        if isinstance(v, float):
+            v = torch.tensor(v, dtype=torch.float32, device=device)
+        elif isinstance(v, (bool, np.bool_)):
+            v = torch.tensor(bool(v), device=device)
+        elif isinstance(v, int):
+            v = torch.tensor(v, dtype=torch.int64, device=device)
+        else:
+            v = torch.tensor(v, dtype=torch.complex64, device=device)
+    return v if v.dtype == dtype else v.to(dtype)
+
+
+def _promote(op: str, va, vb, device):
+    """Both operands converted to the dtype jnp computes ``op`` in: their
+    result dtype, made numeric (bool as int32) for ``// % **`` and
+    inexact (float32 for bool and integers) for ``/``."""
+    dtype = result_dtype(_node(va), _node(vb))
+    if op in _NUMERIC and dtype == torch.bool:
+        dtype = torch.int32
+    if op == "/" and not (dtype.is_floating_point or dtype.is_complex):
+        dtype = torch.float32
+    return (_flush(_convert(va, dtype, device)),
+            _flush(_convert(vb, dtype, device)), dtype)
+
+
+def _flush(v):
+    """float32 subnormals as signed zeros: XLA's CPU backend runs with
+    denormals flushed on input and output (so does a TPU), and the JAX
+    package's expressions compute under it."""
+    if isinstance(v, torch.Tensor) and v.dtype == torch.float32:
+        return torch.where(v.abs() < _TINY, v * 0, v)
+    return v
+
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def _is_int(dtype: torch.dtype) -> bool:
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
+
+
+def _ring(fn, a, b, dtype):
+    """An integer op that wraps in ``dtype``: native where torch has it,
+    else in int64, wrapped back."""
+    if dtype in _WIDE:
+        return fn(a.to(torch.int64), b.to(torch.int64)).to(dtype)
+    return fn(a, b)
+
+
+def _refuse(name, dtype):
+    raise TypeError(f"{name} does not accept dtype {dtype}")
+
+
+def _add(a, b, dtype):
+    if dtype == torch.bool:
+        return a | b
+    return _ring(torch.add, a, b, dtype)
+
+
+def _sub(a, b, dtype):
+    if dtype == torch.bool:
+        _refuse("sub", dtype)
+    return _ring(torch.sub, a, b, dtype)
+
+
+def _mul(a, b, dtype):
+    if dtype == torch.bool:
+        return a & b
+    return _ring(torch.mul, a, b, dtype)
+
+
+def _truediv(a, b, dtype):
+    return a / b
+
+
+def _int_parts(a, b):
+    """Truncating quotient and remainder as XLA divides: x / 0 is -1
+    (all ones unsigned) and x % 0 is x; int64 holds every quotient."""
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    zero = b == 0
+    q = torch.div(a, torch.where(zero, 1, b), rounding_mode="trunc")
+    q = torch.where(zero, -1, q)
+    return a, b, q, torch.where(zero, a, a - q * b)
+
+
+def _round_away(x):
+    t = torch.trunc(x)
+    return torch.where((x - t).abs() >= 0.5, t + torch.sign(x), t)
+
+
+def _floordiv(a, b, dtype):
+    if _is_int(dtype):
+        a, b, q, r = _int_parts(a, b)
+        if dtype.is_signed:
+            q = torch.where((torch.sign(a) != torch.sign(b)) & (r != 0),
+                            q - 1, q)
+        return q.to(dtype)
+    if dtype.is_complex:
+        _refuse("floor_divide", dtype)
+    # jnp's _float_divmod (CPython's float_divmod), rounded away from 0
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    ind = (mod != 0) & (torch.sign(b) != torch.sign(mod))
+    return _round_away(torch.where(ind, div - 1, div))
+
+
+def _mod(a, b, dtype):
+    if _is_int(dtype):
+        # jnp.remainder takes a zero divisor as 1, so x % 0 is 0 (in int64:
+        # the card compares no uint32)
+        a, b = a.to(torch.int64), b.to(torch.int64)
+        b = torch.where(b == 0, 1, b)
+        tm = a - torch.div(a, b, rounding_mode="trunc") * b
+    elif dtype.is_complex:
+        _refuse("remainder", dtype)
+    else:
+        tm = torch.fmod(a, b)
+    plus = ((tm < 0) != (b < 0)) & (tm != 0)
+    return torch.where(plus, tm + b, tm).to(dtype)
+
+
+def _integer_pow(x, y: int):
+    """``lax.integer_pow``: binary exponentiation with the exponent known,
+    in ``x``'s dtype (int64 for integers, wrapped back)."""
+    dtype = x.dtype
+    if y < 0 and _is_int(dtype):
+        raise TypeError(f"Integers cannot be raised to negative powers, "
+                        f"got integer_pow({dtype}, {y})")
+    if y == 0:
+        return torch.ones_like(x)
+    w = x.to(torch.int64) if _is_int(dtype) else x
+    acc, n = None, abs(y)
+    while n > 0:
+        if n & 1:
+            acc = w if acc is None else acc * w
+        n >>= 1
+        if n > 0:
+            w = w * w
+    if y < 0:
+        acc = 1 / acc
+    return acc.to(dtype)
+
+
+def _pow(a, b, dtype):
+    if not _is_int(dtype):
+        return torch.pow(a, b)
+    # jnp's _pow_int_int: six rounds of binary exponentiation over the
+    # exponent's low bits (logical shifts), wrapping in the dtype
+    bits = 8 * b.element_size()
+    x, y = a.to(torch.int64), b.to(torch.int64) & ((1 << bits) - 1)
+    acc = torch.where((x == 0) & (y != 0), 0, 1)
+    for _ in range(6):
+        acc = torch.where((y & 1) != 0, acc * x, acc)
+        x = x * x
+        y = y >> 1
+    return acc.to(dtype)
+
+
+def _bitwise(fn):
+    def op(a, b, dtype):
+        if not (_is_int(dtype) or dtype == torch.bool):
+            _refuse(fn.__name__, dtype)
+        return _ring(fn, a, b, dtype)
+    return op
+
+
+def _compare(fn):
+    def op(a, b, dtype):
+        if dtype in _WIDE:
+            a, b = order_view(a), order_view(b)
+        return fn(a, b)
+    return op
+
+
 _ARITH = {
-    "+": operator.add, "-": operator.sub, "*": operator.mul,
-    "/": operator.truediv, "//": operator.floordiv, "%": operator.mod,
-    "**": operator.pow,
+    "+": _add, "-": _sub, "*": _mul, "/": _truediv, "//": _floordiv,
+    "%": _mod, "**": _pow,
 }
 _COMPARE = {
-    ">": operator.gt, ">=": operator.ge,
-    "<": operator.lt, "<=": operator.le,
-    "==": operator.eq, "!=": operator.ne,
+    ">": _compare(torch.gt), ">=": _compare(torch.ge),
+    "<": _compare(torch.lt), "<=": _compare(torch.le),
+    "==": _compare(torch.eq), "!=": _compare(torch.ne),
 }
 _BOOL = {
-    "&": operator.and_, "|": operator.or_, "^": operator.xor,
+    "&": _bitwise(torch.bitwise_and), "|": _bitwise(torch.bitwise_or),
+    "^": _bitwise(torch.bitwise_xor),
 }
 _BINOPS = {**_ARITH, **_COMPARE, **_BOOL}
+#: operators whose bool operands count as int32 (``promote_args_numeric``)
+_NUMERIC = ("//", "%", "**")
 
 
-def _invert(v):
-    # a Python bool would give ~True == -2; jnp.invert(True) is False
-    if isinstance(v, (bool, np.bool_)):
-        return not v
-    return ~v
+def _neg(x):
+    if x.dtype == torch.bool:
+        _refuse("neg", x.dtype)
+    if x.dtype in _WIDE:
+        return (-x.to(torch.int64)).to(x.dtype)
+    return -x
 
 
-_UNARY = {"-": operator.neg, "abs": abs, "~": _invert}
+def _abs(x):
+    if x.dtype == torch.bool or not (x.dtype.is_signed
+                                     or x.dtype.is_complex):
+        return x
+    return torch.abs(x)
+
+
+def _invert(x):
+    if x.dtype == torch.bool:
+        return ~x
+    if not _is_int(x.dtype):
+        _refuse("not", x.dtype)
+    if x.dtype in _WIDE:
+        return (~x.to(torch.int64)).to(x.dtype)
+    return ~x
+
+
+_UNARY = {"-": _neg, "abs": _abs, "~": _invert}
+
+
+def _int_literal(e) -> Optional[int]:
+    """The exponent of ``x ** e`` when ``e`` is a literal integer (jnp
+    lowers that to ``lax.integer_pow``), else None."""
+    if isinstance(e, Lit) and isinstance(e.value, (bool, np.bool_, int,
+                                                  np.integer)):
+        return int(e.value)
+    return None
 
 #: precedence for minimal-paren pretty printing — matches *Python's* table
 #: (comparisons bind looser than & | ^), so rendered expressions parse back
@@ -462,23 +689,45 @@ class BinOp(Expr):
             return self.left.is_boolean() and self.right.is_boolean()
         return False
 
-    def _apply(self, va, vb):
-        if self.op in _COMPARE:
-            # unsigned columns compare widened (dtypes.order_view)
-            va, vb = (order_view(v) if isinstance(v, torch.Tensor) else v
-                      for v in (va, vb))
-        return _BINOPS[self.op](va, vb)
+    def _apply(self, va, vb, device):
+        if self.op == "**":
+            n = _int_literal(self.right)
+            if n is not None:
+                # jnp.power: an integer literal exponent is lax.integer_pow
+                # of the base alone (bool bases count as int32)
+                x = _convert(va, result_dtype(_node(va)), device)
+                if x.dtype == torch.bool:
+                    x = x.to(torch.int32)
+                return _flush(_integer_pow(_flush(x), n))
+            if isinstance(va, torch.Tensor) and isinstance(vb, torch.Tensor) \
+                    and va.dtype.is_floating_point and _is_int(vb.dtype):
+                return _flush(torch.pow(_flush(va), vb.to(va.dtype)))
+        a, b, dtype = _promote(self.op, va, vb, device)
+        if dtype.is_floating_point:
+            # XLA rewrites a bool operand of a float product as a select:
+            # x * bool is select(bool, x, 0), so False * -2.5, False * inf
+            # and False * NaN are all +0; and bool column / scalar is
+            # select(bool, 1 / scalar, 0), so False / 0 is +0
+            if self.op == "*" and (_is_bool(va) or _is_bool(vb)):
+                mask, x = (va, b) if _is_bool(va) else (vb, a)
+                return _flush(torch.where(_convert(mask, torch.bool, device),
+                                          x, torch.zeros_like(x)))
+            if self.op == "/" and isinstance(va, torch.Tensor) \
+                    and va.dtype == torch.bool and va.dim() \
+                    and not (isinstance(vb, torch.Tensor) and vb.dim()):
+                return _flush(torch.where(va, 1 / b, torch.zeros_like(b)))
+        return _flush(_BINOPS[self.op](a, b, dtype))
 
     def evaluate(self, table):
         return self._apply(self.left.evaluate(table),
-                           self.right.evaluate(table))
+                           self.right.evaluate(table), table.device)
 
     def evaluate_masked(self, table):
         va, ma = self.left.evaluate_masked(table)
         vb, mb = self.right.evaluate_masked(table)
+        value = self._apply(va, vb, table.device)
         if ma is None and mb is None:
-            return self._apply(va, vb), None
-        value = self._apply(va, vb)
+            return value, None
         if self.op in ("&", "|") and _is_bool(va) and _is_bool(vb):
             # Kleene: a known false (&) / true (|) side decides the result
             # even when the other side is null.  Canonical zero means null
@@ -528,12 +777,15 @@ class UnaryOp(Expr):
     def is_boolean(self) -> bool:
         return self.op == "~" and self.operand.is_boolean()
 
+    def _apply(self, v, device):
+        return _flush(_UNARY[self.op](_flush(as_tensor(v, device))))
+
     def evaluate(self, table):
-        return _UNARY[self.op](self.operand.evaluate(table))
+        return self._apply(self.operand.evaluate(table), table.device)
 
     def evaluate_masked(self, table):
         v, m = self.operand.evaluate_masked(table)
-        return _canon(_UNARY[self.op](v), m), m
+        return _canon(self._apply(v, table.device), m), m
 
     def nullable(self, nulls) -> bool:
         return self.operand.nullable(nulls)

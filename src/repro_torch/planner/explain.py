@@ -82,15 +82,18 @@ def adapt_note(event: Mapping[str, Any]) -> str:
 
 
 def render(pplan: PhysicalPlan, mode: str = "bsp",
-           shuffle_impl: str = "radix", a2a_chunks: int = 1) -> str:
+           shuffle_impl: str = "radix", a2a_chunks: int = 1,
+           morsel_rows: Optional[int] = None) -> str:
     # amt executes the allgather object-store shuffle; the bucketize/chunking
     # knobs are inert there, so show what actually runs
     shuf = ("allgather" if mode == "amt"
             else f"{shuffle_impl}/c{a2a_chunks}")
+    ooc = ("" if morsel_rows is None
+           else f"out-of-core={morsel_rows} rows/morsel, ")
     lines = [
         f"== physical plan: {pplan.num_stages} stages, "
         f"{pplan.num_shuffles} shuffles, mode={mode}, "
-        f"shuffle={shuf}, "
+        f"shuffle={shuf}, {ooc}"
         f"fingerprint={pplan.fingerprint[:12]} =="
     ]
     by_stage: Dict[int, list] = {}
@@ -113,13 +116,15 @@ def render(pplan: PhysicalPlan, mode: str = "bsp",
 
 def explain(plan: Any, tables: Optional[Mapping[str, Any]] = None,
             optimize_plan: bool = True, mode: str = "bsp",
-            shuffle_impl: str = "radix", a2a_chunks: int = 1) -> str:
+            shuffle_impl: str = "radix", a2a_chunks: int = 1,
+            morsel_rows: Optional[int] = None) -> str:
     """Render EXPLAIN output for a ``core.plan.Plan`` (or raw plan node /
     LogicalNode).  ``tables`` supplies scan schemas: DistTables,
     ``(cols, rows)`` pairs, or plain column sequences.  ``shuffle_impl`` /
     ``a2a_chunks`` are the plan-wide shuffle knobs shown in the header
-    (per-node overrides appear in the node labels)."""
+    (per-node overrides appear in the node labels); ``morsel_rows`` marks
+    out-of-core morsel execution in the header."""
     from . import compile_plan  # deferred: the package imports this module
     return render(compile_plan(plan, tables, optimize_plan=optimize_plan),
                   mode, shuffle_impl=shuffle_impl,
-                  a2a_chunks=a2a_chunks)
+                  a2a_chunks=a2a_chunks, morsel_rows=morsel_rows)

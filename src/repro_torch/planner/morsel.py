@@ -658,6 +658,10 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     observed overflow peak instead of blind halving.  A run where no
     mitigation fires uses exactly the ``adaptive=False`` stage-cache keys.
     """
+    if env.ranks_held < env.parallelism:
+        raise NotImplementedError(
+            "out-of-core morsel execution over a process group is not "
+            "ported yet; run in-core, or on stacked ranks")
     if mode == "amt":
         raise ValueError(
             "out-of-core morsel execution requires direct shuffles; the "

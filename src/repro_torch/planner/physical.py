@@ -131,7 +131,7 @@ def shuffle_allgather(table: Table, comm: Communicator,
     Models Dask partd / Ray object-store data sharing: data is published
     globally rather than routed, costing O(p·rows) bandwidth per rank.
     """
-    p = comm.size()
+    p, h = comm.size(), comm.ranks_held()
     cap = table.capacity
     out_cap = out_capacity or cap
     valid = table.valid_mask()
@@ -145,27 +145,27 @@ def shuffle_allgather(table: Table, comm: Communicator,
     rank = comm.rank(table.device)
     g_dest = comm.all_gather(dest)
     out_size = min(p * cap, out_cap)
-    order = torch.zeros((p, out_size + 1), dtype=torch.int64,
+    order = torch.zeros((h, out_size + 1), dtype=torch.int64,
                         device=table.device)
-    n_keep = torch.zeros((p,), dtype=torch.int64, device=table.device)
+    n_keep = torch.zeros((h,), dtype=torch.int64, device=table.device)
     rows = torch.arange(cap, device=table.device)
     for src in range(p):
         keep = g_dest[:, src] == rank[:, None]
         pos = n_keep[:, None] + torch.cumsum(keep, dim=1) - 1
         pos = torch.where(keep & (pos < out_size), pos, out_size)
-        order.scatter_(1, pos, (src * cap + rows).expand(p, cap))
+        order.scatter_(1, pos, (src * cap + rows).expand(h, cap))
         n_keep += keep.sum(dim=1)
     # slots past the kept rows keep index 0; mask_padding zeroes them
     order = order[:, :out_size]
-    ridx = torch.arange(p, device=table.device)[:, None]
+    ridx = torch.arange(h, device=table.device)[:, None]
     cols = {}
     for name, col in table.columns.items():
         cols[name] = comm.all_gather(col)[ridx, order // cap, order % cap]
-    sent = torch.zeros((p, p + 1), dtype=torch.int32,
+    sent = torch.zeros((h, p + 1), dtype=torch.int32,
                        device=table.device).scatter_add_(
         1, dest.to(torch.int64), torch.ones_like(dest))[:, :p]
     stats = ShuffleStats(sent, sent,
-                         torch.zeros((p,), dtype=torch.int32,
+                         torch.zeros((h,), dtype=torch.int32,
                                      device=table.device),
                          torch.clamp(n_keep - out_cap, min=0).to(torch.int32),
                          shuffle_impl="allgather")
@@ -179,7 +179,7 @@ def _row_bytes(table: Table) -> int:
 
 
 def _stat_vec(st: ShuffleStats, width: int) -> torch.Tensor:
-    """(p, 3): per rank (rows sent, bytes sent, rows dropped) — the
+    """(h, 3): per held rank (rows sent, bytes sent, rows dropped) — the
     per-shuffle stats triple collected in the stage and summed on the
     host."""
     rows = st.sent_counts.sum(dim=1, dtype=torch.int64)
@@ -666,6 +666,17 @@ def scan_read_stats(names: Sequence[str], tables: Dict[str, Any]
     return rows, byts
 
 
+def _world_stats(comm: Communicator, stats) -> Tuple[torch.Tensor, ...]:
+    """A stage's (h, 3) stat triples as (p, 3), every rank's on each
+    process (one gather for all of them): the records, drop counts and
+    overflow decisions a process reads are then the same on every
+    process of a group, and the stacked run's."""
+    stats = tuple(stats)
+    if not stats or comm.ranks_held() == comm.size():
+        return stats
+    return tuple(comm.world(torch.stack(stats, dim=1)).unbind(1))
+
+
 def _sum_stats(collected) -> Tuple[int, int, int]:
     """``collected``: (p, 3) tensors -> (rows sent, bytes sent, dropped)."""
     tot = np.zeros((3,), np.int64)
@@ -753,6 +764,11 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     from ..core.store import SpillTable, _round8, rescatter
     spills = {n: tables[n] for n in names
               if isinstance(tables[n], SpillTable)}
+    if spills and env.ranks_held < env.parallelism:
+        raise NotImplementedError(
+            "scanning host spills (Parquet / CSV ingest) over a process "
+            "group is not ported yet: build each process's ranks with "
+            "env.from_numpy")
     if spills:
         def _cap(s):
             if scan_capacity is not None:
@@ -845,7 +861,7 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                 a2a_chunks=a2a_chunks, tracer=tr, retries=policy,
                 timeout=token, overflow=OverflowPolicy.DEGRADE, faults=fr,
                 adaptive=acfg)
-        except ValueError as e:
+        except (ValueError, NotImplementedError) as e:
             raise CapacityOverflow(
                 f"capacity pressure dropped {stats.rows_dropped} rows "
                 f"({where}) and the plan cannot degrade to out-of-core "
@@ -869,7 +885,7 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                     stats if collect_stats else None, **eval_kw)
             out = values[root.nid]
             if collect_stats:
-                return out, tuple(a for _, a in stats)
+                return out, _world_stats(ctx.comm, (a for _, a in stats))
             return out
 
         with tr.span("stage:program", "stage", mode=mode,
@@ -943,7 +959,7 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                     stats if collect_stats else None, **eval_kw)
             out = tuple(vals[n.nid] for n in _outs)
             if collect_stats:
-                return out, tuple(a for _, a in stats)
+                return out, _world_stats(ctx.comm, (a for _, a in stats))
             return out
 
         args = [values[e.nid] for e in ext] + \

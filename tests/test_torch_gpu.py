@@ -1785,3 +1785,31 @@ def test_frontend_smoke_serve_and_train_step_card_equals_cpu(cuda, arch):
     for k, v in cpu["params"].items():
         torch.testing.assert_close(card["params"][k].cpu(), v, atol=1e-4,
                                    rtol=1e-3)
+
+
+def test_integer_division_by_zero_card_equals_cpu(cuda):
+    # CUDA integer division does not trap; the port masks zero divisors
+    # itself, so the card gives the CPU's (and the JAX package's) values
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    from repro_torch.expr import col
+    data = {"a": np.array([5, 0, -3, 7, 2**31 - 1, -2**31, 9, -1], np.int32),
+            "m": np.array([0, 0, 0, 2, -1, -1, 4, 0], np.int32),
+            "u": np.array([5, 0, 3, 2**32 - 1, 1, 7, 0, 9], np.uint32),
+            "f": np.array([1.5, -2.5, 0.0, 7.0, np.inf, np.nan, 3.0, -0.0],
+                          np.float32)}
+    exprs = {"q": col("a") // col("m"), "r": col("a") % col("m"),
+             "q0": col("a") // 0, "r0": col("a") % 0,
+             "uq": col("u") // col("m").abs(), "ur": col("u") % 0,
+             "fq": col("f") // 0.0, "fr": col("f") % col("m")}
+    out = {}
+    for device in (cuda, "cpu"):
+        t = DistTable.from_numpy(data, 2, device=device)
+        res = execute(Plan.scan("t").with_columns(exprs),
+                      CylonEnv(2, device=device), {"t": t})
+        out[str(device)] = res.to_numpy()
+    card, cpu = out[str(cuda)], out["cpu"]
+    np.testing.assert_array_equal(cpu["q0"], [-2, -1, -2, -2, -2, -2, -2,
+                                              -2])
+    for name in exprs:
+        assert card[name].dtype == cpu[name].dtype, name
+        np.testing.assert_array_equal(card[name], cpu[name], err_msg=name)

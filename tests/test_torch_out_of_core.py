@@ -931,3 +931,32 @@ def test_fig9_eight_ranks_matches_reference_at_default(reference8, opt):
 
 if __name__ == "__main__":
     _reference_main(sys.argv[1])
+
+
+@pytest.mark.parametrize("mode", ["bsp", "bsp_staged"])
+def test_explain_of_a_morsel_run_matches_jax(rng, mode):
+    # the header of a morsel run's EXPLAIN carries
+    # "out-of-core=N rows/morsel, ", through Plan.explain and the frontend
+    import repro.df as jdf
+    import repro_torch.df as tdf
+    from repro.core import CylonEnv as JEnv, Plan as JPlan
+    from repro_torch.core import Plan as TPlan
+    data = exact_table(rng, 300, keys=30)
+    texts = []
+    for rdf, plan_cls, env in ((jdf, JPlan, JEnv()), (tdf, TPlan, None)):
+        plan = (plan_cls.scan("t").groupby(["k"], {"v0": ["sum"]})
+                .sort(["k"]))
+        with (tdf.session(parallelism=1, device="cpu") if env is None
+              else jdf.session(env)):
+            q = (rdf.read_numpy(data, spill=True, chunk_rows=64)
+                 .groupby("k").agg({"v0": ["sum", "mean"]})
+                 .sort_values("k"))
+            texts.append((plan.explain({"t": data}, mode=mode,
+                                       morsel_rows=512),
+                          q.explain(mode=mode, morsel_rows=32),
+                          q.explain(mode=mode)))
+    (jp, jf, jin), (tp, tf, tin) = texts
+    assert tp == jp and tf == jf and tin == jin
+    assert "out-of-core=512 rows/morsel, " in tp.splitlines()[0]
+    assert "out-of-core=32 rows/morsel, " in tf.splitlines()[0]
+    assert "out-of-core" not in tin
