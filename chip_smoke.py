@@ -225,8 +225,27 @@ ends the run with a non-zero exit code if it fails:
    plain version's (its backward is the plain version recomputed, so this
    checks the Function's wiring, not the kernel's accuracy), its forward
    and backward timed.
+13. sharding (ROADMAP item 13.6; ``sharding_phase``): a ``("data",
+   "model")`` mesh of one rank over NCCL (world size 1) in this process.
+   olmoe-1b-7b (4 of 16 layers) and mamba2-780m take one train step each
+   under ``rules_for_mesh`` from ``train_phase``'s seed and first batch,
+   the state placed by ``state_specs`` as DTensors: olmoe's MoE layers
+   through ``moe_apply_shuffle`` over the mesh's model group (24 radix
+   launches a step: 3 a layer, forward and recomputation), mamba2's SSD
+   kernel and its autograd ``Function`` under ``local_map`` (96 forward
+   launches, 48 plain backward passes); loss and gradient norm held to
+   ``train_phase``'s warm-up step (olmoe at the reference script's rtol
+   2e-3 / 2e-2, mamba2 at 1e-5 / 1e-4); then qwen3-8b (batch 4, prompt
+   4096) through ``ServeEngine(rules=serve_rules_for_mesh)``, the model
+   placed by ``param_specs`` and the KV cache by ``cache_specs``: two
+   timed prefills (first and cached, 36 flash launches each), then 8
+   greedy tokens equal to the first 8 of ``serve_phase``'s first run;
+   each train arch also takes a second step (the same batch) for the
+   steady state; each run's wall time and peak memory beside the
+   unsharded run's.
 
-The last lines are the training JSON line, the query-serving JSON line,
+The last lines are the training JSON line, the process-group and
+sharding JSON lines, the query-serving JSON line,
 the card's ``nvidia-smi`` name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -3283,6 +3302,7 @@ def serve_phase(torch, smi, seed=0):
                   flush=True)
             print(f"serve {arch} {run} first sequence: "
                   f"{toks[0, :12].tolist()}...", flush=True)
+            r["first_tokens"] = toks[:, :SHARD_SERVE[3]].tolist()
         flops = model_flops(cfg, "prefill", batch, prompt)
         for run, r in runs.items():
             r["model_flops_share"] = flops / r["ttft_s"] / f32_peak
@@ -3421,6 +3441,7 @@ def moe_shuffle_phase(torch, smi, seed=0):
     both timed (CUDA events, median of ``reps``), peak memory."""
     import dataclasses
     from repro_torch.models import moe
+    from repro_torch.models.layers import ShardingRules
     o = MOE_SHUFFLE
     dev = torch.device("cuda")
     base = serve_config(o["arch"])
@@ -3463,7 +3484,8 @@ def moe_shuffle_phase(torch, smi, seed=0):
     out, res = {}, {}
     for name, fn, radix in (
             ("grouped", lambda: moe.moe_apply_grouped(params, x, cfg), 1),
-            ("shuffle", lambda: moe.moe_apply_shuffle(params, x, cfg, ms),
+            ("shuffle", lambda: moe.moe_apply_shuffle(
+                params, x, cfg, ShardingRules(model="model", model_size=ms)),
              3)):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -4439,16 +4461,20 @@ def ssd_train_counts(cfg):
     return 2 * mamba, mamba
 
 
-def radix_train_counts(cfg):
+def radix_train_counts(cfg, shuffle=False):
     """Radix launches of one train step with remat: each MoE layer ranks
     its dispatch in the forward and again in its recomputation (the
-    backward launches none)."""
-    return 2 * sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    backward launches none): once for the grouped dispatch, three times
+    for the shuffle dispatch (the outbound shuffle, the group by local
+    expert, the return shuffle)."""
+    per = 3 if shuffle else 1
+    return 2 * per * sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
 
 
 #: layers a trained arch keeps at full width: olmoe-1b-7b's full-width
-#: state (16 bytes a parameter, 111 GB) needs the sharding of ROADMAP
-#: item 13.6, so 4 of 16 layers (1.88 B parameters, ~30 GB of state)
+#: state (16 bytes a parameter, 111 GB) does not fit one card even with
+#: the sharding of ROADMAP item 13.6 (a (1, 1) mesh holds all of it), so
+#: 4 of 16 layers (1.88 B parameters, ~30 GB of state)
 TRAIN_LAYERS = {"olmoe-1b-7b": 4}
 #: parameters each trained arch's run checks for a change
 TRAIN_PROBES = {"mamba2-780m": ("embed", "blocks.0.mixer.w_in",
@@ -4457,16 +4483,18 @@ TRAIN_PROBES = {"mamba2-780m": ("embed", "blocks.0.mixer.w_in",
                                 "blocks.3.moe.experts.w_down")}
 
 
-def train_phase(torch, smi, arch="mamba2-780m", seed=0):
+def train_phase(torch, smi, arch="mamba2-780m", seed=0, keep=None):
     """``arch`` at full width in float32 on the card (mamba2-780m at full
     depth, olmoe-1b-7b cut to ``TRAIN_LAYERS``), fed by
     ``train_pipeline``: one warm-up step and ``TRAIN_STEPS`` timed steps,
-    then one profiled step."""
+    then one profiled step.  ``keep`` (a dict) receives the first batch
+    under ``arch``."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data import batches_from_table
     from repro_torch.kernels import ssd_scan_backward
+    from repro_torch.models.layers import NO_SHARDING
     from repro_torch.train import (AdamWConfig, init_train_state,
                                    make_train_step)
     dev = torch.device("cuda")
@@ -4474,6 +4502,8 @@ def train_phase(torch, smi, arch="mamba2-780m", seed=0):
     table, pipe = train_pipeline(torch, smi)
     batches = batches_from_table(table, batch, seq, seed=seed)
     first = next(batches)                 # copies the table to the host
+    if keep is not None:
+        keep[arch] = first
     del table
     torch.cuda.empty_cache()
     cfg = get_config(arch)
@@ -4485,7 +4515,8 @@ def train_phase(torch, smi, arch="mamba2-780m", seed=0):
     steps = TRAIN_STEPS + 1
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=max(steps // 10, 1),
                           total_steps=steps)
-    step_fn = make_train_step(cfg, opt_cfg, "auto", True, TRAIN_CE_CHUNK)
+    step_fn = make_train_step(cfg, opt_cfg, NO_SHARDING, "auto", True,
+                              TRAIN_CE_CHUNK)
     probe = {n: state["params"][n].clone() for n in TRAIN_PROBES[arch]}
     fwd, bwd = ssd_train_counts(cfg)
     radix = radix_train_counts(cfg)
@@ -4590,6 +4621,7 @@ def train_parity_phase(torch, steps=3, seed=3):
     equal to the uninterrupted step 3 bit for bit."""
     import tempfile
     from repro_torch.configs import get_smoke_config
+    from repro_torch.models.layers import NO_SHARDING
     from repro_torch.train import (AdamWConfig, AsyncCheckpointer,
                                    init_train_state, make_train_step,
                                    restore)
@@ -4616,7 +4648,7 @@ def train_parity_phase(torch, steps=3, seed=3):
         metrics, states = {}, {}
         for device in ("cuda", "cpu"):
             impl = "chunked" if device == "cpu" else "auto"
-            step = make_train_step(cfg, ocfg, impl, True, 32)
+            step = make_train_step(cfg, ocfg, NO_SHARDING, impl, True, 32)
             state, ms = to(base, device), []
             for i, b in enumerate(batches):
                 if i == steps - 1:
@@ -4714,6 +4746,194 @@ def ssd_grad_phase(torch, flush, bh=TRAIN_BATCH * 48, t=TRAIN_SEQ, p=64,
           f"ms through the Function, {rec['plain_bwd_ms']:.3f} ms through "
           f"the plain version", flush=True)
     return rec
+
+
+#: the sharded serving run: arch, batch, prompt, new tokens
+SHARD_SERVE = ("qwen3-8b", 4, 4096, 8)
+#: the sharded train runs, each held to its unsharded warm-up step of
+#: ``train_phase``: (loss rtol, grad-norm rtol); the MoE arch at the
+#: reference script's tolerances (the shuffle dispatch drops other rows
+#: at capacity factor 1.25 than the grouped one)
+SHARD_TRAIN = {"olmoe-1b-7b": (2e-3, 2e-2), "mamba2-780m": (1e-5, 1e-4)}
+
+
+def sharding_phase(torch, smi, train_recs, batches, serve_rec, seed=0):
+    """ROADMAP item 13.6 on the card: a ``("data", "model")`` mesh of one
+    rank over NCCL (one process, world size 1).  Each ``SHARD_TRAIN``
+    arch takes one train step under ``rules_for_mesh`` from
+    ``train_phase``'s seed and first batch, its state placed by
+    ``state_specs`` as DTensors: olmoe-1b-7b (``TRAIN_LAYERS``) through
+    ``moe_apply_shuffle`` over the mesh's model group, its radix launches
+    derived from the layers; mamba2-780m through the SSD kernel and its
+    autograd ``Function`` under ``local_map``; loss and gradient norm held
+    to ``train_phase``'s warm-up step.  Then ``SHARD_SERVE`` through
+    ``ServeEngine(rules=serve_rules_for_mesh)`` (the model placed by
+    ``param_specs``, the caches by ``cache_specs``): two timed prefills
+    (first and cached), 36 flash launches each as derived, and a greedy
+    generation equal to the first tokens of ``serve_phase``'s first run.
+    Each train arch also takes a second step for the steady state.  Each
+    run's wall time and peak memory beside the unsharded run's."""
+    import dataclasses
+    import tempfile
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan_backward
+    from repro_torch.launch.mesh import (make_local_mesh, rules_for_mesh,
+                                         serve_rules_for_mesh)
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import full
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import (AdamWConfig, init_train_state,
+                                   make_train_step, place_state)
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    rv = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{rv}/rendezvous",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=PG_TIMEOUT_S))
+    out = {}
+    try:
+        mesh = make_local_mesh(model=1)
+        rules = rules_for_mesh(mesh)
+        for arch, (rtol_l, rtol_g) in SHARD_TRAIN.items():
+            cfg = get_config(arch)
+            if arch in TRAIN_LAYERS:
+                cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS[arch])
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            state = place_state(init_train_state(cfg, gen, torch.float32,
+                                                 dev), cfg, rules, mesh)
+            steps = TRAIN_STEPS + 1
+            opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=max(steps // 10, 1),
+                                  total_steps=steps)
+            step_fn = make_train_step(cfg, opt_cfg, rules, "auto", True,
+                                      TRAIN_CE_CHUNK)
+            fwd, bwd = ssd_train_counts(cfg)
+            radix = radix_train_counts(cfg, shuffle=cfg.moe is not None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            b0 = ssd_scan_backward.launches
+            t = time.perf_counter()
+            state, m = step_fn(state, batches[arch])
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            wall = time.perf_counter() - t
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            got = {"radix_partition": counts["radix_partition"],
+                   "ssd_scan": counts["ssd_scan"],
+                   "ssd_backward": ssd_scan_backward.launches - b0,
+                   "flash_attention": counts["flash_attention"],
+                   "segmented_sum": counts["segmented_sum"]}
+            want = {"radix_partition": radix, "ssd_scan": fwd,
+                    "ssd_backward": bwd, "flash_attention": 0,
+                    "segmented_sum": 0}
+            check(got == want, f"sharded train {arch}: launches {got}, "
+                  f"derived {want}")
+            ref = train_recs[arch]
+            l0, g0 = ref["losses"][0], ref["grad_norms"][0]
+            check(abs(loss - l0) <= rtol_l * abs(l0)
+                  and abs(gnorm - g0) <= rtol_g * abs(g0),
+                  f"sharded train {arch}: loss {loss}, grad norm {gnorm}; "
+                  f"unsharded {l0}, {g0} (rtol {rtol_l}, {rtol_g})")
+            leaf = next(iter(state["params"].values()))
+            check(type(leaf).__name__ == "DTensor",
+                  f"sharded train {arch}: the new state is not on the mesh")
+            # a second step (the same batch) for the steady state
+            reset_counts()
+            t = time.perf_counter()
+            state, m = step_fn(state, batches[arch])
+            check(np.isfinite(float(m["loss"])), f"sharded train {arch}: "
+                  f"second step's loss {float(m['loss'])}")
+            second = time.perf_counter() - t
+            check(launch_counts()["radix_partition"] == radix,
+                  f"sharded train {arch}: second step's radix launches")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            out[arch] = dict(layers=cfg.num_layers, step_s=wall,
+                             second_step_s=second, loss=loss,
+                             grad_norm=gnorm, peak_gib=peak, launches=got,
+                             unsharded=dict(
+                                 step_s=ref["warmup_step_s"],
+                                 steady_step_s=ref["step_s"], loss=l0,
+                                 grad_norm=g0, peak_gib=ref["peak_gib"]))
+            print(f"sharded train {arch} ({cfg.num_layers} layers) on a "
+                  f"(1, 1) mesh over NCCL: first step {wall:.3f} s, second "
+                  f"{second:.3f} s (unsharded warm-up step "
+                  f"{ref['warmup_step_s']:.3f} s, median step "
+                  f"{ref['step_s']:.3f} s), loss {loss:.6f} (unsharded "
+                  f"{l0:.6f}), grad norm {gnorm:.4f} (unsharded {g0:.4f}), "
+                  f"peak device memory {peak:.2f} GiB (unsharded run "
+                  f"{ref['peak_gib']:.2f} GiB); launches {got}, as derived "
+                  f"[{smi}]", flush=True)
+            del state, step_fn
+            torch.cuda.empty_cache()
+
+        srules = serve_rules_for_mesh(mesh)
+        arch, batch, prompt, new = SHARD_SERVE
+        cfg = serve_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = transformer.shard_model(transformer.init_params(
+            cfg, gen, torch.float32, dev), srules, mesh)
+        engine = ServeEngine(cfg, model, cache_len=prompt + new,
+                             rules=srules)
+        prompts = serve_prompts(cfg, batch, prompt, 0,
+                                np.random.default_rng(seed))
+        pre, dec = serve_launches(cfg, "auto", prompt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ttft = []
+        for _ in range(2):                  # first and cached
+            reset_counts()
+            t = time.perf_counter()
+            logits, caches = engine.prefill(torch.as_tensor(
+                prompts, dtype=torch.long, device=dev))
+            logits = full(logits)
+            torch.cuda.synchronize()
+            ttft.append(time.perf_counter() - t)
+            counts = launch_counts()
+            check(counts == pre, f"sharded serve {arch}: prefill launches "
+                  f"{counts}, derived {pre}")
+            check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()),
+                  f"sharded serve {arch}: prefill logits are not finite")
+            kv = caches[0]["k"]
+            check(type(kv).__name__ == "DTensor",
+                  f"sharded serve {arch}: the KV cache is not on the mesh")
+            del logits, caches, kv
+        reset_counts()
+        t = time.perf_counter()
+        res = engine.generate(prompts, max_new_tokens=new)
+        total = time.perf_counter() - t
+        gen_counts = launch_counts()
+        want_gen = {k: pre[k] + new * dec[k] for k in pre}
+        check(gen_counts == want_gen, f"sharded serve {arch}: generate "
+              f"launches {gen_counts}, derived {want_gen}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want_toks = serve_rec["first"]["first_tokens"]
+        check(res.tokens.tolist() == want_toks, f"sharded serve {arch}: "
+              f"tokens {res.tokens.tolist()} != serve_phase's {want_toks}")
+        un = serve_rec["first"]
+        cached = serve_rec["cached"]
+        out[arch] = dict(batch=batch, prompt=prompt, new=new,
+                         ttft_s=ttft[0], cached_ttft_s=ttft[1],
+                         generate_s=total, peak_gib=peak,
+                         prefill_launches=counts,
+                         generate_launches=gen_counts,
+                         unsharded=dict(ttft_s=un["ttft_s"],
+                                        cached_ttft_s=cached["ttft_s"],
+                                        peak_gib=un["peak_gib"]))
+        print(f"sharded serve {arch} batch={batch} prompt={prompt} "
+              f"new={new} under serving rules on a (1, 1) mesh over NCCL: "
+              f"time to first token {ttft[0]:.3f} s first, {ttft[1]:.3f} s "
+              f"cached (unsharded {un['ttft_s']:.3f} / "
+              f"{cached['ttft_s']:.3f} s), generate {total:.3f} s, peak "
+              f"device memory {peak:.2f} GiB (unsharded run "
+              f"{un['peak_gib']:.2f} GiB); prefill launches {counts}; greedy "
+              f"tokens equal to serve_phase's [{smi}]", flush=True)
+        del engine, model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
 
 
 def build_all():
@@ -4852,9 +5072,11 @@ def main():
     phase_done("serve parity")
     moe_shuffle = moe_shuffle_phase(torch, smi)
     phase_done("moe shuffle dispatch")
-    train = train_phase(torch, smi)
+    first_batches = {}
+    train = train_phase(torch, smi, keep=first_batches)
     phase_done("train")
-    train_moe = train_phase(torch, smi, arch="olmoe-1b-7b")
+    train_moe = train_phase(torch, smi, arch="olmoe-1b-7b",
+                            keep=first_batches)
     phase_done("train olmoe")
     train_parity_phase(torch)
     phase_done("train parity")
@@ -4862,6 +5084,11 @@ def main():
     ssd_autograd = ssd_grad_phase(torch, flush)
     del flush
     phase_done("ssd autograd")
+    reset_counts()
+    sharded = sharding_phase(
+        torch, smi, {"mamba2-780m": train, "olmoe-1b-7b": train_moe},
+        first_batches, served[SHARD_SERVE[0]])
+    phase_done("sharding")
 
     rp, ss = radix_partition_cuda, segmented_sum_cuda
     kernels = [
@@ -4917,6 +5144,12 @@ def main():
             label: r["launches_per_process"][rec["name"]]
             for label, r in process_group["runs"].items()}
     kernels[-1]["launches_train_step"] = train["ssd_launches_per_step"]
+    # the sharded path (a (1, 1) mesh over NCCL): each kernel's launches in
+    # each sharded run
+    for rec in kernels:
+        rec["launches_sharded"] = {
+            arch: r.get("launches", r.get("generate_launches"))[rec["name"]]
+            for arch, r in sharded.items()}
     kernels[-1]["train_shape"] = ssd_autograd
     print(json.dumps({"fig9_wall_s": walls}))
     print(json.dumps({"skew": skew}))
@@ -4936,6 +5169,7 @@ def main():
     print(json.dumps({"train": train, "train_olmoe": train_moe,
                       "ssd_autograd": ssd_autograd}))
     print(json.dumps({"process_group": process_group}))
+    print(json.dumps({"sharding": sharded}))
     print(json.dumps({"query_serving": serving}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -37,6 +37,12 @@ Transport is the group's backend, chosen by whoever created the group:
 Nothing falls back from one transport or schedule to another.  Create the
 group with a timeout (``init_process_group(timeout=...)``) so that a
 mismatched collective fails instead of hanging.
+
+The all-to-all and the point-to-point steps of the ring and Bruck
+schedules are differentiable: each is a permutation of blocks across
+ranks, whose gradient is the inverse permutation (the all-to-all and a
+pairwise exchange are their own inverses, a shift by ``k`` is undone by
+a shift by ``-k``).  The MoE shuffle dispatch trains through them.
 """
 
 from __future__ import annotations
@@ -66,6 +72,26 @@ def _as_bytes(x: torch.Tensor, rows: int) -> torch.Tensor:
 
 def _from_bytes(b: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
     return b.reshape(-1).view(dtype).reshape(shape)
+
+
+class _Moved(torch.autograd.Function):
+    """A data movement across ranks, ``fwd``, whose gradient is ``bwd``
+    (the inverse movement) applied to the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g.contiguous()), None, None
+
+
+def _moved(x: torch.Tensor, fwd: Callable, bwd: Callable) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Moved.apply(x, fwd, bwd)
+    return fwd(x)
 
 
 def _pinned(x: torch.Tensor, copy: bool = False) -> torch.Tensor:
@@ -171,16 +197,25 @@ class ProcessGroupCommunicator(StackedCommunicator):
         k %= p
         if k == 0:
             return x.clone()
-        return self._exchange(x, [("send", (self.me + k) % p),
-                                  ("recv", (self.me - k) % p)])
+
+        def shift(y, j):
+            return self._exchange(y, [("send", (self.me + j) % p),
+                                      ("recv", (self.me - j) % p)])
+        return _moved(x, lambda y: shift(y, k), lambda g: shift(g, p - k))
 
     def _xor(self, x: torch.Tensor, dist: int) -> torch.Tensor:
         peer = self.me ^ dist
-        return self._exchange(x, [("send", peer), ("recv", peer)])
+
+        def swap(y):
+            return self._exchange(y, [("send", peer), ("recv", peer)])
+        return _moved(x, swap, swap)
 
     # -- native collectives ----------------------------------------------- #
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         self._check(x, block_major=True)
+        return _moved(x, self._all_to_all, self._all_to_all)
+
+    def _all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         p = self.parallelism
         src = _as_bytes(x[0], p)
         dst = torch.empty_like(src)

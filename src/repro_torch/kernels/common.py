@@ -4,12 +4,26 @@ counter every CUDA wrapper carries."""
 
 from __future__ import annotations
 
+import sys
 import threading
 from typing import Dict, Optional, Sequence
 
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """A kernel computes on local tensors: raise ``TypeError`` when a
+    DTensor reaches its dispatcher (a sharded call site runs the kernel
+    under ``local_map``)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is None:                      # no DTensor can exist yet
+        return
+    if any(isinstance(t, mod.DTensor) for t in tensors):
+        raise TypeError(f"{name} takes local tensors, got a DTensor: call it "
+                        f"under torch.distributed.tensor.experimental."
+                        f"local_map")
 
 
 class LaunchCounter:

@@ -24,6 +24,7 @@ import torch
 
 from .cuda import flash_attention_cuda
 from .ref import attention_ref
+from ..common import refuse_dtensor
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,6 +32,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ) -> torch.Tensor:
     """GQA attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) ->
     (B, Hq, Sq, D), queries aligned to the end of the keys."""
+    refuse_dtensor("flash_attention", q, k, v)
     if causal and q.shape[2] > k.shape[2]:
         raise ValueError(f"causal attention needs Sq <= Sk (every query "
                          f"sees a key), got Sq={q.shape[2]}, "

@@ -20,12 +20,14 @@ import torch
 
 from .cuda import radix_partition_cuda
 from .ref import radix_partition_ref
+from ..common import refuse_dtensor
 
 
 def radix_partition(dest: torch.Tensor, num_buckets: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ranks, hist) of ``dest`` (p, n) int32 in [0, num_buckets): each
     row's stable rank within its bucket, and each rank's histogram."""
+    refuse_dtensor("radix_partition", dest)
     if dest.is_cuda:
         return radix_partition_cuda(dest.contiguous(), num_buckets)
     if dest.device.type != "cpu":

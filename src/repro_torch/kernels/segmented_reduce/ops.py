@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .cuda import segmented_sum_cuda
+from ..common import refuse_dtensor
 from .ref import segmented_sum_ref
 
 #: value dtypes the kernel does not take -> the dtype they are summed in.
@@ -53,6 +54,7 @@ def segmented_sum(seg_ids: torch.Tensor, values: torch.Tensor,
     ``sorted`` route).  On the card, 8- and 16-bit values and uint32 are
     summed wider (``WIDEN``); bool raises, as it does in the JAX
     package."""
+    refuse_dtensor("segmented_sum", seg_ids, values)
     if seg_ids.is_cuda:
         return widened_sum(segmented_sum_cuda, seg_ids.contiguous(),
                            values.contiguous(), num_segments,

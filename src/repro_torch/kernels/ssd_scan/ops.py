@@ -30,7 +30,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..common import LaunchCounter, round_up
+from ..common import LaunchCounter, refuse_dtensor, round_up
 from .cuda import ssd_scan_cuda
 
 #: counts ``SsdScanKernel``'s backward passes (plain PyTorch, no kernel)
@@ -70,6 +70,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD scan; x: (BH, T, P); dt: (BH, T, 1); a: (BH, 1); b, c:
     (BH, T, N).  Returns (y: (BH, T, P), h_final: (BH, N, P))."""
+    refuse_dtensor("ssd_scan", x, dt, a, b, c)
     t = x.shape[1]
     if t == 0:
         raise ValueError("ssd_scan needs at least one time step")

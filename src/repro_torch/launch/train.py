@@ -11,14 +11,26 @@ and ``--resume``.
 runs on the CUDA card; ``--device cpu`` runs the plain PyTorch path (use
 ``--smoke`` there).  As in the reference, the driver trains the token-LM
 archs and exits for the vlm and audio ones, whose batches the §IV-C
-corpus does not make (``train.make_train_step`` takes them).  The
-reference's ``--model-axis`` and its mesh wait for ROADMAP item 13.6.
+corpus does not make (``train.make_train_step`` takes them).
+
+Sharded training: started by ``torchrun`` with more than one process,
+the driver joins the process group (NCCL on cards, one card a process;
+gloo with ``--device cpu``), builds a ``(world // M, M)`` ``("data",
+"model")`` mesh (``--model-axis M``) with ``rules_for_mesh``, and places
+the state by ``state_specs``; every process makes the same corpus and
+batches from the seed.  ``--resume`` restores onto the current mesh,
+whatever mesh wrote the checkpoint.  At world size 1 the rules are
+``NO_SHARDING``, as in the reference.
+
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch llama3.2-3b --model-axis 2
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from datetime import timedelta
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -29,8 +41,36 @@ from ..core import CylonExecutor, CylonStore
 from ..core.env import resolve_device
 from ..data import (CorpusConfig, batches_from_table, preprocess,
                     source_weights, synth_corpus)
+from ..models.layers import NO_SHARDING, set_mesh
 from ..train import (AdamWConfig, AsyncCheckpointer, init_train_state,
-                     latest_step, make_train_step, restore)
+                     latest_step, make_train_step, place_state, restore,
+                     state_specs)
+from .mesh import make_local_mesh, rules_for_mesh
+
+#: how long a collective of the torchrun group waits before it fails: a
+#: rank that falls out of step (a mismatched collective) ends the job
+#: instead of hanging it.  The other ranks wait out a checkpoint's write
+#: on the writer rank inside it.
+PG_TIMEOUT = timedelta(seconds=300)
+
+
+def _join_group(device: Optional[str]):
+    """(device, world size, rank): the ``torchrun`` process group when
+    there is one of more than one process (NCCL on cards, gloo on the
+    CPU), else one process."""
+    import os
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return resolve_device(device), 1, 0
+    import torch.distributed as dist
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if cpu:
+        dev = torch.device("cpu")
+    else:
+        dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo" if cpu else "nccl", timeout=PG_TIMEOUT)
+    return dev, world, dist.get_rank()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[float]:
@@ -48,6 +88,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--data-parallelism", type=int, default=8,
                     help="stacked ranks of the DDF preprocessing gang")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="model-axis size of the mesh under torchrun")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
@@ -57,7 +99,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     if cfg.family in ("vlm", "audio"):
         raise SystemExit("train driver covers token-LM archs; see the "
                          "smoke tests for vlm/audio steps")
-    dev = resolve_device(args.device)
+    dev, world, rank = _join_group(args.device)
+    mesh, rules = None, NO_SHARDING
+    if world > 1:
+        mesh = make_local_mesh(model=args.model_axis)
+        rules = rules_for_mesh(mesh)
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, flush=True)
 
     # ---- DDF preprocessing application (paper §IV-C) ------------------ #
     gang = CylonExecutor(parallelism=args.data_parallelism, device=dev)
@@ -70,8 +120,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     t0 = time.time()
     preprocess(gang, corpus, weights, store=store)
     table = store.get("train_corpus")
-    print(f"[data] preprocessed {table.total_rows()} docs "
-          f"on gang={gang.parallelism} in {time.time() - t0:.2f}s")
+    say(f"[data] preprocessed {table.total_rows()} docs "
+        f"on gang={gang.parallelism} in {time.time() - t0:.2f}s")
     batches = batches_from_table(table, args.batch, args.seq, seed=args.seed)
     del corpus, table
 
@@ -85,11 +135,20 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     if args.resume and args.ckpt_dir:
         last = latest_step(args.ckpt_dir)
         if last is not None:
-            state = restore(f"{args.ckpt_dir}/ckpt_{last}", state)
+            path = f"{args.ckpt_dir}/ckpt_{last}"
+            if mesh is None:
+                state = restore(path, state)
+            else:
+                with set_mesh(mesh):
+                    state = restore(path, state,
+                                    shardings=state_specs(cfg, rules))
             start_step = last
-            print(f"[ckpt] resumed from step {last}")
+            say(f"[ckpt] resumed from step {last} (onto {world} "
+                f"process{'es' if world > 1 else ''})")
+    if mesh is not None and start_step == 0:
+        state = place_state(state, cfg, rules, mesh)
 
-    step_fn = make_train_step(cfg, opt_cfg, ce_chunk=64)
+    step_fn = make_train_step(cfg, opt_cfg, rules, ce_chunk=64)
     losses = []
     for step in range(start_step, args.steps):
         batch = next(batches)
@@ -98,17 +157,20 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
         loss = float(metrics["loss"])
         losses.append(loss)
         if step % 5 == 0 or step == args.steps - 1:
-            print(f"step {step:4d} loss {loss:8.4f} "
-                  f"gnorm {float(metrics['grad_norm']):7.3f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"dt {time.time() - t0:.3f}s", flush=True)
+            say(f"step {step:4d} loss {loss:8.4f} "
+                f"gnorm {float(metrics['grad_norm']):7.3f} "
+                f"lr {float(metrics['lr']):.2e} "
+                f"dt {time.time() - t0:.3f}s")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             ckpt.save(f"{args.ckpt_dir}/ckpt_{step + 1}", state, step + 1)
     ckpt.wait()
     if len(losses) > 10:
         a, b = np.mean(losses[:5]), np.mean(losses[-5:])
-        print(f"[loss] first5={a:.3f} last5={b:.3f} "
-              f"({'improved' if b < a else 'NOT improved'})")
+        say(f"[loss] first5={a:.3f} last5={b:.3f} "
+            f"({'improved' if b < a else 'NOT improved'})")
+    if world > 1:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return losses
 
 

@@ -18,6 +18,12 @@ through the engine, whose requests are token prompts as the reference's.
 
 The engine runs on the model's device; the KV caches live there and are
 updated in place by each decode step.
+
+With ``rules`` (``launch.mesh.serve_rules_for_mesh``) and a model whose
+parameters are DTensors (``transformer.shard_model``), prefill and decode
+run on the model's mesh: tokens batch-sharded, the caches placed by
+``transformer.cache_specs`` (KV sequence-sharded over ``model``), and
+the logits gathered before sampling.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from ..models import transformer
 from ..models.config import ModelConfig
+from ..models.layers import NO_SHARDING, ShardingRules, full, mesh_scope
 
 
 @dataclasses.dataclass
@@ -41,10 +48,12 @@ class GenerationResult:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, model: transformer.Transformer,
-                 cache_len: int, eos_id: Optional[int] = None):
+                 cache_len: int, rules: ShardingRules = NO_SHARDING,
+                 eos_id: Optional[int] = None):
         self.cfg = cfg
         self.model = model
         self.cache_len = cache_len
+        self.rules = rules
         self.eos_id = eos_id
 
     @property
@@ -54,13 +63,17 @@ class ServeEngine:
     def prefill(self, prompts: torch.Tensor):
         """(last-position logits (B, V) or (B, K, V), caches) of prompts
         (B, S0) or (B, S0, K)."""
-        return transformer.prefill(self.model, prompts, self.cache_len)
+        with mesh_scope(self.model.embed):
+            return transformer.prefill(self.model, prompts, self.cache_len,
+                                       rules=self.rules)
 
     def decode_step(self, caches, tokens: torch.Tensor,
                     pos: torch.Tensor) -> torch.Tensor:
         """Logits (B, V) or (B, K, V) after ``tokens`` (B, 1) or (B, 1, K)
         at ``pos`` (B,); the caches are updated in place."""
-        return transformer.decode_step(self.model, caches, tokens, pos)
+        with mesh_scope(self.model.embed):
+            return transformer.decode_step(self.model, caches, tokens, pos,
+                                           self.rules)
 
     @staticmethod
     def _sample(logits: torch.Tensor, gen: torch.Generator,
@@ -90,7 +103,7 @@ class ServeEngine:
         out: List[torch.Tensor] = []
         finished = np.zeros((b,), bool)
         for step in range(max_new_tokens):
-            tok = self._sample(logits, gen, temperature)   # (B,) / (B, K)
+            tok = self._sample(full(logits), gen, temperature)  # (B,)/(B, K)
             out.append(tok)
             if self.eos_id is not None:
                 finished |= tok.reshape(b, -1)[:, 0].cpu().numpy() == \

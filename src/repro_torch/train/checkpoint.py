@@ -8,6 +8,14 @@ paper's §VI; ports ``repro/train/checkpoint.py``).
   and writes on a worker thread, off the training critical path.
 * ``restore`` loads into the structure of ``like``, each leaf on
   ``like``'s device (or ``device``), and raises on a shape mismatch.
+  With ``shardings`` (a tree of specs matching ``like``) each full leaf
+  is placed onto the current mesh (``models.layers.set_mesh``) by its
+  spec: the elastic restart onto another mesh shape, since the npz
+  holds full arrays.
+
+On a mesh the state's leaves are DTensors: ``save`` gathers each with
+``full_tensor()`` (a collective every process joins) and the process of
+global rank 0 alone writes, then every process waits for the write.
 
 A tree is nested dicts (keys in sorted order, as JAX flattens them),
 lists and tuples of tensors.  bfloat16 leaves are stored as their 16-bit
@@ -24,12 +32,26 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.layers import P, current_mesh, distribute, full, is_dtensor
+
+
+def _writer() -> bool:
+    """Whether this process writes (rank 0, or no process group)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier_if_sharded(flat) -> None:
+    if any(is_dtensor(t) for _, t in flat):
+        import torch.distributed as dist
+        dist.barrier()
+
 
 def _flatten(tree: Any, path: str = "") -> List[Tuple[str, torch.Tensor]]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree)
                 for leaf in _flatten(tree[k], f"{path}[{k!r}]")]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
         return [leaf for i, v in enumerate(tree)
                 for leaf in _flatten(v, f"{path}[{i}]")]
     return [(path, tree)]
@@ -46,7 +68,7 @@ def _unflatten(like: Any, leaves) -> Any:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    t = torch.as_tensor(t).detach().cpu()
+    t = full(torch.as_tensor(t).detach()).cpu()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.numpy()
@@ -70,8 +92,11 @@ def _write(path: str, arrays, paths, dtypes, step) -> None:
 def save(path: str, state: Any, step: Optional[int] = None) -> None:
     """Copy ``state`` to the host and write ``path`` (.npz + .json)."""
     flat = _flatten(state)
-    _write(path, [_host(t) for _, t in flat], [p for p, _ in flat],
-           [_dtype_name(t) for _, t in flat], step)
+    arrays = [_host(t) for _, t in flat]
+    if _writer():
+        _write(path, arrays, [p for p, _ in flat],
+               [_dtype_name(t) for _, t in flat], step)
+    _barrier_if_sharded(flat)
 
 
 class AsyncCheckpointer:
@@ -89,6 +114,8 @@ class AsyncCheckpointer:
         flat = _flatten(state)
         args = ([_host(t) for _, t in flat], [p for p, _ in flat],
                 [_dtype_name(t) for _, t in flat], step)
+        if not _writer():
+            return
         self._thread = threading.Thread(target=_write, args=(path,) + args,
                                         daemon=True)
         self._thread.start()
@@ -99,11 +126,20 @@ class AsyncCheckpointer:
             self._thread = None
 
 
-def restore(path: str, like: Any, device=None) -> Any:
+def restore(path: str, like: Any, device=None, shardings: Any = None
+            ) -> Any:
     """Load a checkpoint into the structure of ``like``: each leaf gets
     ``like``'s dtype and lands on ``device`` (default: ``like``'s leaf's
-    device)."""
+    device).  With ``shardings`` (specs in ``like``'s structure) each leaf
+    is placed onto the current mesh by its spec."""
     flat_like = [t for _, t in _flatten(like)]
+    specs = None
+    if shardings is not None:
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError("restore(shardings=...) places onto the current "
+                             "mesh: call it under models.layers.set_mesh")
+        specs = [s for _, s in _flatten(shardings)]
     with np.load(path + ".npz") as z:
         if len(z.files) != len(flat_like):
             raise ValueError(f"checkpoint has {len(z.files)} leaves, "
@@ -118,7 +154,8 @@ def restore(path: str, like: Any, device=None) -> Any:
         t = torch.from_numpy(np.ascontiguousarray(a))
         t = t.view(torch.bfloat16) if l.dtype == torch.bfloat16 and \
             t.dtype == torch.int16 else t.to(l.dtype)
-        out.append(t.to(l.device if device is None else device))
+        t = t.to(l.device if device is None else device)
+        out.append(t if specs is None else distribute(t, specs[i], mesh))
     return _unflatten(like, iter(out))
 
 

@@ -7,6 +7,13 @@ Python doubles), so the two packages step alike.  Which leaves take weight
 decay is the caller's ``decay`` map; the default, ``ndim >= 2``, is the
 reference's rule on the tree it is given (``train.step`` maps it onto the
 reference's stacked tree).
+
+On a mesh every leaf is a DTensor.  ``adamw_update`` takes each gradient
+to its moment's placements; where a moment is sharded further than its
+parameter (the 2-D ZeRO moments of ``train.step.state_specs``), the
+update runs on the moment's shards and the new parameter is gathered
+back to the parameter's placements: the reference's "one param gather
+inside the update step".
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ import math
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+
+from ..models.layers import P, is_dtensor
 
 Params = Dict[str, torch.Tensor]
 
@@ -56,6 +65,11 @@ def init_opt_state(params: Params) -> Dict[str, Any]:
             "m": zeros, "v": {n: z.clone() for n, z in zeros.items()}}
 
 
+def opt_specs(param_specs: Mapping[str, P]) -> Dict[str, Any]:
+    """Optimizer-state specs mirroring the parameter specs."""
+    return {"step": P(), "m": dict(param_specs), "v": dict(param_specs)}
+
+
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float()))
                           for t in tree.values()))
@@ -85,13 +99,19 @@ def adamw_update(params: Params, grads: Mapping[str, torch.Tensor],
     bc2 = 1 - _f32(b2, stepf) ** stepf
     new_p, new_m, new_v = {}, {}, {}
     for n, p in params.items():
-        g32 = grads[n].float()
-        m = b1 * state["m"][n] + (1 - b1) * g32
+        g, m0, pm = grads[n], state["m"][n], p
+        if is_dtensor(m0):
+            g = g.redistribute(m0.device_mesh, m0.placements)
+            pm = p.redistribute(m0.device_mesh, m0.placements)
+        g32 = g.float()
+        m = b1 * m0 + (1 - b1) * g32
         v = b2 * state["v"][n] + (1 - b2) * g32 * g32
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if (p.dim() >= 2) if decay is None else decay[n]:
-            delta = delta + cfg.weight_decay * p.float()
-        new_p[n] = (p.float() - lr * delta).to(p.dtype)
+            delta = delta + cfg.weight_decay * pm.float()
+        new_p[n] = (pm.float() - lr * delta).to(p.dtype)
+        if is_dtensor(p):
+            new_p[n] = new_p[n].redistribute(p.device_mesh, p.placements)
         new_m[n], new_v[n] = m, v
     return new_p, {"step": step, "m": new_m, "v": new_v}, \
         {"grad_norm": gnorm, "lr": lr}

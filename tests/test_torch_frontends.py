@@ -30,6 +30,7 @@ from repro.launch import shapes as jshapes
 from repro.models import transformer as jt
 from repro.models.config import SHAPES
 from repro.models.layers import NO_SHARDING
+from repro_torch.models.layers import NO_SHARDING as T_NO_SHARDING
 from repro.serve import ServeEngine as JaxEngine
 from repro_torch import train as ttrain
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
@@ -256,7 +257,7 @@ def test_three_train_steps_match_reference(arch):
                                             NO_SHARDING, "chunked", True,
                                             CE_CHUNK))
     step_t = ttrain.make_train_step(ct, ttrain.AdamWConfig(**ocfg),
-                                    "chunked", True, CE_CHUNK)
+                                    T_NO_SHARDING, "chunked", True, CE_CHUNK)
     for i in range(3):
         batch = _inputs(ct, S_TRAIN, seed=10 + i, labels=True)
         state_j, mj = step_j(state_j, {k: jnp.asarray(v)

@@ -1433,6 +1433,7 @@ def test_flash_attention_refuses_gradients_on_card(cuda):
     # dense train step whose keys exceed 2048 (impl='auto' -> flash) says so
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention, flash_attention_cuda
+    from repro_torch.models.layers import NO_SHARDING
     from repro_torch.train import (AdamWConfig, init_train_state,
                                    make_train_step)
     q = torch.randn(1, 2, 64, 32, device=cuda, requires_grad=True)
@@ -1446,7 +1447,7 @@ def test_flash_attention_refuses_gradients_on_card(cuda):
     state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0),
                              torch.float32, cuda)
     step = make_train_step(cfg, AdamWConfig(warmup_steps=1, total_steps=1),
-                           "auto", True, 64)
+                           NO_SHARDING, "auto", True, 64)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 2050))
     with pytest.raises(NotImplementedError, match="ROADMAP item 13.1"):
         step(state, {"tokens": toks[:, :-1].astype(np.int32),
@@ -1456,6 +1457,7 @@ def test_flash_attention_refuses_gradients_on_card(cuda):
 def test_mamba2_smoke_train_step_card_equals_cpu(cuda):
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ssd_scan_cuda
+    from repro_torch.models.layers import NO_SHARDING
     from repro_torch.train import (AdamWConfig, init_train_state,
                                    make_train_step)
     cfg = get_smoke_config("mamba2-780m")
@@ -1467,8 +1469,8 @@ def test_mamba2_smoke_train_step_card_equals_cpu(cuda):
                     "v": {k: v.to(cuda)
                           for k, v in cpu["opt"]["v"].items()}}}
     ocfg = AdamWConfig(warmup_steps=1, total_steps=3)
-    step_card = make_train_step(cfg, ocfg, "kernel", True, 16)
-    step_cpu = make_train_step(cfg, ocfg, "chunked", True, 16)
+    step_card = make_train_step(cfg, ocfg, NO_SHARDING, "kernel", True, 16)
+    step_cpu = make_train_step(cfg, ocfg, NO_SHARDING, "chunked", True, 16)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 97))
     batch = {"tokens": toks[:, :-1].astype(np.int32),
              "labels": toks[:, 1:].astype(np.int32)}
@@ -1593,6 +1595,7 @@ def test_moe_grouped_card_equals_cpu(cuda, cf):
 def test_moe_shuffle_dispatch_card_equals_cpu(cuda, comm):
     import dataclasses
     from repro_torch.models import moe
+    from repro_torch.models.layers import ShardingRules
     cfg, params = _moe_smoke(cuda)
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=8.0, communicator=comm))
@@ -1602,7 +1605,8 @@ def test_moe_shuffle_dispatch_card_equals_cpu(cuda, comm):
     for dev in (cuda, "cpu"):
         before = radix_partition_cuda.launches
         outs[str(dev)] = [t.cpu() for t in moe.moe_apply_shuffle(
-            _to(params, dev), x.to(dev), cfg, 4)]
+            _to(params, dev), x.to(dev), cfg,
+            ShardingRules(model="model", model_size=4))]
         if dev is cuda:
             torch.cuda.synchronize()
             # two shuffles and the local group-by-expert
@@ -1739,6 +1743,7 @@ def test_frontend_smoke_serve_and_train_step_card_equals_cpu(cuda, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention_cuda
     from repro_torch.models import transformer
+    from repro_torch.models.layers import NO_SHARDING
     from repro_torch.train import (AdamWConfig, init_train_state,
                                    make_train_step)
     cfg = get_smoke_config(arch)
@@ -1778,8 +1783,10 @@ def test_frontend_smoke_serve_and_train_step_card_equals_cpu(cuda, arch):
                           for k, v in cpu["opt"]["v"].items()}}}
     ocfg = AdamWConfig(warmup_steps=1, total_steps=3)
     batch = _frontend_inputs(cfg, 96, seed=6, labels=True)
-    card, m_card = make_train_step(cfg, ocfg, "auto", True, 32)(card, batch)
-    cpu, m_cpu = make_train_step(cfg, ocfg, "chunked", True, 32)(cpu, batch)
+    card, m_card = make_train_step(cfg, ocfg, NO_SHARDING, "auto", True,
+                                   32)(card, batch)
+    cpu, m_cpu = make_train_step(cfg, ocfg, NO_SHARDING, "chunked", True,
+                                 32)(cpu, batch)
     for k in ("loss", "grad_norm"):
         assert float(m_card[k]) == pytest.approx(float(m_cpu[k]), rel=1e-3)
     for k, v in cpu["params"].items():

@@ -88,9 +88,9 @@ def test_mla_never_reaches_the_flash_kernel(monkeypatch, impl, s, want):
     seen = []
     real = ta.attention_impl
 
-    def spy(q, k, v, causal=True, scale=None, impl="auto"):
+    def spy(q, k, v, causal=True, scale=None, impl="auto", **kw):
         seen.append(impl)
-        return real(q, k, v, causal, scale, impl)
+        return real(q, k, v, causal, scale, impl, **kw)
     monkeypatch.setattr(ta, "attention_impl", spy)
     ta.mla_attention(p_t, torch.zeros((1, s, cfg.d_model)), cfg,
                      torch.from_numpy(_positions(1, s)), impl)

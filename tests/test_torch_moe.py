@@ -31,6 +31,7 @@ from repro.models.config import ModelConfig as JModelConfig
 from repro.models.config import MoEConfig as JMoEConfig
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import moe as tmoe
+from repro_torch.models.layers import ShardingRules
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.transformer import tree_from_numpy
 
@@ -214,6 +215,12 @@ def parity_grouped():
     return p_np, x, grads
 
 
+def _stacked(ms):
+    """Sequence-parallel rules over ``ms`` model ranks, with no mesh: the
+    shuffle dispatch over ``ms`` ranks stacked on one device."""
+    return ShardingRules(model="model", model_size=ms)
+
+
 def _grads(fn, p_np, x, cfg, *args):
     """(y, aux, {leaf: grad of sum(y**2) + aux}) of ``fn``."""
     p_t = tree_from_numpy(p_np, "cpu")
@@ -233,7 +240,8 @@ def _grads(fn, p_np, x, cfg, *args):
 def test_shuffle_dispatch_matches_grouped(parity_grouped, model_size, comm):
     p_np, x, (y_g, aux_g, g_g) = parity_grouped
     _, ct = _parity_cfgs(comm)
-    y, aux, g = _grads(tmoe.moe_apply_shuffle, p_np, x, ct, model_size)
+    y, aux, g = _grads(tmoe.moe_apply_shuffle, p_np, x, ct,
+                       _stacked(model_size))
     np.testing.assert_allclose(y.detach().numpy(), y_g.detach().numpy(),
                                atol=2e-4, rtol=1e-3)
     assert float(aux.detach()) == pytest.approx(float(aux_g.detach()),
@@ -263,7 +271,7 @@ def test_dispatchers_take_their_ranks_from_radix_partition(monkeypatch):
     tmoe.moe_apply_grouped(p_t, x, ct)
     assert calls == [((8, 32 * 2), 8)]
     calls.clear()
-    tmoe.moe_apply_shuffle(p_t, x, ct, 4)
+    tmoe.moe_apply_shuffle(p_t, x, ct, _stacked(4))
     tk = 8 * (32 // 4) * 2                         # rows a rank sends
     cap_send = max(8, -(-int(8.0 * tk) // (8 * 4)) * 8)
     assert calls == [((4, tk), 5), ((4, 4 * cap_send), 3),
@@ -276,4 +284,5 @@ def test_shuffle_dispatch_refuses_uneven_split():
         _np(jmoe.moe_init(jax.random.PRNGKey(0), _parity_cfgs()[0],
                           jnp.float32)), "cpu")
     with pytest.raises(ValueError, match="divide"):
-        tmoe.moe_apply_shuffle(p_t, torch.zeros((2, 30, 64)), ct, 4)
+        tmoe.moe_apply_shuffle(p_t, torch.zeros((2, 30, 64)), ct,
+                               _stacked(4))

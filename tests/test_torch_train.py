@@ -27,6 +27,7 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import transformer as jt
 from repro.models.layers import NO_SHARDING
+from repro_torch.models.layers import NO_SHARDING as T_NO_SHARDING
 from repro.models.layers import softmax_cross_entropy as j_ce
 from repro import train as jtrain
 from repro_torch.configs import get_smoke_config
@@ -209,7 +210,7 @@ def test_three_train_steps_match_reference(arch):
                                             NO_SHARDING, "chunked", True,
                                             CE_CHUNK))
     step_t = ttrain.make_train_step(ct, ttrain.AdamWConfig(**ocfg),
-                                    "chunked", True, CE_CHUNK)
+                                    T_NO_SHARDING, "chunked", True, CE_CHUNK)
     for i in range(3):
         batch = _batch(10 + i)
         state_j, mj = step_j(state_j, {k: jnp.asarray(v)
@@ -246,7 +247,7 @@ def test_moe_train_steps_match_reference(arch):
                                             NO_SHARDING, "chunked", True,
                                             CE_CHUNK))
     step_t = ttrain.make_train_step(ct, ttrain.AdamWConfig(**ocfg),
-                                    "chunked", True, CE_CHUNK)
+                                    T_NO_SHARDING, "chunked", True, CE_CHUNK)
     for i in range(3):
         batch = _batch(10 + i)
         state_t = tt.train_state_from_numpy(_np(state_j), ct, "cpu")
@@ -370,7 +371,7 @@ def test_async_checkpointer_resume_is_bit_exact(tmp_path):
                                     torch.float32, "cpu")
     step = ttrain.make_train_step(ct, ttrain.AdamWConfig(warmup_steps=1,
                                                          total_steps=4),
-                                  "chunked", True, CE_CHUNK)
+                                  T_NO_SHARDING, "chunked", True, CE_CHUNK)
     state, _ = step(state, _batch(0))
     ck.save(str(tmp_path / "ckpt_9"), state, 9)
     ck.wait()
