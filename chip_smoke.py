@@ -242,10 +242,22 @@ ends the run with a non-zero exit code if it fails:
    greedy tokens equal to the first 8 of ``serve_phase``'s first run;
    each train arch also takes a second step (the same batch) for the
    steady state; each run's wall time and peak memory beside the
-   unsharded run's.
+   unsharded run's, and each first step's and first prefill's own peak
+   (above what was alive before its state).
+14. dry run (ROADMAP item 13.7; ``dryrun_phase``, ``launch/dryrun.py``):
+   four spawned processes, each holding rank 0 of a fake process group
+   and running on fake card tensors (nothing allocated, no kernel
+   launched): the sharding phase's three configurations on a group of
+   one rank, each step run twice (the first fills DTensor's propagation
+   cache, the second is counted), their kernel-operator calls equal to
+   the launches the sharding phase read (24 radix, 96 SSD, 36 flash) and
+   their predicted peaks (arguments + temporaries) within 10% of the
+   measured ones; and olmoe-1b-7b ``train_4k`` at full width on a fake
+   256-rank (16, 16) mesh, its roofline row (``format_table``: the bf16
+   tensor-core, HBM and NVLink terms of an H100).
 
-The last lines are the training JSON line, the process-group and
-sharding JSON lines, the query-serving JSON line,
+The last lines are the training JSON line, the process-group,
+sharding and dry-run JSON lines, the query-serving JSON line,
 the card's ``nvidia-smi`` name and power limit, one JSON object
 describing each kernel, and ``{"ok": true, "device": ...}``.
 """
@@ -2842,22 +2854,13 @@ def unsigned_phase(devices=("cuda", "cpu")):
                   f"({int(gn.sum())} rows)", flush=True)
 
 
-def flash_flops(sq, sk, d, bhq, causal):
-    """FLOPs the attention needs: 4 D per visible (query, key) pair (Q K^T
-    and P V); a causal query i sees keys <= i + Sk - Sq."""
-    if causal:
-        vis = np.minimum(np.arange(sq) + (sk - sq) + 1, sk).sum()
-    else:
-        vis = sq * sk
-    return 4.0 * d * bhq * float(vis)
-
-
 def flash_phase(torch, flush):
     """Flash-attention kernel vs ``attention_ref`` on the card; returns the
     per-case records (the first is the main path's shape, f32)."""
     import torch.nn.functional as F
     from repro_torch.kernels import attention_ref, flash_attention_cuda
     from repro_torch.kernels.flash_attention.cuda import route_for
+    from repro_torch.kernels.flash_attention.ops import flash_flops
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     # (b, hq, hkv, sq, sk, d, causal, dtype): the qwen3-8b prefill at a
@@ -2948,20 +2951,6 @@ def flash_phase(torch, flush):
     return out
 
 
-def ssd_counts(bh, t, p, n, chunk):
-    """(FLOPs, bytes) the SSD scan needs: per chunk of length l, the
-    lower triangle of C B^T (l(l+1)/2 N) and of M X (l(l+1)/2 P), C h and
-    B^T X (l N P each), two FLOPs per multiply-add; each input read and
-    each output written once, float32."""
-    ch = min(chunk, -(-t // 8) * 8)
-    macs = 0
-    for t0 in range(0, t, ch):
-        ln = min(ch, t - t0)
-        macs += ln * (ln + 1) // 2 * (n + p) + 2 * ln * n * p
-    nbytes = 4 * bh * (t * p + t + 1 + 2 * t * n + t * p + n * p)
-    return 2.0 * bh * macs, nbytes
-
-
 def profile_ssd(torch, args, chunk, reps=3):
     """Device time of each of the SSD scan's three kernels in one call,
     the median over ``reps`` calls under ``torch.profiler``; None for a
@@ -3007,6 +2996,7 @@ def ssd_phase(torch, flush):
     is the mamba2-780m prefill at a 4096-token prompt (B*nh = 4*48), whose
     three kernels are then timed one by one under the profiler."""
     from repro_torch.kernels import ssd_scan, ssd_scan_chunked
+    from repro_torch.kernels.ssd_scan.ops import ssd_counts
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     # (name, bh, t, p, n, chunk, a): a None draws a in (-1.05, -0.05] and
@@ -4800,6 +4790,9 @@ def sharding_phase(torch, smi, train_recs, batches, serve_rec, seed=0):
             cfg = get_config(arch)
             if arch in TRAIN_LAYERS:
                 cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS[arch])
+            # device memory of whatever else is alive: the step's peak is
+            # read above it (the dry-run phase predicts the step's)
+            base = torch.cuda.memory_allocated()
             gen = torch.Generator(device=dev).manual_seed(seed)
             state = place_state(init_train_state(cfg, gen, torch.float32,
                                                  dev), cfg, rules, mesh)
@@ -4818,6 +4811,7 @@ def sharding_phase(torch, smi, train_recs, batches, serve_rec, seed=0):
             state, m = step_fn(state, batches[arch])
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
             wall = time.perf_counter() - t
+            step_peak = torch.cuda.max_memory_allocated() - base
             counts = launch_counts()
             peak = torch.cuda.max_memory_allocated() / 2**30
             got = {"radix_partition": counts["radix_partition"],
@@ -4851,7 +4845,9 @@ def sharding_phase(torch, smi, train_recs, batches, serve_rec, seed=0):
             peak = torch.cuda.max_memory_allocated() / 2**30
             out[arch] = dict(layers=cfg.num_layers, step_s=wall,
                              second_step_s=second, loss=loss,
-                             grad_norm=gnorm, peak_gib=peak, launches=got,
+                             grad_norm=gnorm, peak_gib=peak,
+                             step_peak_bytes=step_peak, base_bytes=base,
+                             launches=got,
                              unsharded=dict(
                                  step_s=ref["warmup_step_s"],
                                  steady_step_s=ref["step_s"], loss=l0,
@@ -4871,6 +4867,7 @@ def sharding_phase(torch, smi, train_recs, batches, serve_rec, seed=0):
         srules = serve_rules_for_mesh(mesh)
         arch, batch, prompt, new = SHARD_SERVE
         cfg = serve_config(arch)
+        base = torch.cuda.memory_allocated()
         gen = torch.Generator(device=dev).manual_seed(seed)
         model = transformer.shard_model(transformer.init_params(
             cfg, gen, torch.float32, dev), srules, mesh)
@@ -4890,6 +4887,8 @@ def sharding_phase(torch, smi, train_recs, batches, serve_rec, seed=0):
             logits = full(logits)
             torch.cuda.synchronize()
             ttft.append(time.perf_counter() - t)
+            if len(ttft) == 1:          # the first prefill's own peak
+                step_peak = torch.cuda.max_memory_allocated() - base
             counts = launch_counts()
             check(counts == pre, f"sharded serve {arch}: prefill launches "
                   f"{counts}, derived {pre}")
@@ -4916,6 +4915,7 @@ def sharding_phase(torch, smi, train_recs, batches, serve_rec, seed=0):
         out[arch] = dict(batch=batch, prompt=prompt, new=new,
                          ttft_s=ttft[0], cached_ttft_s=ttft[1],
                          generate_s=total, peak_gib=peak,
+                         step_peak_bytes=step_peak, base_bytes=base,
                          prefill_launches=counts,
                          generate_launches=gen_counts,
                          unsharded=dict(ttft_s=un["ttft_s"],
@@ -4933,6 +4933,192 @@ def sharding_phase(torch, smi, train_recs, batches, serve_rec, seed=0):
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+    return out
+
+
+#: the dry run's production cell: one full-width train cell on a fake
+#: 256-rank (16, 16) mesh with card stand-ins (the MoE shuffle over the
+#: model group at full width); olmoe-1b-7b's 16 layers fit the phase's
+#: time, llama3.2-3b's 28 did not on the CPU
+DRYRUN_CELL = ("olmoe-1b-7b", "train_4k")
+#: the dry run's predicted peak (arguments + temporaries) within this
+#: share of the measured step's
+DRYRUN_PEAK_RTOL = 0.10
+#: seconds each dry-run child may take
+DRYRUN_TIMEOUT_S = 300
+
+
+def _dryrun_child(job, path):
+    """Spawned: one dry-run job, its result written as JSON to ``path``.
+    ``job`` is a ``SHARD_TRAIN`` arch or ``SHARD_SERVE``'s (the sharding
+    phase's configurations on a fake group of one rank) or "production"
+    (``DRYRUN_CELL`` on a fake group of 256)."""
+    import dataclasses
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
+                                         serve_rules_for_mesh)
+    from repro_torch.launch.roofline import format_table
+    from repro_torch.launch.shapes import Cell, cell
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = time.perf_counter()
+    if job == "production":
+        with dryrun.fake_group(256):
+            row = dryrun.run_cell(cell(*DRYRUN_CELL), make_production_mesh(),
+                                  "single_pod", "")
+        row["table"] = format_table([row])
+    else:
+        with dryrun.fake_group(1):
+            mesh = make_local_mesh(model=1)
+            if job == SHARD_SERVE[0]:
+                arch, batch, prompt, new = SHARD_SERVE
+                row = dryrun.run_cell(
+                    Cell(arch, "sharded_serve", "prefill", batch, prompt,
+                         True), mesh, "local", "",
+                    rules_override=serve_rules_for_mesh(mesh),
+                    extra={"cache_len": prompt + new},
+                    cfg_override=serve_config(arch), dtype=torch.float32)
+            else:
+                cfg = get_config(job)
+                if job in TRAIN_LAYERS:
+                    cfg = dataclasses.replace(cfg,
+                                              num_layers=TRAIN_LAYERS[job])
+                # the sharding phase's step: impl auto, remat, CE chunk
+                row = dryrun.run_cell(
+                    Cell(job, "sharded_train", "train", TRAIN_BATCH,
+                         TRAIN_SEQ, True), mesh, "local", "",
+                    ce_chunk=TRAIN_CE_CHUNK, extra={"impl": "auto"},
+                    cfg_override=cfg, dtype=torch.float32)
+    import torch.distributed as dist
+    row["group_left"] = dist.is_initialized()
+    row["wall_s"] = time.perf_counter() - t
+    with open(path, "w") as f:
+        json.dump(row, f)
+
+
+def dryrun_start():
+    """Spawn ``dryrun_phase``'s four processes and return them with their
+    output directory and start time.  They work on the host's CPU (fake
+    tensors launch nothing; a process holds at most its CUDA context on
+    the card), so ``main`` starts them ahead of the device-bound train
+    phases and reads them after the sharding phase."""
+    import multiprocessing as mp
+    import tempfile
+    t0 = time.perf_counter()
+    jobs = list(SHARD_TRAIN) + [SHARD_SERVE[0], "production"]
+    d = tempfile.mkdtemp()
+    ctx = mp.get_context("spawn")
+    procs = {j: ctx.Process(target=_dryrun_child,
+                            args=(j, os.path.join(d, f"{j}.json")))
+             for j in jobs}
+    for p in procs.values():
+        p.start()
+    return procs, d, t0
+
+
+def dryrun_phase(torch, smi, sharded, started):
+    """ROADMAP item 13.7 on the card's machine (``launch/dryrun.py``).
+    (a) The sharding phase's three configurations (olmoe-1b-7b at
+    ``TRAIN_LAYERS`` and mamba2-780m train steps, the qwen3-8b prefill
+    under serving rules) dry-run on a fake group of one rank with card
+    stand-ins, each in a spawned process: the kernel operators' calls
+    equal the launches ``sharding_phase`` read, and the predicted peak
+    (arguments + temporaries) is within ``DRYRUN_PEAK_RTOL`` of the
+    step's measured peak (``max_memory_allocated`` above what was alive
+    before its state, from a reset just before the step).  (b) In a
+    fourth process meanwhile, ``DRYRUN_CELL`` at full width on a fake
+    256-rank (16, 16) mesh (a backward pass over fake card tensors needs
+    a torch built with CUDA: a CPU-only torch runs forward cells alone); its
+    roofline row (``format_table``).  No child leaves a process group
+    behind.  ``started``: ``dryrun_start``'s processes."""
+    import shutil
+    procs, d, t0 = started
+    t_wait = time.perf_counter()
+    deadline = t0 + DRYRUN_TIMEOUT_S
+    for p in procs.values():
+        p.join(max(0.0, deadline - time.perf_counter()))
+    for p in procs.values():
+        if p.is_alive():
+            p.kill()
+            p.join()
+    waited = time.perf_counter() - t_wait
+    rows = {}
+    for j, p in procs.items():
+        check(p.exitcode == 0, f"dry run {j}: exit code {p.exitcode}")
+        with open(os.path.join(d, f"{j}.json")) as f:
+            rows[j] = json.load(f)
+        check(not rows[j]["group_left"], f"dry run {j}: a process group "
+              f"was left behind")
+    shutil.rmtree(d)
+    # each configuration's kernel: the launches the sharding phase read
+    kernel_of = {"olmoe-1b-7b": ("radix_partition", "launches"),
+                 "mamba2-780m": ("ssd_scan", "launches"),
+                 SHARD_SERVE[0]: ("flash_attention", "prefill_launches")}
+    out = {"predicted": {}, "production": None}
+    for j in list(SHARD_TRAIN) + [SHARD_SERVE[0]]:
+        r = rows[j]
+        ma = r["memory_analysis"]
+        predicted = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+        measured = sharded[j]["step_peak_bytes"]
+        name, key = kernel_of[j]
+        launched = sharded[j][key][name]
+        check(r["kernel_calls"].get(name, 0) == launched, f"dry run {j}: "
+              f"kernel calls {r['kernel_calls']}, the sharding phase "
+              f"launched {name} {launched} times")
+        err = predicted / measured - 1.0
+        mf = r["roofline"]["model_flops"]
+        print(f"dry run {j} ({r['kind']}, {r['layers']} layers, world 1, "
+              f"card stand-ins): predicted peak {predicted / 2**30:.3f} GiB "
+              f"(arguments {ma['argument_size_in_bytes'] / 2**30:.3f} + "
+              f"temporaries {ma['temp_size_in_bytes'] / 2**30:.3f}), "
+              f"measured {measured / 2**30:.3f} GiB above "
+              f"{sharded[j]['base_bytes'] / 2**30:.3f} GiB alive before "
+              f"({100 * err:+.2f}%); kernel calls {r['kernel_calls']}, "
+              f"the sharding phase's {name} launches {launched}; FLOPs "
+              f"{r['cost_analysis']['flops']:.4e} (model_flops {mf:.4e}), "
+              f"bytes {r['cost_analysis']['bytes accessed']:.4e}; "
+              f"trace {r['trace_s']} s, counting {r['counting_s']} s, "
+              f"process {r['wall_s']:.1f} s [{smi}]", flush=True)
+        check(abs(err) <= DRYRUN_PEAK_RTOL, f"dry run {j}: predicted peak "
+              f"{predicted} bytes against {measured} measured ({err:+.4f})")
+        out["predicted"][j] = dict(
+            predicted_bytes=predicted, measured_bytes=measured,
+            rel_err=err, kernel_calls=r["kernel_calls"],
+            memory_analysis=ma, cost_analysis=r["cost_analysis"],
+            model_flops=mf, trace_s=r["trace_s"],
+            counting_s=r["counting_s"], process_s=r["wall_s"])
+    r = rows["production"]
+    calls = r["kernel_calls"]
+    # the full-depth cell's calls, held as the world-1 configurations are:
+    # the shuffle dispatch over the model group in every MoE layer, and
+    # no flash (train takes chunked attention) or SSD call
+    from repro_torch.configs import get_config
+    want = {"radix_partition": radix_train_counts(get_config(DRYRUN_CELL[0]),
+                                                  shuffle=True),
+            "flash_attention": 0, "ssd_scan": 0}
+    check({k: calls.get(k, 0) for k in want} == want,
+          f"dry run {DRYRUN_CELL}: kernel calls {calls}, expected {want}")
+    print(f"dry run {DRYRUN_CELL[0]} {DRYRUN_CELL[1]} at full width on a "
+          f"fake 256-rank (16, 16) mesh, card stand-ins: trace "
+          f"{r['trace_s']} s, counting {r['counting_s']} s, process "
+          f"{r['wall_s']:.1f} s; kernel calls {calls}; memory "
+          f"{r['memory_analysis']}; collectives "
+          f"{ {k: v['count'] for k, v in r['collectives'].items() if k != 'total_wire_bytes'} }, "
+          f"wire {r['collectives']['total_wire_bytes']:.4e} B "
+          f"[{smi}]\n{r['table']}", flush=True)
+    out["production"] = {k: r[k] for k in (
+        "arch", "shape", "chips", "trace_s", "counting_s", "wall_s",
+        "memory_analysis", "cost_analysis", "collectives", "kernel_calls",
+        "roofline")}
+    out["phase_s"] = time.perf_counter() - t0
+    out["slowest_process_s"] = max(r["wall_s"] for r in rows.values())
+    out["waited_s"] = waited
+    print(f"dry-run phase: {out['phase_s']:.1f} s from the spawn to its "
+          f"last check, alongside the train and sharding phases; slowest "
+          f"process {out['slowest_process_s']:.1f} s; waited for them "
+          f"{waited:.1f} s after the sharding phase", flush=True)
     return out
 
 
@@ -5072,6 +5258,9 @@ def main():
     phase_done("serve parity")
     moe_shuffle = moe_shuffle_phase(torch, smi)
     phase_done("moe shuffle dispatch")
+    # the dry run's processes use the host's CPU only: they run beside
+    # the device-bound train phases
+    dry_started = dryrun_start()
     first_batches = {}
     train = train_phase(torch, smi, keep=first_batches)
     phase_done("train")
@@ -5089,6 +5278,8 @@ def main():
         torch, smi, {"mamba2-780m": train, "olmoe-1b-7b": train_moe},
         first_batches, served[SHARD_SERVE[0]])
     phase_done("sharding")
+    dry = dryrun_phase(torch, smi, sharded, dry_started)
+    phase_done("dry run")
 
     rp, ss = radix_partition_cuda, segmented_sum_cuda
     kernels = [
@@ -5151,6 +5342,14 @@ def main():
             arch: r.get("launches", r.get("generate_launches"))[rec["name"]]
             for arch, r in sharded.items()}
     kernels[-1]["train_shape"] = ssd_autograd
+    # the dry run (fake tensors: the operators' calls, not launches) of
+    # each world-1 configuration and of the production cell
+    for rec in kernels:
+        rec["dryrun_calls"] = {
+            **{j: p["kernel_calls"].get(rec["name"], 0)
+               for j, p in dry["predicted"].items()},
+            "/".join(DRYRUN_CELL): dry["production"]["kernel_calls"].get(
+                rec["name"], 0)}
     print(json.dumps({"fig9_wall_s": walls}))
     print(json.dumps({"skew": skew}))
     print(json.dumps({"faults_wall_s": fault_walls}))
@@ -5170,6 +5369,7 @@ def main():
                       "ssd_autograd": ssd_autograd}))
     print(json.dumps({"process_group": process_group}))
     print(json.dumps({"sharding": sharded}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"query_serving": serving}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -33,6 +33,12 @@ Transport is the group's backend, chosen by whoever created the group:
     through pinned host buffers: a copy to the host, the collective, a
     copy back.  ``stats["staged_s"]`` adds up the seconds a process spends
     in staged collectives (copies included).
+  * **fake** (``torch.testing._internal.distributed.fake_pg``, the dry
+    run's group, ``launch/dryrun.py``): every collective returns at once
+    without moving data.  Tensors go to it as they are, as under NCCL:
+    the dry run's card tensors are fake and no host buffer can stage
+    them.  Its point-to-point sends are counted where they are
+    dispatched (``launch/counting.py``, as ``collective-permute``).
 
 Nothing falls back from one transport or schedule to another.  Create the
 group with a timeout (``init_process_group(timeout=...)``) so that a
@@ -145,7 +151,7 @@ class ProcessGroupCommunicator(StackedCommunicator):
                 raise ValueError("an NCCL group moves card tensors only; "
                                  "use a gloo group on the CPU")
             return False
-        return device.type == "cuda"
+        return self.backend != "fake" and device.type == "cuda"
 
     def _run(self, op: Callable, outs: Sequence[torch.Tensor],
              ins: Sequence[torch.Tensor]) -> None:

@@ -1,8 +1,11 @@
 """Process-wide run flags: the active fault-injection plan.
 
-The torch counterpart of the fault-injection half of ``repro.flags``
-(its trace-time scan-unroll flags belong to the model stack's dry-run
-and are not part of the port).  ``FLAGS.faults`` holds a fault plan
+The torch counterpart of the fault-injection half of ``repro.flags``.
+Its scan-unroll half (``unrolled_scans``, ``scan_unroll_layers``,
+``scan_unroll_inner``) has no counterpart: it unrolls ``lax.scan`` so
+that XLA's cost analysis counts every loop iteration, and the port's
+layer loop is eager, so its dry run (``launch/dryrun.py``) counts every
+layer as it runs.  ``FLAGS.faults`` holds a fault plan
 string (``site[@occ][xN]=kind;...``); when unset, the ``REPRO_FAULTS``
 env var is consulted.  ``fault_injection(...)`` scopes a plan; the
 executors resolve the active plan via ``repro_torch.faults.

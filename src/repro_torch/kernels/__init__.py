@@ -5,6 +5,13 @@ Each kernel lives in ``<name>/``: the CUDA source (``<name>.cu``), its
 version (``ref.py``, and ``ops.ssd_scan_chunked`` for the SSD scan) and the
 dispatcher (``ops.py``: the kernel for CUDA tensors, the plain version for
 CPU tensors).  ``build.py`` compiles the sources with nvcc on first use.
+On the model's path (flash attention, the SSD scan, radix partition) the
+kernel is a PyTorch operator, ``torch.ops.repro_torch.<name>``, defined
+in ``ops.py`` at import (nothing built): its CUDA implementation is the
+wrapper, its fake implementation gives the outputs' shapes and raises the
+launch's ``ValueError``s, and flash and the SSD scan register their FLOP
+formulas, so the dry run (``launch/dryrun.py``) takes every call on fake
+card tensors.  The segmented sum is off that path and stays a wrapper.
 
   radix_partition   shuffle bucketize (stable rank in bucket + histogram)
   segmented_reduce  groupby sum / count / size (segmented sum over runs)

@@ -89,6 +89,46 @@ def block_work(block: int, geo: Geometry, bhq: int):
     return block % bhq, geo.q_tiles - 1 - block // bhq
 
 
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> Geometry:
+    """Raise ``ValueError`` for what the kernel does not take; the launch
+    geometry of a call it takes.  Reads only devices, dtypes and shapes,
+    so the operator's fake implementation runs it too."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash_attention CUDA kernel needs q, k, v "
+                             f"on one CUDA device, got {name} on "
+                             f"{t.device}")
+        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+            raise ValueError(f"flash_attention CUDA kernel takes all "
+                             f"float32 or all bfloat16, got {name} "
+                             f"{t.dtype} with q {q.dtype}")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"flash_attention CUDA kernel needs "
+                             f"contiguous 4-d tensors, got {name} "
+                             f"{tuple(t.shape)}")
+    b, hq, sq, d = q.shape
+    bk, hkv, sk, dk = k.shape
+    if (bk, dk) != (b, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention shapes disagree: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention CUDA kernel takes head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"q heads {hq} are not a multiple of kv heads "
+                         f"{hkv}")
+    if sk == 0 or (causal and sq > sk):
+        raise ValueError(f"flash_attention needs 1 <= Sk and, when "
+                         f"causal, Sq <= Sk; got Sq={sq}, Sk={sk}")
+    geo = launch_geometry(b, hq, sq, d, q.dtype)
+    if geo.grid > 2**31 - 1:
+        raise ValueError(f"flash_attention CUDA kernel takes at most "
+                         f"2**31 - 1 blocks, got {geo.grid}")
+    return geo
+
+
 class FlashAttentionCuda(LaunchCounter):
     """Callable wrapper; ``launches`` counts the calls that launched the
     kernel (nothing else adds to it), and ``route_launches`` the same
@@ -138,38 +178,9 @@ class FlashAttentionCuda(LaunchCounter):
                  ) -> torch.Tensor:
         """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), contiguous, all
         float32 or all bfloat16 on one card -> (B, Hq, Sq, D)."""
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if not t.is_cuda or t.device != q.device:
-                raise ValueError(f"flash_attention CUDA kernel needs q, k, v "
-                                 f"on one CUDA device, got {name} on "
-                                 f"{t.device}")
-            if t.dtype != q.dtype or t.dtype not in _DTYPES:
-                raise ValueError(f"flash_attention CUDA kernel takes all "
-                                 f"float32 or all bfloat16, got {name} "
-                                 f"{t.dtype} with q {q.dtype}")
-            if t.dim() != 4 or not t.is_contiguous():
-                raise ValueError(f"flash_attention CUDA kernel needs "
-                                 f"contiguous 4-d tensors, got {name} "
-                                 f"{tuple(t.shape)}")
+        geo = check_inputs(q, k, v, causal)
         b, hq, sq, d = q.shape
-        bk, hkv, sk, dk = k.shape
-        if (bk, dk) != (b, d) or tuple(v.shape) != tuple(k.shape):
-            raise ValueError(f"flash_attention shapes disagree: q "
-                             f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
-                             f"{tuple(v.shape)}")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"flash_attention CUDA kernel takes head dims "
-                             f"{HEAD_DIMS}, got {d}")
-        if hkv == 0 or hq % hkv:
-            raise ValueError(f"q heads {hq} are not a multiple of kv heads "
-                             f"{hkv}")
-        if sk == 0 or (causal and sq > sk):
-            raise ValueError(f"flash_attention needs 1 <= Sk and, when "
-                             f"causal, Sq <= Sk; got Sq={sq}, Sk={sk}")
-        geo = launch_geometry(b, hq, sq, d, q.dtype)
-        if geo.grid > 2**31 - 1:
-            raise ValueError(f"flash_attention CUDA kernel takes at most "
-                             f"2**31 - 1 blocks, got {geo.grid}")
+        hkv, sk = k.shape[1], k.shape[2]
         out = torch.empty_like(q)
         if b * hq * sq == 0:
             return out

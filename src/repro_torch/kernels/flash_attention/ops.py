@@ -14,17 +14,58 @@ tile sizes are fixed by the kernel's route (``cuda.route_for``: 128 x 128
 on the bf16 tensor-core route, 64 x 64 on the f32 route), so the
 reference's ``block_q`` / ``block_k`` / ``interpret`` options have no
 counterpart.
+
+On the card the kernel is the PyTorch operator
+``torch.ops.repro_torch.flash_attention``, whose only implementation is
+the CUDA wrapper (no CPU one: a CPU tensor never reaches it).  Its fake
+implementation gives the output's shape and dtype and raises the
+launch's ``ValueError``s, and ``flash_flops`` is its FLOP formula
+(``torch.utils.flop_counter``), so a dry run over fake card tensors
+(``launch/dryrun.py``) runs each call's checks and counts its work
+without a card.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .cuda import flash_attention_cuda
+from .cuda import check_inputs, flash_attention_cuda
 from .ref import attention_ref
 from ..common import refuse_dtensor
+
+
+def flash_flops(sq: int, sk: int, d: int, bhq: int, causal: bool) -> float:
+    """FLOPs the attention needs: 4 D per visible (query, key) pair (Q K^T
+    and P V); a causal query i sees keys <= i + Sk - Sq."""
+    if causal:
+        vis = np.minimum(np.arange(sq) + (sk - sq) + 1, sk).sum()
+    else:
+        vis = sq * sk
+    return 4.0 * d * bhq * float(vis)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: Optional[float]
+                       ) -> torch.Tensor:
+    return flash_attention_cuda(q, k, v, causal, scale)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, scale):
+    check_inputs(q, k, v, causal)
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q, k, v, causal, scale, out_shape=None, **kw):
+    b, hq, sq, d = q
+    return flash_flops(sq, k[2], d, b * hq, causal)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,8 +87,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "flash_attention has no backward on the card (ROADMAP item "
                 "13.1, still open): train with impl='dense' or 'chunked'; "
                 "impl='auto' picks flash above 2048 keys")
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal, scale)
+        return flash_attention_op(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal, scale)
     if q.device.type != "cpu":
         raise ValueError(f"flash_attention runs on cuda or cpu, got "
                          f"{q.device}")

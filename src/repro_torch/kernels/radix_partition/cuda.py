@@ -60,6 +60,32 @@ def warps_for(num_buckets: int) -> int:
     return warps
 
 
+def check_inputs(dest: torch.Tensor, num_buckets: int) -> None:
+    """Raise ``ValueError`` for what the kernels do not take.  Reads only
+    the device, dtype and shape, so the operator's fake implementation
+    runs it too."""
+    if not dest.is_cuda:
+        raise ValueError("radix_partition CUDA kernel needs a CUDA "
+                         f"tensor, got one on {dest.device}")
+    if dest.dtype != torch.int32 or dest.dim() != 2:
+        raise ValueError("radix_partition CUDA kernel needs (p, n) "
+                         f"int32, got {tuple(dest.shape)} {dest.dtype}")
+    if not dest.is_contiguous():
+        raise ValueError("radix_partition CUDA kernel needs a "
+                         "contiguous dest")
+    if not 1 <= num_buckets <= MAX_BUCKETS:
+        raise ValueError(f"num_buckets must be in [1, {MAX_BUCKETS}], "
+                         f"got {num_buckets}")
+    p, n = dest.shape
+    if n >= 2 ** 31 - TILE_ROWS or p > 65535:
+        raise ValueError(f"radix_partition CUDA kernel takes n < 2**31 "
+                         f"and p <= 65535, got {tuple(dest.shape)}")
+    if (route_for(num_buckets) == "onepass"
+            and p * -(-n // ONEPASS_TILE_ROWS) >= 2 ** 31):
+        raise ValueError(f"radix_partition onepass route takes fewer than "
+                         f"2**31 tiles, got {tuple(dest.shape)}")
+
+
 class RadixPartitionCuda(LaunchCounter):
     """Callable wrapper; ``launches`` counts the calls that launched the
     kernel (nothing else adds to it), and ``route_launches`` the same calls
@@ -106,22 +132,8 @@ class RadixPartitionCuda(LaunchCounter):
 
     def __call__(self, dest: torch.Tensor, num_buckets: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if not dest.is_cuda:
-            raise ValueError("radix_partition CUDA kernel needs a CUDA "
-                             f"tensor, got one on {dest.device}")
-        if dest.dtype != torch.int32 or dest.dim() != 2:
-            raise ValueError("radix_partition CUDA kernel needs (p, n) "
-                             f"int32, got {tuple(dest.shape)} {dest.dtype}")
-        if not dest.is_contiguous():
-            raise ValueError("radix_partition CUDA kernel needs a "
-                             "contiguous dest")
-        if not 1 <= num_buckets <= MAX_BUCKETS:
-            raise ValueError(f"num_buckets must be in [1, {MAX_BUCKETS}], "
-                             f"got {num_buckets}")
+        check_inputs(dest, num_buckets)
         p, n = dest.shape
-        if n >= 2 ** 31 - TILE_ROWS or p > 65535:
-            raise ValueError(f"radix_partition CUDA kernel takes n < 2**31 "
-                             f"and p <= 65535, got {tuple(dest.shape)}")
         ranks = torch.empty((p, n), dtype=torch.int32, device=dest.device)
         hist = torch.empty((p, num_buckets), dtype=torch.int32,
                            device=dest.device)
@@ -129,10 +141,6 @@ class RadixPartitionCuda(LaunchCounter):
             return ranks, hist
         route = route_for(num_buckets)
         if route == "onepass":
-            if p * -(-n // ONEPASS_TILE_ROWS) >= 2 ** 31:
-                raise ValueError(f"radix_partition onepass route takes "
-                                 f"fewer than 2**31 tiles, got "
-                                 f"{tuple(dest.shape)}")
             scratch = torch.empty((onepass_scratch_bytes(p, n, num_buckets),),
                                   dtype=torch.uint8, device=dest.device)
             vec = (n % 4 == 0 and dest.data_ptr() % 16 == 0

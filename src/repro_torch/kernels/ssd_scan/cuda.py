@@ -72,6 +72,43 @@ def launch_geometry(bh: int, t: int, p: int, n: int, chunk: int
                     state_smem, scan_smem, (bh, t), (bh, nc, n, p))
 
 
+def check_inputs(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, chunk: int) -> Geometry:
+    """Raise ``ValueError`` for what the kernels do not take; the launch
+    geometry of a call they take.  Reads only devices, dtypes and shapes,
+    so the operator's fake implementation runs it too."""
+    if x.dim() != 3 or b.dim() != 3:
+        raise ValueError(f"ssd_scan CUDA kernel needs x (BH, T, P) and "
+                         f"b, c (BH, T, N), got {tuple(x.shape)}, "
+                         f"{tuple(b.shape)}")
+    bh, t, p = x.shape
+    n = b.shape[-1]
+    want = {"x": (bh, t, p), "dt": (bh, t, 1), "a": (bh, 1),
+            "b": (bh, t, n), "c": (bh, t, n)}
+    for name, v in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
+        if not v.is_cuda or v.device != x.device:
+            raise ValueError(f"ssd_scan CUDA kernel needs every input on "
+                             f"one CUDA device, got {name} on "
+                             f"{v.device}")
+        if v.dtype != torch.float32 or not v.is_contiguous():
+            raise ValueError(f"ssd_scan CUDA kernel needs contiguous "
+                             f"float32 inputs, got {name} {v.dtype}")
+        if tuple(v.shape) != want[name]:
+            raise ValueError(f"ssd_scan: {name} has shape "
+                             f"{tuple(v.shape)}, want {want[name]}")
+    if not (1 <= p <= MAX_P and 1 <= n <= MAX_N
+            and 1 <= chunk <= MAX_CHUNK and t >= 1):
+        raise ValueError(f"ssd_scan CUDA kernel takes P <= {MAX_P}, "
+                         f"N <= {MAX_N}, 1 <= chunk <= {MAX_CHUNK}, "
+                         f"T >= 1; got P={p}, N={n}, chunk={chunk}, "
+                         f"T={t}")
+    geo = launch_geometry(bh, t, p, n, chunk)
+    if geo.scan_blocks > 2**31 - 1:
+        raise ValueError(f"ssd_scan CUDA kernel takes at most 2**31 - 1 "
+                         f"blocks, got {geo.scan_blocks}")
+    return geo
+
+
 class SsdScanCuda(LaunchCounter):
     """Callable wrapper; ``launches`` counts the calls that launched the
     kernels (one per call, for its three kernels; nothing else adds to
@@ -123,35 +160,9 @@ class SsdScanCuda(LaunchCounter):
         all float32, contiguous, on one card.  ``chunk`` is the chunk
         length itself (the dispatcher applies the JAX wrapper's rule).
         Returns (y (BH, T, P), h_final (BH, N, P))."""
-        if x.dim() != 3 or b.dim() != 3:
-            raise ValueError(f"ssd_scan CUDA kernel needs x (BH, T, P) and "
-                             f"b, c (BH, T, N), got {tuple(x.shape)}, "
-                             f"{tuple(b.shape)}")
+        geo = check_inputs(x, dt, a, b, c, chunk)
         bh, t, p = x.shape
         n = b.shape[-1]
-        want = {"x": (bh, t, p), "dt": (bh, t, 1), "a": (bh, 1),
-                "b": (bh, t, n), "c": (bh, t, n)}
-        for name, v in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
-            if not v.is_cuda or v.device != x.device:
-                raise ValueError(f"ssd_scan CUDA kernel needs every input on "
-                                 f"one CUDA device, got {name} on "
-                                 f"{v.device}")
-            if v.dtype != torch.float32 or not v.is_contiguous():
-                raise ValueError(f"ssd_scan CUDA kernel needs contiguous "
-                                 f"float32 inputs, got {name} {v.dtype}")
-            if tuple(v.shape) != want[name]:
-                raise ValueError(f"ssd_scan: {name} has shape "
-                                 f"{tuple(v.shape)}, want {want[name]}")
-        if not (1 <= p <= MAX_P and 1 <= n <= MAX_N
-                and 1 <= chunk <= MAX_CHUNK and t >= 1):
-            raise ValueError(f"ssd_scan CUDA kernel takes P <= {MAX_P}, "
-                             f"N <= {MAX_N}, 1 <= chunk <= {MAX_CHUNK}, "
-                             f"T >= 1; got P={p}, N={n}, chunk={chunk}, "
-                             f"T={t}")
-        geo = launch_geometry(bh, t, p, n, chunk)
-        if geo.scan_blocks > 2**31 - 1:
-            raise ValueError(f"ssd_scan CUDA kernel takes at most 2**31 - 1 "
-                             f"blocks, got {geo.scan_blocks}")
         y = torch.empty_like(x)
         h = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
         if bh == 0:

@@ -21,6 +21,13 @@ recomputes the same function with ``ssd_scan_chunked`` under autograd and
 returns the gradients of x, dt, a, b and c (the JAX package has only the
 forward kernel, and differentiates its plain version).
 ``ssd_scan_backward.launches`` counts those backward passes.
+
+The kernel forward is the PyTorch operator ``torch.ops.repro_torch.
+ssd_scan``, whose only implementation is the CUDA wrapper; its fake
+implementation gives the outputs' shapes and raises the launch's
+``ValueError``s, and ``ssd_counts``' FLOPs are its FLOP formula, so a dry
+run over fake card tensors (``launch/dryrun.py``) checks and counts each
+call without a card.
 """
 
 from __future__ import annotations
@@ -29,12 +36,49 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ..common import LaunchCounter, refuse_dtensor, round_up
-from .cuda import ssd_scan_cuda
+from .cuda import check_inputs, ssd_scan_cuda
 
 #: counts ``SsdScanKernel``'s backward passes (plain PyTorch, no kernel)
 ssd_scan_backward = LaunchCounter()
+
+
+def ssd_counts(bh: int, t: int, p: int, n: int, chunk: int
+               ) -> Tuple[float, int]:
+    """(FLOPs, bytes) the SSD scan needs: per chunk of length l, the
+    lower triangle of C B^T (l(l+1)/2 N) and of M X (l(l+1)/2 P), C h and
+    B^T X (l N P each), two FLOPs per multiply-add; each input read and
+    each output written once, float32."""
+    ch = min(chunk, round_up(t, 8))
+    macs = 0
+    for t0 in range(0, t, ch):
+        ln = min(ch, t - t0)
+        macs += ln * (ln + 1) // 2 * (n + p) + 2 * ln * n * p
+    nbytes = 4 * bh * (t * p + t + 1 + 2 * t * n + t * p + n * p)
+    return 2.0 * bh * macs, nbytes
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cuda")
+def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk)
+
+
+@ssd_scan_op.register_fake
+def _ssd_scan_fake(x, dt, a, b, c, chunk):
+    check_inputs(x, dt, a, b, c, chunk)
+    bh, _, p = x.shape
+    return torch.empty_like(x), x.new_empty((bh, b.shape[-1], p))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_scan_flops(x, dt, a, b, c, chunk, out_shape=None, **kw):
+    bh, t, p = x
+    return ssd_counts(bh, t, p, b[-1], chunk)[0]
 
 
 class SsdScanKernel(torch.autograd.Function):
@@ -46,7 +90,7 @@ class SsdScanKernel(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, a, b, c)
         ctx.chunk = chunk
-        return ssd_scan_cuda(x, dt, a, b, c, chunk=chunk)
+        return ssd_scan_op(x, dt, a, b, c, chunk)
 
     @staticmethod
     def backward(ctx, gy, gh):

@@ -2,9 +2,14 @@
 line), ``train`` (the §IV-C preprocessing application feeding a training
 loop, sharded over a ``torchrun`` process group), ``fig9`` (the Fig-9
 pipeline over a ``torch.distributed`` process group, started by
-``torchrun``), ``mesh`` (the ``("data", "model")`` device mesh and the
-training and serving rules), ``shapes`` (the assigned input-shape cells
-and their input specs) and ``roofline`` (the card's bound of a measured
-query stage, a model's FLOPs per step).  The JAX package's dry-run and
-report launchers, its production mesh and the HLO half of its roofline
-are not ported yet (ROADMAP item 13.7)."""
+``torchrun``), ``mesh`` (the ``("data", "model")`` device mesh, the
+production mesh and the training and serving rules), ``shapes`` (the
+assigned input-shape cells and their input specs), ``dryrun`` (every
+cell's step at full width on a fake 256- or 512-rank process group,
+counted by ``counting``), ``report`` (its tables) and ``roofline`` (the
+card's bound of a measured query stage and of a dry-run cell, a model's
+FLOPs per step).  ``dryrun`` is run as a module and not imported here."""
+
+from .mesh import make_production_mesh
+
+__all__ = ["make_production_mesh"]

@@ -74,32 +74,36 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = F.pad(k, (0, 0, 0, sk_p - sk))
         v = F.pad(v, (0, 0, 0, sk_p - sk))
 
-    # grouped-query layout (B, Hkv, G, Sq, D): K/V are never head-repeated
-    qf = q.reshape(b, hkv, group, sq, d).float()
+    # grouped-query layout (B, Hkv, Sq, G, D): K/V are never head-repeated.
+    # The queries come ahead of the group, so the products, which merge
+    # the two, merge a sequence-sharded dim from the outside (a merged dim
+    # whose inner part is sharded is a strided shard, and DTensor's matmul
+    # cannot take one)
+    qf = q.reshape(b, hkv, group, sq, d).transpose(2, 3).float()
     qpos = torch.arange(sq, device=q.device)
     # the running state starts sequence-sharded, as the reference's carry
     def _c(x):
-        return constrain(x, rules, "batch", None, None, "model", None)
-    m = _c(qf.new_full((b, hkv, group, sq, 1), -1e30))
-    l = _c(qf.new_zeros((b, hkv, group, sq, 1)))
-    acc = _c(qf.new_zeros((b, hkv, group, sq, dv)))
+        return constrain(x, rules, "batch", None, "model", None, None)
+    m = _c(qf.new_full((b, hkv, sq, group, 1), -1e30))
+    l = _c(qf.new_zeros((b, hkv, sq, group, 1)))
+    acc = _c(qf.new_zeros((b, hkv, sq, group, dv)))
     for k0 in range(0, sk_p, bk):
         kc = k[:, :, k0:k0 + bk].float()
         vc = v[:, :, k0:k0 + bk].float()
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc) * scale
+        s = torch.einsum("bhqgd,bhkd->bhqgk", qf, kc) * scale
         kpos = k0 + torch.arange(bk, device=q.device)
-        mask = (kpos < sk)[None, :]
+        mask = (kpos < sk)[None, None, :]
         if causal:
-            mask = mask & (qpos[:, None] >= kpos[None, :])
+            mask = mask & (qpos[:, None, None] >= kpos[None, None, :])
         s = torch.where(mask, s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
+        acc = acc * alpha + torch.einsum("bhqgk,bhkd->bhqgd", p, vc)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(b, hq, sq, dv).to(q.dtype)
+    return out.transpose(2, 3).reshape(b, hq, sq, dv).to(q.dtype)
 
 
 def _flash_sharded(q, k, v, causal: bool, scale, rules: ShardingRules):
@@ -174,9 +178,30 @@ def gqa_specs(cfg: ModelConfig, rules: ShardingRules) -> Dict[str, P]:
     return s
 
 
+def _whole_heads(x: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """``x`` with its ``dim`` (heads, or heads x head dim) gathered over
+    the mesh dims it is split over when their ranks do not divide the
+    ``n`` heads it is about to be split into: a DTensor cannot split one
+    head across ranks (GSPMD pads instead).  Serving rules split the
+    projections over ``model``; qwen3-8b's 8 KV heads on a model axis of
+    16 take this gather."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.dim()
+    pl = list(x.placements)
+    split = [i for i, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim == dim]
+    if n % math.prod(x.device_mesh.size(i) for i in split) == 0:
+        return x
+    for i in split:
+        pl[i] = Replicate()
+    return x.redistribute(x.device_mesh, pl)
+
+
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n, hd).transpose(1, 2)       # (B, H, S, hd)
+    return _whole_heads(x, n).reshape(b, s, n, hd).transpose(1, 2)
 
 
 def qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -228,7 +253,7 @@ def gqa_decode(params: Params, x: torch.Tensor, k_cache: torch.Tensor,
     write_at(v_cache, 2, pos, v_new)
 
     # grouped-query einsum: no materialised K/V head repeat
-    qg = q.reshape(b, hkv, hq // hkv, hd)
+    qg = _whole_heads(q, hkv, 1).reshape(b, hkv, hq // hkv, hd)
     if is_dtensor(k_cache):
         o = _decode_sharded(qg, k_cache, v_cache, pos, rules)
     else:

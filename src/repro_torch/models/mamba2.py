@@ -87,7 +87,8 @@ def _conv_scan(scan, chunk: int, dtype: torch.dtype, x_raw: torch.Tensor,
     # (B*nh, T, ...) sequences; B and C broadcast over the heads
     xh = x.transpose(1, 2).reshape(b * nh, t, hp)
     dth = dt.transpose(1, 2).reshape(b * nh, t, 1)
-    ah = a[None, :].expand(b, nh).reshape(b * nh, 1)
+    # float32, as the kernel takes it (``a`` is in the weights' dtype)
+    ah = a.float()[None, :].expand(b, nh).reshape(b * nh, 1)
     bh = bmat.float()[:, None].expand(b, nh, t, n).reshape(b * nh, t, n)
     ch = cmat.float()[:, None].expand(b, nh, t, n).reshape(b * nh, t, n)
     y, h_fin = scan(xh.float(), dth, ah, bh, ch, chunk=chunk)

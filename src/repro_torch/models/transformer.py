@@ -486,11 +486,16 @@ def _vp_gather(table: torch.Tensor, toks: torch.Tensor,
     DTensor)."""
     if not is_dtensor(table):
         return table[toks]
+    from torch.distributed.tensor import Partial, Replicate
     ms = rules.model_size
     vp = table.shape[0]
     s = toks.shape[1]
     if rules.model is None or ms <= 1 or vp % ms or s % ms:
-        return F.embedding(toks, table)
+        # a vocab-sharded table's lookup is a masked partial sum, reduced
+        # here: two such partials do not add (DTensor compares their masks)
+        x = F.embedding(toks, table)
+        return x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
     mesh = table.device_mesh
 
     def local(tab, tk):
@@ -500,7 +505,6 @@ def _vp_gather(table: torch.Tensor, toks: torch.Tensor,
         loc = torch.clamp(tk - lo, 0, vshard - 1)
         hit = ((tk >= lo) & (tk < lo + vshard))[..., None]
         return torch.where(hit, tab[loc], 0.0).to(tab.dtype)
-    from torch.distributed.tensor import Partial
     out = placements(rules.logical("batch", None, None), mesh)
     out[mesh.mesh_dim_names.index(rules.model)] = Partial()
     x = local_map_on(local, mesh, out,
@@ -620,7 +624,12 @@ def _mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _unembed(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """h (..., D) against the unembedding w: (..., V) for w (V, D), or
-    (..., K, V) for the audio family's (K, V, D)."""
+    (..., K, V) for the audio family's (K, V, D).  A vocab-sharded
+    DTensor w takes one product a codebook: the einsum would merge K with
+    the sharded V, a strided shard DTensor's matmul cannot take."""
+    if w.dim() == 3 and is_dtensor(w):
+        return torch.stack([dense(h, w[i].T) for i in range(w.shape[0])],
+                           dim=-2)
     if w.dim() == 3:
         return torch.einsum("...d,kvd->...kv", h, w)
     return dense(h, w.T)

@@ -461,12 +461,12 @@ def test_compressed_data_parallel_training_converges(compressed):
 # The SSD scan's autograd path
 # ---------------------------------------------------------------------- #
 def test_ssd_autograd_function_matches_plain_gradient(monkeypatch):
-    # the kernel is CUDA-only: stand the plain version in for its forward
-    # and hold the Function's backward to autograd through the plain one
+    # the kernel's operator is CUDA-only: stand the plain version in for
+    # the Function's forward and hold its backward to autograd through the
+    # plain one
     from repro_torch.kernels.ssd_scan import ops
-    monkeypatch.setattr(ops, "ssd_scan_cuda",
-                        lambda *a, chunk: ops.ssd_scan_chunked(
-                            *a, chunk=chunk))
+    monkeypatch.setattr(ops, "ssd_scan_op",
+                        lambda *a: ops.ssd_scan_chunked(*a[:5], chunk=a[5]))
     rng = np.random.default_rng(5)
     bh, t, p, n, chunk = 6, 40, 8, 16, 16
     arrs = [rng.standard_normal((bh, t, p)),
