@@ -64,19 +64,6 @@ ends the run with a non-zero exit code if it fails:
    ``adaptive`` (hot-key detection on, nothing salted on these keys), and
    ``adaptive=False`` runs once more per mode: the same stage-cache keys,
    no miss, and five alternating ``bsp`` pairs give the detection's cost;
-   then Fig-9 over a ``torch.distributed`` process group, one rank per
-   process (ROADMAP item 12): 8 gloo processes spawned on the one card,
-   meeting through a ``file://`` rendezvous in a temporary directory,
-   loading the kernels built above (never rebuilding them), at 2 x 2**25
-   rows in ``bsp`` (first and cached) and ``amt``, and with ``ring`` and
-   ``bruck`` at 2 x 2**22 rows; each process's result equal slot for
-   slot to rank r of the stacked ``xla`` run, its radix and
-   segmented-sum launches equal to their derivation (3 and 1 a ``bsp``
-   run); then NCCL at world size 1 (NCCL takes one rank per device) at
-   2 x 2**22 rows, equal to the stacked one-rank run; each wall, the
-   share of it spent in host-staged collectives (gloo stages every
-   collective through pinned host buffers) and the phase's time printed
-   beside the card's name and power limit;
 4. frontend: the same pipeline with a mean, written against
    ``repro_torch.df`` on the same data, in every mode, twice each, with
    the same launch checks; held to the host reference and to the
@@ -96,7 +83,8 @@ ends the run with a non-zero exit code if it fails:
    cached run (copy rates from its memcpy events); then the radix and
    segmented-sum kernels held to their plain versions and timed on the
    inputs one out-of-core run handed them (first call at each shape:
-   ``ooc:n=...``);
+   ``ooc:n=...``), and on rank 0's slice of them, the shapes one process
+   of a group hands them (``process:ooc:n=...``);
 6. ingest and analyze: the out-of-core phase's data written as 8
    Parquet files a side (row groups of 2**20 rows; CSV if pyarrow does not
    import, the lane printed) and read back with ``repro_torch.df.
@@ -131,7 +119,36 @@ ends the run with a non-zero exit code if it fails:
    faults: Fig-9 recovered bit for bit from one fault at each in-core site
    (2 x 2**25 rows, ``bsp`` and ``bsp_staged``) and each out-of-core site
    (2 x 2**23 rows), ``corrupt-capacity``, three ``random_plan`` seeds and
-   a ``hang`` fenced by ``timeout=``;
+   a ``hang`` fenced by ``timeout=``; then Fig-9 over a
+   ``torch.distributed`` process group, one rank per process (ROADMAP
+   item 12): 8 gloo processes spawned on the one card,
+   meeting through a ``file://`` rendezvous in a temporary directory,
+   loading the kernels built above (never rebuilding them), at 2 x 2**25
+   rows in ``bsp`` (first and cached) and ``amt``, and with ``ring`` and
+   ``bruck`` at 2 x 2**22 rows; each process's result equal slot for
+   slot to rank r of the stacked ``xla`` run, its radix and
+   segmented-sum launches equal to their derivation (3 and 1 a ``bsp``
+   run); then NCCL at world size 1 (NCCL takes one rank per device) at
+   2 x 2**22 rows, equal to the stacked one-rank run; each wall, the
+   share of it spent in host-staged collectives (gloo stages every
+   collective through pinned host buffers) and the phase's time printed
+   beside the card's name and power limit; in the same 8 processes the
+   group's out-of-core paths: Fig-9 streamed 8x oversubscribed at 2 x
+   2**25 rows (``morsel_rows`` 524,288, ``capacity_factor`` 4; first and
+   cached), Fig-9 from 8 Parquet files a side at the default batches,
+   in-core and out-of-core (every process reads the same files and keeps
+   its rank's batches), and the faults cell's out-of-core size (2 x
+   2**23) under a ``raise`` at ``spill:append``, ``random_plan`` seeds
+   1-3 and a ``hang`` under ``timeout=`` (``QueryTimeout`` on every
+   process, then a clean run); NCCL at world size 1 also streams Fig-9
+   out-of-core at 2 x 2**22 rows; each process's result equal by digest
+   to rank r of the same run stacked on the card (the out-of-core,
+   ingest and faults phases' own runs, their files kept for it), a
+   recovered run to the fault-free one, retries equal on every process,
+   the radix and
+   segmented-sum launches of each process equal to their derivation;
+   each run's wall, its share in host-staged collectives and host
+   exchanges, its h2d / d2h bytes and each process's peak memory;
 9. serving: qwen3-8b, mamba2-780m, olmoe-1b-7b, jamba-v0.1-52b (cut
    to 8 of its 32 layers, one layout period), llama3.2-3b, gemma-7b (head
    dim 256), qwen3-32b (cut to 16 of its 64 layers),
@@ -265,8 +282,10 @@ describing each kernel, and ``{"ok": true, "device": ...}``.
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -448,13 +467,15 @@ MOE_RADIX_CASES = (("moe:olmoe-prefill", 4, 32_768, 64),
 
 
 def radix_phase(torch, cap, flush, layouts=None, skewed=False,
-                recorded=None, moe=False):
+                recorded=None, moe=False, ranks=P):
     """Radix kernel vs ``radix_partition_ref`` on the card, each case
     labelled with its route.  Without ``layouts``: the main path's shapes
     with uniform buckets, a wide case, a large bucket count (the threepass
     route) and n = 0.  With ``layouts`` ({case: (n, valid rows per rank)},
     read off a Fig-9 run): the shuffle's own layout, a uniform hashed
-    prefix of the valid rows and a tail of padding in bucket p.  With
+    prefix of the valid rows and a tail of padding in bucket p, over
+    ``ranks`` ranks (1: one process of a group, which still hashes to
+    ``P`` destinations).  With
     ``skewed``: the salted shuffles' traffic, ``onepass`` at (8,
     4,194,304, 9) with 99% of every rank's rows in one bucket, so the
     in-bucket ranks reach about 4.15 M.  With ``recorded`` ([(case, dest,
@@ -485,7 +506,7 @@ def radix_phase(torch, cap, flush, layouts=None, skewed=False,
                  ("nb4096", 1, 1_000_003, 4096, None),
                  ("empty", P, 0, P + 1, None)]
     else:
-        cases = [(name, P, n, P + 1, valid)
+        cases = [(name, ranks, n, P + 1, valid[:ranks])
                  for name, (n, valid) in layouts.items()]
     out = []
     for name, p, n, nb, valid in cases:
@@ -501,11 +522,11 @@ def radix_phase(torch, cap, flush, layouts=None, skewed=False,
             dest = torch.randint(0, nb, (p, n), generator=gen, device=dev,
                                  dtype=torch.int32)
         else:
-            dest = torch.randint(0, p, (p, n), generator=gen, device=dev,
-                                 dtype=torch.int32)
+            dest = torch.randint(0, nb - 1, (p, n), generator=gen,
+                                 device=dev, dtype=torch.int32)
             pad = torch.arange(n, device=dev)[None, :] >= torch.as_tensor(
                 valid, device=dev)[:, None]
-            dest[pad] = p
+            dest[pad] = nb - 1
         route = route_for(nb)
         before = radix_partition_cuda.route_launches[route]
         ranks, hist = radix_partition_cuda(dest, nb)
@@ -1467,7 +1488,7 @@ def memcpy_ms(prof):
     return out
 
 
-def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
+def out_of_core_phase(torch, rows=FULL_ROWS, device=None, keep=None):
     """Fig-9 (``fig9_plan``, optimized, ``bsp``) streamed out-of-core at
     ``rows`` per table over ``P`` stacked ranks, 8x oversubscribed
     (``morsel_rows`` = the per-rank share / 8, ``capacity_factor`` 4): the
@@ -1476,7 +1497,9 @@ def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
     and to the host reference; first and cached run, with the launch
     counts derived from the plan and the stats, the transfer volumes and
     the peak device memory beside the in-core run's; one cached run is
-    profiled.  Returns the numbers for the JSON lines."""
+    profiled.  Returns the numbers for the JSON lines; ``keep["ooc"]``
+    gets the first run's digests and derived launches, which the
+    process-group phase holds its processes to."""
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
     from repro_torch.kernels import radix_partition_cuda
     from repro_torch.planner import compile_plan
@@ -1550,6 +1573,9 @@ def out_of_core_phase(torch, rows=FULL_ROWS, device=None):
         want_launches, seg_morsels, want_dispatches = ooc_launches_expected(
             pplan, ld, ref[1], max(out.rank_rows(r) for r in range(P)),
             morsel, P)
+        if keep is not None and run == "first":
+            keep.update(ooc_rows=rows, ooc=(spill_digests(out), {
+                k: n * on_card for k, n in want_launches.items()}))
         check((st.morsels, st.dispatches) == (sum(seg_morsels),
                                               want_dispatches),
               f"{label}: {st.morsels} morsels, {st.dispatches} dispatches; "
@@ -1733,7 +1759,7 @@ def same_columns(got, want):
 
 
 def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
-                 group_rows=1 << 20, peaks=None):
+                 group_rows=1 << 20, peaks=None, keep=None):
     """Fig-9 from files: the out-of-core phase's data (``make_exact_data``)
     written as ``nfiles`` Parquet files a side (row groups of
     ``group_rows``; CSV when pyarrow does not import) and read back with
@@ -1746,8 +1772,10 @@ def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
     metrics), tracing on and off, and ``debug_overflow``.  The roofline
     uses the card's own peaks, or ``peaks`` (a rehearsal on the CPU has
     none).  Returns the numbers for the JSON line and the launches by
-    run."""
-    import tempfile
+    run.  With ``keep``, the files are written to ``keep["dir"]`` and
+    stay there, and ``keep`` gets their paths and reader and the first
+    in-core and out-of-core runs' digests and launches, which the
+    process-group phase holds its processes to."""
     import repro_torch.df as rdf
     from repro_torch.core import CylonEnv
     from repro_torch.io import DictionaryCache, have_pyarrow
@@ -1766,7 +1794,8 @@ def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
     on_card = env.device.type == "cuda"
     out = {"lane": lane, "rows": rows, "files": nfiles}
     walls, launches = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_") as d:
+    with (tempfile.TemporaryDirectory(prefix="chip_smoke_ingest_")
+          if keep is None else contextlib.nullcontext(keep["dir"])) as d:
         t = time.perf_counter()
         if lane == "parquet":
             paths = {s: write_parquet_files(d, s, data, nfiles, group_rows)
@@ -1776,6 +1805,8 @@ def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
                      for s, data in (("l", ld), ("r", rd))}
         nbytes = {s: sum(os.path.getsize(f) for f in ps)
                   for s, ps in paths.items()}
+        if keep is not None:
+            keep.update(paths=paths, lane=lane, files_rows=rows)
         print(f"ingest: lane {lane}; wrote {nfiles} files a side of "
               f"{rows} rows in {time.perf_counter() - t:.2f} s ({nbytes} B)",
               flush=True)
@@ -1877,6 +1908,19 @@ def ingest_phase(torch, rows=FULL_ROWS, device=None, nfiles=8,
                 if run == "cached":
                     check(st.cache_misses == 0, f"{label}: "
                           f"{st.cache_misses} cache misses")
+                if keep is not None and run == "first" and name in (
+                        "in-core", "out-of-core"):
+                    # what the process-group phase holds its processes to
+                    want_k = (ooc_launches_expected(
+                        pplan, ld, ref[1],
+                        max(res.rank_rows(r) for r in range(P)), morsel, P,
+                        pos)[0] if kw else {
+                        "radix_partition": st.num_shuffles,
+                        "segmented_sum": segsum_launches_expected(pplan,
+                                                                  "bsp")})
+                    keep["files ooc" if kw else "files in-core"] = (
+                        digests_of(res),
+                        {k: n * on_card for k, n in want_k.items()})
                 if "morsel_rows" in kw:
                     check(st.degraded == 0, f"{label}: degraded")
                     want_l, seg_morsels, want_d = ooc_launches_expected(
@@ -2655,7 +2699,8 @@ def same_result(got, want):
         for c in want)
 
 
-def faults_phase(torch, rows=FULL_ROWS, ooc_rows=1 << 23, device=None):
+def faults_phase(torch, rows=FULL_ROWS, ooc_rows=1 << 23, device=None,
+                 keep=None):
     """Fig-9 recovered from injected faults, on integer-valued payloads
     (exact sums, so a recovered result is bit for bit the fault-free one):
     in-core at 2 x ``rows`` rows, one ``raise`` at ``stage:launch`` and at
@@ -2667,7 +2712,9 @@ def faults_phase(torch, rows=FULL_ROWS, ooc_rows=1 << 23, device=None):
     fault-free run on the same env).  Each recovered run: bit-identical
     to the fault-free run, no row dropped, ``faults_injected`` what the
     plan fires on this run's site visits and ``retries`` one per fired
-    ``raise``.  Returns the walls."""
+    ``raise``.  Returns the walls; ``keep["faults"]`` gets the
+    out-of-core clean run's digests and derived launches, which the
+    process-group phase holds its processes to."""
     from repro_torch.core import CylonEnv, DistTable, Plan, execute
     from repro_torch.faults import FaultPlan, FaultSpec, QueryTimeout, \
         random_plan
@@ -2729,6 +2776,13 @@ def faults_phase(torch, rows=FULL_ROWS, ooc_rows=1 << 23, device=None):
     res, st = timed("ooc/clean", ooc)
     want = res.to_numpy()
     check(st.retries == st.faults_injected == 0, "faults: clean run faulted")
+    if keep is not None:
+        from repro_torch.planner import compile_plan
+        want_k = ooc_launches_expected(
+            compile_plan(plan, tables), ld, host_reference(ld, rd)[1],
+            max(res.rank_rows(r) for r in range(P)), morsel, P)[0]
+        keep.update(fault_rows=ooc_rows, faults=(spill_digests(res), {
+            k: n * resolve_on_card(device) for k, n in want_k.items()}))
     visits = fault_visits(lambda f: ooc(f))
     print(f"faults: out-of-core Fig-9 at 2 x {ooc_rows} rows, morsel_rows "
           f"{morsel}; site visits of a fault-free run {visits}", flush=True)
@@ -4149,6 +4203,144 @@ def stacked_digests(torch, rows, p, device=None):
     return out
 
 
+def morsel_for(rows, p):
+    """8x oversubscription: a rank's share over 8, rounded up to 8."""
+    return -(-(-(-rows // p) // 8) // 8) * 8
+
+
+def spill_digests(spill):
+    """``result_digests`` of a host ``SpillTable``: each held rank's row
+    count and a sha1 of each column's rows."""
+    import hashlib
+    out = []
+    for j in range(spill.parallelism):
+        cols = spill.rank_concat(j)
+        out.append(dict({"__count": int(len(next(iter(cols.values()))))},
+                        **{n: hashlib.sha1(np.ascontiguousarray(v)
+                                           .tobytes()).hexdigest()
+                           for n, v in sorted(cols.items())}))
+    return out
+
+
+def digests_of(res):
+    return (spill_digests(res) if hasattr(res, "rank_concat")
+            else result_digests(res))
+
+
+def nccl_ooc_reference(torch, rows):
+    """Fig-9 out-of-core over one rank stacked on the card at 2 x
+    ``rows``, held to the host reference: its digests and derived
+    launches, which NCCL at world size 1 is held to."""
+    from repro_torch.core import CylonEnv, DistTable, Plan, execute
+    from repro_torch.planner import compile_plan
+    ld, rd = make_exact_data(rows, 0, "v0"), make_exact_data(rows, 1, "w")
+    cap, morsel = capacity_for(rows, 1), morsel_for(rows, 1)
+    tables = {"l": ld, "r": DistTable.from_numpy(rd, 1, capacity=cap)}
+    plan = fig9_plan(Plan, cap)
+    res, st = execute(plan, CylonEnv(1), tables, mode="bsp",
+                      collect_stats=True, morsel_rows=morsel,
+                      capacity_factor=4.0)
+    ref = host_reference(ld, rd)
+    check_fig9(res, st, ref, "stacked out-of-core over one rank")
+    want = ooc_launches_expected(compile_plan(plan, tables), ld, ref[1],
+                                 res.rank_rows(0), morsel, 1)[0]
+    out = (spill_digests(res), want)
+    del res, tables
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pg_ooc_job(torch, envs, job, device, walls):
+    """One out-of-core, from-files or faulted Fig-9 run of a group
+    process (``job``: label, rows, morsel, files, faults, a timeout from
+    an earlier run's wall); its report."""
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv, Plan, execute
+    from repro_torch.faults import QueryTimeout, random_plan
+    import torch.distributed as dist
+    rows = job["rows"]
+    key = (rows, bool(job.get("files")))
+    if key not in envs:
+        env = CylonEnv(process_group=dist.group.WORLD, device=device)
+        cap = capacity_for(rows, env.parallelism)
+        warm_s = 0.0
+        if job.get("files") and job["files"][1] == "parquet":
+            # pyarrow's to_numpy imports pandas at its first call: paid
+            # here, before the timed read, as the stacked read's process
+            # paid it before its own
+            import pyarrow as pa
+            from repro_torch.io.ingest import arrow_batch_columns
+            t = time.perf_counter()
+            arrow_batch_columns(pa.record_batch({"x": [1]}))
+            warm_s = time.perf_counter() - t
+        host0 = env.comm.stats["host_s"]
+        t = time.perf_counter()
+        if job.get("files"):
+            paths, lane = job["files"]
+            reader = rdf.read_parquet if lane == "parquet" else rdf.read_csv
+            frames = {s: reader(paths[s], env=env, dict_cache=None, name=s)
+                      for s in "lr"}
+            q = fig9_sum_frontend(frames["l"], frames["r"], cap)
+            run = q.collect
+        else:
+            ld = make_exact_data(rows, 0, "v0")
+            tables = {"l": ld, "r": env.from_numpy(
+                make_exact_data(rows, 1, "w"), capacity=cap)}
+            plan = fig9_plan(Plan, cap)
+
+            def run(**kw):
+                return execute(plan, env, tables, mode="bsp", **kw)
+        envs[key] = (env, run, time.perf_counter() - t,
+                     env.comm.stats["host_s"] - host0, warm_s)
+    env, run, read_s, read_host_s, warm_s = envs[key]
+    on_card = env.device.type == "cuda"
+    kw = dict(collect_stats=True)
+    if job.get("morsel"):
+        kw.update(morsel_rows=job["morsel"], capacity_factor=4.0)
+    faults = job.get("faults")
+    if isinstance(faults, int):
+        faults = random_plan(faults, max_occurrence=2, sites=OOC_SITES)
+    if faults is not None:
+        kw["faults"] = faults
+    if job.get("timeout_s"):
+        kw["timeout"] = job["timeout_s"]
+    if job.get("timeout_after"):
+        # twice the group's slowest clean run, plus a second
+        ms = int(env.comm.gather_ints(
+            [int(walls[job["timeout_after"]] * 1e3)]).max())
+        kw["timeout"] = 2 * ms / 1e3 + 1.0
+    stats0 = dict(env.comm.stats)
+    env.synchronize()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    raised = None
+    try:
+        res, st = run(**kw)
+    except QueryTimeout:
+        raised, res, st = "QueryTimeout", None, None
+    env.synchronize()
+    wall = time.perf_counter() - t
+    walls[job["label"]] = wall
+    rep = {"wall_s": wall, "read_s": read_s, "read_host_s": read_host_s,
+           "warm_s": warm_s,
+           "staged_s": env.comm.stats["staged_s"] - stats0["staged_s"],
+           "host_s": env.comm.stats["host_s"] - stats0["host_s"],
+           "host_calls": env.comm.stats["host_calls"]
+           - stats0["host_calls"],
+           "peak_bytes": torch.cuda.max_memory_allocated() if on_card
+           else None, "launches": launch_counts(), "raised": raised,
+           "timeout_s": kw.get("timeout")}
+    if res is not None:
+        rep.update(digests=digests_of(res)[0], rows_dropped=st.rows_dropped,
+                   rows_shuffled=st.rows_shuffled, retries=st.retries,
+                   faults_injected=st.faults_injected, morsels=st.morsels,
+                   h2d_bytes=st.h2d_bytes, d2h_bytes=st.d2h_bytes,
+                   rows_read=st.rows_read)
+    return rep
+
+
 def _pg_child(rank, world, d, backend, runs, device):
     """One process of a group: Fig-9 through ``execute`` on the one rank
     it holds, for each ``(communicator, mode, rows, label)`` of ``runs``;
@@ -4177,8 +4369,15 @@ def _pg_child(rank, world, d, backend, runs, device):
     report = {}
     on_card = device != "cpu"
     try:
-        data = {}
-        for comm_name, mode, rows, label in runs:
+        data, envs, walls = {}, {}, {}
+        for job in runs:
+            if isinstance(job, dict):
+                report[job["label"]] = _pg_ooc_job(torch, envs, job, device,
+                                                   walls)
+                if on_card:
+                    torch.cuda.empty_cache()
+                continue
+            comm_name, mode, rows, label = job
             if rows not in data:
                 data[rows] = (make_table_data(rows, 0),
                               make_table_data(rows, 1))
@@ -4211,6 +4410,7 @@ def _pg_child(rank, world, d, backend, runs, device):
             del res, tables
             if on_card:
                 torch.cuda.empty_cache()
+        del envs
         for n, t in logs.items():
             check(os.path.getmtime(os.path.join(BUILD_DIR, f"{n}.log")) == t,
                   f"{n} was rebuilt in a group process")
@@ -4249,8 +4449,36 @@ def run_group(world, backend, runs, device="cuda:0"):
         shutil.rmtree(d, ignore_errors=True)
 
 
-def process_group_phase(torch, smi, rows=FULL_ROWS, small=PG_SMALL_ROWS,
-                        device=None):
+def pg_ooc_runs(kept):
+    """The group's out-of-core jobs, (reference label, job) in order, at
+    the sizes of the stacked runs ``kept`` holds."""
+    rows, fault_rows = kept["ooc_rows"], kept["fault_rows"]
+    paths = (kept["paths"], kept["lane"])
+    m, mf = morsel_for(rows, P), morsel_for(fault_rows, P)
+    fault = dict(rows=fault_rows, morsel=mf)
+    return [("ooc", dict(label="gloo ooc first", rows=rows, morsel=m)),
+            ("ooc", dict(label="gloo ooc cached", rows=rows, morsel=m)),
+            ("files in-core", dict(label="gloo parquet in-core",
+                                   rows=kept["files_rows"], files=paths)),
+            ("files ooc", dict(label="gloo parquet ooc",
+                               rows=kept["files_rows"], files=paths,
+                               morsel=morsel_for(kept["files_rows"], P))),
+            ("faults", dict(fault, label="gloo faults clean")),
+            # a deadline far off arms the per-visit agreement alone
+            ("faults", dict(fault, label="gloo faults clean under timeout",
+                            timeout_s=60.0)),
+            ("faults", dict(fault, label="gloo faults spill:append@0=raise",
+                            faults="spill:append@0=raise"))] + [
+            ("faults", dict(fault, label=f"gloo faults random_plan({seed})",
+                            faults=seed)) for seed in (1, 2, 3)] + [
+            (None, dict(fault, label="gloo faults hang",
+                        faults="morsel:execute@1=hang",
+                        timeout_after="gloo faults clean")),
+            ("faults", dict(fault, label="gloo faults after the timeout"))]
+
+
+def process_group_phase(torch, smi, kept, rows=FULL_ROWS,
+                        small=PG_SMALL_ROWS, device=None):
     """Fig-9 over a ``torch.distributed`` process group, one rank per
     process: 8 gloo processes on the card at 2 x ``rows`` (``bsp`` first
     and cached, then ``amt``; ``ring`` and ``bruck`` at 2 x ``small``),
@@ -4259,8 +4487,23 @@ def process_group_phase(torch, smi, rows=FULL_ROWS, small=PG_SMALL_ROWS,
     per process; then NCCL at world size 1 (NCCL takes one rank per
     device) at 2 x ``small``, equal to the stacked one-rank run.  Every
     collective of the gloo group is staged through pinned host buffers;
-    the share of each run's wall spent there is printed.  ``device="cpu"``
-    rehearses the gloo group on the CPU (no NCCL, no launches)."""
+    the share of each run's wall spent there is printed.
+
+    In the same processes, the group's out-of-core paths
+    (``pg_ooc_runs``), each held by digest to the same run stacked on the
+    card, which the out-of-core, ingest and faults phases made and
+    ``kept`` holds (their ``keep=``; the files too): Fig-9 streamed 8x
+    oversubscribed (first, cached), from 8 Parquet files a side in-core
+    and out-of-core, and at the faults phase's out-of-core size clean,
+    under a ``raise`` at ``spill:append``, ``random_plan`` seeds 1-3
+    (retries equal on every process), a ``hang`` under ``timeout=``
+    (``QueryTimeout`` on every process) and clean again; each process's
+    radix and segmented-sum launches equal their derivation (a process
+    launches once per morsel for its rank where the stacked run launches
+    once for all ranks, so the derivation is the stacked run's).  NCCL
+    at world size 1 also streams Fig-9 at 2 x ``small``.
+    ``device="cpu"`` rehearses the gloo group on the CPU (no NCCL, no
+    launches)."""
     t_phase = time.perf_counter()
     on_card = device != "cpu"
     if on_card:
@@ -4268,19 +4511,31 @@ def process_group_phase(torch, smi, rows=FULL_ROWS, small=PG_SMALL_ROWS,
     want = {rows: stacked_digests(torch, rows, P, device),
             small: stacked_digests(torch, small, P, device)}
     want_one = stacked_digests(torch, small, 1, device) if on_card else None
+    refs = {k: kept[k] for k in ("ooc", "files in-core", "files ooc",
+                                 "faults")}
+    if on_card:
+        refs["nccl ooc"] = nccl_ooc_reference(torch, small)
+    ooc_runs = pg_ooc_runs(kept)
     runs = [("xla", "bsp", rows, "gloo xla bsp first"),
             ("xla", "bsp", rows, "gloo xla bsp cached"),
             ("xla", "amt", rows, "gloo xla amt"),
             ("ring", "bsp", small, "gloo ring bsp"),
             ("bruck", "bsp", small, "gloo bruck bsp")]
     t = time.perf_counter()
-    gloo = run_group(P, "gloo", runs, "cuda:0" if on_card else "cpu")
+    gloo = run_group(P, "gloo", runs + [job for _, job in ooc_runs],
+                     "cuda:0" if on_card else "cpu")
     gloo_s = time.perf_counter() - t
     nccl_runs = [("xla", "bsp", small, "nccl xla bsp")] if on_card else []
+    nccl_ooc = [("nccl ooc", dict(label="nccl ooc", rows=small,
+                                  morsel=morsel_for(small, 1)))]
     t = time.perf_counter()
-    nccl = run_group(1, "nccl", nccl_runs) if on_card else None
+    nccl = (run_group(1, "nccl", nccl_runs + [j for _, j in nccl_ooc])
+            if on_card else None)
     nccl_s = time.perf_counter() - t
     out = {"gloo_group_s": gloo_s, "nccl_group_s": nccl_s, "runs": {}}
+    check_pg_ooc(out, gloo, ooc_runs, refs, smi)
+    if on_card:
+        check_pg_ooc(out, nccl, nccl_ooc, refs, smi)
     for (comm_name, mode, n, label) in runs + nccl_runs:
         reports = nccl if label.startswith("nccl") else gloo
         stacked = want_one if label.startswith("nccl") else want[n]
@@ -4313,6 +4568,71 @@ def process_group_phase(torch, smi, rows=FULL_ROWS, small=PG_SMALL_ROWS,
           f"{nccl_s:.1f} s, phase {out['phase_s']:.1f} s [{smi}]",
           flush=True)
     return out
+
+
+def check_pg_ooc(out, reports, jobs, refs, smi):
+    """Hold each out-of-core group job of ``jobs`` to its stacked
+    reference and record its numbers in ``out["runs"]``."""
+    for ref_label, job in jobs:
+        label = job["label"]
+        got = [rep[label] for rep in reports]
+        if ref_label is None:       # the hang: a timeout everywhere
+            check(all(g["raised"] == "QueryTimeout" for g in got),
+                  f"{label}: raised {[g['raised'] for g in got]}")
+        else:
+            digests, want = refs[ref_label]
+            for r, g in enumerate(got):
+                check(g["raised"] is None and g["rows_dropped"] == 0,
+                      f"{label}: rank {r} raised {g['raised']} or dropped")
+                check(g["digests"] == digests[r], f"{label}: rank {r} "
+                      f"differs from rank {r} of the stacked run")
+                if "faults" not in job:
+                    check(all(g["launches"][k] == n for k, n in
+                              want.items()), f"{label}: rank {r} launches "
+                          f"{g['launches']}, want {want}")
+            retries = {g["retries"] for g in got}
+            check(len(retries) == 1, f"{label}: retries {retries} differ "
+                  f"between processes")
+            if isinstance(job.get("faults"), str):
+                check(retries == {1}, f"{label}: retries {retries}")
+        walls = [g["wall_s"] for g in got]
+        shares = [(g["staged_s"] + g["host_s"]) / max(g["wall_s"], 1e-9)
+                  for g in got]
+        peaks = [g["peak_bytes"] or 0 for g in got]
+        rec = {"rows": job["rows"], "processes": len(got),
+               "wall_s": max(walls), "staged_share": float(np.mean(shares)),
+               "launches_per_process": got[0]["launches"],
+               "peak_bytes_per_process": max(peaks),
+               "read_s": max(g["read_s"] for g in got),
+               "read_host_s": max(g["read_host_s"] for g in got),
+               "warm_s": max(g["warm_s"] for g in got),
+               "host_s": max(g["host_s"] for g in got),
+               "host_calls": got[0]["host_calls"]}
+        for k in ("retries", "faults_injected", "h2d_bytes", "d2h_bytes",
+                  "morsels", "rows_shuffled"):
+            if k in got[0]:
+                rec[k] = got[0][k]
+        out["runs"][label] = rec
+        print(f"process group {label}: 2 x {job['rows']} rows over "
+              f"{len(got)} processes"
+              + (f", morsel_rows {job['morsel']}" if job.get("morsel")
+                 else "") + f", wall {max(walls):.3f} s (per process "
+              f"{min(walls):.3f}-{max(walls):.3f} s), host-staged "
+              f"collectives and host exchanges "
+              f"{100 * float(np.mean(shares)):.1f}% of it ("
+              f"{rec['host_calls']} host collectives, "
+              f"{rec['host_s']:.3f} s at most a process), h2d "
+              f"{rec.get('h2d_bytes')} B, d2h {rec.get('d2h_bytes')} B "
+              f"(the group's), peak {max(peaks) / 2**30:.2f} GiB a "
+              f"process, launches a process {got[0]['launches']}, retries "
+              f"{rec.get('retries')}, "
+              + ("QueryTimeout on every process after "
+                 f"{max(walls):.2f} s (deadline "
+                 f"{got[0]['timeout_s']:.2f} s)" if ref_label is None
+                 else f"equal to the stacked run by digest, reading "
+                 f"{rec['read_s']:.2f} s ({rec['read_host_s']:.2f} s of it "
+                 f"in host exchanges; first-call imports before it "
+                 f"{rec['warm_s']:.2f} s)") + f" [{smi}]", flush=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -5215,28 +5535,42 @@ def main():
     radix_cases += radix_phase(torch, cap, flush, layouts)
     del flush
     phase_done("radix layouts")
-    process_group = process_group_phase(torch, smi)
-    phase_done("process group")
     front_launches, front_walls = frontend_phase(torch)
     phase_done("frontend")
     str_launches, str_walls = strings_phase(torch)
     phase_done("strings")
-    ooc, (ooc_layouts, ooc_sums) = out_of_core_phase(torch)
+    # the stacked runs the process-group phase holds its processes to
+    kept = {"dir": tempfile.mkdtemp(prefix="chip_smoke_files_")}
+    ooc, (ooc_layouts, ooc_sums) = out_of_core_phase(torch, keep=kept)
     for k in ("radix_partition", "segmented_sum"):
         check(ooc["launches"]["first"][k] > 0, f"{k} never launched on the "
               f"out-of-core path")
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     radix_cases += radix_phase(torch, cap, flush, ooc_layouts)
     segsum_cases += segsum_phase(torch, cap, flush, ooc_sums)
+    # one rank a process (the process-group phase's out-of-core runs hand
+    # each process's kernels one rank of these shapes): rank 0's inputs
+    radix_cases += radix_phase(
+        torch, cap, flush, {k.replace("ooc:", "process:ooc:"): v
+                            for k, v in ooc_layouts.items()}, ranks=1)
+    segsum_cases += segsum_phase(
+        torch, cap, flush, [(k.replace("ooc:", "process:ooc:"),
+                             ids[:1].contiguous(), vals[:1].contiguous(), s)
+                            for k, ids, vals, s in ooc_sums])
     del flush, ooc_sums
     phase_done("out-of-core")
-    ingest = ingest_phase(torch)
+    ingest = ingest_phase(torch, keep=kept)
     ingest["strings"] = ingest_strings_phase(torch)
     phase_done("ingest and analyze")
     skew = skew_phase(torch)
     phase_done("skew")
-    fault_walls = faults_phase(torch)
+    fault_walls = faults_phase(torch, keep=kept)
     phase_done("faults")
+    try:
+        process_group = process_group_phase(torch, smi, kept=kept)
+    finally:
+        shutil.rmtree(kept["dir"], ignore_errors=True)
+    phase_done("process group")
     serving, (serve_dests, serve_sums) = query_serving_phase(torch, smi=smi)
     for k in ("radix_partition", "segmented_sum"):
         check(serving["concurrent"]["launches"][k] > 0, f"{k} never "

@@ -129,7 +129,8 @@ def _spill_rows(table: Any, want: Sequence[str], limit: Optional[int]
                 ) -> Dict[str, List[np.ndarray]]:
     """A ``SpillTable``'s sampled rows, read out of each rank's chunks in
     place (the positions of ``rank_concat``'s rows, without building
-    it)."""
+    it).  Over a process group (``table.comm``) each process samples the
+    ranks it holds and every rank's sample is gathered, in rank order."""
     out: Dict[str, List[np.ndarray]] = {c: [] for c in want}
     for r in range(table.parallelism):
         chunks = table.rank_chunks(r)
@@ -143,6 +144,9 @@ def _spill_rows(table: Any, want: Sequence[str], limit: Optional[int]
             local = idx[which == i] - bounds[i]
             for c in want:
                 out[c].append(np.asarray(chunks[i][c])[local])
+    if getattr(table, "comm", None) is not None:
+        parts = table.comm.gather_object(out)
+        out = {c: [a for part in parts for a in part[c]] for c in want}
     return out
 
 

@@ -44,6 +44,15 @@ Nothing falls back from one transport or schedule to another.  Create the
 group with a timeout (``init_process_group(timeout=...)``) so that a
 mismatched collective fails instead of hanging.
 
+Host-side exchanges (the out-of-core executor's and the ingest's: spill
+rows routed to another process's rank, splitter samples, dictionaries,
+the fault agreement) move numpy data through the same group:
+``exchange_rows`` (one variable-size all-to-all of the rows' bytes),
+``gather_object`` and ``gather_ints`` (an all-gather of a few integers,
+from which every process takes the same decision).
+Under gloo they run on host tensors; under NCCL through the card.
+``stats["host_s"]`` adds up their seconds.
+
 The all-to-all and the point-to-point steps of the ring and Bruck
 schedules are differentiable: each is a permutation of blocks across
 ranks, whose gradient is the inverse permutation (the all-to-all and a
@@ -55,8 +64,9 @@ from __future__ import annotations
 
 import time
 import warnings
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .bruck import BruckCommunicator
@@ -124,8 +134,12 @@ class ProcessGroupCommunicator(StackedCommunicator):
         self.me = dist.get_rank(self.group)
         self.backend = str(dist.get_backend(self.group)).lower()
         #: "staged_s": seconds spent in host-staged collectives (gloo with
-        #: card tensors), copies included
-        self.stats = {"staged_s": 0.0}
+        #: card tensors), copies included; "host_s": seconds in the
+        #: host-side exchanges (``exchange_rows``, ``gather_object``,
+        #: ``gather_ints``); "host_calls": the host-side collectives those
+        #: ran (an ``exchange_rows`` is two: its counts' all-gather and
+        #: its all-to-all)
+        self.stats = {"staged_s": 0.0, "host_s": 0.0, "host_calls": 0}
 
     # ------------------------------------------------------------------ #
     def ranks_held(self) -> int:
@@ -196,6 +210,81 @@ class ProcessGroupCommunicator(StackedCommunicator):
 
         self._run(op, [dst], [src])
         return _from_bytes(dst, x.dtype, x.shape)
+
+    # -- host-side exchanges ---------------------------------------------- #
+    def _host_device(self) -> torch.device:
+        """Where a host exchange's tensors go: the CPU, or the process's
+        card under NCCL (which moves card tensors only)."""
+        if self.backend == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def gather_ints(self, values: Sequence[int]) -> np.ndarray:
+        """(p, len(values)) int64: every process's ``values``, in rank
+        order."""
+        t0 = time.perf_counter()
+        dev = self._host_device()
+        x = torch.as_tensor(np.asarray(values, np.int64)).reshape(-1)
+        out = torch.empty((self.parallelism * x.numel(),), dtype=torch.int64,
+                          device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            _dist().all_gather_into_tensor(out, x.to(dev), group=self.group)
+        got = out.cpu().numpy().reshape(self.parallelism, x.numel())
+        self.stats["host_s"] += time.perf_counter() - t0
+        self.stats["host_calls"] += 1
+        return got
+
+    def gather_object(self, obj) -> List:
+        """Every process's ``obj`` (picklable), in rank order."""
+        out: List = [None] * self.parallelism
+        t0 = time.perf_counter()
+        _dist().all_gather_object(out, obj, group=self.group)
+        self.stats["host_s"] += time.perf_counter() - t0
+        self.stats["host_calls"] += 1
+        return out
+
+    def exchange_rows(self, pieces: Sequence[Optional[Mapping[str,
+                                                             np.ndarray]]],
+                      schema: Mapping[str, Tuple[np.dtype, Tuple[int, ...]]]
+                      ) -> List[Dict[str, np.ndarray]]:
+        """Host rows to every process's rank: ``pieces[j]`` (columns of
+        ``schema``, or None for no rows) goes to rank ``j``.  Returns what
+        each rank sent this one, in rank order (empty columns where it
+        sent none).  One all-to-all of the rows' bytes, after one
+        all-gather of the row counts."""
+        dist = _dist()
+        p, dev = self.parallelism, self._host_device()
+        names = sorted(schema)
+        width = {n: np.dtype(d).itemsize * int(np.prod(s, dtype=np.int64))
+                 for n, (d, s) in schema.items()}
+        row_bytes = sum(width.values())
+        sent = [len(pc[names[0]]) if pc else 0 for pc in pieces]
+        got = self.gather_ints(sent)[:, self.me].tolist()
+        t0 = time.perf_counter()
+        parts = [np.ascontiguousarray(pc[n]).reshape(-1).view(np.uint8)
+                 for pc, k in zip(pieces, sent) if k for n in names]
+        send = torch.from_numpy(np.concatenate(parts) if parts
+                                else np.zeros((0,), np.uint8)).to(dev)
+        recv = torch.empty((sum(got) * row_bytes,), dtype=torch.uint8,
+                           device=dev)
+        dist.all_to_all_single(recv, send, [k * row_bytes for k in got],
+                               [k * row_bytes for k in sent],
+                               group=self.group)
+        flat = recv.cpu().numpy()
+        out, at = [], 0
+        for k in got:
+            cols = {}
+            for n in names:
+                d, s = schema[n]
+                nb = k * width[n]
+                cols[n] = flat[at:at + nb].view(np.dtype(d)).reshape(
+                    (k,) + tuple(s))
+                at += nb
+            out.append(cols)
+        self.stats["host_s"] += time.perf_counter() - t0
+        self.stats["host_calls"] += 1
+        return out
 
     # -- cross-rank steps of the ring and Bruck schedules ----------------- #
     def _shift(self, x: torch.Tensor, k: int) -> torch.Tensor:

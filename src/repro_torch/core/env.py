@@ -12,8 +12,12 @@ them as one batched ``dataframe.Table``.  Over a ``torch.distributed``
 process group (``CylonEnv(process_group=...)``) each process holds one
 rank: its tables hold ``(1, capacity, ...)`` columns, the rows that rank
 holds when stacked, and the communicator moves rows between processes.
-Entry points run on ``cuda`` unless the caller asks for the CPU; with no
-card they raise rather than fall back.
+Every path runs over a group: in-core plans, out-of-core morsels (each
+process streams the ranks it holds, ``MorselSource``), spill scans and
+file ingest, retries and deadlines (every fault site visit ends in one
+agreement over the group, ``faults.GroupFaults``).  Entry points run on
+``cuda`` unless the caller asks for the CPU; with no card they raise
+rather than fall back.
 
 Serving (``DevicePool``, ``Lease``): a pool slot is one *rank slot* on a
 device (``RankSlot``).  A gang of ``g`` slots leased from the pool is a
@@ -234,6 +238,12 @@ class MorselSource:
     single cache entry — processes every morsel.  64-bit columns narrow
     on the way up (``dtypes.to_x32``).
 
+    Over a process group (an env whose communicator holds one rank, or a
+    spill over the group) the source streams the ranks this process
+    holds, and yields the group's number of morsels: that of the group's
+    widest rank, with empty morsels where this process has run out of
+    rows, so every process makes the same collectives.
+
     On a card the transfers are **double-buffered**: two sets of pinned
     host staging buffers, and a copy stream that uploads them with
     asynchronous copies.  Morsel ``m+1``'s upload is enqueued before
@@ -259,11 +269,14 @@ class MorselSource:
                  parallelism: Optional[int] = None, device=None,
                  tracer=None, faults=None, token=None):
         from .store import SpillTable  # deferred: store imports env
+        comm = env.comm if env is not None else None
         if isinstance(source, DistTable):
             source = SpillTable.from_dist(source)
         elif isinstance(source, dict):
             p = parallelism or (env.parallelism if env is not None else 1)
-            source = SpillTable.from_numpy(source, p)
+            source = SpillTable.from_numpy(source, p, comm=comm)
+        else:
+            source = source.select(comm)
         self.spill = source
         self.parallelism = source.parallelism
         if morsel_rows < 1:

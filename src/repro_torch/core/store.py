@@ -17,13 +17,21 @@ narrow (``dtypes.to_x32``) only where rows go up to the device, which is
 where ``jnp.asarray`` narrows them there.  Rows that come down from a card
 land in reusable pinned staging buffers and are copied out into pageable
 chunks (``fetch_valid``).
+
+Over a ``torch.distributed`` process group a ``SpillTable`` holds only
+the ranks its process holds (``comm``, as ``DistTable.comm``): the rows
+rank r holds when every rank is stacked.  What needs every rank's rows
+counts them over the group (``num_morsels``, ``total_rows``), and rows
+routed to another process's rank (``respill_routed``, ``rescatter``)
+travel through the communicator's host exchange, so every process ends
+with exactly the rows, in the order, that rank r gets when stacked.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -123,10 +131,15 @@ class SpillTable:
     def __init__(self, parallelism: int,
                  schema: Optional[Mapping[str, Tuple[np.dtype, Tuple[int, ...]]]]
                  = None,
-                 dictionaries: Optional[Mapping[str, Tuple[str, ...]]] = None):
+                 dictionaries: Optional[Mapping[str, Tuple[str, ...]]] = None,
+                 comm: Optional[Any] = None):
         if parallelism < 1:
             raise ValueError(f"parallelism must be >= 1, got {parallelism}")
+        #: the ranks held here (every rank, or those of ``comm``)
         self.parallelism = parallelism
+        #: a process-group communicator when this process holds only some
+        #: of the table's ranks (``comm.rank()``); None when it holds all
+        self.comm = comm
         self.dictionaries: Dict[str, Tuple[str, ...]] = \
             dict(dictionaries or {})
         #: ``repro_torch.io.IngestInfo`` when read from Parquet/CSV, else None
@@ -171,6 +184,42 @@ class SpillTable:
         self._chunks[rank].append(cols)
         return sum(v.nbytes for v in cols.values())
 
+    # -- ranks ---------------------------------------------------------- #
+    @property
+    def size(self) -> int:
+        """Ranks in all (the group's size over a process group)."""
+        return self.comm.size() if self.comm is not None else self.parallelism
+
+    def held(self) -> List[int]:
+        """The global index of each rank held here."""
+        if self.comm is None:
+            return list(range(self.parallelism))
+        return [int(r) for r in self.comm.rank().tolist()]
+
+    def world_rows(self) -> np.ndarray:
+        """(size,) rows of every rank; over a process group a collective
+        every process must call."""
+        mine = [self.rank_rows(r) for r in range(self.parallelism)]
+        if self.comm is None:
+            return np.asarray(mine, np.int64)
+        return self.comm.gather_ints(mine).reshape(-1)
+
+    def select(self, comm: Any) -> "SpillTable":
+        """The ranks ``comm`` holds of this whole table (every process of
+        a group given the same table keeps its own ranks)."""
+        if self.comm is not None or comm is None or \
+                comm.ranks_held() == comm.size():
+            return self
+        if comm.size() != self.parallelism:
+            raise ValueError(f"a spill of {self.parallelism} ranks for a "
+                             f"group of {comm.size()}")
+        held = [int(r) for r in comm.rank().tolist()]
+        out = SpillTable(len(held), schema=self.schema or None,
+                         dictionaries=self.dictionaries, comm=comm)
+        out.provenance = self.provenance
+        out._chunks = [list(self._chunks[r]) for r in held]
+        return out
+
     # -- reading -------------------------------------------------------- #
     def rank_chunks(self, rank: int) -> Tuple[Dict[str, np.ndarray], ...]:
         return tuple(self._chunks[rank])
@@ -179,6 +228,9 @@ class SpillTable:
         return sum(len(next(iter(c.values()))) for c in self._chunks[rank])
 
     def total_rows(self) -> int:
+        """Every rank's rows (over a process group: a collective)."""
+        if self.comm is not None:
+            return int(self.world_rows().sum())
         return sum(self.rank_rows(r) for r in range(self.parallelism))
 
     def nbytes(self) -> int:
@@ -204,7 +256,9 @@ class SpillTable:
         numpy string arrays; ``decode=False`` returns the raw codes.
         ``nulls="pandas"`` (default) re-materializes ``__m_*`` validity
         masks as NaN / ``None``; ``nulls="mask"`` returns the raw physical
-        layout (canonical-zero data + bool masks) for bit-identity checks."""
+        layout (canonical-zero data + bool masks) for bit-identity checks.
+        Over a process group: the ranks this process holds
+        (``gather_numpy`` gives every rank's)."""
         if nulls not in ("pandas", "mask"):
             raise ValueError(f"nulls must be 'pandas' or 'mask', got {nulls!r}")
         parts = [self.rank_concat(r) for r in range(self.parallelism)]
@@ -219,19 +273,38 @@ class SpillTable:
             out = apply_null_columns(out)
         return out
 
+    def gather_numpy(self, decode: bool = True, nulls: str = "pandas"
+                     ) -> Dict[str, np.ndarray]:
+        """``to_numpy`` of every rank, on every process of the group (a
+        collective): what ``to_numpy`` gives when the ranks are stacked."""
+        if self.comm is None:
+            return self.to_numpy(decode=decode, nulls=nulls)
+        whole = SpillTable(self.size, schema=self.schema or None,
+                           dictionaries=self.dictionaries)
+        for r, part in enumerate(self.comm.gather_object(
+                self.to_numpy(decode=False, nulls="mask"))):
+            if part and len(next(iter(part.values()))):
+                whole.append(r, part)
+        return whole.to_numpy(decode=decode, nulls=nulls)
+
     def num_morsels(self, morsel_rows: int) -> int:
-        """Morsels needed to stream the widest rank at ``morsel_rows`` each."""
-        widest = max(self.rank_rows(r) for r in range(self.parallelism))
+        """Morsels needed to stream the widest rank at ``morsel_rows`` each
+        (over a process group the widest rank of the group, so every
+        process streams the same number)."""
+        widest = int(self.world_rows().max())
         return max(1, -(-widest // max(1, morsel_rows)))
 
     # -- constructors ---------------------------------------------------- #
     @classmethod
     def from_numpy(cls, data: Mapping[str, np.ndarray], parallelism: int,
-                   chunk_rows: Optional[int] = None) -> "SpillTable":
+                   chunk_rows: Optional[int] = None,
+                   comm: Optional[Any] = None) -> "SpillTable":
         """Block-distribute host rows over ``parallelism`` rank buckets,
         optionally pre-chunked into ``chunk_rows``-row pieces.  String
         columns are dictionary-encoded (chunks hold int32 codes); every
-        other column keeps its host dtype."""
+        other column keeps its host dtype.  With ``comm``, a process-group
+        communicator, only the ranks this process holds are kept (``data``
+        is the whole table on every process)."""
         data = {k: np.asarray(v) for k, v in data.items()}
         if not data:
             raise ValueError("need at least one column")
@@ -248,7 +321,7 @@ class SpillTable:
             step = chunk_rows or max(rows, 1)
             for s in range(0, rows, step):
                 out.append(r, {k: v[s:s + step] for k, v in block.items()})
-        return out
+        return out.select(comm)
 
     @classmethod
     def from_dist(cls, table: DistTable) -> "SpillTable":
@@ -257,7 +330,7 @@ class SpillTable:
         out = cls(table.parallelism,
                   schema={k: (v.dtype, v.shape[1:])
                           for k, v in rows[0].items()},
-                  dictionaries=table.dictionaries)
+                  dictionaries=table.dictionaries, comm=table.comm)
         out.provenance = table.provenance
         for r, chunk in enumerate(rows):
             if counts[r]:
@@ -337,16 +410,18 @@ class Checkpoint:
         return self.spill
 
 
-def _route_chunks(spill: SpillTable, parallelism: int
+def _route_chunks(spill: SpillTable, parallelism: int, rows: np.ndarray
                   ) -> List[List[Dict[str, np.ndarray]]]:
-    """Block-route every chunk's rows to per-destination bucket lists by
-    global offset (each chunk slices across at most a few destinations).
-    The single routing loop behind both ``respill`` and ``rescatter``."""
-    n = spill.total_rows()
-    per = -(-max(n, 1) // parallelism)
+    """Block-route every held chunk's rows to per-destination bucket lists
+    by global offset (each chunk slices across at most a few
+    destinations); ``rows`` is every rank's row count
+    (``spill.world_rows()``), so a held rank's rows start after every
+    earlier rank's.  The single routing loop behind both ``respill`` and
+    ``rescatter``."""
+    per = -(-max(int(rows.sum()), 1) // parallelism)
     buckets: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(parallelism)]
-    g = 0
-    for r in range(spill.parallelism):
+    for r, rank in enumerate(spill.held()):
+        g = int(rows[:rank].sum())
         for chunk in spill.rank_chunks(r):
             m = len(next(iter(chunk.values())))
             start = 0
@@ -365,16 +440,21 @@ def respill(spill: SpillTable, parallelism: int,
     """Re-bucket a SpillTable to a different gang size, chunk by chunk.
 
     Host-only (no device materialization — the spill may not fit a
-    ``DistTable``).  ``tracer`` records a span with rows/bytes moved."""
-    if parallelism == spill.parallelism:
+    ``DistTable``).  ``tracer`` records a span with rows/bytes moved.  A
+    spill over a process group keeps its gang size."""
+    if parallelism == spill.size:
         return spill
+    if spill.comm is not None:
+        raise ValueError(f"a spill over a process group of {spill.size} "
+                         f"ranks cannot be re-bucketed to {parallelism}")
     with tracer.span("respill", "spill", from_p=spill.parallelism,
                      to_p=parallelism, rows=spill.total_rows(),
                      bytes=spill.nbytes()):
         out = SpillTable(parallelism, schema=spill.schema or None,
                          dictionaries=spill.dictionaries)
         out.provenance = spill.provenance
-        for dest, pieces in enumerate(_route_chunks(spill, parallelism)):
+        for dest, pieces in enumerate(
+                _route_chunks(spill, parallelism, spill.world_rows())):
             for piece in pieces:
                 out.append(dest, piece)
     return out
@@ -387,12 +467,17 @@ def respill_routed(spill: SpillTable, dest_of,
     ``dest_of(cols: Dict[str, np.ndarray]) -> np.ndarray[int]`` maps one
     chunk's columns to destination ranks; the routing itself stays a
     host-only chunk-by-chunk pass like ``respill`` (peak extra memory is
-    one chunk).  ``tracer`` records a span with rows/bytes moved."""
-    with tracer.span("respill-routed", "spill", p=spill.parallelism,
+    one chunk).  ``tracer`` records a span with rows/bytes moved.  Over a
+    process group the rows bound for another process's rank go through
+    the communicator's host exchange; each rank receives its rows in the
+    stacked order (by source rank, then chunk)."""
+    with tracer.span("respill-routed", "spill", p=spill.size,
                      rows=spill.total_rows(), bytes=spill.nbytes()):
         out = SpillTable(spill.parallelism, schema=spill.schema or None,
-                         dictionaries=spill.dictionaries)
+                         dictionaries=spill.dictionaries, comm=spill.comm)
         out.provenance = spill.provenance
+        pieces: List[List[Dict[str, np.ndarray]]] = \
+            [[] for _ in range(spill.size)]
         for r in range(spill.parallelism):
             for chunk in spill.rank_chunks(r):
                 dest = np.asarray(dest_of(chunk))
@@ -401,9 +486,31 @@ def respill_routed(spill: SpillTable, dest_of,
                     raise ValueError("dest_of must return one rank per row")
                 for d in np.unique(dest):
                     sel = dest == d
-                    out.append(int(d),
-                               {k: v[sel] for k, v in chunk.items()})
+                    pieces[int(d)].append(
+                        {k: v[sel] for k, v in chunk.items()})
+        if spill.comm is None:
+            for d, parts in enumerate(pieces):
+                for piece in parts:
+                    out.append(d, piece)
+        else:
+            for piece in _exchange(spill, pieces):
+                out.append(0, piece)
     return out
+
+
+def _exchange(spill: SpillTable,
+              pieces: Sequence[Sequence[Dict[str, np.ndarray]]]
+              ) -> List[Dict[str, np.ndarray]]:
+    """Send ``pieces[d]`` (chunks, in order) to rank ``d`` over the
+    spill's process group; returns the chunks this process's rank
+    receives, in source-rank order."""
+    schema = spill.schema
+    if not schema:      # no columns anywhere: nothing to move
+        return []
+    got = spill.comm.exchange_rows(
+        [{k: np.concatenate([c[k] for c in parts], axis=0) for k in schema}
+         if parts else None for parts in pieces], schema)
+    return [g for g in got if len(next(iter(g.values())))]
 
 
 # ---------------------------------------------------------------------- #
@@ -411,7 +518,7 @@ def respill_routed(spill: SpillTable, dest_of,
 # ---------------------------------------------------------------------- #
 def rescatter(spill: SpillTable, parallelism: int,
               capacity: Optional[int] = None, device=None,
-              tracer=NULL_TRACER) -> DistTable:
+              tracer=NULL_TRACER, comm: Optional[Any] = None) -> DistTable:
     """SpillTable -> DistTable over a (possibly different) gang size, on
     ``device`` (``None``: the card).
 
@@ -421,30 +528,47 @@ def rescatter(spill: SpillTable, parallelism: int,
     destination rank, not the whole table.  64-bit columns narrow on the
     way up (``dtypes.to_x32``).  ``tracer`` records the H2D volume as an
     instant event.
+
+    Over a process group only the ranks this process holds are built: of
+    a spill over the group (``spill.comm``) whose rows are routed through
+    the communicator's host exchange, or of a whole spill given to every
+    process (``comm``: the group's communicator).
     """
+    if spill.comm is not None and parallelism != spill.size:
+        raise ValueError(f"a spill over a process group of {spill.size} "
+                         f"ranks cannot be scattered to {parallelism}")
     dev = resolve_device(device)
-    tracer.instant("rescatter", "transfer", to_p=parallelism,
-                   rows=spill.total_rows(), bytes=spill.nbytes())
-    n = spill.total_rows()
+    rows = spill.world_rows()
+    n = int(rows.sum())
+    tracer.instant("rescatter", "transfer", to_p=parallelism, rows=n,
+                   bytes=spill.nbytes())
     per = -(-max(n, 1) // parallelism)
     cap = capacity if capacity is not None else _round8(per)
     if per > cap and n > 0:
         raise ValueError(f"rows/shard {per} exceeds capacity {cap}")
-    buckets = _route_chunks(spill, parallelism)
+    buckets = _route_chunks(spill, parallelism, rows)
+    if spill.comm is not None:
+        comm = spill.comm
+        buckets = [_exchange(spill, buckets)]
+    elif comm is not None and comm.ranks_held() < comm.size():
+        buckets = [buckets[r] for r in comm.rank().tolist()]
+    else:
+        comm = None
     cols: Dict[str, torch.Tensor] = {}
-    counts = np.zeros((parallelism,), np.int32)
+    counts = np.zeros((len(buckets),), np.int32)
     for name, (dtype, trail) in spill.schema.items():
-        buf = np.zeros((parallelism, cap) + trail, x32_dtype(dtype))
-        for d in range(parallelism):
+        buf = np.zeros((len(buckets), cap) + trail, x32_dtype(dtype))
+        for d, pieces in enumerate(buckets):
             pos = 0
-            for piece in buckets[d]:
+            for piece in pieces:
                 v = to_x32(piece[name])
                 buf[d, pos:pos + len(v)] = v
                 pos += len(v)
             counts[d] = pos
         cols[name] = torch.from_numpy(buf).to(dev)
     return DistTable(cols, torch.from_numpy(counts).to(dev), cap,
-                     dict(spill.dictionaries), provenance=spill.provenance)
+                     dict(spill.dictionaries), provenance=spill.provenance,
+                     comm=comm)
 
 
 def repartition(table: Union[DistTable, SpillTable], parallelism: int,

@@ -460,7 +460,8 @@ def read_numpy(data: Mapping[str, np.ndarray], *,
         if capacity is not None:
             raise TypeError("capacity only applies to device tables "
                             "(spill=False); use chunk_rows for spills")
-        table: Any = SpillTable.from_numpy(data, p, chunk_rows=chunk_rows)
+        table: Any = SpillTable.from_numpy(data, p, chunk_rows=chunk_rows,
+                                           comm=comm)
     else:
         if chunk_rows is not None:
             raise TypeError("chunk_rows only applies with spill=True")
@@ -497,11 +498,13 @@ def read_parquet(source, *, env: Optional[CylonEnv] = None,
     validity masks (NaN / ``None`` on the way back out); string columns
     are dictionary-encoded incrementally, with a process-level dictionary
     cache keyed by the source files.  Requires pyarrow (``read_csv`` does
-    not)."""
+    not).  Over a process group every process reads the same files and
+    keeps the batches of the rank it holds (a collective)."""
     from ..io import read_parquet as _read
     if batch_rows is not None:
         kw["batch_rows"] = batch_rows
-    spill = _read(source, _resolve_target(env)[0], columns=columns, **kw)
+    p, _, comm = _resolve_target(env)
+    spill = _read(source, p, columns=columns, comm=comm, **kw)
     return from_table(spill, name, env)
 
 
@@ -515,7 +518,8 @@ def read_csv(source, *, env: Optional[CylonEnv] = None,
     from ..io import read_csv as _read
     if batch_rows is not None:
         kw["batch_rows"] = batch_rows
-    spill = _read(source, _resolve_target(env)[0], **kw)
+    p, _, comm = _resolve_target(env)
+    spill = _read(source, p, comm=comm, **kw)
     return from_table(spill, name, env)
 
 

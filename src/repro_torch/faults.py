@@ -34,6 +34,20 @@ backoff in both packages.
 All injection and recovery is **host-side**: no site check runs inside a
 stage callable, so with injection disabled the stage-cache keys are
 identical to a build without the harness.
+
+* **Over a process group** — each process runs its own ``FaultRun`` and
+  deadline, so a fault or an expired deadline may hit one process alone
+  while the others go on into a collective it never joins.
+  ``GroupFaults`` makes every site visit end in one agreement over the
+  group (an all-gather of "this visit failed, and how"): when any
+  process faults, every process raises there (``PeerFault`` where it did
+  not fault itself) and every process discards and replays the unit
+  together, so ``ExecStats.retries`` is equal on every process; an
+  expired deadline anywhere raises ``QueryTimeout`` everywhere.  The
+  executors' own deadline checks then defer to those agreements
+  (``AgreedToken``).  The visits are made from counts the group agrees
+  on (morsels, sub-buckets, segments), so every process makes the same
+  ones.
 """
 
 from __future__ import annotations
@@ -47,7 +61,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from . import flags
 
 __all__ = [
-    "SITES", "FaultError", "InjectedFault", "QueryTimeout", "QueryCancelled",
+    "SITES", "FaultError", "InjectedFault", "PeerFault", "QueryTimeout",
+    "QueryCancelled", "GroupFaults", "AgreedToken", "over_group",
     "CapacityOverflow", "FaultSpec", "FaultPlan", "FaultRun", "NULL_FAULTS",
     "parse_fault_plan", "random_plan", "resolve_faults",
     "RetryPolicy", "resolve_retry", "CancellationToken", "resolve_token",
@@ -87,6 +102,15 @@ class InjectedFault(FaultError):
 
     def __init__(self, site: str, message: str = ""):
         super().__init__(message or f"injected fault at {site}")
+        self.site = site
+
+
+class PeerFault(FaultError):
+    """Another process of the group faulted at this site visit: this one
+    replays the unit with it (``GroupFaults``)."""
+
+    def __init__(self, site: str, message: str = ""):
+        super().__init__(message or f"a peer process faulted at {site}")
         self.site = site
 
 
@@ -523,3 +547,110 @@ def run_with_retries(fn, *, policy: RetryPolicy,
             if tracer is not None and tracer.enabled:
                 tracer.instant(f"retry:{label or 'unit'}", "retry",
                                attempt=attempt, error=str(e))
+
+
+# ---------------------------------------------------------------------- #
+# Over a process group: one agreement per site visit
+# ---------------------------------------------------------------------- #
+#: agreement codes, in order of precedence (the group takes the largest)
+_OK, _FAULT, _TIMEOUT, _CANCELLED = 0, 1, 2, 3
+
+
+class AgreedToken(CancellationToken):
+    """The executors' token over a process group: its own ``check`` does
+    nothing, because a deadline that expires between two collectives on
+    one process alone would leave the others blocked in the next one.
+    The wrapped token's deadline is checked at every site visit instead,
+    where the group agrees (``GroupFaults``)."""
+
+    def __init__(self, token: CancellationToken):
+        super().__init__(None)
+        self.inner = token
+        self.timeout = token.timeout
+
+    @property
+    def cancelled(self) -> bool:
+        return self.inner.cancelled
+
+    def remaining(self) -> Optional[float]:
+        return self.inner.remaining()
+
+    def check(self, where: str = "") -> None:
+        return None
+
+
+class GroupFaults:
+    """A ``FaultRun`` (or ``NULL_FAULTS``) and a deadline over a process
+    group: every ``check`` / ``capacity`` visit fires the process's own
+    faults, checks its deadline, then agrees with the group (one
+    all-gather of a code and the capacity).  Every process then raises
+    alike — its own ``InjectedFault``, else a ``PeerFault``; a
+    ``QueryTimeout`` / ``QueryCancelled`` anywhere wins over a fault — or
+    takes the group's smallest capacity, so a ``corrupt-capacity`` on one
+    process shrinks every process's buffers alike.  A ``hang`` blocks its
+    process until its deadline, while the others wait in the agreement,
+    so the group's collective timeout must exceed the query's."""
+
+    enabled = True
+
+    def __init__(self, inner, token: CancellationToken, comm):
+        self.inner = inner
+        self.token = token
+        self.comm = comm
+
+    def __bool__(self) -> bool:
+        return True
+
+    @property
+    def injected(self) -> int:
+        return self.inner.injected
+
+    def _visit(self, site: str, fire, value: int, idx: Dict[str, Any]
+               ) -> int:
+        code, err = _OK, None
+        try:
+            value = fire()
+            self.token.check(site)
+        except InjectedFault as e:
+            code, err = _FAULT, e
+        except QueryTimeout as e:
+            code, err = _TIMEOUT, e
+        except QueryCancelled as e:
+            code, err = _CANCELLED, e
+        every = self.comm.gather_ints([code, value])
+        got = int(every[:, 0].max())
+        if got == _OK:
+            return int(every[:, 1].min())
+        if err is not None and code == got:
+            raise err
+        where = site + (f" {idx}" if idx else "")
+        if got == _FAULT:
+            raise PeerFault(site, f"a peer process faulted at {where}")
+        if got == _TIMEOUT:
+            raise QueryTimeout(f"query deadline ({self.token.timeout}s) "
+                               f"passed on a peer process at {where}")
+        raise QueryCancelled(f"query cancelled on a peer process at {where}")
+
+    def check(self, site: str, token: Any = None, **idx: Any) -> None:
+        self._visit(site, lambda: self.inner.check(site, token=self.token,
+                                                   **idx) or 0, 0, idx)
+
+    def capacity(self, site: str, value: int, token: Any = None,
+                 **idx: Any) -> int:
+        return self._visit(site, lambda: self.inner.capacity(
+            site, value, token=self.token, **idx), value, idx)
+
+
+def over_group(faults, token: CancellationToken, comm):
+    """``(faults, token)`` for an executor on ``comm``: over a process
+    group where any process arms a fault plan or a deadline (agreed
+    once, so every process wraps alike), ``GroupFaults`` and an
+    ``AgreedToken``; otherwise both unchanged."""
+    if isinstance(faults, GroupFaults) or comm is None or \
+            comm.ranks_held() == comm.size():
+        return faults, token
+    armed = bool(faults) or token.deadline is not None or \
+        token.parent is not None
+    if not comm.gather_ints([int(armed)]).any():
+        return faults, token
+    return GroupFaults(faults, token, comm), AgreedToken(token)

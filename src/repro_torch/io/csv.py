@@ -63,6 +63,15 @@ def _infer_kinds(header: Sequence[str], rows: Sequence[Sequence[str]]
     return kinds
 
 
+def _settle_kinds(header: Sequence[str], rows: List[Sequence[str]],
+                  kinds: Dict[str, Optional[str]]) -> None:
+    """Decide still-undecided column kinds from this block if it has data
+    (every block passes through here, also those another process keeps)."""
+    for j, name in enumerate(header):
+        if kinds[name] is None:
+            kinds[name] = _infer_kinds([name], [(r[j],) for r in rows])[name]
+
+
 def _convert_block(header: Sequence[str], rows: List[Sequence[str]],
                    kinds: Dict[str, Optional[str]]
                    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
@@ -72,12 +81,9 @@ def _convert_block(header: Sequence[str], rows: List[Sequence[str]],
     cols: Dict[str, np.ndarray] = {}
     valids: Dict[str, np.ndarray] = {}
     n = len(rows)
+    _settle_kinds(header, rows, kinds)
     for j, name in enumerate(header):
         kind = kinds[name]
-        if kind is None:
-            # still undecided: upgrade from this block if it has data
-            kind = _infer_kinds([name], [(r[j],) for r in rows])[name]
-            kinds[name] = kind
         raw = [r[j] for r in rows]
         valid = np.fromiter((v != "" for v in raw), dtype=bool, count=n)
         if kind == "str" or kind is None:
@@ -107,11 +113,20 @@ def _convert_block(header: Sequence[str], rows: List[Sequence[str]],
     return cols, valids
 
 
+def _add_block(builder: TableBuilder, header: Sequence[str],
+               block: List[Sequence[str]],
+               kinds: Dict[str, Optional[str]]) -> None:
+    if builder.wants_next():
+        builder.add_batch(*_convert_block(header, block, kinds))
+    else:
+        _settle_kinds(header, block, kinds)
+        builder.skip_batch()
+
+
 def _read_csv_python(files: Sequence[str], builder: TableBuilder,
-                     batch_rows: int) -> int:
-    """Stream files through the stdlib csv reader; returns batch count."""
+                     batch_rows: int) -> None:
+    """Stream files through the stdlib csv reader."""
     import csv as _csv
-    batches = 0
     header: Optional[List[str]] = None
     kinds: Optional[Dict[str, Optional[str]]] = None
     for f in files:
@@ -135,24 +150,20 @@ def _read_csv_python(files: Sequence[str], builder: TableBuilder,
                 if len(block) >= batch_rows:
                     if kinds is None:
                         kinds = _infer_kinds(header, block)
-                    builder.add_batch(*_convert_block(header, block, kinds))
-                    batches += 1
+                    _add_block(builder, header, block, kinds)
                     block = []
             if block:
                 if kinds is None:
                     kinds = _infer_kinds(header, block)
-                builder.add_batch(*_convert_block(header, block, kinds))
-                batches += 1
-    return batches
+                _add_block(builder, header, block, kinds)
 
 
 # ---------------------------------------------------------------------- #
 # pyarrow lane
 # ---------------------------------------------------------------------- #
 def _read_csv_arrow(files: Sequence[str], builder: TableBuilder,
-                    block_bytes: int) -> int:
+                    block_bytes: int) -> None:
     import pyarrow.csv as pacsv
-    batches = 0
     ropts = pacsv.ReadOptions(block_size=max(1 << 10, block_bytes))
     copts = pacsv.ConvertOptions(strings_can_be_null=True)
     for f in files:
@@ -161,18 +172,18 @@ def _read_csv_arrow(files: Sequence[str], builder: TableBuilder,
             for batch in reader:
                 if batch.num_rows == 0:
                     continue
-                cols, valids = arrow_batch_columns(batch)
-                builder.add_batch(cols, valids)
-                batches += 1
-    return batches
+                if builder.wants_next():
+                    builder.add_batch(*arrow_batch_columns(batch))
+                else:
+                    builder.skip_batch()
 
 
 def read_csv(source: Union[str, os.PathLike, Sequence],
              parallelism: int, *,
              batch_rows: int = DEFAULT_BATCH_ROWS,
              block_bytes: int = DEFAULT_BLOCK_BYTES,
-             dict_cache: Optional[DictionaryCache] = DICT_CACHE
-             ) -> SpillTable:
+             dict_cache: Optional[DictionaryCache] = DICT_CACHE,
+             comm=None) -> SpillTable:
     """Read CSV file(s) (with a header row) into a round-robin
     ``SpillTable``.
 
@@ -181,7 +192,7 @@ def read_csv(source: Union[str, os.PathLike, Sequence],
     column type (``__m_*`` masks, canonical-zero slots).  The pyarrow
     streaming reader is used when available (``block_bytes`` per batch);
     otherwise a pure-python lane streams ``batch_rows`` rows at a time.
-    ``dict_cache`` works as in ``read_parquet``.
+    ``dict_cache`` and ``comm`` work as in ``read_parquet``.
     """
     files = expand_paths(source)
     key = None
@@ -189,16 +200,17 @@ def read_csv(source: Union[str, os.PathLike, Sequence],
     if dict_cache is not None:
         key = source_key(files)
         cached = dict_cache.get(key)
-    builder = TableBuilder(parallelism, cached_dicts=cached)
+    builder = TableBuilder(parallelism, cached_dicts=cached, comm=comm)
     if have_pyarrow():
-        batches = _read_csv_arrow(files, builder, block_bytes)
+        _read_csv_arrow(files, builder, block_bytes)
     else:
-        batches = _read_csv_python(files, builder, batch_rows)
+        _read_csv_python(files, builder, batch_rows)
     spill = builder.finalize()
     if dict_cache is not None and builder._string_cols:
         dict_cache.put(key, spill.dictionaries)
     spill.provenance = IngestInfo(
         format="csv", files=files, rows=builder.rows,
-        bytes_read=sum(os.path.getsize(f) for f in files), batches=batches,
+        bytes_read=sum(os.path.getsize(f) for f in files),
+        batches=builder.batches,
         recodes=builder.recodes, dict_cache_hit=cached is not None)
     return spill

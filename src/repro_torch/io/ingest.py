@@ -28,6 +28,17 @@ signature* (paths + sizes + mtimes): a second read of an unchanged source
 starts from its final dictionaries, so every chunk is encoded against the
 complete dictionary up front and ``finalize`` performs **zero recodes**
 (``IngestInfo.recodes == 0`` — asserted by the multi-device parity script).
+
+Over a ``torch.distributed`` process group (``comm``) every process is
+given the same files and keeps the batches ``i % p`` of the rank it
+holds: a CSV reader parses every block and converts only its own, a
+Parquet reader gets its own from the processes that decoded their row
+groups (``parquet._shared_batches``).  A sorted
+dictionary is the sorted set of every value, so ``finalize`` takes the
+union of the processes' dictionaries (and their column types and null
+masks) and recodes its chunks onto it: every process ends with the
+stacked read's dictionaries and codes, and its rank's rows.  The
+``IngestInfo`` counts are the group's (rows, batches and recodes summed).
 """
 
 from __future__ import annotations
@@ -238,13 +249,23 @@ class TableBuilder:
     """
 
     def __init__(self, parallelism: int,
-                 cached_dicts: Optional[Dict[str, Dictionary]] = None):
+                 cached_dicts: Optional[Dict[str, Dictionary]] = None,
+                 comm=None):
         if parallelism < 1:
             raise ValueError(f"parallelism must be >= 1, got {parallelism}")
         self.parallelism = parallelism
+        #: a process-group communicator when this process holds only some
+        #: ranks: it keeps their batches alone
+        self.comm = (comm if comm is not None
+                     and comm.ranks_held() < comm.size() else None)
+        self._held = (None if self.comm is None
+                      else [int(r) for r in self.comm.rank().tolist()])
+        #: rows and batches kept here (the group's, after ``finalize``)
         self.rows = 0
+        self.batches = 0
         self.recodes = 0
-        self._chunks: List[_Chunk] = []
+        self._next = 0          # the next batch's index in file order
+        self._chunks: List[Tuple[int, _Chunk]] = []
         self._names: Optional[Tuple[str, ...]] = None
         self._string_cols: set = set()
         self._nullable: set = set()
@@ -291,6 +312,17 @@ class TableBuilder:
             codes[~valid] = 0     # canonical zero for null slots
         return codes
 
+    def wants_next(self) -> bool:
+        """Whether the next batch in file order goes to a rank held here
+        (always, unless over a process group).  A reader converts it and
+        calls ``add_batch``, or calls ``skip_batch``."""
+        return (self._held is None
+                or self._next % self.parallelism in self._held)
+
+    def skip_batch(self) -> None:
+        """Pass over a batch another process keeps."""
+        self._next += 1
+
     def add_batch(self, cols: Dict[str, np.ndarray],
                   valids: Optional[Dict[str, np.ndarray]] = None) -> None:
         """Ingest one batch.  ``cols`` maps names to 1-D arrays (string
@@ -299,6 +331,8 @@ class TableBuilder:
         Null slots of masked columns may hold arbitrary placeholder values
         — the builder canonicalizes them.
         """
+        index = self._next
+        self._next += 1
         valids = dict(valids or {})
         names = tuple(cols)
         check_reserved_names(names)
@@ -337,7 +371,8 @@ class TableBuilder:
                 out_valid[name] = valid
                 self._nullable.add(name)
         self.rows += n
-        self._chunks.append(_Chunk(out_cols, out_valid, dictver))
+        self.batches += 1
+        self._chunks.append((index, _Chunk(out_cols, out_valid, dictver)))
 
     # -- finalize -------------------------------------------------------- #
     def final_dictionaries(self) -> Dict[str, Dictionary]:
@@ -354,48 +389,82 @@ class TableBuilder:
         """Per-column dtype across all chunks; int/float mixes widen to
         float64 (CSV fallback lane type promotion)."""
         dtypes: Dict[str, np.dtype] = {}
-        for ch in self._chunks:
+        for _, ch in self._chunks:
             for name, arr in ch.cols.items():
-                d = dtypes.get(name)
-                if d is None:
-                    dtypes[name] = arr.dtype
-                elif d != arr.dtype:
-                    if (np.issubdtype(d, np.number)
-                            and np.issubdtype(arr.dtype, np.number)):
-                        dtypes[name] = np.result_type(d, arr.dtype)
-                    else:
-                        raise TypeError(
-                            f"column {name!r} changes type across batches "
-                            f"({d} vs {arr.dtype}); files of one read must "
-                            f"share a schema")
+                _widen(dtypes, name, arr.dtype)
         return dtypes
+
+    def _agree(self, dtypes: Dict[str, np.dtype]) -> Dict[str, np.dtype]:
+        """Over a process group: adopt the group's column names, string
+        columns, nullable columns, column types, dictionaries and counts
+        (every process's, merged as the stacked read merges its batches).
+        Returns the group's column types."""
+        mine = (self._names, sorted(self._string_cols),
+                sorted(self._nullable),
+                {n: d.str for n, d in dtypes.items()},
+                {n: tuple(d.tolist()) for n, d in self._dicts.items()},
+                self.rows, self.batches)
+        parts = self.comm.gather_object(mine)
+        names = next((pt[0] for pt in parts if pt[0] is not None), None)
+        for pt in parts:
+            if pt[0] is not None and set(pt[0]) != set(names):
+                raise ValueError(
+                    f"batch schema {sorted(pt[0])} != ingest schema "
+                    f"{sorted(names)} (all files of one read must agree)")
+        self._names = names
+        self._string_cols = {n for pt in parts for n in pt[1]}
+        self._nullable = {n for pt in parts for n in pt[2]}
+        out: Dict[str, np.dtype] = {}
+        for pt in parts:
+            for n, d in pt[3].items():
+                _widen(out, n, np.dtype(d))
+        for name in self._string_cols:
+            vals = [np.asarray(pt[4][name], dtype=str) for pt in parts
+                    if name in pt[4]]
+            if vals:
+                self._dicts[name] = np.unique(np.concatenate(vals))
+        self.rows = sum(pt[5] for pt in parts)
+        self.batches = sum(pt[6] for pt in parts)
+        return out
 
     def finalize(self) -> SpillTable:
         """Recode stale chunks onto the final dictionaries, materialize
         validity masks, and append everything round-robin into a
-        ``SpillTable``.  The builder is spent afterwards."""
-        dicts = self.final_dictionaries()
-        spill = SpillTable(self.parallelism, dictionaries=dicts)
-        if not self._chunks:
-            return spill
+        ``SpillTable``.  The builder is spent afterwards.  Over a process
+        group this is a collective: the dictionaries, types and counts
+        become the group's, and the spill holds this process's ranks."""
         dtypes = self._unified_dtypes()
-        final_ver = {name: len(self._snapshots[name]) - 1
-                     for name in self._string_cols if name in self._snapshots}
-        for i, ch in enumerate(self._chunks):
-            rank = i % self.parallelism
+        if self.comm is not None:
+            dtypes = self._agree(dtypes)
+        dicts = self.final_dictionaries()
+        held = self._held if self._held is not None \
+            else list(range(self.parallelism))
+        schema = None
+        if self.comm is not None and self._names is not None:
+            # a process may hold no batch: it takes the group's schema
+            schema = {n: ((np.dtype(CODE_DTYPE),) if n in self._string_cols
+                          else (dtypes[n],)) + ((),) for n in self._names}
+            schema.update({mask_name(n): (np.dtype(bool), ())
+                           for n in self._nullable})
+        spill = SpillTable(len(held), schema=schema, dictionaries=dicts,
+                           comm=self.comm)
+        # a process with no chunk still joins the recodes' all-gather below
+        final = {n: tuple(d.tolist()) for n, d in self._dicts.items()}
+        local_recodes = 0
+        for i, ch in self._chunks:
             cols: Dict[str, np.ndarray] = {}
             for name in self._names:
                 arr = ch.cols[name]
                 if name in self._string_cols:
                     ver = ch.dictver.get(name, 0)
-                    if ver != final_ver.get(name, 0):
-                        old = self._snapshots[name][ver]
+                    old = self._snapshots[name][ver]
+                    if old != final.get(name, ()):
                         if old:   # empty snapshot = all-null chunk, codes 0
                             arr = recode_mapping(old, dicts[name])[arr]
                             valid = ch.valid.get(name)
                             if valid is not None:
                                 arr[~valid] = 0   # remap moved the null fill
-                            self.recodes += 1
+                            local_recodes += 1
                     arr = arr.astype(CODE_DTYPE, copy=False)
                 elif arr.dtype != dtypes[name]:
                     arr = arr.astype(dtypes[name])
@@ -405,6 +474,24 @@ class TableBuilder:
                 valid = ch.valid.get(name)
                 cols[mask_name(name)] = (np.ones((n,), bool)
                                          if valid is None else valid)
-            spill.append(rank, cols)
+            spill.append(held.index(i % self.parallelism), cols)
+        self.recodes = local_recodes
+        if self.comm is not None:
+            self.recodes = int(self.comm.gather_ints([local_recodes]).sum())
         self._chunks = []
         return spill
+
+
+def _widen(dtypes: Dict[str, np.dtype], name: str, dt: np.dtype) -> None:
+    """Fold one batch's type of ``name`` into ``dtypes``: int/float mixes
+    widen; any other change raises."""
+    d = dtypes.get(name)
+    if d is None:
+        dtypes[name] = dt
+    elif d != dt:
+        if np.issubdtype(d, np.number) and np.issubdtype(dt, np.number):
+            dtypes[name] = np.result_type(d, dt)
+        else:
+            raise TypeError(
+                f"column {name!r} changes type across batches ({d} vs "
+                f"{dt}); files of one read must share a schema")

@@ -17,18 +17,35 @@ world size and the rendezvous:
   torchrun --standalone --nproc_per_node=4 -m repro_torch.launch.fig9 \\
       --backend gloo --device cpu --rows 65536
 
+  # out-of-core: each rank's rows stream in morsels of --morsel-rows
+  # (the left table a host dict, the right on the card), from Parquet
+  # files, under a fault plan and a deadline
+  torchrun --standalone --nproc_per_node=8 -m repro_torch.launch.fig9 \
+      --backend gloo --device cuda:0 --morsel-rows 524288 \
+      --capacity-factor 4 --parquet /tmp/fig9 \
+      --faults 'spill:append@1=raise' --timeout 120
+
 Each process builds the rows its rank holds of two tables from
 ``--seed`` (the JAX package's ``benchmarks/common.py`` recipe: uniform
 int32 keys at 90% cardinality, float32 values), runs the plan ``--runs``
 times in ``--mode`` under ``--communicator``, and rank 0 prints each
 run's wall (the slowest process's), rows shuffled and the share of the
-wall spent in host-staged collectives.  ``--check`` gathers the result
-on every process and holds it to numpy on rank 0.
+wall spent in host-staged collectives and host exchanges.
+``--parquet DIR`` reads both tables from ``DIR/l/*.parquet`` and
+``DIR/r/*.parquet`` instead (rank 0 writes 8 files a side there from the
+seed first when DIR holds none); every process reads the same files and
+keeps the batches of its rank.  ``--morsel-rows`` streams the plan
+out-of-core (``--capacity-factor`` sets the working capacity);
+``--faults`` arms a fault plan (``REPRO_FAULTS`` syntax) and
+``--timeout`` a deadline, both agreed over the group at every fault
+site.  ``--check`` gathers the result on every process and holds it to
+numpy on rank 0.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from datetime import timedelta
 from typing import Dict, Optional, Sequence
@@ -62,6 +79,32 @@ def host_reference(ld, rd):
     return np.nonzero(both)[0].astype(np.int32), (sum_l * cnt_r)[both] + 1
 
 
+def write_parquet(d: str, ld, rd, nfiles: int = 8) -> None:
+    """The two tables as ``nfiles`` Parquet files a side under ``d/l``
+    and ``d/r`` (row groups of 2^20 rows)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    for side, data in (("l", ld), ("r", rd)):
+        os.makedirs(os.path.join(d, side), exist_ok=True)
+        n = len(data["k"])
+        per = -(-n // nfiles)
+        for f in range(nfiles):
+            part = {c: v[f * per:(f + 1) * per] for c, v in data.items()}
+            pq.write_table(pa.table(part),
+                           os.path.join(d, side, f"part{f}.parquet"),
+                           row_group_size=1 << 20)
+
+
+def read_tables(env, d: str):
+    """Both tables from ``d``'s Parquet files, as each process's spills."""
+    import glob
+    from ..io import read_parquet
+    return {side: read_parquet(sorted(glob.glob(os.path.join(
+        d, side, "*.parquet"))), env.parallelism, dict_cache=None,
+        comm=env.comm if env.ranks_held < env.parallelism else None)
+        for side in "lr"}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
@@ -75,6 +118,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="rows per input table")
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--morsel-rows", type=int, default=None,
+                    help="stream out-of-core in morsels of this many rows "
+                         "a rank")
+    ap.add_argument("--capacity-factor", type=float, default=2.0,
+                    help="out-of-core working capacity over morsel rows")
+    ap.add_argument("--parquet", default=None, metavar="DIR",
+                    help="read the tables from DIR/{l,r}/*.parquet "
+                         "(written from --seed when absent)")
+    ap.add_argument("--faults", default=None, metavar="PLAN",
+                    help="a fault plan in REPRO_FAULTS syntax")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="a deadline in seconds for each run")
     ap.add_argument("--check", action="store_true")
     args = ap.parse_args(argv)
 
@@ -89,17 +144,36 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cap = -(-(per + per // 8) // 8) * 8     # share + 1/8 headroom
         ld = table_data(args.rows, args.seed)
         rd = table_data(args.rows, args.seed + 1)
-        tables = {"l": env.from_numpy(ld, cap), "r": env.from_numpy(rd, cap)}
+        kw = dict(faults=args.faults, timeout=args.timeout)
+        if args.parquet:
+            if rank == 0 and not os.path.isdir(os.path.join(args.parquet,
+                                                            "l")):
+                write_parquet(args.parquet, ld, rd)
+            env.comm.gather_ints([0])    # the files are written
+            tables = read_tables(env, args.parquet)
+            kw["scan_capacity"] = cap
+        elif args.morsel_rows:
+            # the streamed side stays a host dict: each process streams
+            # the rows of its rank
+            tables = {"l": ld, "r": env.from_numpy(rd, cap)}
+        else:
+            tables = {"l": env.from_numpy(ld, cap),
+                      "r": env.from_numpy(rd, cap)}
+        if args.morsel_rows:
+            kw = dict(kw, morsel_rows=args.morsel_rows,
+                      capacity_factor=args.capacity_factor)
+            kw.pop("scan_capacity", None)
         plan = fig9_plan(Plan, cap)
         for run in range(args.runs):
-            staged0 = env.comm.stats["staged_s"]
+            stats0 = dict(env.comm.stats)
             env.synchronize()
             t = time.perf_counter()
             res, st = execute(plan, env, tables, mode=args.mode,
-                              collect_stats=True)
+                              collect_stats=True, **kw)
             env.synchronize()
             wall = time.perf_counter() - t
-            share = (env.comm.stats["staged_s"] - staged0) / wall
+            share = sum(env.comm.stats[k] - stats0[k]
+                        for k in ("staged_s", "host_s")) / wall
             slowest = env.comm.all_reduce_max(
                 torch.tensor([wall, share], dtype=torch.float64,
                              device=env.device)[None])[0].tolist()
@@ -108,9 +182,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       f"{args.mode} run {run}: 2 x {args.rows} rows over "
                       f"{p} processes, wall {slowest[0]:.3f} s, rows "
                       f"shuffled {st.rows_shuffled}, dropped "
-                      f"{st.rows_dropped}, host-staged collectives up to "
-                      f"{100 * slowest[1]:.1f}% of a process's wall",
-                      flush=True)
+                      f"{st.rows_dropped}, morsels {st.morsels}, retries "
+                      f"{st.retries}, host-staged collectives and host "
+                      f"exchanges up to {100 * slowest[1]:.1f}% of a "
+                      f"process's wall", flush=True)
         if args.check:
             out = res.gather_numpy()
             if rank == 0:

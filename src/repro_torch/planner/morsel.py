@@ -50,6 +50,16 @@ faulted segment from its input checkpoint; adaptive skew handling
 (``repro_torch.adapt``: hot-key salting, splitter refresh, morsel
 autotuning) is on by default, as in the JAX package.  Its spans
 (``tracer``) and ``debug_overflow`` warnings are the JAX package's.
+
+Over a ``torch.distributed`` process group each process streams the
+ranks it holds (``SpillTable.comm``) and ends with exactly what rank r
+holds in the stacked run.  Every count a collective depends on is agreed
+over the group before it is used: morsels per segment (the group's
+widest rank), the combine's sub-buckets and their capacity, the splitter
+samples (pooled from every rank), every drop count and degrade step (the
+stages gather their stat triples, as in-core), the retry of a faulted
+unit (``faults.GroupFaults``).  Partials routed to another process's
+rank go through the communicator's host exchange.
 """
 
 from __future__ import annotations
@@ -77,15 +87,15 @@ from ..dataframe.table import Table
 from ..dtypes import numpy_dtype, order_view, to_x32
 from ..expr import token as _token
 from ..faults import (CapacityOverflow, OverflowPolicy, default_degrade_step,
-                      resolve_faults, resolve_overflow, resolve_retry,
-                      resolve_token, run_with_retries)
+                      over_group, resolve_faults, resolve_overflow,
+                      resolve_retry, resolve_token, run_with_retries)
 from ..nulls import mask_name
 from ..obs.metrics import record_exec
 from ..obs.trace import NULL_TRACER
 from .logical import LogicalNode, topo
 from .physical import (ExecStats, PhysicalPlan, _partial_width,
                        _recode_tables, _row_bytes, _shuffle_kw, _stat_vec,
-                       _sum_stats,
+                       _sum_stats, _world_stats,
                        attach_dictionaries, build_shuffle_records,
                        check_scan_dictionaries, describe_drops,
                        emit_shuffle_events, eval_node, fingerprint,
@@ -177,17 +187,27 @@ def segments(chain_tail: Sequence[LogicalNode]
 # ---------------------------------------------------------------------- #
 # Host-side helpers
 # ---------------------------------------------------------------------- #
-def _as_spill(source: Any, parallelism: int,
-              tracer=NULL_TRACER) -> SpillTable:
+def _group(env):
+    """The env's communicator when it holds only some ranks (a process
+    group), else None."""
+    return env.comm if env.ranks_held < env.parallelism else None
+
+
+def _as_spill(source: Any, env, tracer=NULL_TRACER) -> SpillTable:
+    """The streamed input as a spill of the env's ranks (over a process
+    group: the ranks this process holds; a dict or a whole spill is the
+    whole input on every process)."""
     if isinstance(source, DistTable):
         source = SpillTable.from_dist(source)
     elif isinstance(source, dict):
-        source = SpillTable.from_numpy(source, parallelism)
+        source = SpillTable.from_numpy(source, env.parallelism,
+                                       comm=_group(env))
     elif not isinstance(source, SpillTable):
         raise TypeError(f"cannot stream a {type(source).__name__}")
     # a spill bucketed for a different gang would silently lose every rank
     # beyond this env's ranks — re-bucket on the host
-    return respill(source, parallelism, tracer=tracer)
+    return respill(source, env.parallelism,
+                   tracer=tracer).select(_group(env))
 
 
 def _to_dist(source: Any, env) -> DistTable:
@@ -197,7 +217,8 @@ def _to_dist(source: Any, env) -> DistTable:
     if isinstance(source, dict):
         source = SpillTable.from_numpy(source, env.parallelism)
     # handles any spill gang size
-    return rescatter(source, env.parallelism, device=env.device)
+    return rescatter(source, env.parallelism, device=env.device,
+                     comm=_group(env))
 
 
 def _schema_of(dist: DistTable) -> Dict[str, Tuple[np.dtype, Tuple[int, ...]]]:
@@ -225,7 +246,8 @@ def _host_splitters(spill: SpillTable, col: str, p: int,
                     samples: int) -> np.ndarray:
     """Fixed global splitters for an out-of-core sample sort: per-rank
     evenly-spaced samples pooled into p-1 global quantiles (the host twin
-    of ``dataframe.sort._sample_splitters``)."""
+    of ``dataframe.sort._sample_splitters``).  Over a process group every
+    rank's samples are pooled, in rank order, on every process."""
     pool = []
     for r in range(spill.parallelism):
         cols_r = spill.rank_concat(r)
@@ -241,6 +263,8 @@ def _host_splitters(spill: SpillTable, col: str, p: int,
             take = min(samples, n)
             idx = (np.arange(take) * n) // take
             pool.append(k[idx])
+    if spill.comm is not None:
+        pool = [a for part in spill.comm.gather_object(pool) for a in part]
     if not pool:
         dtype, _ = spill.schema[col]
         return np.zeros((max(p - 1, 0),), dtype)
@@ -255,7 +279,7 @@ def _host_sort_ranks(spill: SpillTable, by: Sequence[str]) -> SpillTable:
     (a vectorized lexsort over the concatenation beats a per-row k-way
     merge, and stability preserves arrival order for ties)."""
     out = SpillTable(spill.parallelism, schema=spill.schema,
-                     dictionaries=spill.dictionaries)
+                     dictionaries=spill.dictionaries, comm=spill.comm)
     for r in range(spill.parallelism):
         cols = spill.rank_concat(r)
         n = len(next(iter(cols.values()))) if cols else 0
@@ -417,7 +441,7 @@ def _make_stream_prog(seg_nodes, join_nids, W, shuffle_impl, a2a_chunks,
             cur = _eval_stream_node(node, ctx, cur, residents, W,
                                     shuffle_impl, a2a_chunks, stats,
                                     consts, debug_overflow, salt=salt)
-        return cur, tuple(a for _, a in stats)
+        return cur, _world_stats(ctx.comm, (a for _, a in stats))
     return prog
 
 
@@ -439,7 +463,8 @@ def _make_sort_prog(node, W, shuffle_impl, a2a_chunks, debug_overflow):
         shuffled, st = df_shuffle(morsel, ctx.comm, dest=dest,
                                   out_capacity=W,
                                   label=f"sort({','.join(by)})", **kw)
-        return shuffled, (_stat_vec(st, _row_bytes(morsel)),)
+        return shuffled, _world_stats(ctx.comm,
+                                      (_stat_vec(st, _row_bytes(morsel)),))
     return prog
 
 
@@ -503,7 +528,7 @@ def _build_resident(env, jnode: LogicalNode, tables, shuffle_impl,
                 r, st = df_shuffle(r, ctx.comm, key_cols=[on],
                                    label=f"join({on}):right", **kw)
                 stats.append((f"join({on}):right", _stat_vec(st, width)))
-        return r, tuple(a for _, a in stats)
+        return r, _world_stats(ctx.comm, (a for _, a in stats))
 
     args = [_to_dist(tables[n], env) for n in scan_names]
     labels = plan_stat_labels(sub_order)
@@ -543,8 +568,9 @@ def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
     # recoverable from them — the planner's annotation of the groupby
     # *input* supplies it (conservative in the nullable direction)
     nullable = tuple(sorted(set(gnode.inputs[0].nulls) & set(physical)))
-    p = part_spill.parallelism
-    widest = max(part_spill.rank_rows(r) for r in range(p))
+    # p: the gang's ranks (the hash placement); held: the ranks held here
+    p, held = part_spill.size, part_spill.parallelism
+    widest = int(part_spill.world_rows().max())
     B = max(1, -(-widest // M))
 
     # host sub-bucketing: (hash // p) decorrelates from the rank placement
@@ -556,7 +582,7 @@ def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
     rank_sorted: List[Dict[str, np.ndarray]] = []
     rank_offsets: List[np.ndarray] = []
     max_bucket = 1
-    for r in range(p):
+    for r in range(held):
         cols_r = part_spill.rank_concat(r)
         n = len(next(iter(cols_r.values())))
         if n:
@@ -570,6 +596,9 @@ def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
         max_bucket = max(max_bucket, int(counts_r.max()))
         rank_sorted.append(cols_r)
         rank_offsets.append(np.concatenate([[0], np.cumsum(counts_r)]))
+    if part_spill.comm is not None:
+        # one capacity over the group: every process runs the same stage
+        max_bucket = int(part_spill.comm.gather_ints([max_bucket]).max())
     cap_b = _round8(max_bucket)
 
     def prog(ctx, partials):
@@ -578,11 +607,11 @@ def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
 
     out_spill: Optional[SpillTable] = None
     for b in range(B):
-        counts = np.zeros((p,), np.int32)
+        counts = np.zeros((held,), np.int32)
         cols: Dict[str, torch.Tensor] = {}
         for name, (dtype, trail) in part_spill.schema.items():
-            buf = np.zeros((p, cap_b) + trail, dtype)
-            for r in range(p):
+            buf = np.zeros((held, cap_b) + trail, dtype)
+            for r in range(held):
                 lo, hi = rank_offsets[r][b], rank_offsets[r][b + 1]
                 sel = rank_sorted[r][name][lo:hi]
                 buf[r, :len(sel)] = sel
@@ -600,7 +629,8 @@ def _combine_groupby(env, part_spill: SpillTable, gnode: LogicalNode,
                            env.communicator_name, env._arg_sig(dist)))
         acc.dispatches += 1
         if out_spill is None:
-            out_spill = SpillTable(p, schema=_schema_of(out))
+            out_spill = SpillTable(held, schema=_schema_of(out),
+                                   comm=part_spill.comm)
         _append_out(out_spill, out, acc)
     return out_spill
 
@@ -658,10 +688,6 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     observed overflow peak instead of blind halving.  A run where no
     mitigation fires uses exactly the ``adaptive=False`` stage-cache keys.
     """
-    if env.ranks_held < env.parallelism:
-        raise NotImplementedError(
-            "out-of-core morsel execution over a process group is not "
-            "ported yet; run in-core, or on stacked ranks")
     if mode == "amt":
         raise ValueError(
             "out-of-core morsel execution requires direct shuffles; the "
@@ -672,6 +698,8 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     policy = resolve_retry(retries)
     token = resolve_token(timeout)
     ovf = resolve_overflow(overflow)
+    gcomm = _group(env)
+    fr, token = over_group(fr, token, gcomm)
     counters = {"retries": 0, "degraded": 0}
 
     def _count_retry(attempt, exc):
@@ -750,7 +778,7 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     def _respill():
         token.check("spill:respill")
         fr.check("spill:respill", token=token)
-        return _as_spill(tables[src_name], p, tracer=tr)
+        return _as_spill(tables[src_name], env, tracer=tr)
 
     spill = run_with_retries(_respill, policy=policy, token=token,
                              tracer=tr, label="spill:respill",
@@ -800,7 +828,7 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                             lambda s, _in=seg_in, _b=by[0]: to_x32(
                                 _host_splitters(_in, _b, p, s)),
                             n_samp, acfg, events=adapt_events,
-                            label=f"sort({','.join(by)})")
+                            label=f"sort({','.join(by)})", comm=gcomm)
                         extras: Tuple[Any, ...] = (
                             torch.from_numpy(spl).to(env.device),)
                         acc.h2d_bytes += spl.nbytes
@@ -841,7 +869,8 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                             pairs.extend(unit_pairs)
                             if out_spill is None:
                                 out_spill = SpillTable(
-                                    p, schema=_schema_of(out))
+                                    env.ranks_held, schema=_schema_of(out),
+                                    comm=gcomm)
                             b0 = acc.spill_bytes
                             fr.check("transfer:d2h", token=token,
                                      segment=_si, morsel=mi)
@@ -953,8 +982,8 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                 # segments
                 if tuner.enabled:
                     tuner.observe_expansion(
-                        sum(spill.rank_rows(r) for r in range(p)),
-                        sum(out_spill.rank_rows(r) for r in range(p))
+                        spill.total_rows(),
+                        out_spill.total_rows()
                         if out_spill is not None else 0)
                 collected.extend(
                     (lbl, arr, si) for lbl, arr in attempt_pairs)
@@ -984,6 +1013,13 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     if not collect_stats:
         return spill
     rows_read, bytes_read = scan_read_stats(pplan.scan_names, tables)
+    injected = fr.injected
+    if gcomm is not None:
+        # each process's transfers and faults, summed over the group
+        (acc.h2d_bytes, acc.d2h_bytes, acc.d2h_copied_bytes,
+         acc.spill_bytes, injected) = (int(v) for v in gcomm.gather_ints(
+            [acc.h2d_bytes, acc.d2h_bytes, acc.d2h_copied_bytes,
+             acc.spill_bytes, injected]).sum(axis=0))
     stats = ExecStats(
         "morsel", pplan.num_stages, pplan.num_shuffles, acc.dispatches,
         rows, byts, pplan.shuffle_labels(), pplan.fired,
@@ -998,7 +1034,7 @@ def run_morsel(pplan: PhysicalPlan, env, tables: Dict[str, Any],
         wall_time_s=time.perf_counter() - t_query0,
         stage_times=stage_times, shuffle_records=records,
         retries=counters["retries"], degraded=counters["degraded"],
-        faults_injected=fr.injected,
+        faults_injected=injected,
         adaptive=acfg.enabled, salted_shuffles=len(salt),
         splitter_refreshes=sum(1 for e in adapt_events
                                if e.get("kind") == "splitter_refresh"),

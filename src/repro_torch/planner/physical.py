@@ -51,9 +51,9 @@ from ..dataframe.sort import _range_dest
 from ..dataframe.sort import sort as df_sort
 from ..dataframe.table import Table
 from ..expr import token as _token
-from ..faults import (CapacityOverflow, OverflowPolicy, resolve_faults,
-                      resolve_overflow, resolve_retry, resolve_token,
-                      run_with_retries)
+from ..faults import (CapacityOverflow, OverflowPolicy, over_group,
+                      resolve_faults, resolve_overflow, resolve_retry,
+                      resolve_token, run_with_retries)
 from ..nulls import mask_name
 from ..obs.metrics import record_exec
 from ..obs.trace import NULL_TRACER
@@ -714,7 +714,9 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     In-core, ``SpillTable`` scans (``repro_torch.io`` ingest) are
     scattered onto the env's ranks with 2x headroom over a balanced split,
     or ``scan_capacity`` rows per rank; their provenance rides along for
-    the scan read stats.
+    the scan read stats.  Over a process group each process builds the
+    ranks it holds (``core.store.rescatter``), and every fault site visit
+    ends in one agreement over the group (``faults.GroupFaults``).
 
     Fault tolerance (``repro_torch.faults``): ``retries`` (None | int |
     ``RetryPolicy``) replays failed dispatch units with exponential
@@ -750,6 +752,8 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     policy = resolve_retry(retries)
     token = resolve_token(timeout)
     ovf = resolve_overflow(overflow)
+    group = env.comm if env.ranks_held < env.parallelism else None
+    fr, token = over_group(fr, token, group)
     counters = {"retries": 0}
 
     def _count_retry(attempt, exc):
@@ -764,11 +768,6 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
     from ..core.store import SpillTable, _round8, rescatter
     spills = {n: tables[n] for n in names
               if isinstance(tables[n], SpillTable)}
-    if spills and env.ranks_held < env.parallelism:
-        raise NotImplementedError(
-            "scanning host spills (Parquet / CSV ingest) over a process "
-            "group is not ported yet: build each process's ranks with "
-            "env.from_numpy")
     if spills:
         def _cap(s):
             if scan_capacity is not None:
@@ -776,7 +775,7 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
             return _round8(2 * -(-max(s.total_rows(), 1) // env.parallelism))
         tables = {**tables, **{
             n: rescatter(s, env.parallelism, device=env.device,
-                         capacity=_cap(s))
+                         capacity=_cap(s), comm=group)
             for n, s in spills.items()}}
     root = pplan.root
     order = pplan.order
@@ -821,7 +820,9 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                           wall_time_s=wall, stage_times=stage_times,
                           shuffle_records=build_shuffle_records(pairs),
                           retries=counters["retries"],
-                          faults_injected=fr.injected,
+                          faults_injected=(
+                              fr.injected if group is None else int(
+                                  group.gather_ints([fr.injected]).sum())),
                           adaptive=acfg.enabled,
                           salted_shuffles=len(salt),
                           adapt_events=list(adapt_events))
@@ -861,7 +862,7 @@ def run_physical(pplan: PhysicalPlan, env, tables: Dict[str, Any],
                 a2a_chunks=a2a_chunks, tracer=tr, retries=policy,
                 timeout=token, overflow=OverflowPolicy.DEGRADE, faults=fr,
                 adaptive=acfg)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             raise CapacityOverflow(
                 f"capacity pressure dropped {stats.rows_dropped} rows "
                 f"({where}) and the plan cannot degrade to out-of-core "
