@@ -313,12 +313,17 @@ SERVE_CASES = (("qwen3-8b", 4, 4096, 32), ("mamba2-780m", 4, 4096, 32),
 #: prompt's patch embeddings (``vlm_patches``: 576 of its 4,096
 #: positions) go through ``transformer.prefill`` in ``VlmServe``'s loop
 VLM_CASES = (("llava-next-34b", 4, 4096, 32),)
-#: layers kept of a served arch that does not fit the card whole:
-#: jamba-v0.1-52b's 49.3 B parameters (197 GB in float32) cut to one
-#: layout period, 8 of 32 layers (13.27 B, 49.4 GiB); qwen3-32b's 32.76 B
-#: (122 GiB) cut to 16 of 64 layers (9.36 B, 34.9 GiB); llava-next-34b's
-#: 34.39 B (128.1 GiB) cut to 15 of 60 layers (9.285 B, 34.59 GiB)
-SERVE_LAYERS = {"jamba-v0.1-52b": 8, "qwen3-32b": 16, "llava-next-34b": 15}
+#: layers kept of a served arch, at full width.  Those that do not fit
+#: the card whole: jamba-v0.1-52b's 49.3 B parameters (197 GB in float32)
+#: cut to one layout period, 8 of 32 layers (13.27 B, 49.4 GiB);
+#: qwen3-32b's 32.76 B (122 GiB) cut to 16 of 64 layers (9.36 B, 34.9
+#: GiB); llava-next-34b's 34.39 B (128.1 GiB) cut to 15 of 60 layers
+#: (9.285 B, 34.59 GiB).  Those cut to keep the script inside its time
+#: limit, their full depth served by earlier runs (``PERF.md`` §4):
+#: gemma-7b 7 of 28 and llama3.2-3b 7 of 28 (qwen3-8b keeps their GQA
+#: f32 flash path at full depth; gemma keeps D = 256)
+SERVE_LAYERS = {"jamba-v0.1-52b": 8, "qwen3-32b": 16, "llava-next-34b": 15,
+                "gemma-7b": 7, "llama3.2-3b": 7}
 #: the serving parity phase's impl and prompt per SMOKE config: the
 #: kernels forced (``flash`` / ``kernel``), or reached by a prompt past
 #: 2,048 keys where one ``impl`` serves both layer kinds (the hybrid) or
@@ -3584,25 +3589,6 @@ SERVE_SLOTS, SERVE_GANGS, SERVE_QUERIES = 8, 4, 24
 SERVE_FAULTS = "stage:launch@0x1=raise;a2a:chunk@1x1=raise"
 
 
-def serving_queries(left, right):
-    """``benchmarks/bench_pipeline.py:420-428`` (``run_serving``): join +
-    filter + groupby sum + sort; groupby sum/mean + sort; filter + sort,
-    with its join capacities."""
-    from repro_torch.expr import col
-    cap = next(iter(left.sources.values())).capacity
-    jkw = dict(out_capacity=cap * 4, bucket_capacity=cap * 2,
-               shuffle_out_capacity=cap * 2)
-    return {
-        "join": lambda: (left.merge(right, on="k", **jkw)
-                         [(col("v0") > 4) & (col("w") < 250)]
-                         .groupby("k").agg({"v0": ["sum"]})
-                         .sort_values("k")),
-        "groupby": lambda: (left.groupby("k").agg({"v0": ["sum", "mean"]})
-                            .sort_values("k")),
-        "filter": lambda: left[col("v0") > 64].sort_values("k"),
-    }
-
-
 def serving_oracle(name, ld, rd):
     """What query ``name`` must return, from numpy on the host: the
     groupbys' keys and float64 sums (exact: integer payloads) rounded to
@@ -3704,7 +3690,7 @@ def stream_overlap(trace_path):
 
 
 def query_serving_phase(torch, rows=1 << 24, device=None, fig9_rows=None,
-                        smi=None):
+                        smi=None, keep=None):
     """Serving of queries (``benchmarks/bench_pipeline.py:383-472``,
     ``run_serving``): ``SERVE_GANGS`` gangs of 2 stacked ranks carved from
     a pool of ``SERVE_SLOTS`` rank slots on the card, the three query kinds
@@ -3723,10 +3709,14 @@ def query_serving_phase(torch, rows=1 << 24, device=None, fig9_rows=None,
     communicator (``xla``, ``ring``, ``bruck``), bit-identical to ``xla``.
     Returns the numbers for the JSON line and, on the card, the radix and
     segmented-sum inputs of one query of each kind on a gang
-    (``serving_kernel_inputs``)."""
+    (``serving_kernel_inputs``).  ``keep`` (a dict) gets what the
+    process-group phase holds its gangs of processes to: each kind's
+    per-rank digests on a gang, its derived launches, the sweeps'
+    numbers."""
     import repro_torch.df as rdf
     from repro_torch.core import CylonEnv, DevicePool, DistTable
     from repro_torch.kernels import radix_partition_cuda
+    from repro_torch.launch.fig9 import serving_queries
     from repro_torch.planner import compile_plan
     from repro_torch.serve import ProgramCache, QueryScheduler
     t_phase = time.perf_counter()
@@ -3787,6 +3777,11 @@ def query_serving_phase(torch, rows=1 << 24, device=None, fig9_rows=None,
     for k in kinds:
         check_oracle(refs[k].to_numpy(), serving_oracle(k, ld, rd),
                      f"serving {k}")
+    if keep is not None:
+        keep["serving"] = {
+            "rows": rows, "queries": SERVE_QUERIES,
+            "digests": {k: result_digests(refs[k]) for k in kinds},
+            "launches": {k: serving_launches(pplans, [k]) for k in kinds}}
     print(f"query serving: {SERVE_GANGS} gangs of {gang} stacked ranks from "
           f"{SERVE_SLOTS} slots on {pool.device}, 2 x {rows} rows, "
           f"{warm[0]} stages after the pre-warm ({warm[0] // SERVE_GANGS} "
@@ -3861,6 +3856,10 @@ def query_serving_phase(torch, rows=1 << 24, device=None, fig9_rows=None,
     serial = sweep(1)
     concurrent = sweep(SERVE_GANGS)
     speedup = serial["wall_s"] / concurrent["wall_s"]
+    if keep is not None:
+        keep["serving"]["stacked"] = {"serial": serial,
+                                      "concurrent": concurrent,
+                                      "speedup": speedup}
     for tag, r in (("serial", serial), ("concurrent", concurrent)):
         mem = (f"peak allocated {r['peak_allocated_gib']:.2f} GiB "
                f"(+{r['peak_over_base_gib']:.2f} over the tables and "
@@ -4171,6 +4170,9 @@ def communicator_fig9(torch, rows, device):
 PG_SMALL_ROWS = 1 << 22
 #: seconds a group may take before the phase fails
 PG_TIMEOUT_S = 400
+#: the share of the card's memory the processes of a group on one card
+#: may hold together (the rest: their CUDA contexts and this process)
+PG_CARD_SHARE = 0.85
 
 
 def result_digests(res):
@@ -4341,6 +4343,25 @@ def _pg_ooc_job(torch, envs, job, device, walls):
     return rep
 
 
+#: what a group process is doing: the job's label and the scheduler it
+#: serves with, read by its watchdog (``_pg_watchdog``)
+_WATCH = {}
+
+
+def _pg_watchdog(rank, d):
+    """Shortly before ``run_group`` gives up on the group, write this
+    process's job, its scheduler's last decision and every thread's
+    stack to ``d/hang<rank>.txt``, which the failure prints."""
+    import faulthandler
+    time.sleep(PG_TIMEOUT_S - 30)
+    sched = _WATCH.get("sched")
+    with open(os.path.join(d, f"hang{rank}.txt"), "w") as f:
+        f.write(f"process {rank}: job {_WATCH.get('job')!r}, last decision "
+                f"{sched.stats()['last_decision'] if sched else None}\n")
+        f.flush()
+        faulthandler.dump_traceback(f, all_threads=True)
+
+
 def _pg_child(rank, world, d, backend, runs, device):
     """One process of a group: Fig-9 through ``execute`` on the one rank
     it holds, for each ``(communicator, mode, rows, label)`` of ``runs``;
@@ -4368,12 +4389,26 @@ def _pg_child(rank, world, d, backend, runs, device):
                             timeout=timedelta(seconds=120))
     report = {}
     on_card = device != "cpu"
+    if on_card and world > 1:
+        # the processes share one card, and a caching allocator keeps the
+        # blocks its process freed: each is held to its share (its
+        # allocator frees its cached blocks when it reaches it), so that
+        # one process's cache cannot starve the others (the served
+        # queries' concurrent sweep ran out of card memory without this)
+        torch.cuda.set_per_process_memory_fraction(PG_CARD_SHARE / world,
+                                                   torch.device(device))
+    import threading
+    threading.Thread(target=_pg_watchdog, args=(rank, d), daemon=True).start()
     try:
         data, envs, walls = {}, {}, {}
         for job in runs:
+            _WATCH["job"] = job["label"] if isinstance(job, dict) else job[3]
             if isinstance(job, dict):
-                report[job["label"]] = _pg_ooc_job(torch, envs, job, device,
-                                                   walls)
+                run = {"serve": _pg_serve_job,
+                       "handoff": _pg_handoff_job}.get(job.get("kind"))
+                report[job["label"]] = (
+                    run(torch, job, device) if run is not None else
+                    _pg_ooc_job(torch, envs, job, device, walls))
                 if on_card:
                     torch.cuda.empty_cache()
                 continue
@@ -4438,8 +4473,12 @@ def run_group(world, backend, runs, device="cuda:0"):
             if time.perf_counter() > deadline:
                 for proc in ctx.processes:
                     proc.kill()
-                raise RuntimeError(f"{backend} group of {world}: no end "
-                                   f"after {PG_TIMEOUT_S} s")
+                hung = [os.path.join(d, f"hang{r}.txt") for r in range(world)]
+                raise RuntimeError(
+                    f"{backend} group of {world}: no end after {PG_TIMEOUT_S}"
+                    f" s; each process's job, last decision and stacks:\n"
+                    + "\n".join(open(h).read()[-3000:] for h in hung
+                                if os.path.exists(h)))
         reports = []
         for r in range(world):
             with open(os.path.join(d, f"report{r}.json")) as f:
@@ -4478,7 +4517,7 @@ def pg_ooc_runs(kept):
 
 
 def process_group_phase(torch, smi, kept, rows=FULL_ROWS,
-                        small=PG_SMALL_ROWS, device=None):
+                        small=PG_SMALL_ROWS, device=None, corpus=None):
     """Fig-9 over a ``torch.distributed`` process group, one rank per
     process: 8 gloo processes on the card at 2 x ``rows`` (``bsp`` first
     and cached, then ``amt``; ``ring`` and ``bruck`` at 2 x ``small``),
@@ -4502,8 +4541,21 @@ def process_group_phase(torch, smi, kept, rows=FULL_ROWS,
     launches once per morsel for its rank where the stacked run launches
     once for all ranks, so the derivation is the stacked run's).  NCCL
     at world size 1 also streams Fig-9 at 2 x ``small``.
-    ``device="cpu"`` rehearses the gloo group on the CPU (no NCCL, no
-    launches)."""
+
+    In the same processes again, the multi-application paths: query
+    serving over 4 gangs of 2 processes (``_pg_serve_job``: the query
+    serving phase's tables, query kinds and sweeps, which ``kept["serving"]``
+    holds with its stacked gang's digests), each member equal by digest
+    to rank r of the stacked gang, every process seeing the same
+    admissions, gangs and outcomes; and the §IV-C hand-off
+    (``_pg_handoff_job``): ``corpus`` (default ``TRAIN_CORPUS``)
+    preprocessed on a gang of 4 processes and ``put``, ``get`` at every
+    process and onto the other gang of 4, the first ``TRAIN_STEPS``
+    batches of each, held to the same pipeline stacked on the card
+    (``pipeline_reference``).  NCCL at world size 1 serves the three
+    kinds on a gang of one at 2 x ``small``, equal to the stacked
+    one-rank run.  ``device="cpu"`` rehearses the gloo group on the CPU
+    (no NCCL, no launches)."""
     t_phase = time.perf_counter()
     on_card = device != "cpu"
     if on_card:
@@ -4516,26 +4568,53 @@ def process_group_phase(torch, smi, kept, rows=FULL_ROWS,
     if on_card:
         refs["nccl ooc"] = nccl_ooc_reference(torch, small)
     ooc_runs = pg_ooc_runs(kept)
+    serving = kept["serving"]
+    corpus = corpus or TRAIN_CORPUS
+    pipe_ref = pipeline_reference(torch, smi, device, corpus)
+    multi = [dict(kind="serve", label="serve", rows=serving["rows"],
+                  gang=PG_SERVE_GANG, queries=serving["queries"],
+                  inflight=(1, P // PG_SERVE_GANG),
+                  launches=serving["launches"]),
+             dict(kind="handoff", label="handoff", corpus=corpus,
+                  gang=PG_HANDOFF_GANG, steps=TRAIN_STEPS)]
     runs = [("xla", "bsp", rows, "gloo xla bsp first"),
             ("xla", "bsp", rows, "gloo xla bsp cached"),
             ("xla", "amt", rows, "gloo xla amt"),
             ("ring", "bsp", small, "gloo ring bsp"),
             ("bruck", "bsp", small, "gloo bruck bsp")]
+    if on_card:
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"process group phase: this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+              f"before the spawn; the card has "
+              f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free",
+              flush=True)
     t = time.perf_counter()
-    gloo = run_group(P, "gloo", runs + [job for _, job in ooc_runs],
-                     "cuda:0" if on_card else "cpu")
+    gloo = run_group(P, "gloo", runs + [job for _, job in ooc_runs]
+                     + multi, "cuda:0" if on_card else "cpu")
     gloo_s = time.perf_counter() - t
     nccl_runs = [("xla", "bsp", small, "nccl xla bsp")] if on_card else []
     nccl_ooc = [("nccl ooc", dict(label="nccl ooc", rows=small,
                                   morsel=morsel_for(small, 1)))]
+    nccl_serve = dict(kind="serve", label="nccl serve", rows=small, gang=1,
+                      queries=6, inflight=(1,),
+                      launches=serving["launches"])
     t = time.perf_counter()
-    nccl = (run_group(1, "nccl", nccl_runs + [j for _, j in nccl_ooc])
-            if on_card else None)
+    nccl = (run_group(1, "nccl", nccl_runs + [j for _, j in nccl_ooc]
+                      + [nccl_serve]) if on_card else None)
     nccl_s = time.perf_counter() - t
     out = {"gloo_group_s": gloo_s, "nccl_group_s": nccl_s, "runs": {}}
     check_pg_ooc(out, gloo, ooc_runs, refs, smi)
+    check_pg_serving(out, gloo, "serve", serving["digests"],
+                     serving.get("stacked"), smi)
+    check_pg_handoff(out, gloo, "handoff", pipe_ref, smi)
     if on_card:
         check_pg_ooc(out, nccl, nccl_ooc, refs, smi)
+        check_pg_serving(out, nccl, "nccl serve",
+                         serving_one_rank(torch, small, device), None, smi)
     for (comm_name, mode, n, label) in runs + nccl_runs:
         reports = nccl if label.startswith("nccl") else gloo
         stacked = want_one if label.startswith("nccl") else want[n]
@@ -4633,6 +4712,555 @@ def check_pg_ooc(out, reports, jobs, refs, smi):
                  f"{rec['read_s']:.2f} s ({rec['read_host_s']:.2f} s of it "
                  f"in host exchanges; first-call imports before it "
                  f"{rec['warm_s']:.2f} s)") + f" [{smi}]", flush=True)
+
+
+# ---------------------------------------------------------------------- #
+# Serving and the §IV-C hand-off over the process group (one spawn)
+# ---------------------------------------------------------------------- #
+#: the group's serving runs: gangs of 2 processes (the stacked serving
+#: phase's gangs of 2 ranks); the hand-off's preprocessing gang
+PG_SERVE_GANG = 2
+PG_HANDOFF_GANG = 4
+#: seconds the group's served hang waits for its deadline
+PG_HANG_S = 1.5
+
+
+def valid_digests(res):
+    """sha1 of each held rank's valid rows, column by column, and its row
+    count: equal digests are equal rows in equal order (padding aside)."""
+    import hashlib
+    counts = res.row_counts.cpu().numpy()
+    cols = {n: v.cpu().numpy() for n, v in sorted(res.columns.items())}
+    return [dict({"__count": int(c)},
+                 **{n: hashlib.sha1(np.ascontiguousarray(v[r, :c])
+                                    .tobytes()).hexdigest()
+                    for n, v in cols.items()})
+            for r, c in enumerate(counts)]
+
+
+def held_rank(res):
+    """The rank of its gang a member's result holds."""
+    return int(res.comm.rank()[0]) if res.comm is not None else 0
+
+
+def batch_digests(table, steps):
+    """One sha1 of the first ``steps`` batches ``batches_from_table``
+    draws from ``table`` (over a gang of processes: a collective)."""
+    import hashlib
+    from repro_torch.data import batches_from_table
+    it = batches_from_table(table, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    h = hashlib.sha1()
+    for _ in range(steps):
+        b = next(it)
+        h.update(b["tokens"].tobytes())
+        h.update(b["labels"].tobytes())
+    return h.hexdigest()
+
+
+def pipeline_reference(torch, smi, device=None, corpus=None,
+                       gang=PG_HANDOFF_GANG):
+    """The §IV-C pipeline stacked on the card as the group runs it: the
+    preprocessing on ``gang`` stacked ranks (held to the numpy oracle,
+    its radix launches derived from its operators), ``get`` at ``P``
+    ranks, and the first ``TRAIN_STEPS`` batches of that table; each
+    rank's valid-row digests, the batches' digest, walls and launches."""
+    from types import SimpleNamespace
+    from repro_torch.core import CylonExecutor, CylonStore
+    from repro_torch.data import (CorpusConfig, preprocess, source_weights,
+                                  synth_corpus)
+    on_card = device != "cpu"
+    dev = torch.device("cuda" if on_card else "cpu")
+    cfg = CorpusConfig(**(corpus or TRAIN_CORPUS))
+    docs = synth_corpus(cfg, gang, device=dev)
+    weights = source_weights(cfg.num_sources, gang, device=dev)
+    ex, store = CylonExecutor(gang, device=dev), CylonStore()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ops, outs = [], []
+    sync()
+    reset_counts()
+    t = time.perf_counter()
+    recording(SimpleNamespace(synchronize=sync),
+              lambda: outs.append(preprocess(ex, docs, weights,
+                                             store=store)),
+              [("repro_torch.data.pipeline", op,
+                lambda *a, op=op, **kw: ops.append(op))
+               for op in RADIX_PER_OPERATOR])
+    wall = time.perf_counter() - t
+    out, = outs
+    counts = launch_counts()
+    derived = sum(RADIX_PER_OPERATOR[op] for op in ops) if on_card else 0
+    check(counts["radix_partition"] == derived
+          and counts["segmented_sum"] == 0, f"pipeline on {gang} stacked "
+          f"ranks: launches {counts}, derived {derived} radix")
+    raw, wts = docs.to_numpy(), weights.to_numpy()
+    ids, wmap = pipeline_oracle(raw, wts)
+    check_pipeline_result(out.to_numpy(), raw, ids, wmap,
+                          out.row_counts.cpu().numpy(),
+                          f"pipeline on {gang} stacked ranks")
+    t = time.perf_counter()
+    got = store.get("train_corpus", target_parallelism=P)
+    handoff = time.perf_counter() - t
+    ref = {"out": valid_digests(out), "get_p": valid_digests(got),
+           "batches": batch_digests(got, TRAIN_STEPS), "wall_s": wall,
+           "handoff_s": handoff, "rows": int(len(ids)),
+           "radix_per_member": derived}
+    print(f"pipeline reference: {cfg.num_docs} documents on {gang} stacked "
+          f"ranks in {wall:.3f} s ({len(ids)} kept, equal to numpy, "
+          f"launches {counts}), get at {P} ranks {handoff:.3f} s [{smi}]",
+          flush=True)
+    del docs, weights, out, got, raw
+    if on_card:
+        torch.cuda.empty_cache()
+    return ref
+
+
+def serving_one_rank(torch, rows, device=None):
+    """The three served query kinds on one stacked rank at 2 x ``rows``
+    (what NCCL at world size 1 is held to): each kind's digests."""
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv, DistTable
+    from repro_torch.launch.fig9 import serving_queries
+    ld = make_table_data(rows, 0, exact_values=True)
+    rd = make_table_data(rows, 1, exact_values=True)
+    rd["w"] = rd.pop("v0")
+    env = CylonEnv(1, device=device)
+    queries = serving_queries(
+        rdf.from_table(DistTable.from_numpy(ld, 1, device=env.device),
+                       name="l"),
+        rdf.from_table(DistTable.from_numpy(rd, 1, device=env.device),
+                       name="r"))
+    out = {}
+    for k, q in queries.items():
+        res = q().collect(env=env)
+        check_oracle(res.to_numpy(), serving_oracle(k, ld, rd),
+                     f"serving {k} on one rank")
+        out[k] = result_digests(res)
+    return out
+
+
+def _pg_serve_job(torch, job, device):
+    """Query serving over the group's processes (``job``: rows, gang
+    size, queries a sweep, the sweeps' ``max_inflight``s, each kind's
+    derived launches): every gang pre-warmed at once, a lone run of each
+    kind on each gang outside the scheduler (no agreement), the sweeps,
+    then a hang, a deadline in the queue, a cancellation from the last
+    process and a rejection on a scheduler of one inflight query and two
+    queued; this process's report."""
+    import torch.distributed as dist
+    import repro_torch.df as rdf
+    from repro_torch.core import CylonEnv, DevicePool, DistTable
+    from repro_torch.launch.fig9 import prewarm, serving_queries
+    from repro_torch.serve import (AdmissionRejected, ProgramCache,
+                                   QueryScheduler)
+    rows, gang, nq = job["rows"], job["gang"], job["queries"]
+    on_card = device != "cpu"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    pool = DevicePool(process_group=dist.group.WORLD, device=device)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    t = time.perf_counter()
+    ld = make_table_data(rows, 0, exact_values=True)
+    rd = make_table_data(rows, 1, exact_values=True)
+    rd["w"] = rd.pop("v0")
+    left = rdf.from_table(DistTable.from_numpy(ld, gang, device=pool.device),
+                          name="l")
+    right = rdf.from_table(DistTable.from_numpy(rd, gang,
+                                                device=pool.device),
+                           name="r")
+    del ld, rd
+    queries = serving_queries(left, right)
+    kinds = sorted(queries)
+    sync()
+    rep = {"upload_s": time.perf_counter() - t,
+           "input_bytes": torch.cuda.memory_allocated() if on_card else 0,
+           "free_bytes": torch.cuda.mem_get_info()[0] if on_card else 0}
+    shared = ProgramCache(registry=False)
+    t = time.perf_counter()
+    warm = prewarm(pool, gang, queries, shared)
+    sync()
+    rep["warm_s"] = time.perf_counter() - t
+    rep["rank"] = held_rank(next(iter(warm.values())))
+    rep["warm"] = {k: result_digests(v)[0] for k, v in warm.items()}
+    del warm
+    # a lone warm query of each kind on the first gang, outside the
+    # scheduler (no agreement at the fault sites), the others idle: what
+    # the serial sweep's gang walls are held beside
+    leases = [pool.reserve(gang) for _ in range(pool.size // gang)]
+    lone, comm = {}, None
+    for g, lease in enumerate(leases):
+        if lease.is_member:
+            env = CylonEnv(devices=lease, program_cache=shared)
+            comm = env.comm
+            rep["gang"] = list(lease.indices)
+            for k in kinds if g == 0 else ():
+                env.synchronize()
+                t = time.perf_counter()
+                res = queries[k]().on_gang(env.comm).collect(env=env)
+                env.synchronize()
+                lone[k] = time.perf_counter() - t
+                check(result_digests(res)[0] == rep["warm"][k] and
+                      env.cache_misses == 0, f"group serving lone {k} "
+                      f"on rank {rank}: differs or built a stage")
+                del res
+    for lease in leases:
+        lease.release()
+    rep["lone_s"] = lone
+
+    def sweep(inflight):
+        sched = QueryScheduler(pool=pool, gang_size=gang,
+                               max_inflight=inflight, max_queue=nq,
+                               program_cache=shared,
+                               name=f"pg-serve-x{inflight}")
+        _WATCH["sched"] = sched
+        names = [kinds[i % len(kinds)] for i in range(nq)]
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        c0 = dict(comm.stats)
+        ch0 = sched.stats()["control"]
+        t0 = time.monotonic()
+        handles = [sched.submit(queries[n](), label=f"x{inflight}-{i}")
+                   for i, n in enumerate(names)]
+        # each result's digest as it comes, the result then let go: a
+        # process's peak is one query's working set, not the sweep's
+        # results; the sweep's wall ends at its last query's end
+        entries = []
+        for i, n in enumerate(names):
+            res = handles[i].result(timeout=PG_TIMEOUT_S)
+            st = handles[i].stats
+            entries.append([
+                n, st["devices"], st["state"], st["cache_misses"],
+                None if res is None else
+                [held_rank(res), result_digests(res)[0]],
+                st["submitted_monotonic"], st["started_monotonic"],
+                st["finished_monotonic"], st["wall_s"], st["queue_wait_s"]])
+            handles[i] = res = None
+        wall = max(e[7] for e in entries) - t0
+        sched.close()
+        ch = sched.stats()["control"]
+        counts = launch_counts()
+        mine = [e[0] for e in entries if rank in e[1]]
+        want = {k: sum(job["launches"][n][k] for n in mine) * on_card
+                for k in ("radix_partition", "segmented_sum")}
+        rec = {"inflight": inflight, "wall_s": wall, "launches": counts,
+               "launches_want": want, "member_of": len(mine),
+               "staged_s": sum(comm.stats[k] - c0[k]
+                               for k in ("staged_s", "host_s")),
+               "control_s": ch["seconds"] - ch0["seconds"],
+               "messages": ch["sent"] + ch["received"] - ch0["sent"]
+               - ch0["received"],
+               "peak_bytes": torch.cuda.max_memory_allocated()
+               if on_card else None, "handles": entries}
+        return rec
+    rep["sweeps"] = [sweep(k) for k in job["inflight"]]
+
+    sched = QueryScheduler(pool=pool, gang_size=gang, max_inflight=1,
+                           max_queue=2, program_cache=shared,
+                           name="pg-serve-ctl")
+    _WATCH["sched"] = sched
+    t = time.perf_counter()
+    hang = sched.submit(queries["groupby"](), label="hang",
+                        faults="stage:launch@0=hang", timeout=PG_HANG_S)
+    expires = sched.submit(queries["filter"](), label="expires",
+                           timeout=0.2)
+    cancelled = sched.submit(queries["join"](), label="cancelled")
+    try:
+        sched.submit(queries["filter"](), label="rejected")
+        rejected = None
+    except AdmissionRejected as e:
+        rejected = type(e).__name__
+    if rank == world - 1:
+        cancelled.cancel("from the last process")
+    ctl = {"rejected": rejected}
+    for name, h in (("hang", hang), ("expires", expires),
+                    ("cancelled", cancelled)):
+        try:
+            h.result(timeout=PG_TIMEOUT_S)
+            exc = None
+        except Exception as e:      # the outcome under test
+            exc = type(e).__name__
+        ctl[name] = [h.stats["state"], exc, h.stats.get("devices")]
+    ctl["hang_wall_s"] = hang.stats.get("wall_s")
+    sched.close()
+    ctl["wall_s"] = time.perf_counter() - t
+    rep["ctl"] = ctl
+    _WATCH.pop("sched", None)
+    del left, right, queries
+    return rep
+
+
+def _pg_handoff_job(torch, job, device):
+    """The §IV-C hand-off over the group (``job``: the corpus, the
+    preprocessing gang's size, the batches): the preprocessing on the
+    lowest ranks, ``put``; ``get`` at every process, its batches; ``get``
+    onto the next gang of that size, its batches; this process's
+    report."""
+    import torch.distributed as dist
+    from repro_torch.core import CylonExecutor, CylonStore, DevicePool
+    from repro_torch.data import (CorpusConfig, preprocess, source_weights,
+                                  synth_corpus)
+    on_card = device != "cpu"
+    world = dist.get_world_size()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    pool = DevicePool(process_group=dist.group.WORLD, device=device)
+    store = CylonStore(pool=pool)
+    cfg = CorpusConfig(**job["corpus"])
+    ex = CylonExecutor(job["gang"], pool=pool)
+    rep = {"member": ex.is_member}
+    corpus = weights = None
+    t = time.perf_counter()
+    if ex.is_member:
+        corpus = synth_corpus(cfg, ex.parallelism, device=device,
+                              comm=ex.env.comm)
+        weights = source_weights(cfg.num_sources, ex.parallelism,
+                                 device=device, comm=ex.env.comm)
+    sync()
+    rep["made_s"] = time.perf_counter() - t
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats0 = dict(ex.env.comm.stats) if ex.is_member else None
+    t = time.perf_counter()
+    out = preprocess(ex, corpus, weights, store=store)
+    sync()
+    rep["preprocess_s"] = time.perf_counter() - t
+    rep["launches"] = launch_counts()
+    if out is not None:
+        rep["staged_s"] = sum(ex.env.comm.stats[k] - stats0[k]
+                              for k in ("staged_s", "host_s"))
+        rep["out"] = [held_rank(out), valid_digests(out)[0]]
+    del corpus, weights, out
+    host0 = store.world.stats["host_s"]
+    t = time.perf_counter()
+    got = store.get("train_corpus", target_parallelism=world)
+    sync()
+    rep["get_all_s"] = time.perf_counter() - t
+    rep["get_all"] = [held_rank(got), valid_digests(got)[0]]
+    other = pool.reserve(job["gang"])
+    t = time.perf_counter()
+    moved = store.get("train_corpus", lease=other)
+    sync()
+    rep["get_other_s"] = time.perf_counter() - t
+    rep["handoff_host_s"] = store.world.stats["host_s"] - host0
+    rep["other"] = list(other.indices)
+    if moved is not None:
+        rep["get_other"] = [held_rank(moved), valid_digests(moved)[0]]
+    t = time.perf_counter()
+    rep["batches_all"] = batch_digests(got, job["steps"])
+    if moved is not None:
+        rep["batches_other"] = batch_digests(moved, job["steps"])
+    rep["batches_s"] = time.perf_counter() - t
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated() if on_card \
+        else None
+    other.release()
+    ex.release()
+    del got, moved
+    return rep
+
+
+def _alike(got, label, what):
+    first = json.dumps(got[0])
+    check(all(json.dumps(g) == first for g in got), f"{label}: {what} "
+          f"differs between processes: {got}")
+
+
+def check_pg_serving(out, reports, label, want, stacked, smi):
+    """Hold the group's serving job ``label`` to the stacked gang's
+    digests ``want`` ({kind: per-rank digests}), print its numbers beside
+    the stacked serving phase's (``stacked``, or None) and record them in
+    ``out["runs"]``."""
+    got = [rep[label] for rep in reports]
+    world = len(got)
+    for r, g in enumerate(got):
+        for k, d in g["warm"].items():
+            check(d == want[k][g["rank"]], f"{label}: pre-warm {k} on "
+                  f"process {r} differs from rank {g['rank']} of the "
+                  f"stacked gang")
+    for i, sw in enumerate(got[0]["sweeps"]):
+        tag = f"{label} x{sw['inflight']}"
+        sweeps = [g["sweeps"][i] for g in got]
+        for j, h in enumerate(sw["handles"]):
+            recs = [s["handles"][j] for s in sweeps]
+            _alike([x[:4] for x in recs], tag, f"query {j} outcome")
+            check(h[2] == "done" and h[3] == 0, f"{tag}: query {j} "
+                  f"{h[2]}, {h[3]} stages built")
+            for w, x in enumerate(recs):
+                check((x[4] is not None) == (w in h[1]), f"{tag}: query "
+                      f"{j} result on process {w}, gang {h[1]}")
+                if x[4] is not None:
+                    check(x[4][1] == want[h[0]][x[4][0]], f"{tag}: query "
+                          f"{j} ({h[0]}) on process {w} differs from "
+                          f"rank {x[4][0]} of the stacked gang")
+        for w, s in enumerate(sweeps):
+            check(s["launches"]["radix_partition"]
+                  == s["launches_want"]["radix_partition"]
+                  and s["launches"]["segmented_sum"]
+                  == s["launches_want"]["segmented_sum"],
+                  f"{tag}: process {w} launches {s['launches']}, derived "
+                  f"{s['launches_want']}")
+        pairs = 0
+        hs = sw["handles"]
+        for a in range(len(hs)):
+            for b in range(a + 1, len(hs)):
+                if hs[a][6] < hs[b][7] and hs[b][6] < hs[a][7]:
+                    pairs += 1
+                    check(not set(hs[a][1]) & set(hs[b][1]),
+                          f"{tag}: overlapping queries shared processes")
+        check(sw["inflight"] == 1 or world == PG_SERVE_GANG or pairs > 0,
+              f"{tag}: no two queries ran at once")
+        lat = sorted(h[7] - h[5] for h in hs)
+        members = [s for s in sweeps if s["member_of"]]
+        rec = {"processes": world, "gang": len(hs[0][1]),
+               "queries": len(hs), "wall_s": sw["wall_s"],
+               "queries_per_s": len(hs) / sw["wall_s"],
+               "p50_s": lat[len(lat) // 2], "max_s": lat[-1],
+               "gang_wall_s_by_kind": {
+                   k: float(np.median([h[8] for h in hs if h[0] == k]))
+                   for k in sorted(want)},
+               "staged_share": float(np.mean(
+                   [s["staged_s"] / sw["wall_s"] for s in members])),
+               "control_share": float(np.mean(
+                   [s["control_s"] / sw["wall_s"] for s in sweeps])),
+               "control_messages": sweeps[0]["messages"],
+               "overlapping_pairs": pairs,
+               "peak_bytes_per_process": max(s["peak_bytes"] or 0
+                                             for s in sweeps),
+               "launches_per_process": max(
+                   (s["launches"] for s in members),
+                   key=lambda c: c["radix_partition"])}
+        out["runs"][tag] = rec
+        beside = ""
+        if stacked is not None:
+            st = stacked["serial" if sw["inflight"] == 1 else "concurrent"]
+            beside = (f"; stacked gangs of {PG_SERVE_GANG} ranks, same "
+                      f"call: {st['queries_per_s']:.3f} queries/s, p50 "
+                      f"{st['p50_s'] * 1e3:.1f} ms, largest "
+                      f"{st['max_s'] * 1e3:.1f} ms, reserved "
+                      f"{st.get('peak_reserved_gib', 0):.2f} GiB")
+        print(f"process group serving {tag}: {len(hs)} queries on gangs of "
+              f"{rec['gang']} of {world} processes in {sw['wall_s']:.3f} s, "
+              f"{rec['queries_per_s']:.3f} queries/s, latency p50 "
+              f"{rec['p50_s'] * 1e3:.1f} ms, largest {rec['max_s'] * 1e3:.1f}"
+              f" ms, gang wall by kind "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                          rec["gang_wall_s_by_kind"].items())
+              + f"; host-staged collectives and host exchanges "
+              f"{100 * rec['staged_share']:.1f}% of a member's wall, control "
+              f"messages {100 * rec['control_share']:.2f}% ("
+              f"{rec['control_messages']} on the coordinator), "
+              f"{pairs} overlapping pairs on disjoint gangs, peak "
+              f"{rec['peak_bytes_per_process'] / 2**30:.2f} GiB a process, "
+              f"launches a member {rec['launches_per_process']} (derived), "
+              f"every member equal to rank r of the stacked gang, 0 stages "
+              f"built{beside} [{smi}]", flush=True)
+    sweeps = out["runs"]
+    if len(got[0]["sweeps"]) == 2:
+        a, b = (sweeps[f"{label} x{s['inflight']}"]["wall_s"]
+                for s in got[0]["sweeps"])
+        out["runs"][f"{label} x1"]["speedup_concurrent"] = a / b
+        print(f"process group serving {label}: concurrent / serial "
+              f"{a / b:.4f}x" + (f" (stacked, same call: "
+                                 f"{stacked['speedup']:.4f}x)"
+                                 if stacked is not None else "")
+              + f" [{smi}]", flush=True)
+    ctl = [g["ctl"] for g in got]
+    _alike([{k: v for k, v in c.items() if not k.endswith("_s")}
+            for c in ctl], label, "control outcomes")
+    c = ctl[0]
+    check(c["rejected"] == "AdmissionRejected"
+          and c["hang"][:2] == ["timeout", "QueryTimeout"]
+          and c["expires"][:2] == ["timeout", "QueryTimeout"]
+          and c["cancelled"][:2] == ["cancelled", "QueryCancelled"],
+          f"{label}: control outcomes {c}")
+    lone = {k: max(g["lone_s"][k] for g in got if g["lone_s"])
+            for k in sorted(want)}
+    out["runs"][f"{label} control"] = {
+        "outcomes": {k: c[k][:2] for k in ("hang", "expires", "cancelled")},
+        "rejected": c["rejected"], "hang_wall_s": c["hang_wall_s"],
+        "lone_s": lone, "upload_s": max(g["upload_s"] for g in got),
+        "input_bytes": max(g["input_bytes"] for g in got)}
+    print(f"process group serving {label}: a hang under a {PG_HANG_S} s "
+          f"deadline QueryTimeout on both members after "
+          f"{c['hang_wall_s']:.2f} s, a deadline in the queue QueryTimeout, "
+          f"a cancellation from process {world - 1} QueryCancelled, "
+          f"AdmissionRejected past max_queue, alike on every process; "
+          f"lone warm queries on the first gang outside the scheduler (no "
+          f"agreement at the fault sites, the other gangs idle) "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in lone.items())
+          + f"; whole inputs {max(g['input_bytes'] for g in got) / 2**30:.2f}"
+          f" GiB on the card a process, the card's free memory at the job's "
+          f"start {min(g['free_bytes'] for g in got) / 2**30:.2f} GiB "
+          f"[{smi}]", flush=True)
+
+
+def check_pg_handoff(out, reports, label, ref, smi):
+    """Hold the group's hand-off job to the stacked pipeline ``ref`` and
+    record its numbers."""
+    got = [rep[label] for rep in reports]
+    world = len(got)
+    members = [g for g in got if g["member"]]
+    gang = len(members)
+    for w, g in enumerate(got):
+        check(g["member"] == (w < gang), f"{label}: process {w} member "
+              f"{g['member']}")
+        if g["member"]:
+            r, d = g["out"]
+            check(r == w and d == ref["out"][r], f"{label}: the "
+                  f"preprocessing on process {w} differs from rank {r}")
+            check(g["launches"]["radix_partition"]
+                  == ref["radix_per_member"], f"{label}: process {w} "
+                  f"launches {g['launches']}, derived "
+                  f"{ref['radix_per_member']}")
+        else:
+            check(g["launches"]["radix_partition"] == 0, f"{label}: "
+                  f"process {w} launched outside the gang")
+        r, d = g["get_all"]
+        check(r == w and d == ref["get_p"][r], f"{label}: get at {world} "
+              f"on process {w} differs from rank {r}")
+        check(g["batches_all"] == ref["batches"], f"{label}: process {w}'s "
+              f"batches differ from the stacked run's")
+        check(g["other"] == list(range(gang, 2 * gang)), f"{label}: the "
+              f"other gang {g['other']}")
+        if w >= gang:
+            r, d = g["get_other"]
+            check(r == w - gang and d == ref["out"][r], f"{label}: get onto "
+                  f"the other gang on process {w} differs from rank {r}")
+            check(g["batches_other"] == ref["batches"], f"{label}: process "
+                  f"{w}'s batches from the other gang differ")
+        else:
+            check("get_other" not in g, f"{label}: process {w} got rows")
+    rec = {"processes": world, "gang": gang,
+           "preprocess_s": max(g["preprocess_s"] for g in got),
+           "staged_share": float(np.mean([g["staged_s"] / g["preprocess_s"]
+                                          for g in members])),
+           "get_all_s": max(g["get_all_s"] for g in got),
+           "get_other_s": max(g["get_other_s"] for g in got),
+           "handoff_host_s": max(g["handoff_host_s"] for g in got),
+           "batches_s": max(g["batches_s"] for g in got),
+           "made_s": max(g["made_s"] for g in got),
+           "peak_bytes_per_process": max(g["peak_bytes"] or 0 for g in got),
+           "launches_per_process": members[0]["launches"],
+           "stacked_preprocess_s": ref["wall_s"],
+           "stacked_handoff_s": ref["handoff_s"]}
+    out["runs"][label] = rec
+    print(f"process group {label}: {ref['rows']} documents kept by a gang "
+          f"of {gang} of {world} processes in {rec['preprocess_s']:.3f} s "
+          f"({100 * rec['staged_share']:.1f}% in host-staged collectives "
+          f"and host exchanges; corpus made in {rec['made_s']:.2f} s), get "
+          f"at {world} {rec['get_all_s']:.3f} s, onto the other gang of "
+          f"{gang} {rec['get_other_s']:.3f} s ({rec['handoff_host_s']:.3f} "
+          f"s in host exchanges), {TRAIN_STEPS} batches {rec['batches_s']:.3f}"
+          f" s; peak {rec['peak_bytes_per_process'] / 2**30:.2f} GiB a "
+          f"process; launches a member {rec['launches_per_process']}; every "
+          f"process equal to the stacked run by digest (stacked on "
+          f"{gang} ranks, same call: {ref['wall_s']:.3f} s, get at {P} "
+          f"{ref['handoff_s']:.3f} s) [{smi}]", flush=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -5566,18 +6194,22 @@ def main():
     phase_done("skew")
     fault_walls = faults_phase(torch, keep=kept)
     phase_done("faults")
-    try:
-        process_group = process_group_phase(torch, smi, kept=kept)
-    finally:
-        shutil.rmtree(kept["dir"], ignore_errors=True)
-    phase_done("process group")
-    serving, (serve_dests, serve_sums) = query_serving_phase(torch, smi=smi)
+    serving, (serve_dests, serve_sums) = query_serving_phase(torch, smi=smi,
+                                                             keep=kept)
     for k in ("radix_partition", "segmented_sum"):
         check(serving["concurrent"]["launches"][k] > 0, f"{k} never "
               f"launched by the served queries")
     flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
     radix_cases += radix_phase(torch, cap, flush, recorded=serve_dests)
     segsum_cases += segsum_phase(torch, cap, flush, serve_sums)
+    # one rank a process in a gang of 2 processes (the process-group
+    # phase's served queries): rank 0's inputs
+    radix_cases += radix_phase(torch, cap, flush, recorded=[
+        (k.replace("serve:", "process:serve:"), dest[:1].contiguous(), nb)
+        for k, dest, nb in serve_dests])
+    segsum_cases += segsum_phase(torch, cap, flush, [
+        (k.replace("serve:", "process:serve:"), ids[:1].contiguous(),
+         vals[:1].contiguous(), s) for k, ids, vals, s in serve_sums])
     del flush, serve_dests, serve_sums
     phase_done("query serving")
     parity_phase()
@@ -5614,6 +6246,13 @@ def main():
     phase_done("sharding")
     dry = dryrun_phase(torch, smi, sharded, dry_started)
     phase_done("dry run")
+    # last: its serving and hand-off runs are held to the query serving
+    # phase's stacked gangs, and the dry run's host processes are done
+    try:
+        process_group = process_group_phase(torch, smi, kept=kept)
+    finally:
+        shutil.rmtree(kept["dir"], ignore_errors=True)
+    phase_done("process group")
 
     rp, ss = radix_partition_cuda, segmented_sum_cuda
     kernels = [
@@ -5667,7 +6306,8 @@ def main():
     for rec in kernels[:2]:
         rec["launches_process_group"] = {
             label: r["launches_per_process"][rec["name"]]
-            for label, r in process_group["runs"].items()}
+            for label, r in process_group["runs"].items()
+            if "launches_per_process" in r}
     kernels[-1]["launches_train_step"] = train["ssd_launches_per_step"]
     # the sharded path (a (1, 1) mesh over NCCL): each kernel's launches in
     # each sharded run

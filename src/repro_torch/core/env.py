@@ -23,7 +23,11 @@ Serving (``DevicePool``, ``Lease``): a pool slot is one *rank slot* on a
 device (``RankSlot``).  A gang of ``g`` slots leased from the pool is a
 ``CylonEnv`` of ``g`` stacked ranks on that device; the query scheduler
 runs each gang's work on a CUDA stream of its own, so gangs on one card
-overlap where the card has room.
+overlap where the card has room.  Over the process group of the world
+(``DevicePool(process_group=dist.group.WORLD)``) a slot is one rank, one
+process: a gang is a sub-group of its member processes
+(``Lease.group()``), and ``CylonEnv(devices=lease)`` on a member holds
+that member's rank of it.
 """
 
 from __future__ import annotations
@@ -105,6 +109,22 @@ class DistTable:
     def from_table(cls, t: Table, comm: Optional[Communicator] = None
                    ) -> "DistTable":
         return cls(dict(t.columns), t.row_count, t.capacity, comm=comm)
+
+    def select(self, comm: Optional[Communicator]) -> "DistTable":
+        """The ranks ``comm`` holds of this whole table (as
+        ``SpillTable.select``): every process of a group given the same
+        table keeps a view of its own rank.  Unchanged when the table is
+        already over a group or ``comm`` holds every rank."""
+        if self.comm is not None or comm is None or \
+                comm.ranks_held() == comm.size():
+            return self
+        if comm.size() != self.parallelism:
+            raise ValueError(f"a table of {self.parallelism} ranks for a "
+                             f"group of {comm.size()}")
+        r = int(comm.rank()[0])
+        return DistTable({n: v[r:r + 1] for n, v in self.columns.items()},
+                         self.row_counts[r:r + 1], self.capacity,
+                         dict(self.dictionaries), self.provenance, comm)
 
     @classmethod
     def from_numpy(cls, data: Dict[str, np.ndarray], parallelism: int,
@@ -213,15 +233,21 @@ class DistTable:
                      ) -> Dict[str, np.ndarray]:
         """``to_numpy`` of every rank, on every process of the group (a
         collective): what ``to_numpy`` gives when the ranks are stacked.
-        For tests and checks; ``to_numpy`` alone gives this process's
-        rows."""
+        For checks and for what every process needs whole (the trainer
+        gang's batches); ``to_numpy`` alone gives this process's rows."""
         if self.comm is None:
             return self.to_numpy(decode=decode, nulls=nulls)
-        whole = DistTable({n: self.comm.world(v)
-                           for n, v in self.columns.items()},
-                          self.comm.world(self.row_counts), self.capacity,
-                          dict(self.dictionaries))
-        return whole.to_numpy(decode=decode, nulls=nulls)
+        # each process's valid rows on the host, gathered there: no
+        # padding, and no round trip through a staged device collective
+        parts = self.comm.gather_object(self.to_numpy(decode=False,
+                                                      nulls="mask"))
+        out = {n: np.concatenate([p[n] for p in parts], axis=0)
+               for n in parts[0]}
+        if decode and self.dictionaries:
+            out = decode_columns(out, self.dictionaries)
+        if nulls == "pandas":
+            out = apply_null_columns(out)
+        return out
 
 
 # ---------------------------------------------------------------------- #
@@ -427,7 +453,12 @@ class CylonEnv:
                    ``device="cpu"`` for the plain PyTorch path.
     devices:       a ``Lease`` (or a list of ``RankSlot``) from a
                    ``DevicePool``: sets the parallelism (one rank per slot)
-                   and the device (the slots', which must agree).
+                   and the device (the slots', which must agree).  A
+                   lease of a pool over a process group is a gang of
+                   processes: on a member the env holds its rank of the
+                   gang's sub-group (``Lease.group()``) on its own
+                   device, with the communicator the pool keeps for that
+                   gang; on any other process it is an error.
     communicator:  registry name (``"xla"`` | ``"ring"`` | ``"bruck"``).
     program_cache: a ``repro_torch.serve.cache.ProgramCache`` to share
                    built stages with other envs (the serving scheduler
@@ -458,6 +489,7 @@ class CylonEnv:
         # deferred import: serve.cache stands alone, but the serve package
         # must not be entered while core.env is still importing
         from ..serve.cache import ProgramCache
+        gang_comm = None
         if process_group is not None:
             import torch.distributed as dist
             if devices is not None or parallelism != 1:
@@ -468,6 +500,18 @@ class CylonEnv:
             if device is None:
                 device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
             slot_ids = (dist.get_rank(process_group),)
+        elif isinstance(devices, Lease) and devices.over_processes:
+            if device is not None or parallelism != 1:
+                raise TypeError("devices= sets the parallelism and the "
+                                "device; pass neither beside it")
+            if not devices.is_member:
+                raise ValueError(
+                    f"this process (rank {devices.pool.rank}) is not in the "
+                    f"gang of ranks {list(devices.indices)}")
+            gang_comm = devices.communicator(communicator)
+            process_group = gang_comm.group
+            parallelism, device = len(devices), devices.pool.device
+            slot_ids = tuple(devices.indices)
         elif devices is not None:
             slots = list(devices)
             devs = {str(resolve_device(d.device)) for d in slots}
@@ -485,7 +529,7 @@ class CylonEnv:
         if parallelism < 1:
             raise ValueError(f"parallelism must be >= 1, got {parallelism}")
         self.device = resolve_device(device)
-        self.comm: Communicator = get_communicator(
+        self.comm: Communicator = gang_comm or get_communicator(
             communicator, parallelism, group=process_group)
         if self.device.type == "cuda" and process_group is not None:
             # NCCL and the pinned staging of gloo run on the process's card
@@ -623,10 +667,12 @@ class CylonEnv:
 class RankSlot:
     """One rank slot of a ``DevicePool``: a rank that a gang stacks on
     ``device``.  ``id`` is the slot's index in the pool, and what
-    ``QueryHandle.stats["devices"]`` lists."""
+    ``QueryHandle.stats["devices"]`` lists.  In a pool over a process
+    group a slot is the group's rank ``id``: this process's own slot
+    carries its device, every other slot ``None``."""
 
     id: int
-    device: torch.device
+    device: Optional[torch.device]
 
 
 class PoolExhausted(RuntimeError):
@@ -667,6 +713,33 @@ class Lease(Sequence):
         """Return the partition to the pool (idempotent)."""
         self._pool.release(self)
 
+    # -- a gang of processes (a pool over a process group) --------------- #
+    @property
+    def pool(self) -> "DevicePool":
+        return self._pool
+
+    @property
+    def over_processes(self) -> bool:
+        """True when the slots are the ranks of a process group."""
+        return self._pool.process_group is not None
+
+    @property
+    def is_member(self) -> bool:
+        """Whether this process holds one of the leased slots (always
+        True for a pool of rank slots stacked in one process)."""
+        return not self.over_processes or self._pool.rank in self._indices
+
+    def group(self):
+        """The gang's sub-group of the pool's process group, made when
+        the lease was reserved (None off the gang;
+        ``DevicePool.gang_group``)."""
+        return self._pool.gang_group(self._indices)
+
+    def communicator(self, name: str = "xla"):
+        """The gang's ``name`` communicator over ``group()`` (members
+        only; one per gang and name, ``DevicePool.gang_communicator``)."""
+        return self._pool.gang_communicator(self._indices, name)
+
     def __len__(self) -> int:
         return len(self.devices)
 
@@ -685,6 +758,28 @@ class Lease(Sequence):
     def __repr__(self) -> str:
         state = "released" if self._released else "held"
         return f"<Lease devices={[d.id for d in self.devices]} {state}>"
+
+
+#: the sub-groups of gangs of processes and their communicators, by the
+#: ranks a gang spans: one group per rank set in a process, whichever
+#: pool carved it (None where the process is not a member), kept for the
+#: world group in ``"world"`` and emptied when that is another (a world
+#: destroyed and made again).  Every process of the world makes each
+#: group, in the same order: a group made by its members alone
+#: (``use_local_synchronization``) is named after its ranks and the
+#: number of groups the process already holds, so members that had made
+#: different gangs before would name it differently and wait for each
+#: other forever.
+_GANGS: Dict[str, Any] = {"world": None, "groups": {}, "comms": {}}
+_GANG_LOCK = threading.Lock()
+
+
+def _gangs_of_world() -> Dict[str, Any]:
+    """``_GANGS`` for the current world group (caller holds the lock)."""
+    import torch.distributed as dist
+    if _GANGS["world"] is not dist.group.WORLD:
+        _GANGS.update(world=dist.group.WORLD, groups={}, comms={})
+    return _GANGS
 
 
 class DevicePool:
@@ -708,11 +803,47 @@ class DevicePool:
     ``reserve(n, block=True)`` waits (optionally fenced by a
     ``CancellationToken``) until ``n`` slots free up — the serving
     scheduler's admission path.
+
+    ``DevicePool(process_group=dist.group.WORLD)`` is a pool over the
+    ``torch.distributed`` world (no other group: gangs' sub-groups and
+    the serving control channel are made over the world): slot ``i`` is
+    rank ``i``, one process, and this process's own slot carries its device (``device``,
+    default ``cuda:LOCAL_RANK``).  Every process holds its own copy of
+    the free list; calls made in the same order on every process (as an
+    SPMD program makes them) keep the copies alike, so every process
+    computes the same leases without a coordinator.  A lease's gang is
+    the sub-group of its members (``Lease.group()``): every process makes
+    it when the lease is reserved (``gang_group``, in the order of the
+    reservations, so the group's name agrees), and it is kept for the
+    rank set, so a re-carved gang reuses its group.
     """
 
     def __init__(self, devices: Optional[Sequence[Any]] = None, *,
-                 slots: Optional[int] = None, device=None):
-        if devices is not None:
+                 slots: Optional[int] = None, device=None,
+                 process_group: Any = None):
+        #: the process group whose ranks are the slots, and this
+        #: process's rank of it (None for slots stacked in one process)
+        self.process_group = process_group
+        self.rank: Optional[int] = None
+        self._own: Optional[torch.device] = None
+        if process_group is not None:
+            import torch.distributed as dist
+            if devices is not None or slots is not None:
+                raise TypeError("process_group= makes one slot per rank of "
+                                "the group; pass neither devices= nor "
+                                "slots= beside it")
+            if process_group is not dist.group.WORLD:
+                raise TypeError("a pool over processes takes the world "
+                                "group (dist.group.WORLD): its gangs' "
+                                "sub-groups are made over the world")
+            n = dist.get_world_size()
+            self.rank = dist.get_rank()
+            if device is None:
+                device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+            self._own = resolve_device(device)
+            self._devices = [RankSlot(i, self._own if i == self.rank
+                                      else None) for i in range(n)]
+        elif devices is not None:
             if slots is not None or device is not None:
                 raise TypeError("pass either devices= or slots= / device=, "
                                 "not both")
@@ -743,7 +874,10 @@ class DevicePool:
     @property
     def device(self) -> Optional[torch.device]:
         """The device every slot stacks its rank on, or None when the
-        slots carry none (fake slots) or disagree."""
+        slots carry none (fake slots) or disagree; over a process group,
+        this process's device."""
+        if self.process_group is not None:
+            return self._own
         devs = {getattr(d, "device", None) for d in self._devices}
         if len(devs) != 1 or None in devs:
             return None
@@ -777,7 +911,7 @@ class DevicePool:
             while True:
                 lease = self._try_reserve_locked(n)
                 if lease is not None:
-                    return lease
+                    break
                 if not block:
                     raise PoolExhausted(
                         f"pool exhausted: want {n}, have {len(self._free)} "
@@ -785,11 +919,23 @@ class DevicePool:
                 self._cond.wait(timeout=poll_s)
                 if token is not None:
                     token.check("DevicePool.reserve")
+        if self.process_group is not None:
+            self.gang_group(lease.indices)
+        return lease
+
+    def free_slots(self) -> List[int]:
+        """The free slots' indices, lowest first (what ``reserve`` hands
+        out first)."""
+        with self._cond:
+            return list(self._free)
 
     def try_reserve(self, n: int) -> Optional[Lease]:
         """``reserve`` that returns None instead of raising on exhaustion."""
         with self._cond:
-            return self._try_reserve_locked(n) if n >= 1 else None
+            lease = self._try_reserve_locked(n) if n >= 1 else None
+        if lease is not None and self.process_group is not None:
+            self.gang_group(lease.indices)
+        return lease
 
     def release(self, lease: Lease) -> None:
         """Return one lease's slots to the free list (idempotent)."""
@@ -800,6 +946,49 @@ class DevicePool:
             del self._leases[id(lease)]
             self._free = sorted(self._free + list(lease._indices))
             self._cond.notify_all()
+
+    def _gang_key(self, indices: Sequence[int]) -> Tuple[int, ...]:
+        if self.process_group is None:
+            raise TypeError("a pool of rank slots in one process has no "
+                            "process sub-groups")
+        return tuple(sorted(indices))
+
+    def gang_group(self, indices: Sequence[int]):
+        """The sub-group of the processes holding slots ``indices`` (None
+        on any other process), made once per rank set.  The first call
+        for a rank set makes it, so every process of the world calls it
+        for each new rank set in the same order (``reserve`` does, and so
+        does every collective path that names a gang without a lease);
+        only the members connect, the others return at once."""
+        import torch.distributed as dist
+        key = self._gang_key(indices)
+        with _GANG_LOCK:
+            groups = _gangs_of_world()["groups"]
+            if key in groups:
+                return groups[key]
+        group = dist.new_group(list(key))
+        if group is dist.GroupMember.NON_GROUP_MEMBER:
+            group = None
+        with _GANG_LOCK:
+            return _gangs_of_world()["groups"].setdefault(key, group)
+
+    def gang_communicator(self, indices: Sequence[int], name: str = "xla"
+                          ) -> Communicator:
+        """The ``name`` communicator over ``gang_group(indices)``, one per
+        gang and name: envs carved over the same gang share it (and the
+        stages built over it, and its ``stats``)."""
+        if self.rank not in indices:
+            raise ValueError(f"this process (rank {self.rank}) is not in "
+                             f"the gang of ranks {list(indices)}")
+        key = self._gang_key(indices) + (name,)
+        with _GANG_LOCK:
+            comm = _gangs_of_world()["comms"].get(key)
+        if comm is None:
+            comm = get_communicator(name, len(indices),
+                                    group=self.gang_group(indices))
+            with _GANG_LOCK:
+                comm = _gangs_of_world()["comms"].setdefault(key, comm)
+        return comm
 
     def release_all(self) -> None:
         """Reclaim every outstanding lease (tests / epoch reset)."""

@@ -25,10 +25,19 @@ counts them over the group (``num_morsels``, ``total_rows``), and rows
 routed to another process's rank (``respill_routed``, ``rescatter``)
 travel through the communicator's host exchange, so every process ends
 with exactly the rows, in the order, that rank r gets when stacked.
+
+Between gangs of processes (``CylonStore(pool=DevicePool(process_group=
+...))``, the §IV-C hand-off from a preprocessing gang to a training
+gang): ``rescatter`` with ``onto=Handoff(...)`` moves a table held by
+gang A's processes to ``q`` ranks held by another gang's, through a
+communicator over every process of both (the world's).  Every process
+of that world calls it; a target process ends with exactly rank r of the
+stacked re-split, any other with ``None``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -40,7 +49,7 @@ from ..dataframe.schema import decode_columns, encode_columns
 from ..dtypes import to_x32, x32_dtype
 from ..nulls import apply_null_columns, extract_null_columns
 from ..obs.trace import NULL_TRACER
-from .env import DistTable, resolve_device
+from .env import DevicePool, DistTable, resolve_device
 
 
 def _round8(x: int) -> int:
@@ -435,18 +444,78 @@ def _route_chunks(spill: SpillTable, parallelism: int, rows: np.ndarray
     return buckets
 
 
+@dataclasses.dataclass
+class GangRecord:
+    """Where a table held by a gang of processes lives, as every process
+    of the world records it (``CylonStore.put`` agrees it): the world
+    ranks holding its ranks 0..p-1, each rank's rows, the schema of its
+    host rows, its dictionaries and its capacity (None for a spill)."""
+
+    ranks: Tuple[int, ...]
+    counts: Tuple[int, ...]
+    schema: Dict[str, Tuple[np.dtype, Tuple[int, ...]]]
+    dictionaries: Dict[str, Tuple[str, ...]]
+    capacity: Optional[int]
+
+
+@dataclasses.dataclass
+class Handoff:
+    """A move of the table ``source`` describes to ``len(ranks)`` ranks
+    held by world ranks ``ranks``, through ``world`` (a process-group
+    communicator over every process of both gangs); ``comm`` is this
+    process's communicator over the target gang, None off it.  With
+    ``keep`` (as many target ranks as source ranks) target rank r gets
+    source rank r's rows, as the stacked ``CylonStore.get`` at the same
+    size keeps the table."""
+
+    world: Any
+    source: GangRecord
+    ranks: Tuple[int, ...]
+    comm: Optional[Any] = None
+    keep: bool = False
+
+
+def _hand_off(spill: Optional[SpillTable], h: Handoff
+              ) -> Optional[List[Dict[str, np.ndarray]]]:
+    """Route this process's rows of ``h.source`` (``spill``: its rank,
+    None off the source gang) by global block index to the target ranks,
+    in one host exchange over ``h.world``; the chunks this process's
+    target rank receives, by source rank, or None off the target gang."""
+    counts = np.asarray(h.source.counts, np.int64)
+    pieces: List[Optional[Dict[str, np.ndarray]]] = [None] * h.world.size()
+    if spill is not None and h.keep:
+        r = spill.held()[0]
+        if counts[r]:
+            pieces[h.ranks[r]] = spill.rank_concat(0)
+    elif spill is not None:
+        for t, parts in enumerate(_route_chunks(spill, len(h.ranks),
+                                                counts)):
+            if parts:
+                pieces[h.ranks[t]] = {
+                    k: np.concatenate([c[k] for c in parts], axis=0)
+                    for k in h.source.schema}
+    got = h.world.exchange_rows(pieces, h.source.schema)
+    if h.world.me not in h.ranks:
+        return None
+    return [got[w] for w in h.source.ranks
+            if len(next(iter(got[w].values())))]
+
+
 def respill(spill: SpillTable, parallelism: int,
             tracer=NULL_TRACER) -> SpillTable:
     """Re-bucket a SpillTable to a different gang size, chunk by chunk.
 
     Host-only (no device materialization — the spill may not fit a
     ``DistTable``).  ``tracer`` records a span with rows/bytes moved.  A
-    spill over a process group keeps its gang size."""
+    spill over a process group keeps its gang size: ``rescatter(onto=)``
+    (``CylonStore.get``) moves it to another gang of processes."""
     if parallelism == spill.size:
         return spill
     if spill.comm is not None:
         raise ValueError(f"a spill over a process group of {spill.size} "
-                         f"ranks cannot be re-bucketed to {parallelism}")
+                         f"ranks cannot be re-bucketed to {parallelism}; "
+                         f"rescatter(onto=Handoff(...)) moves it to "
+                         f"another gang")
     with tracer.span("respill", "spill", from_p=spill.parallelism,
                      to_p=parallelism, rows=spill.total_rows(),
                      bytes=spill.nbytes()):
@@ -516,9 +585,10 @@ def _exchange(spill: SpillTable,
 # ---------------------------------------------------------------------- #
 # Bucketed rescatter (replaces the host-gather repartition)
 # ---------------------------------------------------------------------- #
-def rescatter(spill: SpillTable, parallelism: int,
+def rescatter(spill: Optional[SpillTable], parallelism: int,
               capacity: Optional[int] = None, device=None,
-              tracer=NULL_TRACER, comm: Optional[Any] = None) -> DistTable:
+              tracer=NULL_TRACER, comm: Optional[Any] = None, *,
+              onto: Optional[Handoff] = None) -> Optional[DistTable]:
     """SpillTable -> DistTable over a (possibly different) gang size, on
     ``device`` (``None``: the card).
 
@@ -532,31 +602,57 @@ def rescatter(spill: SpillTable, parallelism: int,
     Over a process group only the ranks this process holds are built: of
     a spill over the group (``spill.comm``) whose rows are routed through
     the communicator's host exchange, or of a whole spill given to every
-    process (``comm``: the group's communicator).
+    process (``comm``: the group's communicator).  With ``onto``
+    (``Handoff``) a spill held by one gang of processes lands on another
+    gang's ``parallelism`` ranks: every process of the world calls it
+    (``spill`` None off the source gang); a target process gets its rank,
+    any other ``None``.
     """
-    if spill.comm is not None and parallelism != spill.size:
-        raise ValueError(f"a spill over a process group of {spill.size} "
-                         f"ranks cannot be scattered to {parallelism}")
+    if onto is not None:
+        if parallelism != len(onto.ranks):
+            raise ValueError(f"{parallelism} ranks onto world ranks "
+                             f"{list(onto.ranks)}")
+        rows = np.asarray(onto.source.counts, np.int64)
+        schema, dicts = onto.source.schema, onto.source.dictionaries
+        provenance = None
+    else:
+        if spill.comm is not None and parallelism != spill.size:
+            raise ValueError(f"a spill over a process group of "
+                             f"{spill.size} ranks moves to {parallelism} "
+                             f"through onto=Handoff(...)")
+        rows = spill.world_rows()
+        schema, dicts = spill.schema, spill.dictionaries
+        provenance = spill.provenance
     dev = resolve_device(device)
-    rows = spill.world_rows()
     n = int(rows.sum())
     tracer.instant("rescatter", "transfer", to_p=parallelism, rows=n,
-                   bytes=spill.nbytes())
+                   bytes=spill.nbytes() if spill is not None else 0)
     per = -(-max(n, 1) // parallelism)
+    if onto is not None and onto.keep:
+        per = int(rows.max())
+        if capacity is None:
+            capacity = onto.source.capacity
     cap = capacity if capacity is not None else _round8(per)
     if per > cap and n > 0:
         raise ValueError(f"rows/shard {per} exceeds capacity {cap}")
-    buckets = _route_chunks(spill, parallelism, rows)
-    if spill.comm is not None:
-        comm = spill.comm
-        buckets = [_exchange(spill, buckets)]
-    elif comm is not None and comm.ranks_held() < comm.size():
-        buckets = [buckets[r] for r in comm.rank().tolist()]
+    if onto is not None:
+        got = _hand_off(spill, onto)
+        if got is None:
+            return None
+        comm = onto.comm if parallelism > 1 else None
+        buckets = [got]
     else:
-        comm = None
+        buckets = _route_chunks(spill, parallelism, rows)
+        if spill.comm is not None:
+            comm = spill.comm
+            buckets = [_exchange(spill, buckets)]
+        elif comm is not None and comm.ranks_held() < comm.size():
+            buckets = [buckets[r] for r in comm.rank().tolist()]
+        else:
+            comm = None
     cols: Dict[str, torch.Tensor] = {}
     counts = np.zeros((len(buckets),), np.int32)
-    for name, (dtype, trail) in spill.schema.items():
+    for name, (dtype, trail) in schema.items():
         buf = np.zeros((len(buckets), cap) + trail, x32_dtype(dtype))
         for d, pieces in enumerate(buckets):
             pos = 0
@@ -567,8 +663,7 @@ def rescatter(spill: SpillTable, parallelism: int,
             counts[d] = pos
         cols[name] = torch.from_numpy(buf).to(dev)
     return DistTable(cols, torch.from_numpy(counts).to(dev), cap,
-                     dict(spill.dictionaries), provenance=spill.provenance,
-                     comm=comm)
+                     dict(dicts), provenance=provenance, comm=comm)
 
 
 def repartition(table: Union[DistTable, SpillTable], parallelism: int,
@@ -589,20 +684,83 @@ def repartition(table: Union[DistTable, SpillTable], parallelism: int,
 
 
 class CylonStore:
-    def __init__(self):
-        self._data: Dict[str, Union[DistTable, SpillTable]] = {}
-        self._cv = threading.Condition()
+    """Keyed store of distributed tables shared between applications.
 
-    def put(self, key: str, table: Union[DistTable, SpillTable]) -> None:
+    In one process (the default) ``put`` keeps the table and ``get``
+    blocks until the key is there, then re-splits it to
+    ``target_parallelism`` ranks (``repartition``) where that differs.
+
+    ``CylonStore(pool=DevicePool(process_group=...))`` hands tables
+    between the gangs of processes that pool carves.  Every process calls
+    ``put`` and ``get``, in the same order: ``put(key, table)`` takes the
+    member's table of the gang that made it (a ``DistTable`` or ``SpillTable`` over the gang's sub-group;
+    ``None`` on any other process), and every process records the key
+    with its schema, dictionaries and per-rank rows, agreed with one
+    ``gather_object``.  ``get(key, target_parallelism=q)`` hands the table
+    to the first ``q`` ranks of the group (the pool's lowest-first
+    carving; ``lease=`` names another gang): a target process receives
+    exactly rank r of the stacked ``get``, over the target gang's
+    communicator, any other process ``None``.  At the table's own size
+    (another gang of as many processes) each rank's rows move whole, as
+    the stacked ``get`` keeps the table.  The rows go through one host
+    exchange over the group (``rescatter(onto=Handoff(...))``).
+    """
+
+    def __init__(self, pool: Optional[DevicePool] = None):
+        self._data: Dict[str, Any] = {}
+        self._cv = threading.Condition()
+        self.pool = pool
+        #: a communicator over the pool's process group (None in one
+        #: process), through which tables move between its gangs
+        self.world = None
+        if pool is not None and pool.process_group is not None:
+            from ..comm.process_group import ProcessGroupCommunicator
+            self.world = ProcessGroupCommunicator(pool.process_group)
+
+    def put(self, key: str, table: Union[DistTable, SpillTable, None]
+            ) -> None:
+        if self.world is None:
+            with self._cv:
+                self._data[key] = table
+                self._cv.notify_all()
+            return
+        mine = None
+        if table is not None:
+            r = int(table.comm.rank()[0]) if table.comm is not None else 0
+            if isinstance(table, DistTable):
+                rows = int(table.row_counts.sum())
+                schema = {n: (torch.empty(0, dtype=v.dtype).numpy().dtype,
+                              tuple(v.shape[2:]))
+                          for n, v in table.columns.items()}
+                cap = table.capacity
+            else:
+                rows = sum(table.rank_rows(j)
+                           for j in range(table.parallelism))
+                schema, cap = table.schema, None
+            mine = (r, rows, schema, dict(table.dictionaries), cap)
+        every = [(m, w) for w, m in enumerate(self.world.gather_object(mine))
+                 if m is not None]
+        if not every:
+            raise ValueError(f"CylonStore.put({key!r}): no process holds "
+                             f"a part of the table")
+        every.sort(key=lambda mw: mw[0][0])
+        _, _, schema, dicts, cap = every[0][0]
+        rec = GangRecord(tuple(w for _, w in every),
+                         tuple(m[1] for m, _ in every), schema, dicts, cap)
         with self._cv:
-            self._data[key] = table
+            self._data[key] = (table, rec)
             self._cv.notify_all()
 
     def get(self, key: str, target_parallelism: Optional[int] = None,
             capacity: Optional[int] = None, timeout: Optional[float] = None,
-            device=None) -> Union[DistTable, SpillTable]:
+            device=None, lease: Any = None
+            ) -> Union[DistTable, SpillTable, None]:
         """Fetch (blocking, like the paper's example) + repartition if
-        needed (onto ``device``, as ``repartition`` places it)."""
+        needed (onto ``device``, as ``repartition`` places it).  Over a
+        process group every process calls it (see the class)."""
+        if self.world is not None:
+            return self._get_over_group(key, target_parallelism, capacity,
+                                        device, lease)
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             while key not in self._data:
@@ -623,6 +781,31 @@ class CylonStore:
             table.parallelism if target_parallelism is None
             else target_parallelism,
             capacity, device)
+
+    def _get_over_group(self, key, target_parallelism, capacity, device,
+                        lease):
+        if key not in self._data:
+            raise KeyError(f"CylonStore.get({key!r}): no such key")
+        part, rec = self._data[key]
+        if lease is not None:
+            targets = tuple(lease.indices)
+        else:
+            targets = tuple(range(target_parallelism or len(rec.ranks)))
+        keep = len(targets) == len(rec.ranks) and \
+            capacity in (None, rec.capacity)
+        if keep and targets == rec.ranks:
+            return part
+        me = self.pool.rank
+        self.pool.gang_group(targets)       # every process, in order
+        onto = Handoff(self.world, rec, targets,
+                       self.pool.gang_communicator(targets)
+                       if me in targets and len(targets) > 1 else None,
+                       keep=keep)
+        spill = (SpillTable.from_dist(part) if isinstance(part, DistTable)
+                 else part)
+        return rescatter(spill, len(targets), capacity,
+                         device if device is not None else self.pool.device,
+                         onto=onto)
 
     def keys(self):
         return sorted(self._data)

@@ -19,6 +19,14 @@ through the ``CylonStore``:
      application ``get``s it (re-split to its own gang size if that
      differs) and packs token payloads into (B, S) batches.
 
+Over a process group the preprocessing gang is a gang of processes
+(``CylonExecutor(p, pool=DevicePool(process_group=...))``): its members
+build the ranks they hold of the corpus (``comm=``), run the application,
+and every process ``put``s into a ``CylonStore(pool=...)`` over the same
+pool; the training processes ``get`` the table at their own gang size,
+and ``batches_from_table`` gathers it over their gang, so every trainer
+process draws the batches the stacked run draws.
+
 The token payload is a vector column, ``(p, capacity, W)`` int32: the
 table machinery moves its rows whole.  ``synth_corpus`` and
 ``batches_from_table`` draw from numpy's ``default_rng(seed)`` in the
@@ -48,8 +56,10 @@ class CorpusConfig:
 
 
 def synth_corpus(cfg: CorpusConfig, parallelism: int,
-                 capacity: Optional[int] = None, device=None) -> DistTable:
-    """Synthetic sharded corpus on ``device`` (None: the card).
+                 capacity: Optional[int] = None, device=None,
+                 comm=None) -> DistTable:
+    """Synthetic sharded corpus on ``device`` (None: the card); with
+    ``comm`` (a gang of processes' communicator) the ranks it holds.
 
     Shards get 2x capacity headroom by default: hash redistribution moves
     a Poisson-ish share to each rank, and a table filled to exactly its
@@ -73,17 +83,18 @@ def synth_corpus(cfg: CorpusConfig, parallelism: int,
                                (n, cfg.payload_tokens)).astype(np.int32),
     }
     return DistTable.from_numpy(data, parallelism, capacity=capacity,
-                                device=device)
+                                device=device, comm=comm)
 
 
 def source_weights(num_sources: int, parallelism: int,
-                   device=None) -> DistTable:
+                   device=None, comm=None) -> DistTable:
     data = {
         "source": np.arange(num_sources, dtype=np.int32),
         "weight": np.linspace(0.5, 1.5, num_sources).astype(np.float32),
     }
     return DistTable.from_numpy(data, parallelism,
-                                capacity=max(8, num_sources), device=device)
+                                capacity=max(8, num_sources), device=device,
+                                comm=comm)
 
 
 def _app(ctx, docs: Table, wts: Table, quality_min: float) -> Table:
@@ -113,12 +124,15 @@ def _app(ctx, docs: Table, wts: Table, quality_min: float) -> Table:
                          if n != "balance_key"])
 
 
-def preprocess(executor: CylonExecutor, corpus: DistTable,
-               weights: DistTable, quality_min: float = 0.2,
+def preprocess(executor: CylonExecutor, corpus: Optional[DistTable],
+               weights: Optional[DistTable], quality_min: float = 0.2,
                store: Optional[CylonStore] = None,
-               store_key: str = "train_corpus") -> DistTable:
+               store_key: str = "train_corpus") -> Optional[DistTable]:
     """The DDF preprocessing application, run on the executor's gang; the
-    result is also ``put`` into ``store`` under ``store_key``."""
+    result is also ``put`` into ``store`` under ``store_key``.  Over a
+    gang of processes every process calls it: the members run the
+    application (``corpus`` / ``weights`` None, or anything, elsewhere),
+    every process ``put``s, and a non-member gets ``None``."""
     def app(ctx, docs: Table, wts: Table) -> Table:
         return _app(ctx, docs, wts, quality_min)
 
@@ -131,8 +145,11 @@ def preprocess(executor: CylonExecutor, corpus: DistTable,
 def batches_from_table(table: DistTable, batch: int, seq_len: int,
                        seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Pack document payloads into (B, S) token / label batches (host
-    side, numpy; the train step moves them to its device)."""
-    data = table.to_numpy()
+    side, numpy; the train step moves them to its device).  A table over
+    a gang of processes is gathered over the gang at the first batch
+    (every member calls it): each draws the stacked run's batches."""
+    data = (table.gather_numpy() if table.comm is not None
+            else table.to_numpy())             # over a gang: a collective
     toks = data["tokens"]                      # (N, payload)
     rng = np.random.default_rng(seed)
     flat = toks.reshape(-1)

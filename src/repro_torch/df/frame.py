@@ -336,6 +336,15 @@ class DataFrame:
                        timeout=timeout, retries=retries, overflow=overflow,
                        faults=faults, adaptive=adaptive, **kw)
 
+    def on_gang(self, comm) -> "DataFrame":
+        """This frame with each source narrowed to the ranks ``comm``
+        holds (``DistTable.select`` / ``SpillTable.select``; a host dict
+        stays whole): what a member of a gang of processes runs when
+        every process was given the whole input."""
+        return DataFrame(self.plan, {
+            n: t.select(comm) if hasattr(t, "select") else t
+            for n, t in self.sources.items()}, self._schema)
+
     def to_numpy(self, nulls: str = "pandas", **kw) -> Dict[str, np.ndarray]:
         """``collect`` + gather valid rows to host numpy columns (string
         columns decoded).

@@ -40,6 +40,21 @@ out-of-core (``--capacity-factor`` sets the working capacity);
 ``--timeout`` a deadline, both agreed over the group at every fault
 site.  ``--check`` gathers the result on every process and holds it to
 numpy on rank 0.
+
+``--gang-size G`` serves queries instead (the JAX package's
+``benchmarks/bench_pipeline.py::run_serving``): a ``QueryScheduler`` over
+a ``DevicePool`` of the group's processes carves gangs of ``G``
+processes; two ``--rows``-row tables (integer-valued payloads, seeds
+``--seed`` and ``--seed + 1``) are given whole to every process, every
+gang is pre-warmed, and ``--queries`` of the three query kinds (join +
+filter + groupby + sort, groupby sum / mean + sort, filter + sort) go
+through a serial sweep (``max_inflight=1``) and a concurrent one
+(``--inflight``, default every gang); rank 0 prints each sweep's
+queries/s, p50 and largest latency and the speedup:
+
+  torchrun --standalone --nproc_per_node=8 -m repro_torch.launch.fig9 \
+      --backend gloo --device cuda:0 --rows 16777216 --gang-size 2 \
+      --queries 24
 """
 
 from __future__ import annotations
@@ -105,6 +120,100 @@ def read_tables(env, d: str):
         for side in "lr"}
 
 
+def serving_queries(left, right):
+    """``benchmarks/bench_pipeline.py::run_serving``'s three queries, with
+    its join capacities: name -> a function making the frame."""
+    from ..expr import col
+    cap = next(iter(left.sources.values())).capacity
+    jkw = dict(out_capacity=cap * 4, bucket_capacity=cap * 2,
+               shuffle_out_capacity=cap * 2)
+    return {
+        "join": lambda: (left.merge(right, on="k", **jkw)
+                         [(col("v0") > 4) & (col("w") < 250)]
+                         .groupby("k").agg({"v0": ["sum"]})
+                         .sort_values("k")),
+        "groupby": lambda: (left.groupby("k").agg({"v0": ["sum", "mean"]})
+                            .sort_values("k")),
+        "filter": lambda: left[col("v0") > 64].sort_values("k"),
+    }
+
+
+def prewarm(pool, gang: int, queries, programs) -> Dict[str, object]:
+    """Run each query once on every gang of ``gang`` processes carved
+    from ``pool`` (all gangs at once, each on its own processes), through
+    the shared stage cache ``programs``; returns this process's results
+    by query name.  Every process calls it."""
+    from ..core import CylonEnv
+    leases = [pool.reserve(gang) for _ in range(pool.size // gang)]
+    out = {}
+    try:
+        for lease in leases:
+            if lease.is_member:
+                env = CylonEnv(devices=lease, program_cache=programs)
+                for name, q in queries.items():
+                    out[name] = q().on_gang(env.comm).collect(env=env)
+                env.synchronize()
+    finally:
+        for lease in leases:
+            lease.release()
+    return out
+
+
+def serve(args, device) -> None:
+    """The serving sweeps of ``--gang-size`` (see the module)."""
+    import torch.distributed as dist
+    import repro_torch.df as rdf
+    from ..core import DevicePool, DistTable
+    from ..serve import ProgramCache, QueryScheduler
+    pool = DevicePool(process_group=dist.group.WORLD, device=device)
+    g, rank = args.gang_size, dist.get_rank()
+    if pool.size % g:
+        raise SystemExit(f"--gang-size {g} must divide the {pool.size} "
+                         f"processes")
+    rng = [np.random.default_rng(args.seed + i) for i in (0, 1)]
+    data = [{"k": r.integers(0, max(1, int(args.rows * 0.9)),
+                             args.rows).astype(np.int32),
+             "v": r.integers(0, 256, args.rows).astype(np.float32)}
+            for r in rng]
+    left = rdf.from_table(DistTable.from_numpy(
+        {"k": data[0]["k"], "v0": data[0]["v"]}, g, device=pool.device),
+        name="l")
+    right = rdf.from_table(DistTable.from_numpy(
+        {"k": data[1]["k"], "w": data[1]["v"]}, g, device=pool.device),
+        name="r")
+    queries = serving_queries(left, right)
+    names = sorted(queries)
+    shared = ProgramCache(registry=False)
+    prewarm(pool, g, queries, shared)
+    walls = {}
+    for inflight in (1, args.inflight or pool.size // g):
+        sched = QueryScheduler(pool=pool, gang_size=g,
+                               max_inflight=inflight,
+                               max_queue=args.queries, program_cache=shared,
+                               name=f"fig9-x{inflight}")
+        t = time.perf_counter()
+        handles = [sched.submit(queries[names[i % 3]](), label=f"q{i}")
+                   for i in range(args.queries)]
+        for h in handles:
+            h.result()
+        wall = time.perf_counter() - t
+        sched.close()
+        walls[inflight] = wall
+        lat = sorted(h.stats["finished_monotonic"]
+                     - h.stats["submitted_monotonic"] for h in handles)
+        misses = sum(h.stats.get("cache_misses", 0) for h in handles)
+        if rank == 0:
+            print(f"[fig9-serve] {pool.size} processes, gangs of {g}, "
+                  f"x{inflight}: {args.queries} queries in {wall:.3f} s, "
+                  f"{args.queries / wall:.3f} queries/s, latency p50 "
+                  f"{lat[len(lat) // 2] * 1e3:.1f} ms, largest "
+                  f"{lat[-1] * 1e3:.1f} ms, {misses} stages built",
+                  flush=True)
+    if rank == 0 and len(walls) == 2:
+        a, b = walls.values()
+        print(f"[fig9-serve] concurrent / serial {a / b:.3f}x", flush=True)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"))
@@ -131,12 +240,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--timeout", type=float, default=None,
                     help="a deadline in seconds for each run")
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--gang-size", type=int, default=None,
+                    help="serve queries on gangs of this many processes")
+    ap.add_argument("--queries", type=int, default=24,
+                    help="queries a serving sweep")
+    ap.add_argument("--inflight", type=int, default=None,
+                    help="the concurrent sweep's max_inflight (default: "
+                         "every gang)")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
     from ..core import CylonEnv, Plan, execute
     dist.init_process_group(args.backend, timeout=timedelta(seconds=120))
     try:
+        if args.gang_size:
+            device = args.device or \
+                f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+            serve(args, device)
+            return
         env = CylonEnv(communicator=args.communicator,
                        process_group=dist.group.WORLD, device=args.device)
         p, rank = env.parallelism, dist.get_rank()

@@ -17,8 +17,12 @@ Sharded training: started by ``torchrun`` with more than one process,
 the driver joins the process group (NCCL on cards, one card a process;
 gloo with ``--device cpu``), builds a ``(world // M, M)`` ``("data",
 "model")`` mesh (``--model-axis M``) with ``rules_for_mesh``, and places
-the state by ``state_specs``; every process makes the same corpus and
-batches from the seed.  ``--resume`` restores onto the current mesh,
+the state by ``state_specs``.  The §IV-C preprocessing then runs once,
+on a gang of ``min(--data-parallelism, world)`` processes carved from a
+``DevicePool`` over the group (the lowest ranks), which ``put``s its table
+into a ``CylonStore`` over the group; every process ``get``s it at the
+world's size and draws the same batches from the seed (the table is
+gathered over the trainer processes).  ``--resume`` restores onto the current mesh,
 whatever mesh wrote the checkpoint.  At world size 1 the rules are
 ``NO_SHARDING``, as in the reference.
 
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config, get_smoke_config
-from ..core import CylonExecutor, CylonStore
+from ..core import CylonExecutor, CylonStore, DevicePool
 from ..core.env import resolve_device
 from ..data import (CorpusConfig, batches_from_table, preprocess,
                     source_weights, synth_corpus)
@@ -55,13 +59,14 @@ PG_TIMEOUT = timedelta(seconds=300)
 
 
 def _join_group(device: Optional[str]):
-    """(device, world size, rank): the ``torchrun`` process group when
-    there is one of more than one process (NCCL on cards, gloo on the
-    CPU), else one process."""
+    """(device, world size, rank, whether the group was made here): the
+    ``torchrun`` process group when there is one of more than one
+    process (NCCL on cards, gloo on the CPU; a group the caller already
+    made is joined as it is), else one process."""
     import os
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
-        return resolve_device(device), 1, 0
+        return resolve_device(device), 1, 0, False
     import torch.distributed as dist
     cpu = device is not None and torch.device(device).type == "cpu"
     if cpu:
@@ -69,8 +74,11 @@ def _join_group(device: Optional[str]):
     else:
         dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
         torch.cuda.set_device(dev)
-    dist.init_process_group("gloo" if cpu else "nccl", timeout=PG_TIMEOUT)
-    return dev, world, dist.get_rank()
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("gloo" if cpu else "nccl",
+                                timeout=PG_TIMEOUT)
+    return dev, dist.get_world_size(), dist.get_rank(), made
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[float]:
@@ -99,7 +107,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     if cfg.family in ("vlm", "audio"):
         raise SystemExit("train driver covers token-LM archs; see the "
                          "smoke tests for vlm/audio steps")
-    dev, world, rank = _join_group(args.device)
+    dev, world, rank, made = _join_group(args.device)
     mesh, rules = None, NO_SHARDING
     if world > 1:
         mesh = make_local_mesh(model=args.model_axis)
@@ -110,16 +118,27 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
             print(msg, flush=True)
 
     # ---- DDF preprocessing application (paper §IV-C) ------------------ #
-    gang = CylonExecutor(parallelism=args.data_parallelism, device=dev)
-    store = CylonStore()
-    corpus = synth_corpus(CorpusConfig(num_docs=2048, payload_tokens=args.seq,
-                                       vocab_size=cfg.vocab_size,
-                                       seed=args.seed),
-                          gang.parallelism, device=dev)
-    weights = source_weights(8, gang.parallelism, device=dev)
+    corpus_cfg = CorpusConfig(num_docs=2048, payload_tokens=args.seq,
+                              vocab_size=cfg.vocab_size, seed=args.seed)
+    if world > 1:
+        # once, on a gang of processes; handed to every process
+        import torch.distributed as dist
+        pool = DevicePool(process_group=dist.group.WORLD, device=dev)
+        gang = CylonExecutor(min(args.data_parallelism, world), pool=pool)
+        store = CylonStore(pool=pool)
+        comm = gang.env.comm if gang.is_member else None
+    else:
+        gang = CylonExecutor(parallelism=args.data_parallelism, device=dev)
+        store, comm = CylonStore(), None
+    corpus = weights = None
+    if gang.is_member:
+        corpus = synth_corpus(corpus_cfg, gang.parallelism, device=dev,
+                              comm=comm)
+        weights = source_weights(8, gang.parallelism, device=dev, comm=comm)
     t0 = time.time()
     preprocess(gang, corpus, weights, store=store)
-    table = store.get("train_corpus")
+    table = store.get("train_corpus",
+                      target_parallelism=world if world > 1 else None)
     say(f"[data] preprocessed {table.total_rows()} docs "
         f"on gang={gang.parallelism} in {time.time() - t0:.2f}s")
     batches = batches_from_table(table, args.batch, args.seq, seed=args.seed)
@@ -168,7 +187,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
         a, b = np.mean(losses[:5]), np.mean(losses[-5:])
         say(f"[loss] first5={a:.3f} last5={b:.3f} "
             f"({'improved' if b < a else 'NOT improved'})")
-    if world > 1:
+    if made:
         import torch.distributed as dist
         dist.destroy_process_group()
     return losses

@@ -221,7 +221,9 @@ def record_serve_query(stats: Dict[str, Any], scheduler: str = "serve",
     execution-wall histograms, all labeled by scheduler name.  The
     per-stage engine metrics still arrive via ``record_exec`` from the
     worker's own execution.  ``repro_torch.serve.QueryScheduler`` calls
-    it as each query finishes."""
+    it as each query finishes; over a process group every process calls
+    it once a query, with the coordinator's queue wait and the gang's
+    wall."""
     reg = registry if registry is not None else METRICS
     state = stats.get("state", "unknown")
     reg.counter("serve_completed_total",

@@ -29,6 +29,11 @@ scheduler wires into every gang it carves; ``CylonEnv`` defaults to a
 private instance so single-env semantics (and the cache counters) are
 unchanged.
 
+A gang of processes (a pool over a process group) signs its placement
+the same way: its ranks are the slot ids, and its communicator is the
+one the pool keeps for that gang, so a gang re-carved over the same
+ranks finds every stage its predecessor built.
+
 In the port a build only wraps the stage function in a closure (nothing
 is compiled), so on one card the cache saves next to nothing; it keeps
 the JAX package's semantics and counters.  Since every slot of a pool is

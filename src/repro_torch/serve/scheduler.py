@@ -48,6 +48,11 @@ query builds nothing (``handle.stats["cache_misses"] == 0``).
 
 The device work stays the same stages as single-query execution, which is
 why concurrent results are bit-identical to sequential runs.
+
+Over a process group (``pool=DevicePool(process_group=...)``) the gangs
+are gangs of processes, one rank each, and every process runs the same
+program: world rank 0 coordinates, and every process sees the same
+admission, gang and outcome of each submission (``serve.group``).
 """
 
 from __future__ import annotations
@@ -96,6 +101,16 @@ def _use_on(obj: Any, stream: "torch.cuda.Stream", seen=None) -> None:
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
             _use_on(getattr(obj, f.name), stream, seen)
+
+
+def _state_of(exc: Optional[BaseException]) -> str:
+    """A finished query's state: ``done``, ``cancelled``, ``timeout`` or
+    ``failed``."""
+    if exc is None:
+        return "done"
+    if isinstance(exc, QueryCancelled):
+        return "cancelled"
+    return "timeout" if isinstance(exc, QueryTimeout) else "failed"
 
 
 class AdmissionRejected(RuntimeError):
@@ -170,10 +185,15 @@ class QueryHandle:
         """Cancel the query: a queued entry completes immediately with
         ``QueryCancelled``; a running one is cancelled cooperatively at
         the executors' next token check.  Returns False if the query had
-        already finished."""
+        already finished.  Over a process group the request goes to the
+        coordinator, which cancels the query on every process."""
         if self.done():
             return False
-        self.token.cancel(reason or f"handle.cancel() on {self.label!r}")
+        reason = reason or f"handle.cancel() on {self.label!r}"
+        if self._scheduler._group is not None:
+            self._scheduler._group.cancel(self, reason)
+            return True
+        self.token.cancel(reason)
         self._scheduler._cancel_queued(self)
         return True
 
@@ -195,7 +215,10 @@ class QueryScheduler:
     gang_size:     rank slots per query gang (default 1).  Ingests made
                    inside ``session(scheduler=...)`` partition for this.
     max_inflight:  concurrently executing queries (default: pool size //
-                   gang_size — every gang busy).
+                   gang_size — every gang busy).  Over a process group,
+                   the pool's slots are the group's ranks and every
+                   process constructs the scheduler, in the same order
+                   (``serve.group``).
     max_queue:     queued submissions past that before ``submit`` raises
                    ``AdmissionRejected`` (default 64; 0 = no queueing).
     timeout:       default per-query deadline in seconds, covering queue
@@ -249,10 +272,19 @@ class QueryScheduler:
         self._token = CancellationToken()   # parent of every query token
         self._cond = threading.Condition(threading.Lock())
         self._queue: Deque[_Item] = collections.deque()
+        #: queued submissions over a process group (the coordinator
+        #: holds the queue itself)
+        self._queued = 0
         self._inflight = 0
         self._closed = False
         self._counts = {"submitted": 0, "completed": 0, "failed": 0,
                         "cancelled": 0, "rejected": 0}
+        self._group = None
+        self._workers: List[threading.Thread] = []
+        if self.pool.process_group is not None:
+            from .group import GroupServing
+            self._group = GroupServing(self)
+            return
         self._workers = [
             threading.Thread(target=self._worker, daemon=True,
                              name=f"{name}-worker-{i}")
@@ -278,6 +310,14 @@ class QueryScheduler:
         if gang < 1 or gang > self.pool.size:
             raise ValueError(f"gang_size {gang} not in [1, pool size "
                              f"{self.pool.size}]")
+        if self._group is not None:
+            with self._cond:
+                if self._closed:
+                    raise RuntimeError(f"scheduler {self.name!r} is closed")
+            return self._group.submit(
+                frame, dict(collect_kw), gang,
+                timeout if timeout is not None else self.default_timeout,
+                label, lambda lbl, tok: QueryHandle(self, lbl, tok))
         token = CancellationToken(
             timeout if timeout is not None else self.default_timeout,
             parent=self._token)
@@ -393,23 +433,22 @@ class QueryScheduler:
                 lease.release()
 
     def _finish(self, handle: QueryHandle, result: Any,
-                exc: Optional[BaseException]) -> None:
+                exc: Optional[BaseException],
+                state: Optional[str] = None) -> None:
+        """Complete ``handle``; ``state`` (over a process group, the
+        gang's) else from ``exc``."""
         if handle.done():
             return
         stats = handle.stats
         stats["finished_at"] = time.time()
         stats["finished_monotonic"] = time.monotonic()
-        if exc is None:
-            stats["state"] = "done"
-            outcome = "completed"
-        elif isinstance(exc, QueryCancelled):
-            stats["state"] = "cancelled"
-            outcome = "cancelled"
-        else:
-            stats["state"] = ("timeout" if isinstance(exc, QueryTimeout)
-                              else "failed")
+        if state is None:
+            state = _state_of(exc)
+        stats["state"] = state
+        outcome = {"done": "completed",
+                   "cancelled": "cancelled"}.get(state, "failed")
+        if exc is not None and state not in ("done", "cancelled"):
             stats["error"] = f"{type(exc).__name__}: {exc}"
-            outcome = "failed"
         handle._result = result
         handle._exception = exc
         with self._cond:
@@ -444,10 +483,11 @@ class QueryScheduler:
     # ------------------------------------------------------------------ #
     def stats(self) -> Dict[str, Any]:
         """Point-in-time snapshot: counts, queue depth, inflight, pool
-        occupancy, shared-program-cache totals."""
+        occupancy, shared-program-cache totals (and, over a process
+        group, this process's control messages and their seconds)."""
         with self._cond:
             snap = dict(self._counts)
-            snap["queue_depth"] = len(self._queue)
+            snap["queue_depth"] = self._depth()
             snap["inflight"] = self._inflight
         snap["pool_available"] = self.pool.available
         snap["pool_size"] = self.pool.size
@@ -455,12 +495,21 @@ class QueryScheduler:
         snap["max_inflight"] = self.max_inflight
         snap["max_queue"] = self.max_queue
         snap["program_cache"] = self.programs.stats()
+        if self._group is not None:
+            # this process's control messages and the last decision it
+            # applied (``serve.group``)
+            snap["control"] = dict(self._group.channel.stats)
+            snap["last_decision"] = self._group.last
         return snap
 
     def close(self, cancel_pending: bool = False, wait: bool = True) -> None:
         """Stop admitting; optionally cancel everything queued/running via
         the scheduler-wide parent token; ``wait`` joins the workers after
-        they drain the queue."""
+        they drain the queue.  Over a process group every process calls
+        it; the coordinator's ``cancel_pending`` decides."""
+        if self._group is not None:
+            self._group.close(cancel_pending, wait)
+            return
         with self._cond:
             self._closed = True
             self._cond.notify_all()
@@ -484,10 +533,13 @@ class QueryScheduler:
     def __exit__(self, *exc) -> None:
         self.close(cancel_pending=exc[0] is not None)
 
+    def _depth(self) -> int:
+        return self._queued if self._group is not None else len(self._queue)
+
     def _export_gauges_locked(self) -> None:
         self._registry.gauge(
             "serve_queue_depth", "queued submissions").set(
-            len(self._queue), scheduler=self.name)
+            self._depth(), scheduler=self.name)
         self._registry.gauge(
             "serve_inflight", "concurrently executing queries").set(
             self._inflight, scheduler=self.name)
@@ -496,5 +548,5 @@ class QueryScheduler:
         with self._cond:
             return (f"<QueryScheduler {self.name!r} gang_size="
                     f"{self.gang_size} inflight={self._inflight}/"
-                    f"{self.max_inflight} queued={len(self._queue)}/"
+                    f"{self.max_inflight} queued={self._depth()}/"
                     f"{self.max_queue}>")
