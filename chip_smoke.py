@@ -68,9 +68,14 @@ ends the run with a non-zero exit code if it fails:
    ``repro_torch.df`` on the same data, in every mode, twice each, with
    the same launch checks; held to the host reference and to the
    ``Plan``-built pipeline (equal EXPLAIN, equal result, no stage built
-   anew); then a string-keyed run (2 x 2**22 ``<U12`` keys from 2**18
-   words, two dictionaries, so EXPLAIN shows ``recode[...]``) held to
-   numpy on the host, one cached run of it profiled;
+   anew); one ``bsp`` run of the same frames under
+   ``session(devices=lease)``, a lease of 8 slots of a ``DevicePool``,
+   with the same launch checks, bit-identical in every slot to the cached
+   ``bsp`` run of ``session(parallelism=8)``, its wall printed beside the
+   card's name and power limit; then a string-keyed run (2 x 2**22
+   ``<U12`` keys from 2**18 words, two dictionaries, so EXPLAIN shows
+   ``recode[...]``) held to numpy on the host, one cached run of it
+   profiled;
 5. out-of-core: Fig-9 (optimized, ``bsp``) through ``execute(
    morsel_rows=...)`` at 2 x 2**25 rows, 8x oversubscribed, the left input
    a host dict (the JAX package's out-of-core parity recipe: integer-valued
@@ -1067,15 +1072,19 @@ def fig9_with_plan(Plan, cap):
             .with_columns({"v0_sum": col("v0_sum") + 1.0}))
 
 
-def frontend_phase(torch, rows=FULL_ROWS, device=None):
+def frontend_phase(torch, rows=FULL_ROWS, device=None, smi=""):
     """Fig-9 through ``repro_torch.df`` at ``rows`` per table over ``P``
     stacked ranks, with the main path's data and capacities, in every mode,
     first and cached; held to the host reference, and to the same
     pipeline built with ``Plan`` and run through ``execute`` (equal
-    EXPLAIN, equal result, and no stage built anew).  Returns (launches,
-    wall times) by ``"<mode>/<run>"``."""
+    EXPLAIN, equal result, and no stage built anew).  Then one ``bsp`` run
+    of the same frames under ``session(devices=lease)``, a lease of ``P``
+    slots of a ``DevicePool``: the lease's slots are the env's ranks, and
+    its result holds the cached ``bsp`` run's bits in every slot
+    (``same_slots``).  Returns (launches, wall times) by
+    ``"<mode>/<run>"``."""
     import repro_torch.df as rdf
-    from repro_torch.core import Plan, execute
+    from repro_torch.core import DevicePool, Plan, execute
     from repro_torch.planner import compile_plan
     t0 = time.perf_counter()
     ld, rd = make_table_data(rows, 0), make_table_data(rows, 1)
@@ -1121,6 +1130,8 @@ def frontend_phase(torch, rows=FULL_ROWS, device=None):
                       f"cache_misses={st.cache_misses} launches={counts}",
                       flush=True)
                 check_fig9(res, st, ref, label)
+                if (mode, run) == ("bsp", "cached"):
+                    kept = res
                 got = res.to_numpy()
                 rel = (np.abs(got["v0_mean"] - means)
                        / np.maximum(np.abs(means), 1.0))
@@ -1149,6 +1160,35 @@ def frontend_phase(torch, rows=FULL_ROWS, device=None):
         print(f"fig9 frontend bsp cached adaptive=False wall "
               f"{walls['bsp/cached_adaptive_off'] * 1e3:9.2f} ms (same "
               f"stages)", flush=True)
+    # the same frames (not pinned to an env) on a lease's rank slots
+    t_added = time.perf_counter()
+    with DevicePool(slots=P, device=device).reserve(P) as lease:
+        with rdf.session(devices=lease) as lenv:
+            check(lenv.slot_ids == lease.indices and lenv.parallelism == P
+                  and lenv.device == env.device,
+                  f"session(devices=lease): env on slots {lenv.slot_ids} "
+                  f"of {lenv.device}, lease {lease.indices}")
+            label = "frontend bsp/devices=lease"
+            lenv.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            res, st = front.collect(mode="bsp", collect_stats=True)
+            lenv.synchronize()
+            wall = time.perf_counter() - t
+            counts = launch_counts()
+            check_launches(counts, pplan, "bsp", st, on_card, label)
+            check(st.rows_dropped == 0, f"{label}: rows dropped")
+            check(same_slots(torch, res, kept), f"{label}: differs from "
+                  f"session(parallelism={P})'s cached bsp run")
+            del res, kept
+    walls["bsp/devices_lease"], launches["bsp/devices_lease"] = wall, counts
+    walls["devices_lease_added"] = time.perf_counter() - t_added
+    print(f"fig9 frontend bsp under session(devices=DevicePool(slots={P})"
+          f".reserve({P})) wall {wall * 1e3:9.2f} ms (first run on the "
+          f"lease's env: its stages built); bit-identical in every slot to "
+          f"session(parallelism={P})'s cached bsp run; launches={counts}; "
+          f"added {walls['devices_lease_added']:.2f} s to the script; "
+          f"card: {smi}", flush=True)
     return launches, walls
 
 
@@ -4175,6 +4215,19 @@ PG_TIMEOUT_S = 400
 PG_CARD_SHARE = 0.85
 
 
+def same_slots(torch, got, want):
+    """Whether two stacked results hold the same row counts and the same
+    bits in every slot of every column, padding included (compared on
+    their device: hashing a 2 x 2**25-row result on the host takes
+    seconds)."""
+    def raw(t):
+        return t.contiguous().view(torch.uint8)
+    return (sorted(got.columns) == sorted(want.columns)
+            and torch.equal(got.row_counts, want.row_counts)
+            and all(torch.equal(raw(got.columns[n]), raw(want.columns[n]))
+                    for n in want.columns))
+
+
 def result_digests(res):
     """sha1 of each rank's row count and of every slot of each column of
     ``res``: equal digests are equal slots."""
@@ -6163,7 +6216,7 @@ def main():
     radix_cases += radix_phase(torch, cap, flush, layouts)
     del flush
     phase_done("radix layouts")
-    front_launches, front_walls = frontend_phase(torch)
+    front_launches, front_walls = frontend_phase(torch, smi=smi)
     phase_done("frontend")
     str_launches, str_walls = strings_phase(torch)
     phase_done("strings")

@@ -512,6 +512,7 @@ class CylonEnv:
             process_group = gang_comm.group
             parallelism, device = len(devices), devices.pool.device
             slot_ids = tuple(devices.indices)
+            slots = devices
         elif devices is not None:
             slots = list(devices)
             devs = {str(resolve_device(d.device)) for d in slots}
@@ -529,6 +530,18 @@ class CylonEnv:
         if parallelism < 1:
             raise ValueError(f"parallelism must be >= 1, got {parallelism}")
         self.device = resolve_device(device)
+        if process_group is not None and gang_comm is None:
+            # as DevicePool(process_group=) lists the group's ranks
+            slots = [RankSlot(i, self.device if i == slot_ids[0] else None)
+                     for i in range(parallelism)]
+        elif devices is None:
+            slots = [RankSlot(i, self.device) for i in slot_ids]
+        #: the env's rank slots, as the JAX package's env lists its
+        #: devices: those it was given (a lease over processes as it is),
+        #: else one ``RankSlot`` a stacked rank or, over ``process_group=``,
+        #: a rank of the group.  Except over ``process_group=``,
+        #: ``CylonEnv(devices=env.devices)`` is an env on the same slots.
+        self.devices = slots
         self.comm: Communicator = gang_comm or get_communicator(
             communicator, parallelism, group=process_group)
         if self.device.type == "cuda" and process_group is not None:

@@ -16,9 +16,10 @@ the card, ``CylonEnv()``):
 
 Sessions nest (a stack per thread); an explicit ``env=`` argument on
 ``collect`` / ``read_numpy`` always wins.  ``set_default_env`` pins the
-process-wide fallback without a ``with`` block.  Where the JAX package's
-env takes ``devices=``, the port's takes ``parallelism=`` (ranks stacked
-on one device) and ``device=`` (``None`` means the card).
+process-wide fallback without a ``with`` block.  As in the JAX package,
+``session(devices=lease)`` runs on the rank slots of a ``DevicePool``
+lease (``repro_torch.core``); the port also takes ``parallelism=`` (ranks
+stacked on one device) and ``device=`` (``None`` means the card).
 
 ``session(scheduler=sched)`` scopes a ``repro_torch.serve.QueryScheduler``
 instead of an env: every ``collect()`` in scope without an explicit or
@@ -111,6 +112,7 @@ def reset_default_env() -> None:
 
 @contextlib.contextmanager
 def session(env: Optional[CylonEnv] = None, *,
+            devices: Any = None,
             parallelism: Optional[int] = None, device: Any = None,
             communicator: Optional[str] = None,
             scheduler=None, timeout=None, retries=None, overflow=None,
@@ -118,20 +120,26 @@ def session(env: Optional[CylonEnv] = None, *,
     """Scope an active env: ``with session(...) as env: df.collect()``.
 
     Pass an existing ``env``, or let the session build one from
-    ``parallelism`` (default 1), ``device`` (default: the card) and
-    ``communicator`` (default ``"xla"``).  Passing any of those alongside
-    an explicit ``env=`` raises ``TypeError`` — the env already pins them,
-    so silently ignoring one would misconfigure the gang.  The stage
-    cache lives on the env, so reusing one session across many
-    ``collect`` calls is what makes repeat execution cheap.
+    ``devices`` or from ``parallelism`` (default 1) and ``device``
+    (default: the card), and from ``communicator`` (default ``"xla"``).
+    ``devices`` is what ``CylonEnv(devices=)`` takes, passed on as it is:
+    a ``Lease`` from a ``DevicePool`` (over stacked slots or over a
+    process group's ranks) or a sequence of its ``RankSlot``s; it fixes
+    the parallelism and the device, so passing ``parallelism=`` or
+    ``device=`` beside it raises ``TypeError``.  Passing any of those
+    alongside an explicit ``env=`` raises ``TypeError`` too — the env
+    already pins them, so silently ignoring one would misconfigure the
+    gang.  The stage cache lives on the env, so reusing one session across
+    many ``collect`` calls is what makes repeat execution cheap.
 
     ``scheduler=`` scopes a ``repro_torch.serve.QueryScheduler`` instead
     of an env: every ``collect()`` in scope (without an explicit ``env=``
     or an ingest-pinned env) is submitted to the scheduler and blocks on
     its ``QueryHandle`` — many threads each inside such a session share
     the scheduler's gangs.  The session yields the scheduler.  Mutually
-    exclusive with ``env=`` / ``parallelism=`` / ``device=`` /
-    ``communicator=``; a nested env-bearing session masks it.
+    exclusive with ``env=`` / ``devices=`` / ``parallelism=`` /
+    ``device=`` / ``communicator=``; a nested env-bearing session masks
+    it.
 
     ``timeout`` / ``retries`` / ``overflow`` / ``faults`` set the
     session-wide fault-tolerance defaults applied to every ``collect()``
@@ -143,11 +151,17 @@ def session(env: Optional[CylonEnv] = None, *,
     ``repro_torch.adapt.AdaptiveConfig`` tunes detection thresholds.
     """
     if scheduler is not None:
-        if (env is not None or parallelism is not None or device is not None
-                or communicator is not None):
+        if (env is not None or devices is not None or parallelism is not None
+                or device is not None or communicator is not None):
             raise TypeError("pass either scheduler= or an env (env= / "
-                            "parallelism= / device= / communicator=), not "
-                            "both")
+                            "devices= / parallelism= / device= / "
+                            "communicator=), not both")
+    elif env is not None and devices is not None:
+        raise TypeError("pass either env= or devices=, not both")
+    elif devices is not None and (parallelism is not None
+                                  or device is not None):
+        raise TypeError("devices= sets the parallelism and the device; "
+                        "pass neither parallelism= nor device= beside it")
     elif env is not None and parallelism is not None:
         raise TypeError("pass either env= or parallelism=, not both")
     elif env is not None and device is not None:
@@ -160,7 +174,7 @@ def session(env: Optional[CylonEnv] = None, *,
             f"carries its communicator ({env.communicator_name!r})")
     if scheduler is None and env is None:
         env = CylonEnv(1 if parallelism is None else parallelism,
-                       device=device,
+                       device=device, devices=devices,
                        communicator=communicator or "xla")
     layer = {k: v for k, v in (("timeout", timeout), ("retries", retries),
                                ("overflow", overflow), ("faults", faults),

@@ -84,9 +84,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             # the kernel's output has no grad_fn: autograd would fail later
             # with an error that names neither the kernel nor the gap
             raise NotImplementedError(
-                "flash_attention has no backward on the card (ROADMAP item "
-                "13.1, still open): train with impl='dense' or 'chunked'; "
-                "impl='auto' picks flash above 2048 keys")
+                "flash_attention has no backward on the card (ROADMAP "
+                "follow-up 11, 'flash_attention has no backward'): train "
+                "with impl='dense' or 'chunked'; impl='auto' picks flash "
+                "above 2048 keys")
         return flash_attention_op(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal, scale)
     if q.device.type != "cpu":

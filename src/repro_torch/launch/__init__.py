@@ -8,8 +8,13 @@ assigned input-shape cells and their input specs), ``dryrun`` (every
 cell's step at full width on a fake 256- or 512-rank process group,
 counted by ``counting``), ``report`` (its tables) and ``roofline`` (the
 card's bound of a measured query stage and of a dry-run cell, a model's
-FLOPs per step).  ``dryrun`` is run as a module and not imported here."""
+FLOPs per step).  ``dryrun`` is run as a module and not imported here.
 
-from .mesh import make_production_mesh
+Exported: ``make_local_mesh``, ``make_production_mesh`` and
+``rules_for_mesh`` from ``mesh``.  Importing the package creates no
+process group: the two mesh functions ask for the current one when they
+are called."""
 
-__all__ = ["make_production_mesh"]
+from .mesh import make_local_mesh, make_production_mesh, rules_for_mesh
+
+__all__ = ["make_local_mesh", "make_production_mesh", "rules_for_mesh"]

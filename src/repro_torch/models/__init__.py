@@ -3,7 +3,8 @@ training).
 
 ``config``      -- ModelConfig / MoEConfig / MLAConfig / SSMConfig + SHAPES
                    (a copy of the JAX package's)
-``layers``      -- RMSNorm, RoPE, gated MLP, initializers, cross-entropy
+``layers``      -- RMSNorm, RoPE, gated MLP, initializers, cross-entropy,
+                   sharding rules
 ``attention``   -- GQA (+qk-norm), full-sequence (dense / chunked / flash)
                    and decode
 ``mamba2``      -- SSD mixer, full-sequence (chunked / kernel) and decode
@@ -16,11 +17,13 @@ training).
 """
 
 from .config import MLAConfig, ModelConfig, MoEConfig, SHAPES, SSMConfig
+from .layers import NO_SHARDING, ShardingRules
 from .moe import (expert_capacity, moe_apply, moe_apply_einsum,
                   moe_apply_grouped, moe_apply_shuffle, moe_init)
 from . import transformer
 
 __all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "SHAPES", "SSMConfig",
+           "NO_SHARDING", "ShardingRules",
            "expert_capacity", "moe_apply", "moe_apply_einsum",
            "moe_apply_grouped", "moe_apply_shuffle", "moe_init",
            "transformer"]

@@ -6,14 +6,20 @@ Frontend operations run through both packages on the inputs of
 columns, EXPLAIN text and row placement must be identical; float sums and
 means are held to ``rtol=1e-5`` (another summation order).  The session
 and env resolution rules, their ``TypeError`` cases and the options
-deferred to later slices are checked on the port alone.  Fig-9 through
-the frontend must equal Fig-9 built with ``Plan`` in all three modes.
+deferred to later slices are checked on the port alone, as is
+``session(devices=lease)``: on a small Fig-9 it gives the rows, slots and
+EXPLAIN text of ``session(parallelism=len(lease))``, with the lease's slots
+as the env's ranks.  Fig-9 through the frontend must equal Fig-9 built
+with ``Plan`` in all three modes.
 
 One case runs at 8 ranks: a module-scoped subprocess runs the JAX
 frontend on 8 host devices (``XLA_FLAGS`` must be set before jax is
 imported, as in ``tests/test_torch_pipeline.py``) and the port, started
 from the same input state, must match it slot for slot.  Run as a script
 (``python tests/test_torch_df.py OUT.npz``) this file is that JAX side.
+
+About 30 s in one worker, 20 s of it the 8-rank subprocess; the
+``session(devices=)`` cases take under 1 s.
 """
 
 import os
@@ -340,6 +346,58 @@ def test_session_mixed_arguments_raise_type_error(kw):
     with pytest.raises(TypeError, match="not both"):
         with tdf.session(**kw):
             pass
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(env="E"), "not both"), (dict(scheduler=object()), "not both"),
+    (dict(parallelism=4), "pass neither"), (dict(device="cpu"),
+                                             "pass neither")])
+def test_session_devices_mixed_arguments_raise_type_error(kw, match):
+    # a lease fixes the parallelism and the device, and an env or a
+    # scheduler pins its own
+    import repro_torch.df as tdf
+    from repro_torch.core import CylonEnv, DevicePool
+    if kw.get("env") == "E":
+        kw = dict(kw, env=CylonEnv(1, device="cpu"))
+    with DevicePool(slots=4, device="cpu").reserve(4) as lease:
+        with pytest.raises(TypeError, match=match):
+            with tdf.session(devices=lease, **kw):
+                pass
+
+
+def test_session_devices_equals_session_parallelism(rng):
+    # session(devices=lease) is session(parallelism=len(lease)) on the
+    # lease's device: the same rows in the same slots and the same EXPLAIN
+    # text, with the lease's slots as the env's ranks
+    import repro_torch.df as tdf
+    from repro_torch.expr import col
+    from repro_torch.core import DevicePool
+    ld, rd = _fig9_sources(rng)
+    pool = DevicePool(slots=6, device="cpu")
+    pool.reserve(2)                  # the gang's slots are not 0..3
+    lease = pool.reserve(4)
+    runs = []
+    for kw in (dict(devices=lease), dict(parallelism=4, device="cpu")):
+        with tdf.session(**kw) as env:
+            front = fig9_frontend(tdf.read_numpy(ld, name="l"),
+                                  tdf.read_numpy(rd, name="r"), 128, col)
+            out, st = front.collect(collect_stats=True)
+        assert env.parallelism == 4 and str(env.device) == "cpu"
+        assert st.rows_dropped == 0
+        runs.append((env, front.explain(), out.to_reference()))
+    (lenv, lexp, (lcols, lcounts)), (penv, pexp, (pcols, pcounts)) = runs
+    assert lenv.slot_ids == lease.indices == (2, 3, 4, 5)
+    assert penv.slot_ids == (0, 1, 2, 3)
+    # env.devices lists the slots, as the JAX package's env its devices
+    assert lenv.devices == list(lease)
+    assert [(d.id, str(d.device)) for d in penv.devices] == \
+        [(i, "cpu") for i in range(4)]
+    with tdf.session(devices=penv.devices) as again:
+        assert again.slot_ids == penv.slot_ids
+    assert lexp == pexp
+    np.testing.assert_array_equal(lcounts, pcounts)
+    assert lcounts.sum() > 0
+    _same(lcols, pcols, exact_floats=True)
 
 
 def test_default_env_is_the_card(monkeypatch):
