@@ -277,16 +277,30 @@ ends the run with a non-zero exit code if it fails:
    measured ones; and olmoe-1b-7b ``train_4k`` at full width on a fake
    256-rank (16, 16) mesh, its roofline row (``format_table``: the bf16
    tensor-core, HBM and NVLink terms of an H100).
+15. examples (``examples_phase``, after the process-group phase): each
+   ``examples/torch/*.py`` run on the card as a user runs it (a
+   subprocess at its defaults, ``--out`` added): exit code 0 and the
+   example's own check line; the four dataframe examples' results held
+   to their CPU runs (keys and integer-valued payloads exactly, other
+   floats within rtol 1e-3; the CPU runs go in a spawned process beside
+   the train phases), their radix and segmented-sum launches to the
+   counts derived from their frames and plans; serve_batch launches no
+   kernel, train_e2e only the radix kernel of its preprocessing (6)
+   and its loss falls ("OK: improved"); the six run at once, train_e2e
+   at 30 of its 300 steps (time); each example's wall time and printed
+   timings, train_e2e's first and last loss and its seconds a step,
+   beside the card.
 
 The last lines are the training JSON line, the process-group,
-sharding and dry-run JSON lines, the query-serving JSON line,
-the card's ``nvidia-smi`` name and power limit, one JSON object
-describing each kernel, and ``{"ok": true, "device": ...}``.
+sharding and dry-run JSON lines, the query-serving JSON line, the
+examples JSON line, the card's ``nvidia-smi`` name and power limit, one
+JSON object describing each kernel, and ``{"ok": true, "device": ...}``.
 """
 
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -4425,6 +4439,7 @@ def _pg_child(rank, world, d, backend, runs, device):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
+    from repro_torch.comm.process_group import barrier_before_teardown
     from repro_torch.core import CylonEnv, Plan, execute
     from repro_torch.kernels import CUDA_KERNELS
     from repro_torch.kernels.build import BUILD_DIR, library_path
@@ -4504,6 +4519,7 @@ def _pg_child(rank, world, d, backend, runs, device):
                   f"{n} was rebuilt in a group process")
         with open(os.path.join(d, f"report{rank}.json"), "w") as f:
             json.dump(report, f)
+        barrier_before_teardown(None if device == "cpu" else device)
     finally:
         dist.destroy_process_group()
 
@@ -6123,6 +6139,245 @@ def dryrun_phase(torch, smi, sharded, started):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# The port's examples (examples/torch/), as a user runs them
+# ---------------------------------------------------------------------- #
+#: every port example, in the order the phase runs them on the card
+EXAMPLES = ("pipeline_ops", "legacy_plan_api", "planner_explain",
+            "quickstart", "serve_batch", "train_e2e")
+#: the dataframe examples: their card results are held to their CPU runs
+FRAME_EXAMPLES = EXAMPLES[:4]
+#: train_e2e's steps on the card: 30, not its default 300, to keep the
+#: script inside its 1,200 s; the loss has fallen by then (its own check)
+EXAMPLE_TRAIN_STEPS = 30
+#: each example's own check: a line it prints (train_e2e's result line
+#: says "OK: improved" when its last 10 steps' mean loss is under its
+#: first 10's by more than 0.5)
+EXAMPLE_CHECKS = {
+    "pipeline_ops": r"bsp == amt results: True",
+    "legacy_plan_api": r"frontend == builder \(bit-identical\): True",
+    "planner_explain": r"optimized == unoptimized results "
+                       r"\(bit-identical\): True",
+    "quickstart": r"dropped \(capacity\): 0",
+    "serve_batch": r"greedy decode == full-forward argmax replay: True",
+    "train_e2e": r"\[result\] loss \S+ -> \S+ \(OK: improved\)",
+}
+#: float columns held exactly: integer-valued sums (legacy_plan_api's
+#: payloads are integers below 256) and the values a join only moves
+EXAMPLE_EXACT = {"legacy_plan_api": ("builder/v0_sum", "frontend/v0_sum"),
+                 "quickstart": ("joined/x", "joined/y")}
+#: the dataframe operators train_e2e's preprocessing runs
+#: (``data/pipeline.py::_app``; ``train_pipeline`` records them)
+PREPROCESS_OPERATORS = ("groupby", "join", "join", "repartition_balanced")
+
+
+def example_path(name):
+    return os.path.join(ROOT, "examples", "torch", f"{name}.py")
+
+
+def example_check_line(name, printed):
+    """The line of ``printed`` (what example ``name`` printed) that is its
+    own check passing (``EXAMPLE_CHECKS``), else None."""
+    return next((ln for ln in printed.splitlines()
+                 if re.fullmatch(EXAMPLE_CHECKS[name], ln)), None)
+
+
+def example_launches_expected(name, ns):
+    """{kernel: launches} that one card run of dataframe example ``name``
+    makes, derived from the namespace ``ns`` of its CPU run as
+    ``check_launches`` derives a run's: one radix launch per shuffle of a
+    ``bsp`` / ``bsp_staged`` run (none in ``amt``), one segmented-sum
+    launch per summed aggregate of every local groupby; quickstart's join
+    shuffles each of its two sides once and sums nothing."""
+    from repro_torch.planner import compile_plan
+    if name == "quickstart":
+        return {"radix_partition": 2, "segmented_sum": 0}
+    if name == "pipeline_ops":
+        pp = compile_plan(ns["out"].plan, ns["out"].sources)
+        runs = [(pp, m) for m in ("bsp", "bsp_staged", "amt")
+                for _ in ("first", "cached")]
+    elif name == "legacy_plan_api":
+        runs = [(compile_plan(ns["plan"], ns["tables"]), "bsp"),
+                (compile_plan(ns["front"].plan, ns["front"].sources), "bsp")]
+    else:                                   # planner_explain
+        out = ns["out"]
+        runs = [(compile_plan(out.plan, out.sources, optimize_plan=opt),
+                 "bsp") for opt in (False, True)
+                for _ in ("first", "cached")]
+    return {"radix_partition": sum(pp.num_shuffles for pp, m in runs
+                                   if m != "amt"),
+            "segmented_sum": sum(segsum_launches_expected(pp, m)
+                                 for pp, m in runs)}
+
+
+def _examples_cpu_child(d):
+    """The dataframe examples on the CPU in this spawned process (2
+    threads), each with ``--out d/<name>.cpu.npz``; ``d/<name>.cpu.json``
+    holds what it printed and its derived card launches."""
+    import io
+    import runpy
+    import torch
+    torch.set_num_threads(2)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    for name in FRAME_EXAMPLES:
+        buf = io.StringIO()
+        sys.argv = [example_path(name), "--device", "cpu", "--out",
+                    os.path.join(d, f"{name}.cpu.npz")]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ns = runpy.run_path(example_path(name), run_name="__main__")
+        with open(os.path.join(d, f"{name}.cpu.json"), "w") as f:
+            json.dump({"printed": buf.getvalue(),
+                       "wall_s": time.perf_counter() - t,
+                       "derived": example_launches_expected(name, ns)}, f)
+
+
+def examples_start():
+    """Spawn the dataframe examples' CPU runs (``_examples_cpu_child``) and
+    return the process, its output directory and the start time.  They
+    use the host's CPU only, so ``main`` starts them with the dry run's
+    processes, ahead of the device-bound train phases, and
+    ``examples_phase`` reads them."""
+    import multiprocessing as mp
+    d = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    proc = mp.get_context("spawn").Process(target=_examples_cpu_child,
+                                           args=(d,))
+    proc.start()
+    return proc, d, time.perf_counter()
+
+
+def same_example_tables(name, got, want, rtol):
+    """Result tables ``got`` == ``want`` of dataframe example ``name``
+    (``launches/`` entries aside): keys, integer columns and
+    ``EXAMPLE_EXACT`` exactly, other float columns within ``rtol``;
+    quickstart's joined rows in any order.  The largest relative error."""
+    keys = sorted(k for k in want if not k.startswith("launches/"))
+    check(sorted(k for k in got if not k.startswith("launches/")) == keys,
+          f"example {name}: tables {sorted(got)}, expected {keys}")
+    got, want = dict(got), dict(want)
+    if name == "quickstart":
+        cols = ("joined/k", "joined/x", "joined/y")
+        for side in (got, want):
+            order = np.lexsort([side[c] for c in reversed(cols)])
+            for c in cols:
+                side[c] = side[c][order]
+    worst = 0.0
+    for k in keys:
+        g, w = got[k], want[k]
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"example {name} {k}: {g.dtype}{g.shape}, expected "
+              f"{w.dtype}{w.shape}")
+        if not np.issubdtype(w.dtype, np.floating) or \
+                k in EXAMPLE_EXACT.get(name, ()):
+            check(np.array_equal(g, w), f"example {name} {k}: differs")
+            continue
+        rel = (np.abs(g.astype(np.float64) - w)
+               / np.maximum(np.abs(w.astype(np.float64)), 1e-30))
+        err = float(rel.max()) if rel.size else 0.0
+        check(err <= rtol, f"example {name} {k}: off by rtol {err}, over "
+              f"{rtol}")
+        worst = max(worst, err)
+    return worst
+
+
+def examples_phase(torch, smi, started):
+    """Each ``examples/torch/*.py`` on the card as a user runs it
+    (``python examples/torch/<name>.py`` in a subprocess, with its
+    defaults and ``--out``; train_e2e at ``EXAMPLE_TRAIN_STEPS``): exit
+    code 0 and the example's own check line; each dataframe example's
+    result tables held to its CPU run (``examples_start``) and its radix /
+    segmented-sum launches to the count derived from its frames and
+    plans; serve_batch launches no kernel (qwen3-8b's SMOKE prompts of 80
+    keys take dense attention); train_e2e launches the radix kernel for
+    the shuffles of its preprocessing alone (its 256 keys take dense
+    attention), has finite losses and a falling loss (its check).  The
+    six run at once: the five short ones spend most of their walls
+    starting up (importing, the CUDA context, their first operators), and
+    train_e2e's steps come after its own start-up.  Each example's wall
+    time (the subprocess's, start-up included) and the timings it prints,
+    beside the card."""
+    from concurrent.futures import ThreadPoolExecutor
+    proc, d, t_cpu = started
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    steps = EXAMPLE_TRAIN_STEPS
+
+    def run(name):
+        out = os.path.join(d, f"{name}.card.npz")
+        argv = [sys.executable, example_path(name), "--out", out]
+        if name == "train_e2e":
+            argv += ["--steps", str(steps)]
+        t = time.perf_counter()
+        done = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        return done, time.perf_counter() - t, out
+    t_phase = time.perf_counter()
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        runs = dict(zip(EXAMPLES, pool.map(run, EXAMPLES)))
+    rec = {"card_s": time.perf_counter() - t_phase}
+    for name in EXAMPLES:
+        done, wall, out = runs[name]
+        check(done.returncode == 0, f"example {name} exited "
+              f"{done.returncode}: {done.stdout[-2000:]}"
+              f"{done.stderr[-3000:]}")
+        lines = done.stdout.splitlines()
+        own = example_check_line(name, done.stdout)
+        check(own is not None, f"example {name}: no line matching "
+              f"{EXAMPLE_CHECKS[name]!r} in {done.stdout[-2000:]}")
+        card = dict(np.load(out))
+        launches = {k.split("/", 1)[1]: int(v) for k, v in card.items()
+                    if k.startswith("launches/")}
+        r = {"wall_s": wall, "launches": launches,
+             "timings": [ln.strip() for ln in lines
+                         if "first=" in ln or " tokens in " in ln]}
+        if name in FRAME_EXAMPLES:
+            if "cpu_s" not in rec:
+                proc.join(timeout=600)
+                check(proc.exitcode == 0, f"the examples' CPU runs exited "
+                      f"{proc.exitcode}")
+                rec["cpu_s"] = time.perf_counter() - t_cpu
+            with open(os.path.join(d, f"{name}.cpu.json")) as f:
+                cpu = json.load(f)
+            want = dict(cpu["derived"], flash_attention=0, ssd_scan=0)
+            r["rtol_vs_cpu"] = same_example_tables(
+                name, card, np.load(os.path.join(d, f"{name}.cpu.npz")),
+                rtol=1e-3)
+            r["cpu_wall_s"] = cpu["wall_s"]
+        elif name == "serve_batch":
+            want = {k: 0 for k in launches}
+            check(bool(card["replay"]), "example serve_batch: replay False")
+        else:
+            want = {k: 0 for k in launches}
+            want["radix_partition"] = sum(RADIX_PER_OPERATOR[op]
+                                          for op in PREPROCESS_OPERATORS)
+            losses = card["losses"]
+            check(len(losses) == steps and bool(np.isfinite(losses).all()),
+                  f"example train_e2e: losses {losses}")
+            r.update(steps=steps, first_loss=float(losses[0]),
+                     last_loss=float(losses[-1]),
+                     s_per_step=float(np.median(card["step_s"][1:])),
+                     first_step_s=float(card["step_s"][0]), result=own)
+        r["derived"] = want
+        check(launches == want, f"example {name}: launches {launches}, "
+              f"derived {want}")
+        rec[name] = r
+        extra = "".join(f"; {ln}" for ln in r["timings"])
+        if name == "train_e2e":
+            extra = (f"; {steps} steps, loss {r['first_loss']:.4f} -> "
+                     f"{r['last_loss']:.4f}, {r['s_per_step']:.4f} s a step "
+                     f"(median after the first, {r['first_step_s']:.2f} s); "
+                     f"{r['result']}")
+        elif "rtol_vs_cpu" in r:
+            extra += (f"; == the CPU run (float columns within rtol "
+                      f"{r['rtol_vs_cpu']:.2e})")
+        print(f"example {name}: exit 0 in {wall:.2f} s (the subprocess, "
+              f"start-up included; six at once), launches {launches} == "
+              f"derived{extra} [{smi}]", flush=True)
+    print(f"examples on the card: {rec['card_s']:.2f} s for the six at once "
+          f"[{smi}]", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
 def build_all():
     """Build every kernel: one nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -6280,6 +6535,8 @@ def main():
     # the dry run's processes use the host's CPU only: they run beside
     # the device-bound train phases
     dry_started = dryrun_start()
+    # so do the dataframe examples' CPU runs
+    examples_started = examples_start()
     first_batches = {}
     train = train_phase(torch, smi, keep=first_batches)
     phase_done("train")
@@ -6306,6 +6563,8 @@ def main():
     finally:
         shutil.rmtree(kept["dir"], ignore_errors=True)
     phase_done("process group")
+    examples = examples_phase(torch, smi, examples_started)
+    phase_done("examples")
 
     rp, ss = radix_partition_cuda, segmented_sum_cuda
     kernels = [
@@ -6398,6 +6657,7 @@ def main():
     print(json.dumps({"sharding": sharded}))
     print(json.dumps({"dryrun": dry}))
     print(json.dumps({"query_serving": serving}))
+    print(json.dumps({"examples": examples}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

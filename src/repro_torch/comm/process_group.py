@@ -399,3 +399,21 @@ def process_group_communicator(name: str, group=None
     except KeyError:
         raise ValueError(f"no process-group communicator {name!r}; "
                          f"available: {sorted(_PROCESS_GROUP)}") from None
+
+
+def barrier_before_teardown(device=None) -> None:
+    """Every process of the default group meets here before
+    ``destroy_process_group``.  Without it a gloo process can tear its
+    pairs down while a peer still reads from them, and the peer aborts
+    (``terminate called without an active exception``) after a correct
+    run.  Call it at the end of the successful path only: a process that
+    raised would hold its peers here until the group's timeout.  Under
+    NCCL the barrier runs on ``device`` (default: the current card)."""
+    dist = _dist()
+    if str(dist.get_backend()).lower() == "nccl":
+        dev = torch.device(device) if device is not None else None
+        index = (dev.index if dev is not None and dev.index is not None
+                 else torch.cuda.current_device())
+        dist.barrier(device_ids=[index])
+    else:
+        dist.barrier()

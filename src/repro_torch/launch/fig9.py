@@ -250,6 +250,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
+    from ..comm.process_group import barrier_before_teardown
     from ..core import CylonEnv, Plan, execute
     dist.init_process_group(args.backend, timeout=timedelta(seconds=120))
     try:
@@ -257,6 +258,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             device = args.device or \
                 f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
             serve(args, device)
+            barrier_before_teardown(device)
             return
         env = CylonEnv(communicator=args.communicator,
                        process_group=dist.group.WORLD, device=args.device)
@@ -318,6 +320,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       flush=True)
                 if not ok:
                     raise SystemExit(1)
+        barrier_before_teardown(env.device)
     finally:
         dist.destroy_process_group()
 

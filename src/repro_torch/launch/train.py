@@ -58,26 +58,35 @@ from .mesh import make_local_mesh, rules_for_mesh
 PG_TIMEOUT = timedelta(seconds=300)
 
 
-def _join_group(device: Optional[str]):
+def join_group(device: Optional[str], group_of_one: bool = False):
     """(device, world size, rank, whether the group was made here): the
     ``torchrun`` process group when there is one of more than one
     process (NCCL on cards, gloo on the CPU; a group the caller already
-    made is joined as it is), else one process."""
+    made is joined as it is), else one process: with no group, or with
+    ``group_of_one`` (for a mesh, which spans the current group) in a
+    group of one made here when there is none."""
     import os
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world == 1:
+    if world == 1 and not group_of_one:
         return resolve_device(device), 1, 0, False
     import torch.distributed as dist
     cpu = device is not None and torch.device(device).type == "cpu"
     if cpu:
         dev = torch.device("cpu")
+    elif world == 1:
+        dev = resolve_device(device)
     else:
         dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+    if dev.type == "cuda":
         torch.cuda.set_device(dev)
     made = not dist.is_initialized()
     if made:
-        dist.init_process_group("gloo" if cpu else "nccl",
-                                timeout=PG_TIMEOUT)
+        backend = "gloo" if cpu else "nccl"
+        if world == 1:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1, timeout=PG_TIMEOUT)
+        else:
+            dist.init_process_group(backend, timeout=PG_TIMEOUT)
     return dev, dist.get_world_size(), dist.get_rank(), made
 
 
@@ -107,7 +116,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     if cfg.family in ("vlm", "audio"):
         raise SystemExit("train driver covers token-LM archs; see the "
                          "smoke tests for vlm/audio steps")
-    dev, world, rank, made = _join_group(args.device)
+    dev, world, rank, made = join_group(args.device)
     mesh, rules = None, NO_SHARDING
     if world > 1:
         mesh = make_local_mesh(model=args.model_axis)
@@ -189,6 +198,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
             f"({'improved' if b < a else 'NOT improved'})")
     if made:
         import torch.distributed as dist
+        from ..comm.process_group import barrier_before_teardown
+        barrier_before_teardown(dev)
         dist.destroy_process_group()
     return losses
 

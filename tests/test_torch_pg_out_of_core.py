@@ -342,11 +342,13 @@ def _group_child(rank, world, d, files_dir):
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=120))
     try:
+        from repro_torch.comm.process_group import barrier_before_teardown
         from repro_torch.core import CylonEnv
         env = CylonEnv(process_group=dist.group.WORLD, device="cpu")
         out = _port_cases(env, files_dir, with_faults=True)
         out.update(_hang_case(env))
         np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
+        barrier_before_teardown()
     finally:
         dist.destroy_process_group()
 

@@ -342,7 +342,9 @@ def _group_child(rank, world, d):
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=120))
     try:
+        from repro_torch.comm.process_group import barrier_before_teardown
         _group_cases(rank, d)
+        barrier_before_teardown()
     finally:
         dist.destroy_process_group()
 
